@@ -6,27 +6,37 @@
 Phases (each failure ends the run with a non-zero exit code):
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch and
-   nvcc versions, and the parallel ``nvcc`` build of the three kernels
+   nvcc versions, and the parallel ``nvcc`` build of the four kernels
    from ``src/repro_torch/kernels/csrc`` (with ptxas' register report).
 2. Each kernel against its plain PyTorch version on the card, over
    N ∈ {3, 4}, J = R ∈ {4, 16, 32}, B ∈ {4096, 4099, 262144}, with masked
-   rows, ``pred_coef = 0`` and scatter ids outside ``[0, rows)``.
-3. The slice at the paper's size: a planted tensor of the Netflix tensor's
-   published shape (480,189 × 17,770 × 2,182, 99,072,112 nonzeros),
-   J_n = R = 4, 10 % held out, ``--steps`` SGD steps at batch 4096 through
-   ``repro_torch.launch.std_train`` on the ``"cuda"`` backend, held-out
-   RMSE/MAE before and after.  The launch counts are set to 0 just before
-   and read just after: each kernel must have run.
+   rows, ``pred_coef = 0``, every phase flag of ``kruskal_grad``, bf16
+   storage, and scatter ids outside ``[0, rows)``.  ``segment_reduce`` must
+   match exactly, over sorted ids with long runs (rows = 64) and short
+   ones, twice with the same bits; a core pass fed the emitted mode
+   products must give the joint core gradient exactly.
+3. Three training paths at the paper's size, through
+   ``repro_torch.launch.std_train`` on the ``"cuda"`` backend, over one
+   planted tensor of the Netflix tensor's published shape (480,189 ×
+   17,770 × 2,182, 99,072,112 nonzeros), J_n = R = 4, 10 % held out,
+   ``--steps`` SGD steps at batch 4096 each: the unsorted joint step,
+   ``--sorted-batches --phase-split``, and ``--sorted-batches --dtype
+   bfloat16``.  Held-out RMSE/MAE before and after.  The launch counts are
+   set to 0 just before each path and read just after: each path must
+   launch the kernels it names and not the scatter it does not use.
 4. Parity on the card: 20 fed-batch steps on ``"cuda"`` against
-   ``"torch"`` from the same parameters.
-5. Times at the path's shapes (B = 4096 for the gradient and the scatter,
-   B = 262,144 for the contraction): median device time per call (CUDA
-   events, calls queued behind a sleep so the host's launch latency is not
-   in them), the plain version's, ``index_add_`` for the scatter, and the
-   bound (larger of bytes at 3.35 TB/s and f32 flops at 67 TFLOP/s, the
-   H100 SXM's published peaks).
-6. A ``torch.profiler`` trace of steady training steps: device time per
-   kernel and the device's busy share.
+   ``"torch"`` from the same parameters, for every {jacobi, gauss_seidel}
+   × {joint, phase-split} × {unsorted, sorted} and for bf16; the sorted
+   jacobi phase-split step must equal the sorted joint step bitwise.
+5. Times at the path's shapes (B = 4096 for the gradient passes and the
+   scatters, B = 262,144 for the contraction): median device time per call
+   (CUDA events, calls queued behind a sleep so the host's launch latency
+   is not in them), the plain version's, ``zeros`` + ``index_add_`` for
+   the scatters, and the bound (larger of bytes at 3.35 TB/s and f32 flops
+   at 67 TFLOP/s, the H100 SXM's published peaks), for the joint,
+   factor-phase, core-phase, Gauss–Seidel and bf16 variants.
+6. ``torch.profiler`` traces of steady training steps of each of the three
+   paths: device time per kernel and the device's busy share.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
@@ -52,15 +62,41 @@ TRAIN_BATCH = 4096
 EVAL_CHUNK = 262_144
 TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     "kruskal_contract": 2e-5,
-    "kruskal_grad.rows": 2e-5,
+    "kruskal_grad.rows": 2e-5,   # pred, err, row grads, emitted c
     "kruskal_grad.core": 1e-4,   # sums over up to 262,144 samples
     "scatter_accum": 2e-5,       # atomics: run-to-run order of duplicates
+    "segment_reduce": 0.0,       # ordered fold, no atomics: exact
     "trajectory": 1e-4,          # 20 steps, each op within the above
+    "trajectory.bf16": 2.0 ** -6,  # four bf16 ulps (2^-8) at the max
 }
+BF16_BAND = (1.6, 0.02)  # bf16 RMSE <= 1.6·f32 + 0.02 (the reference's band)
 REPLACES = {
     "kruskal_contract": "src/repro/kernels/kruskal_contract.py:30",
     "kruskal_grad": "src/repro/kernels/kruskal_grad.py:83",
     "scatter_accum": "src/repro/kernels/scatter_accum.py:26",
+    "segment_reduce": "src/repro/kernels/segment_reduce.py:34",
+}
+FLAGS = [
+    # (consume c, row_modes, want_core, emit_c) of kruskal_grad
+    (False, None, True, False),     # the joint pass
+    (False, None, False, True),     # factor phase: emit the mode products
+    (True, (), True, False),        # core phase: consume them
+    (True, (1,), False, False),     # Gauss-Seidel: one mode's rows
+    (False, (2, 0), True, True),
+    (True, (0, 1, 2), False, True),
+]
+# name -> (extra std_train flags, kernels it must launch, kernels it must not)
+PATHS = {
+    "unsorted": ([], ("kruskal_contract", "kruskal_grad", "scatter_accum"),
+                 ("segment_reduce",)),
+    "sorted_phase_split": (
+        ["--sorted-batches", "--phase-split"],
+        ("kruskal_contract", "kruskal_grad", "segment_reduce"),
+        ("scatter_accum",)),
+    "sorted_bf16": (
+        ["--sorted-batches", "--dtype", "bfloat16"],
+        ("kruskal_contract", "kruskal_grad", "segment_reduce"),
+        ("scatter_accum",)),
 }
 
 
@@ -78,8 +114,8 @@ def nvidia_smi_line() -> str:
 
 def rel_err(got, want) -> tuple[float, float]:
     """(max |got − want|, that over max |want|)."""
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
     return err, err / scale if scale > 0 else err
 
 
@@ -127,9 +163,10 @@ def phase_kernels_vs_plain(torch, K) -> dict:
     kc = K.kruskal_contract.kruskal_contract
     kg = K.kruskal_grad.kruskal_grad
     sa = K.scatter_accum.scatter_accum
+    sr = K.segment_reduce.segment_reduce
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    worst = {k: [0.0, 0.0] for k in TOL if k != "trajectory"}
+    worst = {k: [0.0, 0.0] for k in TOL if not k.startswith("trajectory")}
 
     def record(key, got, want, what):
         e, r = rel_err(got, want)
@@ -139,6 +176,19 @@ def phase_kernels_vs_plain(torch, K) -> dict:
             raise AssertionError(f"{key} {what}: max abs err {e:.3g}, "
                                  f"relative {r:.3g} > {TOL[key]}")
 
+    def record_grad(got, want, tag):
+        for i, part in enumerate(("pred", "err", "row grads", "core grads",
+                                  "c")):
+            if (got[i] is None) != (want[i] is None):
+                raise AssertionError(f"kruskal_grad {tag}: {part} is "
+                                     "missing on one side")
+            if got[i] is not None:
+                if got[i].dtype != torch.float32:
+                    raise AssertionError(f"kruskal_grad {tag}: {part} is "
+                                         f"{got[i].dtype}")
+                key = "kruskal_grad.core" if i == 3 else "kruskal_grad.rows"
+                record(key, got[i], want[i], f"{tag} {part}")
+
     cases = 0
     for N in (3, 4):
         for JR in (4, 16, 32):
@@ -146,10 +196,14 @@ def phase_kernels_vs_plain(torch, K) -> dict:
                 what = f"N={N} J=R={JR} B={B}"
                 a = 0.5 * torch.randn((N, B, JR), generator=gen, device=dev)
                 b = 0.5 * torch.randn((N, JR, JR), generator=gen, device=dev)
-                pred, pexc = kc(a, b)
-                pred_r, pexc_r = ref.kruskal_contract_ref(a, b)
-                record("kruskal_contract", pred, pred_r, what + " pred")
-                record("kruskal_contract", pexc, pexc_r, what + " pexc")
+                a16, b16 = a.bfloat16(), b.bfloat16()
+                for x, y, st in ((a, b, "f32"), (a16, b16, "bf16")):
+                    pred, pexc = kc(x, y)
+                    pred_r, pexc_r = ref.kruskal_contract_ref(x, y)
+                    record("kruskal_contract", pred, pred_r,
+                           f"{what} {st} pred")
+                    record("kruskal_contract", pexc, pexc_r,
+                           f"{what} {st} pexc")
 
                 val = torch.randn((B,), generator=gen, device=dev)
                 mask = (torch.rand((B,), generator=gen, device=dev)
@@ -158,17 +212,32 @@ def phase_kernels_vs_plain(torch, K) -> dict:
                     scal = torch.tensor(
                         [1.0, 1.0 / max(mask.sum().item(), 1.0), 0.01, 0.02,
                          pred_coef], dtype=torch.float32, device=dev)
-                    got = kg(a, b, val, mask, scal)
-                    want = ref.kruskal_grad_ref(a, b, val, mask, scal)
-                    tag = f"{what} pred_coef={pred_coef}"
-                    record("kruskal_grad.rows", got.pred, want[0],
-                           tag + " pred")
-                    record("kruskal_grad.rows", got.err, want[1],
-                           tag + " err")
-                    record("kruskal_grad.rows", got.row_grads, want[2],
-                           tag + " row grads")
-                    record("kruskal_grad.core", got.core_grads, want[3],
-                           tag + " core grads")
+                    record_grad(kg(a, b, val, mask, scal),
+                                ref.kruskal_grad_ref(a, b, val, mask, scal),
+                                f"{what} pred_coef={pred_coef}")
+                # every phase flag, f32 and bf16 storage
+                for consume, row_modes, want_core, emit_c in FLAGS[1:]:
+                    for x, y, st in ((a, b, "f32"), (a16, b16, "bf16")):
+                        flags = dict(row_modes=row_modes, want_core=want_core,
+                                     emit_c=emit_c)
+                        cc = (torch.bmm(x.float(), y.float())
+                              if consume else None)
+                        record_grad(kg(x, y, val, mask, scal, cc, **flags),
+                                    ref.kruskal_grad_ref(x, y, val, mask,
+                                                         scal, cc, **flags),
+                                    f"{what} {st} flags={flags} "
+                                    f"c={'in' if consume else 'none'}")
+                record_grad(kg(a16, b16, val, mask, scal),
+                            ref.kruskal_grad_ref(a16, b16, val, mask, scal),
+                            f"{what} bf16 joint")
+                # a core pass fed the emitted c is the joint one, exactly
+                joint = kg(a, b, val, mask, scal)
+                fac = kg(a, b, val, mask, scal, want_core=False, emit_c=True)
+                core = kg(a, b, val, mask, scal, fac.c, row_modes=())
+                if not (torch.equal(core.core_grads, joint.core_grads)
+                        and torch.equal(fac.row_grads, joint.row_grads)):
+                    raise AssertionError(f"{what}: the phase passes differ "
+                                         "from the joint pass")
 
                 rows = max(64, B // 8)
                 g = torch.randn((B, JR), generator=gen, device=dev)
@@ -177,17 +246,35 @@ def phase_kernels_vs_plain(torch, K) -> dict:
                 record("scatter_accum", sa(g, idx, rows),
                        ref.scatter_accum_ref(g, idx, rows),
                        f"{what} rows={rows} (ids outside [0, rows))")
+                for srows in (64, B):     # long runs, then short ones
+                    sidx = torch.randint(-5, srows + 5, (B,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                    sidx = torch.sort(sidx, stable=True).values
+                    got = sr(g, sidx, srows)
+                    again = sr(g, sidx, srows)
+                    record("segment_reduce", got,
+                           ref.segment_reduce_ref(g, sidx, srows),
+                           f"{what} rows={srows}")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"segment_reduce {what}: two "
+                                             "launches gave other bits")
                 cases += 1
-    # the training path's widest scatter: mode 0 of the Netflix shape
+    # the training path's widest scatters: mode 0 of the Netflix shape
     g = torch.randn((TRAIN_BATCH, 4), generator=gen, device=dev)
     idx = torch.randint(0, NETFLIX_DIMS[0], (TRAIN_BATCH,), generator=gen,
                         device=dev, dtype=torch.int32)
     record("scatter_accum", sa(g, idx, NETFLIX_DIMS[0]),
            ref.scatter_accum_ref(g, idx, NETFLIX_DIMS[0]), "Netflix mode 0")
+    sidx, perm = torch.sort(idx, stable=True)
+    record("segment_reduce", sr(g[perm], sidx, NETFLIX_DIMS[0]),
+           ref.segment_reduce_ref(g[perm], sidx, NETFLIX_DIMS[0]),
+           "Netflix mode 0")
     torch.cuda.synchronize()
     for key, (e, r) in worst.items():
         log(f"{key}: max abs err {e:.3g}, max relative err {r:.3g} "
             f"(tolerance {TOL[key]}) over {cases} shapes")
+    log(f"kruskal_grad: {len(FLAGS)} flag combinations x f32/bf16; the core "
+        "pass fed emitted c equals the joint core gradient bitwise")
     return {k: {"max_abs_err": e, "max_rel_err": r, "tol": TOL[k]}
             for k, (e, r) in worst.items()}
 
@@ -200,32 +287,51 @@ def phase_slice(torch, K, std_train, steps: int, nnz: int) -> dict:
     if nnz != NETFLIX_NNZ:
         log(f"CUT: {nnz:,} nonzeros instead of the Netflix tensor's "
             f"{NETFLIX_NNZ:,}")
-    args = std_train.parse_args([
-        "--dims", ",".join(map(str, NETFLIX_DIMS)), "--nnz", str(nnz),
-        "--rank", "4", "--core-rank", "4", "--steps", str(steps),
-        "--batch", str(TRAIN_BATCH), "--eval-every", str(max(steps // 2, 1)),
-        "--seed", "0", "--backend", "cuda", "--device", "cuda"])
-    K.reset_launch_counts()
-    res = std_train.run(args)
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-    hist = res["history"]
-    log(f"slice: data {res['data_seconds']:.1f}s, {steps} steps at "
-        f"{res['steps_per_s']:.1f} steps/s = {res['nnz_per_s']:.4g} nnz/s, "
-        f"peak device bytes {res['peak_device_bytes']:,}")
-    log("slice: rmse " + " -> ".join(f"{h['rmse']:.5f}@{h['step']}"
-                                     for h in hist))
-    log(f"slice: launch counts {counts}")
-    if not all(math.isfinite(h["rmse"]) and math.isfinite(h["mae"])
-               for h in hist):
-        raise AssertionError(f"non-finite RMSE/MAE: {hist}")
-    if not hist[-1]["rmse"] < hist[0]["rmse"]:
-        raise AssertionError(f"RMSE did not drop: {hist}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    return {"result": res, "counts": counts}
+    base = ["--dims", ",".join(map(str, NETFLIX_DIMS)), "--nnz", str(nnz),
+            "--rank", "4", "--core-rank", "4", "--steps", str(steps),
+            "--batch", str(TRAIN_BATCH), "--eval-every",
+            str(max(steps // 2, 1)), "--seed", "0", "--backend", "cuda",
+            "--device", "cuda"]
+    out = {}
+    data = None
+    for name, (flags, must, must_not) in PATHS.items():
+        args = std_train.parse_args(base + flags)
+        K.reset_launch_counts()
+        res = std_train.run(args, data)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        data = (res["train"], res["test"])
+        hist = res["history"]
+        log(f"path {name} ({' '.join(flags) or 'defaults'}): data "
+            f"{res['data_seconds']:.1f}s, {steps} steps at "
+            f"{res['steps_per_s']:.1f} steps/s = {res['nnz_per_s']:.4g} "
+            f"nnz/s, peak device bytes {res['peak_device_bytes']:,}")
+        log(f"path {name}: rmse " + " -> ".join(
+            f"{h['rmse']:.5f}@{h['step']}" for h in hist))
+        log(f"path {name}: launch counts {counts}")
+        if not all(math.isfinite(h["rmse"]) and math.isfinite(h["mae"])
+                   for h in hist):
+            raise AssertionError(f"{name}: non-finite RMSE/MAE: {hist}")
+        if not hist[-1]["rmse"] < hist[0]["rmse"]:
+            raise AssertionError(f"{name}: RMSE did not drop: {hist}")
+        missing = [k for k in must if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched on the "
+                                 f"path: {missing}")
+        stray = [k for k in must_not if counts[k] != 0]
+        if stray:
+            raise AssertionError(f"{name}: launched {stray}, which this "
+                                 "path does not use")
+        out[name] = {"result": res, "counts": counts}
+    r16 = out["sorted_bf16"]["result"]["history"][-1]["rmse"]
+    r32 = out["sorted_phase_split"]["result"]["history"][-1]["rmse"]
+    scale, shift = BF16_BAND
+    log(f"bf16 band: final rmse {r16:.5f} (bf16) against {r32:.5f} (f32); "
+        f"band {scale} x f32 + {shift} = {scale * r32 + shift:.5f}")
+    if not r16 <= scale * r32 + shift:
+        raise AssertionError(f"bf16 RMSE {r16} outside the band of the f32 "
+                             f"run {r32}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -237,33 +343,67 @@ def phase_parity(torch, ft, res) -> dict:
 
     train_t = res["train"]
     start = res["state"]
+    cfg0 = res["cfg"]
     gen = torch.Generator(device="cuda").manual_seed(99)
     batches = [sample_batch_arrays(gen, train_t.indices, train_t.values,
                                    TRAIN_BATCH) for _ in range(20)]
+    combos = [dict(update_order=o, phase_split=p, sorted_batches=s)
+              for o in ("jacobi", "gauss_seidel") for p in (False, True)
+              for s in (False, True)]
+    combos += [dict(dtype="bfloat16"),
+               dict(dtype="bfloat16", sorted_batches=True, phase_split=True)]
+    out = {}
     finals = {}
-    for backend in ("cuda", "torch"):
-        cfg = ft.FastTuckerConfig(
-            dims=res["cfg"].dims, ranks=res["cfg"].ranks,
-            core_rank=res["cfg"].core_rank, batch_size=TRAIN_BATCH,
-            backend=backend)
-        st = start
-        for idx, val in batches:
-            st = ft.sgd_step_batch(st, idx, val, cfg)
-        finals[backend] = st.params
-    torch.cuda.synchronize()
-    worst = 0.0
-    worst_abs = 0.0
-    for got, want in zip(finals["cuda"].factors + finals["cuda"].core_factors,
-                         finals["torch"].factors
-                         + finals["torch"].core_factors):
-        e, r = rel_err(got, want)
-        worst, worst_abs = max(worst, r), max(worst_abs, e)
-    log(f"parity: 20 fed-batch steps cuda vs torch: max abs diff "
-        f"{worst_abs:.3g}, max relative diff {worst:.3g} "
-        f"(tolerance {TOL['trajectory']})")
-    if not worst <= TOL["trajectory"]:
-        raise AssertionError(f"trajectory differs: {worst:.3g}")
-    return {"max_rel_diff": worst, "max_abs_diff": worst_abs}
+    for kw in combos:
+        dtype = kw.get("dtype", "float32")
+        runs = {}
+        for backend in ("cuda", "torch"):
+            cfg = ft.FastTuckerConfig(
+                dims=cfg0.dims, ranks=cfg0.ranks, core_rank=cfg0.core_rank,
+                batch_size=TRAIN_BATCH, backend=backend, **kw)
+            st = ft.TrainState(ft.FastTuckerParams(
+                tuple(t.to(cfg.param_dtype) for t in start.params.factors),
+                tuple(t.to(cfg.param_dtype)
+                      for t in start.params.core_factors)), 0)
+            for idx, val in batches:
+                st = ft.sgd_step_batch(st, idx, val, cfg)
+            runs[backend] = st.params
+        torch.cuda.synchronize()
+        worst = worst_abs = 0.0
+        for got, want in zip(runs["cuda"].factors + runs["cuda"].core_factors,
+                             runs["torch"].factors
+                             + runs["torch"].core_factors):
+            e, r = rel_err(got, want)
+            worst, worst_abs = max(worst, r), max(worst_abs, e)
+        tol = TOL["trajectory.bf16" if dtype == "bfloat16" else "trajectory"]
+        tag = ",".join(f"{k}={v}" for k, v in kw.items())
+        log(f"parity {tag}: 20 fed-batch steps cuda vs torch: max abs diff "
+            f"{worst_abs:.3g}, max relative diff {worst:.3g} "
+            f"(tolerance {tol:.3g})")
+        if not worst <= tol:
+            raise AssertionError(f"trajectory {tag} differs: {worst:.3g}")
+        out[tag] = {"max_rel_diff": worst, "max_abs_diff": worst_abs}
+        finals[tag] = runs["cuda"]
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(
+            x.factors + x.core_factors, y.factors + y.core_factors))
+
+    split = finals["update_order=jacobi,phase_split=True,sorted_batches=True"]
+    joint = finals["update_order=jacobi,phase_split=False,sorted_batches=True"]
+    if not same(split, joint):
+        raise AssertionError("sorted phase-split differs from sorted joint "
+                             "on the card")
+    gs_same = same(
+        finals["update_order=gauss_seidel,phase_split=True,"
+               "sorted_batches=True"],
+        finals["update_order=gauss_seidel,phase_split=False,"
+               "sorted_batches=True"])
+    log("parity: on cuda, sorted jacobi phase-split == sorted joint bitwise; "
+        f"sorted gauss_seidel phase-split == joint bitwise: {gs_same}")
+    out["sorted_split_equals_joint_bitwise"] = True
+    out["sorted_gauss_seidel_split_equals_joint_bitwise"] = gs_same
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +415,8 @@ def device_ms(torch, fn, iters: int = 100) -> float:
 
     All calls and their event pairs are queued behind a device-side sleep,
     so the card runs them back to back and an event pair spans only the
-    call's own kernels, not the host's launch latency.
+    call's own kernels, not the host's launch latency (unless ``fn``
+    itself waits for the device, as the plain ``segment_reduce`` does).
     """
     for _ in range(5):
         fn()
@@ -297,13 +438,34 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def grad_cost(N, B, J, R, st, nrow, core, c_in, c_out) -> tuple[int, int]:
+    """(bytes, flops) one kruskal_grad call must move and do: inputs read
+    once (rows and factors in ``st`` bytes), outputs written once."""
+    nbytes = st * (N * B * J + N * J * R) + 4 * (2 * B + 5) + 4 * 2 * B
+    flops = 3 * N * B * R + 2 * B * R + 4 * B   # chains, pred, err
+    if c_in:
+        nbytes += 4 * N * B * R
+    else:
+        flops += 2 * N * B * J * R              # the N mode dots
+    if c_out:
+        nbytes += 4 * N * B * R
+    nbytes += 4 * nrow * B * J
+    flops += nrow * B * (2 * J * R + 4 * J)     # Eq. 13 rows
+    if core:
+        nbytes += 4 * N * J * R
+        flops += N * B * (2 * J * R + R) + 2 * N * J * R  # Eq. 17 + seed
+    return nbytes, flops
+
+
 def phase_times(torch, K, ft, res, counts) -> list[dict]:
-    from repro_torch.core.sampling import sample_batch_arrays
+    from repro_torch.core.sampling import (sample_batch_arrays,
+                                           sorted_batch_order)
     from repro_torch.kernels.dispatch import (_kernel_scalars,
                                               _stack_padded_factors,
                                               _stack_padded_rows)
 
     ref = K.ref
+    kg = K.kruskal_grad.kruskal_grad
     params = res["state"].params
     train_t, test_t = res["train"], res["test"]
     cfg = res["cfg"]
@@ -313,32 +475,48 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
                                    TRAIN_BATCH)
     a = _stack_padded_rows(ft.gather_rows(params.factors, idx))
     b = _stack_padded_factors(params.core_factors)
+    a16, b16 = a.bfloat16(), b.bfloat16()
     mask = torch.ones_like(val)
     scal = _kernel_scalars(TRAIN_BATCH, None, False, True, cfg.lambda_a,
                            cfg.lambda_b, 1.0, val.device)
     eidx = test_t.indices[:EVAL_CHUNK]
     ea = _stack_padded_rows(ft.gather_rows(params.factors, eidx))
     Be = ea.shape[1]
-    rg = K.kruskal_grad.kruskal_grad(a, b, val, mask, scal).row_grads
-    g0 = rg[0].contiguous()
+    joint = kg(a, b, val, mask, scal)
+    c = kg(a, b, val, mask, scal, want_core=False, emit_c=True).c
+    g0 = joint.row_grads[0].contiguous()
     cols = idx.t().contiguous()
+    lay = sorted_batch_order(idx)
+    gs0 = g0.index_select(0, lay.perm[0])
     rows0 = cfg.dims[0]
     torch.cuda.synchronize()
+    B = TRAIN_BATCH
     out = []
 
-    # kruskal_grad
-    B = TRAIN_BATCH
-    ms = device_ms(torch, lambda: K.kruskal_grad.kruskal_grad(
-        a, b, val, mask, scal))
-    plain = device_ms(torch, lambda: ref.kruskal_grad_ref(
-        a, b, val, mask, scal))
-    t_b, by = bound(4 * (2 * N * B * J + 2 * N * J * R + 4 * B + 5),
-                    6 * N * B * J * R + 3 * N * B * R + 2 * B * R
-                    + 4 * N * B * J + 6 * B)
-    out.append(("kruskal_grad", ms, plain, None, t_b, by,
-                "1 per training step; 1 per autograd backward"))
+    # kruskal_grad: the joint pass first (the row the kernels line takes)
+    variants = [
+        ("joint", dict(), a, b, None, N, True, False,
+         "1 per unsorted or sorted joint step; 1 per autograd backward"),
+        ("factor phase (want_core=False, emit_c)",
+         dict(want_core=False, emit_c=True), a, b, None, N, False, True,
+         "1 per phase-split step"),
+        ("core phase (c=, row_modes=())", dict(row_modes=()), a, b, c, 0,
+         True, False, "1 per phase-split step"),
+        ("Gauss-Seidel mode (c=, row_modes=(0,), want_core=False)",
+         dict(row_modes=(0,), want_core=False), a, b, c, 1, False, False,
+         "N per Gauss-Seidel phase-split step"),
+        ("joint, bf16 storage", dict(), a16, b16, None, N, True, False,
+         "1 per bf16 step"),
+    ]
+    for tag, flags, x, y, cc, nrow, core, emit, per in variants:
+        ms = device_ms(torch, lambda: kg(x, y, val, mask, scal, cc, **flags))
+        plain = device_ms(torch, lambda: ref.kruskal_grad_ref(
+            x, y, val, mask, scal, cc, **flags))
+        t_b, by = bound(*grad_cost(N, B, J, R, x.element_size(), nrow, core,
+                                   cc is not None, emit))
+        out.append(("kruskal_grad", tag, ms, plain, None, t_b, by, per))
 
-    # scatter_accum, mode 0 (the widest: I_0 = 480,189 rows)
+    # scatter_accum and segment_reduce, mode 0 (the widest: 480,189 rows)
     ms = device_ms(torch, lambda: K.scatter_accum.scatter_accum(
         g0, cols[0], rows0))
     plain = device_ms(torch, lambda: ref.scatter_accum_ref(g0, cols[0],
@@ -347,33 +525,52 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
     lib = device_ms(torch, lambda: torch.zeros(
         (rows0, J), device="cuda").index_add_(0, long_ids, g0))
     t_b, by = bound(4 * (B * J + B + rows0 * J), B * J)
-    out.append(("scatter_accum", ms, plain, lib, t_b, by,
-                f"{N} per training step (one per mode; timed at mode 0, "
+    out.append(("scatter_accum", "mode 0", ms, plain, lib, t_b, by,
+                f"{N} per unsorted step (one per mode; timed at mode 0, "
+                f"{rows0:,} rows)"))
+    ms = device_ms(torch, lambda: K.segment_reduce.segment_reduce(
+        gs0, lay.sorted_rows[0], rows0))
+    plain = device_ms(torch, lambda: ref.segment_reduce_ref(
+        gs0, lay.sorted_rows[0], rows0), iters=30)
+    sorted_ids = lay.sorted_rows[0].long()
+    lib = device_ms(torch, lambda: torch.zeros(
+        (rows0, J), device="cuda").index_add_(0, sorted_ids, gs0))
+    out.append(("segment_reduce", "mode 0", ms, plain, lib, t_b, by,
+                f"{N} per sorted step (one per mode; timed at mode 0, "
                 f"{rows0:,} rows)"))
     for n in range(1, N):
-        gn = rg[n].contiguous()
-        ms_n = device_ms(torch, lambda: K.scatter_accum.scatter_accum(
+        gn = joint.row_grads[n].contiguous()
+        ms_sa = device_ms(torch, lambda: K.scatter_accum.scatter_accum(
             gn, cols[n], cfg.dims[n]))
-        log(f"scatter_accum mode {n} ({cfg.dims[n]:,} rows): "
-            f"{ms_n * 1e3:.2f} us")
+        gsn = gn.index_select(0, lay.perm[n])
+        ms_sr = device_ms(torch, lambda: K.segment_reduce.segment_reduce(
+            gsn, lay.sorted_rows[n], cfg.dims[n]))
+        log(f"mode {n} ({cfg.dims[n]:,} rows): scatter_accum "
+            f"{ms_sa * 1e3:.2f} us, segment_reduce {ms_sr * 1e3:.2f} us")
 
-    # kruskal_contract at the evaluation chunk
-    ms = device_ms(torch, lambda: K.kruskal_contract.kruskal_contract(ea, b))
-    plain = device_ms(torch, lambda: ref.kruskal_contract_ref(ea, b))
-    t_b, by = bound(4 * (N * Be * J + N * J * R + Be + N * Be * R),
-                    2 * N * Be * J * R + 3 * N * Be * R + 2 * Be * R)
-    out.append(("kruskal_contract", ms, plain, None, t_b, by,
-                f"{math.ceil(test_t.nnz / EVAL_CHUNK)} per evaluation "
-                "(one per 262,144-row chunk)"))
+    # kruskal_contract at the evaluation chunk, f32 and bf16
+    for tag, x, y in (("f32", ea, b), ("bf16 storage", ea.bfloat16(), b16)):
+        ms = device_ms(torch, lambda: K.kruskal_contract.kruskal_contract(
+            x, y))
+        plain = device_ms(torch, lambda: ref.kruskal_contract_ref(x, y))
+        st = x.element_size()
+        t_b, by = bound(st * (N * Be * J + N * J * R) + 4 * (Be + N * Be * R),
+                        2 * N * Be * J * R + 3 * N * Be * R + 2 * Be * R)
+        out.append(("kruskal_contract", tag, ms, plain, None, t_b, by,
+                    f"{math.ceil(test_t.nnz / EVAL_CHUNK)} per evaluation "
+                    "(one per 262,144-row chunk)"))
 
     rows_out = []
-    for name, ms, plain, lib, t_b, by, per in out:
-        log(f"{name}: {ms * 1e3:.2f} us/call (plain {plain * 1e3:.2f} us"
-            + (f", index_add_ {lib * 1e3:.2f} us" if lib is not None else "")
-            + f"), bound {t_b * 1e3:.3f} us by {by}; main-path launches "
+    for name, tag, ms, plain, lib, t_b, by, per in out:
+        log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call (plain "
+            f"{plain * 1e3:.2f} us"
+            + (f", zeros + index_add_ {lib * 1e3:.2f} us"
+               if lib is not None else "")
+            + f"), bound {t_b * 1e3:.3f} us by {by}; launches on the paths "
             f"{counts[name]}; {per}")
-        rows_out.append({"name": name, "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": t_b, "bound_by": by,
+        rows_out.append({"name": name, "variant": tag, "ms": ms,
+                         "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": t_b, "bound_by": by,
                          "launches_note": per})
     return rows_out
 
@@ -382,10 +579,9 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
 # phase 6
 # ---------------------------------------------------------------------------
 
-def phase_profile(torch, ft, res, steps: int = 50) -> dict:
+def phase_profile(torch, ft, res, cfg, steps: int = 50) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = res["cfg"]
     train_t = res["train"]
     gen = torch.Generator(device="cuda").manual_seed(5)
     st = res["state"]
@@ -406,19 +602,26 @@ def phase_profile(torch, ft, res, steps: int = 50) -> dict:
             kernels[ev.name][0] += 1
             kernels[ev.name][1] += ev.time_range.elapsed_us()
     busy_us = sum(v[1] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:14]
+    tag = (f"phase_split={cfg.phase_split}, "
+           f"sorted_batches={cfg.sorted_batches}, dtype={cfg.dtype}")
     if not kernels:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile [{tag}]: the profiler recorded no device time "
+            "(not measured)")
         return {"measured": False, "wall_ms_per_step": wall / steps * 1e3}
-    log(f"profile: {steps} steps, {wall / steps * 1e3:.3f} ms/step under "
-        f"the profiler; device busy {busy_us / steps:.1f} us/step = "
-        f"{busy_us / (wall * 1e6):.1%} of wall")
+    log(f"profile [{tag}]: {steps} steps, {wall / steps * 1e3:.3f} ms/step "
+        f"under the profiler; device busy {busy_us / steps:.1f} us/step = "
+        f"{busy_us / (wall * 1e6):.1%} of wall; "
+        f"{sum(v[0] for v in kernels.values()) / steps:.1f} device "
+        "operations/step")
     for name, (cnt, us) in top:
         log(f"  {us / steps:8.2f} us/step  {cnt / steps:5.1f}/step  "
             f"{name[:90]}")
-    return {"measured": True, "steps": steps,
+    return {"measured": True, "steps": steps, "config": tag,
             "wall_ms_per_step": wall / steps * 1e3,
             "device_busy_us_per_step": busy_us / steps,
+            "device_ops_per_step": sum(v[0] for v in kernels.values())
+            / steps,
             "top_kernels": [{"name": n, "calls_per_step": c / steps,
                              "us_per_step": us / steps}
                             for n, (c, us) in top]}
@@ -451,18 +654,27 @@ def main(argv: list[str] | None = None) -> int:
     t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
     report["kernels_vs_plain"] = phase_kernels_vs_plain(torch, K)
-    slice_ = phase_slice(torch, K, std_train, args.steps, args.nnz)
-    res, counts = slice_["result"], slice_["counts"]
-    report["slice"] = {k: v for k, v in res.items()
-                       if k in ("history", "steps_per_s", "nnz_per_s",
-                                "peak_device_bytes", "data_seconds",
-                                "train_seconds")}
-    report["slice"]["nnz"] = args.nnz
-    report["slice"]["launch_counts"] = counts
-    report["parity"] = phase_parity(torch, ft, res)
-    times = phase_times(torch, K, ft, res, counts)
+    paths = phase_slice(torch, K, std_train, args.steps, args.nnz)
+    report["paths"] = {}
+    counts = {k: 0 for k in REPLACES}
+    for name, p in paths.items():
+        res = p["result"]
+        report["paths"][name] = {k: v for k, v in res.items()
+                                 if k in ("history", "steps_per_s",
+                                          "nnz_per_s", "peak_device_bytes",
+                                          "data_seconds", "train_seconds")}
+        report["paths"][name]["launch_counts"] = p["counts"]
+        for k, v in p["counts"].items():
+            counts[k] += v
+    report["nnz"] = args.nnz
+    base = paths["unsorted"]["result"]
+    report["parity"] = phase_parity(torch, ft, base)
+    times = phase_times(torch, K, ft, base, counts)
     report["times"] = times
-    report["profile"] = phase_profile(torch, ft, res)
+    report["profile"] = {
+        name: phase_profile(torch, ft, paths[name]["result"],
+                            paths[name]["result"]["cfg"])
+        for name in PATHS}
     report["seconds"] = time.perf_counter() - t_start
 
     errs = report["kernels_vs_plain"]
@@ -471,10 +683,11 @@ def main(argv: list[str] | None = None) -> int:
         "kruskal_grad": max(errs["kruskal_grad.rows"]["max_abs_err"],
                             errs["kruskal_grad.core"]["max_abs_err"]),
         "scatter_accum": errs["scatter_accum"]["max_abs_err"],
+        "segment_reduce": errs["segment_reduce"]["max_abs_err"],
     }
     kernels = []
-    for t in sorted(times, key=lambda t: t["name"]):
-        name = t["name"]
+    for name in sorted(REPLACES):
+        t = next(t for t in times if t["name"] == name)  # the path's main
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -487,6 +700,7 @@ def main(argv: list[str] | None = None) -> int:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(report, indent=1, default=str))
+    log(f"launches over the three paths: {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

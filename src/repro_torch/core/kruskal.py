@@ -3,6 +3,9 @@
 All functions take ``core_factors`` as a tuple of ``(J_n, R)`` tensors and
 per-sample gathered factor rows as a tuple of ``(B, J_n)`` tensors (modes
 may have different J_n; the kernels use a padded stacked layout instead).
+Rows and factors stored in bf16 are upcast to f32 before each product, so
+the products are f32, as the reference's ``preferred_element_type`` keeps
+them.
 """
 from __future__ import annotations
 
@@ -14,9 +17,10 @@ import torch
 def mode_dots(
     rows: Sequence[torch.Tensor], core_factors: Sequence[torch.Tensor]
 ) -> torch.Tensor:
-    """c_r^(n) = ⟨a_{i_n}, b_{:,r}^(n)⟩ for a batch.  -> (N, B, R)."""
+    """c_r^(n) = ⟨a_{i_n}, b_{:,r}^(n)⟩ for a batch.  -> (N, B, R), f32."""
     return torch.stack(
-        [torch.matmul(r, b) for r, b in zip(rows, core_factors)], dim=0)
+        [torch.matmul(r.float(), b.float())
+         for r, b in zip(rows, core_factors)], dim=0)
 
 
 def exclusive_products(
@@ -49,5 +53,6 @@ def predict_from_rows(
 def mode_products(
     factors: Sequence[torch.Tensor], core_factors: Sequence[torch.Tensor]
 ) -> tuple[torch.Tensor, ...]:
-    """C^(n) = A^(n) B^(n) ∈ R^{I_n × R} — all mode dots, precomputed."""
-    return tuple(torch.matmul(a, b) for a, b in zip(factors, core_factors))
+    """C^(n) = A^(n) B^(n) ∈ R^{I_n × R} — all mode dots, precomputed, f32."""
+    return tuple(torch.matmul(a.float(), b.float())
+                 for a, b in zip(factors, core_factors))

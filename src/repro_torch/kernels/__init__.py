@@ -8,6 +8,7 @@ Layout (counterparts of ``repro.kernels``):
     kruskal_contract.py  Theorem-1 forward contraction
     kruskal_grad.py      fused forward + Eq. 13/17 gradient pass
     scatter_accum.py     factor-row scatter of unsorted row gradients
+    segment_reduce.py    factor-row scatter of mode-sorted row gradients
     ref.py               plain PyTorch versions of every kernel (oracles)
     build.py             nvcc build (sm_90a) + ctypes loading of csrc/*.cu
     csrc/                the CUDA C++ sources
@@ -17,11 +18,12 @@ Each kernel wrapper counts its launches in a plain integer attribute
 its CUDA kernel; ``launch_counts`` reads them all and
 ``reset_launch_counts`` sets them to 0.
 """
-from . import dispatch, kruskal_contract, kruskal_grad, ref, scatter_accum
+from . import (dispatch, kruskal_contract, kruskal_grad, ref, scatter_accum,
+               segment_reduce)
 from .dispatch import get_backend
 
 KERNELS = (kruskal_contract.kruskal_contract, kruskal_grad.kruskal_grad,
-           scatter_accum.scatter_accum)
+           scatter_accum.scatter_accum, segment_reduce.segment_reduce)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,4 +1,7 @@
-// Helpers shared by the FastTucker kernels (plain C interface, f32 storage).
+// Helpers shared by the FastTucker kernels (plain C interface).
+//
+// Storage may be f32 or bf16 (the rows a and the Kruskal factors B): every
+// load goes through to_float, so all arithmetic after the load is f32.
 //
 // Layout convention of every kernel here: one sampled nonzero is handled by
 // a GROUP of W lanes of one warp, W the next power of two >= max(J, R)
@@ -11,6 +14,7 @@
 // below always see all 32 lanes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define REPRO_MAX_MODES 10
@@ -24,18 +28,20 @@ __device__ __forceinline__ float group_sum(float v, int width) {
   return v;
 }
 
-// Theorem-1 forward of the sample held by this lane's group.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Mode products of the sample held by this lane's group.
 //   av[n]  this lane's entry a[n][b][sub] of the gathered rows (0 past J)
 //   bs     the Kruskal factors in shared memory, bs[(n*J + j)*(R+1) + r]
 //          (row stride R+1, so lanes reading one column hit distinct banks)
-// On return lane r < R holds c[n] = Σ_j a[n][j]·B[n][j][r] (lanes past R
-// hold 0) and pexc[n] = Π_{k<n} c[k] · Π_{k>n} c[k]: the prefix chain
-// ((c0·c1)·c2)… times the suffix chain taken from the last mode down, the
-// order of torch.cumprod in the plain version, so pexc rounds as it does.
-__device__ __forceinline__ void theorem1_forward(
+// On return lane r < R holds c[n] = Σ_j a[n][j]·B[n][j][r], summed in j
+// order with fmaf (lanes past R hold 0).
+__device__ __forceinline__ void group_mode_dots(
     const float (&av)[REPRO_MAX_MODES], const float* __restrict__ bs,
-    int N, int J, int R, int sub, int W,
-    float (&c)[REPRO_MAX_MODES], float (&pexc)[REPRO_MAX_MODES]) {
+    int N, int J, int R, int sub, int W, float (&c)[REPRO_MAX_MODES]) {
   const int RP = R + 1;
 #pragma unroll
   for (int n = 0; n < REPRO_MAX_MODES; ++n) {
@@ -50,6 +56,16 @@ __device__ __forceinline__ void theorem1_forward(
       c[n] = acc;
     }
   }
+}
+
+// pexc[n] = Π_{k<n} c[k] · Π_{k>n} c[k]: the prefix chain ((c0·c1)·c2)…
+// times the suffix chain taken from the last mode down, the order of
+// torch.cumprod in the plain version, so pexc rounds as it does.  Every
+// pass that forms pexc (from its own dots or from cached c) runs this one
+// function, so equal c give equal pexc bits.
+__device__ __forceinline__ void group_exclusive_products(
+    const float (&c)[REPRO_MAX_MODES], int N,
+    float (&pexc)[REPRO_MAX_MODES]) {
   float acc = 1.f;
 #pragma unroll
   for (int n = 0; n < REPRO_MAX_MODES; ++n) {
@@ -69,15 +85,25 @@ __device__ __forceinline__ void theorem1_forward(
   }
 }
 
-// Copies the (N, J, R) Kruskal factors into shared memory with row stride
-// R+1 (see theorem1_forward).  The caller synchronises the block.
+// Theorem-1 forward of the sample held by this lane's group: the mode
+// products c and the exclusive products pexc (see the two functions above).
+__device__ __forceinline__ void theorem1_forward(
+    const float (&av)[REPRO_MAX_MODES], const float* __restrict__ bs,
+    int N, int J, int R, int sub, int W,
+    float (&c)[REPRO_MAX_MODES], float (&pexc)[REPRO_MAX_MODES]) {
+  group_mode_dots(av, bs, N, J, R, sub, W, c);
+  group_exclusive_products(c, N, pexc);
+}
+
+// Copies the (N, J, R) Kruskal factors into shared memory as f32, with
+// row stride R+1 (see group_mode_dots).  The caller synchronises the block.
+template <typename T>
 __device__ __forceinline__ void load_factors(
-    const float* __restrict__ bfac, float* __restrict__ bs,
-    int N, int J, int R) {
+    const T* __restrict__ bfac, float* __restrict__ bs, int N, int J, int R) {
   const int NJR = N * J * R;
   for (int i = threadIdx.x; i < NJR; i += blockDim.x) {
     const int nj = i / R;
-    bs[nj * (R + 1) + (i - nj * R)] = bfac[i];
+    bs[nj * (R + 1) + (i - nj * R)] = to_float(bfac[i]);
   }
 }
 

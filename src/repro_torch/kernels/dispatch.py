@@ -3,7 +3,8 @@
     ``"torch"``  plain PyTorch ops; the numerics oracle (the reference's
                  ``"xla"`` backend); runs on any device
     ``"cuda"``   the hand-written CUDA kernels (``kruskal_contract``,
-                 ``kruskal_grad``, ``scatter_accum``); the default.  On CPU
+                 ``kruskal_grad``, ``scatter_accum``, ``segment_reduce``);
+                 the default.  On CPU
                  tensors each kernel wrapper computes its plain version,
                  so this backend is testable on the CPU the way the
                  reference's ``"pallas_interpret"`` is; on CUDA tensors it
@@ -18,6 +19,13 @@ gathered rows and ``(J_n, R)`` Kruskal factors with possibly distinct
 ``J_n``); the ``"cuda"`` backend zero-pads to the stacked ``(N, B, J)``
 kernel layout and unpads the results — exact, since padded columns add 0
 to every dot product and get zero gradients.
+
+Ops per backend: ``kruskal_contract``, ``kruskal_grad`` (every phase flag),
+``scatter_accum`` (unsorted batches), ``segment_reduce`` (mode-sorted
+batches, ``core.sampling.sorted_batch_order``) and ``mode_dot`` (a plain
+matmul on both).  Rows and factors may be stored in bf16; every dot,
+residual and gradient is f32, the only accumulation dtype the reference's
+config takes.
 """
 from __future__ import annotations
 
@@ -48,9 +56,10 @@ class KruskalGrads(NamedTuple):
 
 
 def _mode_dot(rows_n: torch.Tensor, core_n: torch.Tensor) -> torch.Tensor:
-    """Single-mode product c^(n) = a_rows^(n) B^(n) → (B, R): a plain
-    matmul on every backend, never a kernel of this package."""
-    return torch.matmul(rows_n, core_n)
+    """Single-mode product c^(n) = a_rows^(n) B^(n) → (B, R) in f32: a
+    plain matmul on every backend, never a kernel of this package (the
+    Gauss–Seidel phase-split step refreshes one cached product with it)."""
+    return torch.matmul(rows_n.float(), core_n.float())
 
 
 def _denominators(
@@ -121,7 +130,7 @@ class TorchBackend:
             c_stack = None
             pred, pexc = self.kruskal_contract(rows, core_factors)
         else:
-            c_stack = torch.stack(tuple(c), dim=0)       # (N, B, R)
+            c_stack = torch.stack(tuple(c), dim=0).float()  # (N, B, R)
             full, pexc = exclusive_products(c_stack)
             pred = full.sum(dim=-1)
         err = err_override if err_override is not None else pred - val
@@ -133,8 +142,9 @@ class TorchBackend:
         w_core = err / core_denom
         row_grads = []
         for n in row_modes:
-            d_n = torch.matmul(pexc[n], core_factors[n].T)   # (B, J_n)
-            reg_rows = rows[n]
+            # (B, J_n)
+            d_n = torch.matmul(pexc[n], core_factors[n].float().T)
+            reg_rows = rows[n].float()
             if mask is not None:
                 reg_rows = torch.where(mask[:, None], reg_rows,
                                        torch.zeros_like(reg_rows))
@@ -143,8 +153,9 @@ class TorchBackend:
         core_grads = []
         if want_core:
             for n in range(N):
+                # λ_b·B in the storage dtype, as the reference's "xla"
                 core_grads.append(
-                    torch.matmul(rows[n].T, w_core[:, None] * pexc[n])
+                    torch.matmul(rows[n].float().T, w_core[:, None] * pexc[n])
                     + lambda_b * core_factors[n])
         c_out = ()
         if emit_c:
@@ -160,6 +171,17 @@ class TorchBackend:
         from .ref import scatter_accum_ref
 
         return scatter_accum_ref(grads, idx, num_rows)
+
+    def segment_reduce(
+        self, grads: torch.Tensor, idx: torch.Tensor, num_rows: int
+    ) -> torch.Tensor:
+        """Sorted-batch scatter: ``grads``/``idx`` in mode-sorted order
+        (duplicates adjacent, in batch order), folded in that order —
+        bitwise equal to ``scatter_accum`` of the unsorted batch on the
+        CPU."""
+        from .ref import segment_reduce_ref
+
+        return segment_reduce_ref(grads, idx, num_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +283,9 @@ class CudaBackend:
             val_in, pred_coef = val, 1.0
         scal = _kernel_scalars(val.shape[0], mask, row_mean, core_mean,
                                lambda_a, lambda_b, pred_coef, val.device)
-        c_stacked = None if c is None else torch.stack(tuple(c), dim=0)
-        outs = kg(a, b, val_in.to(torch.float32).contiguous(), mask_f, scal,
+        c_stacked = (None if c is None
+                     else torch.stack(tuple(c), dim=0).float())
+        outs = kg(a, b, val_in.float().contiguous(), mask_f, scal,
                   c_stacked, row_modes=row_modes, want_core=want_core,
                   emit_c=emit_c)
         if row_modes is None:
@@ -283,6 +306,14 @@ class CudaBackend:
         from .scatter_accum import scatter_accum as sa
 
         return sa(grads.contiguous(), idx.to(torch.int32).contiguous(),
+                  num_rows)
+
+    def segment_reduce(
+        self, grads: torch.Tensor, idx: torch.Tensor, num_rows: int
+    ) -> torch.Tensor:
+        from .segment_reduce import segment_reduce as sr
+
+        return sr(grads.contiguous(), idx.to(torch.int32).contiguous(),
                   num_rows)
 
 

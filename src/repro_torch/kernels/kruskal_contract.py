@@ -5,7 +5,8 @@ Pallas TPU kernel).  The kernel is ``csrc/kruskal_contract.cu``; its
 source note gives its bound on the card (memory) and what the design does
 about it.  On CPU tensors the wrapper computes the plain version
 (``ref.kruskal_contract_ref``); on CUDA tensors it launches the kernel or
-raises — it never falls back.
+raises — it never falls back.  Storage may be f32 or bf16 (``a_rows`` and
+``b_fac`` alike); the outputs are f32.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from .ref import kruskal_contract_ref
 
 MAX_MODES = 10
 MAX_WIDTH = 32  # J, R <= one warp
+STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}  # C entry suffix
 
 
 def _check(a_rows: torch.Tensor, b_fac: torch.Tensor) -> tuple[int, ...]:
@@ -25,10 +27,11 @@ def _check(a_rows: torch.Tensor, b_fac: torch.Tensor) -> tuple[int, ...]:
         raise ValueError(
             "kruskal_contract: the CUDA kernel takes CUDA tensors on one "
             f"device, got {a_rows.device} and {b_fac.device}")
+    if a_rows.dtype not in STORAGE or b_fac.dtype != a_rows.dtype:
+        raise TypeError("kruskal_contract: a_rows and b_fac must both be "
+                        f"float32 or both bfloat16, got {a_rows.dtype} and "
+                        f"{b_fac.dtype}")
     for name, t in (("a_rows", a_rows), ("b_fac", b_fac)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"kruskal_contract: {name} must be float32, "
-                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"kruskal_contract: {name} must be contiguous")
     if a_rows.dim() != 3 or b_fac.dim() != 3:
@@ -58,7 +61,7 @@ def kruskal_contract(
     pred = torch.empty((B,), dtype=torch.float32, device=a_rows.device)
     pexc = torch.empty((N, B, R), dtype=torch.float32, device=a_rows.device)
     fn = build.function(
-        "kruskal_contract", "kruskal_contract_f32",
+        "kruskal_contract", f"kruskal_contract_{STORAGE[a_rows.dtype]}",
         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(a_rows.device):

@@ -5,12 +5,15 @@ kernel).  The kernel is ``csrc/kruskal_grad.cu``; its source note gives its
 bound on the card (memory, and at the training batch the launch itself)
 and how the core gradient is reduced across blocks without atomics.
 
-The CUDA kernel computes the joint pass of the training step: every row
-mode, core gradients on, no cached mode products.  The phase flags of the
-reference (``c=``, ``emit_c``, a partial ``row_modes``,
-``want_core=False``) are off this slice's path: on CPU tensors the plain
-version (``ref.kruskal_grad_ref``) implements them all, and on any other
-device the wrapper raises ``NotImplementedError`` for them.
+The CUDA kernel takes every phase flag of the reference: ``emit_c``
+(write the mode products it used), ``c=`` (consume cached ones instead of
+the N dots), an ordered ``row_modes`` list and ``want_core``.  The tile
+size and the block count do not depend on the flags, so a core pass fed
+with emitted ``c`` gives the joint pass's core gradient bit for bit.
+Storage may be f32 or bf16 (``a_rows`` and ``b_fac`` alike); every output
+is f32.  On CPU tensors the wrapper computes the plain version
+(``ref.kruskal_grad_ref``); on CUDA tensors it launches the kernel or
+raises — it never falls back.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ MAX_BLOCKS = 256        # core partials; a constant, so results do not
                         # depend on the card's SM count
 SMEM_LIMIT = 232_448    # bytes of shared memory a Hopper block may use
 TILES = (64, 32, 16)    # samples per shared-memory tile, largest that fits
+STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}  # C entry suffix
 
 
 class KernelOuts(NamedTuple):
@@ -40,7 +44,9 @@ class KernelOuts(NamedTuple):
 
 
 def tile_size(N: int, J: int, R: int) -> int:
-    """Samples per tile: the largest of ``TILES`` whose shared memory fits."""
+    """Samples per tile: the largest of ``TILES`` whose shared memory fits
+    with the core tiles on.  It depends on the shapes only, never on the
+    phase flags (see the module note)."""
     for bt in TILES:
         floats = N * J * (R + 1) + N * bt * (J + R) + N * J * R
         if 4 * floats <= SMEM_LIMIT:
@@ -49,32 +55,36 @@ def tile_size(N: int, J: int, R: int) -> int:
                      "shared memory")
 
 
-def _check_flags(N, c, row_modes, want_core, emit_c) -> None:
-    if c is not None or emit_c:
-        raise NotImplementedError(
-            "kruskal_grad: the CUDA kernel does not take cached mode "
-            "products (c=) or emit them (emit_c)")
-    if row_modes is not None and tuple(row_modes) != tuple(range(N)):
-        raise NotImplementedError(
-            "kruskal_grad: the CUDA kernel emits every row mode; got "
-            f"row_modes={row_modes}")
-    if not want_core:
-        raise NotImplementedError(
-            "kruskal_grad: the CUDA kernel always computes core gradients "
-            "(want_core=False is not taken)")
+def row_mode_code(N: int, row_modes: tuple[int, ...] | None) -> int:
+    """The kernel's by-value row-mode list: bits 0-3 hold the count, bits
+    4 + 4j the j-th mode.  ``None`` means every mode in order."""
+    modes = tuple(range(N)) if row_modes is None else tuple(row_modes)
+    if len(modes) > MAX_MODES or any(not 0 <= m < N for m in modes):
+        raise ValueError(f"kruskal_grad: row_modes must list at most "
+                         f"{MAX_MODES} modes in [0, {N}), got {row_modes}")
+    code = len(modes)
+    for j, m in enumerate(modes):
+        code |= m << (4 + 4 * j)
+    return code
 
 
-def _check(a_rows, b_fac, val, mask, scal) -> tuple[int, ...]:
+def _check(a_rows, b_fac, val, mask, scal, c) -> tuple[int, ...]:
     dev = a_rows.device
+    if a_rows.dtype not in STORAGE:
+        raise TypeError(f"kruskal_grad: a_rows must be float32 or bfloat16, "
+                        f"got {a_rows.dtype}")
     named = (("a_rows", a_rows), ("b_fac", b_fac), ("val", val),
-             ("mask", mask), ("scal", scal))
+             ("mask", mask), ("scal", scal), ("c", c))
     for name, t in named:
+        if t is None:
+            continue
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"kruskal_grad: the CUDA kernel takes CUDA "
                              f"tensors on one device; {name} is on "
                              f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kruskal_grad: {name} must be float32, got "
+        want = a_rows.dtype if name in ("a_rows", "b_fac") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"kruskal_grad: {name} must be {want}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"kruskal_grad: {name} must be contiguous")
@@ -90,12 +100,19 @@ def _check(a_rows, b_fac, val, mask, scal) -> tuple[int, ...]:
         raise ValueError(f"kruskal_grad: val and mask must be ({B},)")
     if scal.shape != (NUM_SCALARS,):
         raise ValueError(f"kruskal_grad: scal must be ({NUM_SCALARS},)")
+    if c is not None and c.shape != (N, B, R):
+        raise ValueError(f"kruskal_grad: c must be ({N}, {B}, {R}), got "
+                         f"{tuple(c.shape)}")
     if not (1 <= N <= MAX_MODES and 1 <= J <= MAX_WIDTH
             and 1 <= R <= MAX_WIDTH):
         raise ValueError(
             f"kruskal_grad: the kernel takes N <= {MAX_MODES} and "
             f"J, R <= {MAX_WIDTH}, got N={N}, J={J}, R={R}")
     return N, B, J, R
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def kruskal_grad(
@@ -111,36 +128,41 @@ def kruskal_grad(
     emit_c: bool = False,
 ) -> KernelOuts:
     """Fused contraction + Eq. 13/17 gradients; ``core_grads`` includes
-    the λ_b·B regularizer.  All outputs f32."""
+    the λ_b·B regularizer.  All outputs f32; absent stages are None."""
     if a_rows.device.type == "cpu":
         return KernelOuts(*kruskal_grad_ref(
             a_rows, b_fac, val, mask, scal, c, row_modes=row_modes,
             want_core=want_core, emit_c=emit_c))
-    _check_flags(a_rows.shape[0], c, row_modes, want_core, emit_c)
-    N, B, J, R = _check(a_rows, b_fac, val, mask, scal)
+    N, B, J, R = _check(a_rows, b_fac, val, mask, scal, c)
+    code = row_mode_code(N, row_modes)
+    nrow = code & 15
     dev = a_rows.device
-    pred = torch.empty((B,), dtype=torch.float32, device=dev)
-    err = torch.empty((B,), dtype=torch.float32, device=dev)
-    rg = torch.empty((N, B, J), dtype=torch.float32, device=dev)
-    cg = torch.empty((N, J, R), dtype=torch.float32, device=dev)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    pred, err = out(B), out(B)
+    rg = out(nrow, B, J) if nrow else None
+    cg = out(N, J, R) if want_core else None
+    c_out = out(N, B, R) if emit_c else None
     bt = tile_size(N, J, R)
     blocks = min(-(-B // bt), MAX_BLOCKS)
-    partial = torch.empty((blocks, N * J * R), dtype=torch.float32,
-                          device=dev)
+    partial = out(blocks, N * J * R) if want_core else None
     fn = build.function(
-        "kruskal_grad", "kruskal_grad_f32",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_longlong,
+        "kruskal_grad", f"kruskal_grad_{STORAGE[a_rows.dtype]}",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_longlong,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_longlong,
                                   ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         build.check("kruskal_grad", fn(
             a_rows.data_ptr(), b_fac.data_ptr(), val.data_ptr(),
-            mask.data_ptr(), scal.data_ptr(), pred.data_ptr(),
-            err.data_ptr(), rg.data_ptr(), cg.data_ptr(), partial.data_ptr(),
-            N, B, J, R, bt, blocks, stream))
+            mask.data_ptr(), scal.data_ptr(), _ptr(c), pred.data_ptr(),
+            err.data_ptr(), _ptr(rg), _ptr(cg), _ptr(c_out), _ptr(partial),
+            N, B, J, R, bt, blocks, code, int(want_core), stream))
     kruskal_grad.launches += 1
-    return KernelOuts(pred, err, rg, cg)
+    return KernelOuts(pred, err, rg, cg, c_out)
 
 
 kruskal_grad.launches = 0

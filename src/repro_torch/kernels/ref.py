@@ -6,6 +6,11 @@ against them on the card.  ``pred`` is summed as Σ_r pexc[0]·c[0], the
 order of ``repro.kernels.ref`` and ``repro.core.kruskal`` (the Pallas
 kernels take the prefix chain ((c0·c1)·c2)… instead, so the two reference
 backends differ in the last bits; every comparison states its tolerance).
+
+bf16 storage: rows and factors may come in as bf16.  They are upcast to f32
+before any product, so every dot, residual and gradient is f32, as the
+reference's ``preferred_element_type=float32`` keeps them (``torch.bmm`` of
+two bf16 tensors would round its result to bf16).
 """
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ def kruskal_contract_ref(
     a_rows: torch.Tensor,  # (N, B, J)  gathered factor rows (J zero-padded)
     b_fac: torch.Tensor,   # (N, J, R)  Kruskal core factors (zero-padded)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Theorem-1 contraction: pred (B,), exclusive products (N, B, R)."""
-    c = torch.bmm(a_rows, b_fac)
+    """Theorem-1 contraction: pred (B,), exclusive products (N, B, R), f32."""
+    c = torch.bmm(a_rows.float(), b_fac.float())
     full, pexc = exclusive_products(c)
     return full.sum(dim=-1), pexc
 
@@ -52,6 +57,7 @@ def kruskal_grad_ref(
     Eq. 17 and ``emit_c`` returns the (possibly recomputed) products.
     """
     N = a_rows.shape[0]
+    a_rows, b_fac = a_rows.float(), b_fac.float()
     if c is None:
         c = torch.bmm(a_rows, b_fac)
     full, pexc = exclusive_products(c)
@@ -95,4 +101,36 @@ def scatter_accum_ref(
     out = torch.zeros((num_rows + 1, grads.shape[1]), dtype=grads.dtype,
                       device=grads.device)
     out.index_add_(0, target, grads)
+    return out[:num_rows]
+
+
+def segment_reduce_ref(
+    grads: torch.Tensor,  # (B, J) row grads permuted to mode-sorted order
+    idx: torch.Tensor,    # (B,)  SORTED target rows (duplicates adjacent)
+    num_rows: int,
+) -> torch.Tensor:
+    """Sorted segment-sum into (num_rows, J); ids < 0 or ≥ num_rows dropped.
+
+    An ordered fold: every row gets ((0 + g_0) + g_1) + … over its run, in
+    sorted position order, on any device — what ``jax.ops.segment_sum``
+    computes, and bitwise equal to it.  ``index_add_`` alone would not do:
+    on CUDA it adds the duplicates of a row in no fixed order.  So the
+    k-th element of every run is added in pass k, where the rows of one
+    pass are distinct.  The number of passes (the longest run) is read on
+    the host.
+    """
+    B = idx.shape[0]
+    out = torch.zeros((num_rows + 1, grads.shape[1]), dtype=grads.dtype,
+                      device=grads.device)
+    pos = torch.arange(B, device=idx.device)
+    head = torch.ones((B,), dtype=torch.bool, device=idx.device)
+    head[1:] = idx[1:] != idx[:-1]
+    run_start = torch.cummax(torch.where(head, pos, 0), 0).values
+    offset = pos - run_start                    # place inside its run
+    keep = (idx >= 0) & (idx < num_rows)
+    target = torch.where(keep, idx.long(), num_rows)  # spare row: dropped
+    order = torch.sort(offset, stable=True).indices
+    counts = torch.bincount(offset).tolist()
+    for sel in torch.split(order, counts):
+        out.index_add_(0, target[sel], grads[sel])
     return out[:num_rows]

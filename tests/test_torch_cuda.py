@@ -7,7 +7,9 @@ fixture, never at import).  On the GPU machine:
 
 Tolerances: f32 sums in another order than the plain version (cuBLAS), and
 atomics for the scatter — max |kernel − plain| ≤ 2e-5 · max |plain|
-(1e-4 for the core gradient, summed over the whole batch).
+(1e-4 for the core gradient, summed over the whole batch).  The sorted
+scatter (``segment_reduce``) has no atomics and folds in the plain
+version's order: it must match it exactly.
 """
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ import torch
 from repro_torch.core import fasttucker as ft
 from repro_torch.kernels import (dispatch, kruskal_contract, kruskal_grad,
                                  launch_counts, ref, reset_launch_counts,
-                                 scatter_accum)
+                                 scatter_accum, segment_reduce)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,18 +62,84 @@ def test_kernels_match_plain_on_card(dev, N, J, R, B):
                        device=dev)
     _close(scatter_accum.scatter_accum(got.row_grads[0], idx, 50),
            ref.scatter_accum_ref(got.row_grads[0], idx, 50), 2e-5)
+    sidx = idx.sort(stable=True).values
+    sr = segment_reduce.segment_reduce(got.row_grads[0], sidx, 50)
+    assert torch.equal(sr, ref.segment_reduce_ref(got.row_grads[0], sidx, 50))
     torch.cuda.synchronize()
     assert launch_counts() == {"kruskal_contract": 1, "kruskal_grad": 1,
-                               "scatter_accum": 1}
+                               "scatter_accum": 1, "segment_reduce": 1}
 
 
-def test_kernel_raises_on_phase_flags_on_card(dev):
-    a = torch.zeros((3, 8, 4), device=dev)
-    b = torch.zeros((3, 4, 4), device=dev)
-    v = torch.zeros(8, device=dev)
-    scal = torch.zeros(5, device=dev)
-    with pytest.raises(NotImplementedError):
-        kruskal_grad.kruskal_grad(a, b, v, v, scal, want_core=False)
+FLAGS = [
+    # (consume c, row_modes, want_core, emit_c)
+    (False, None, True, False),     # the joint pass
+    (False, None, False, True),     # factor phase: emit the mode products
+    (True, (), True, False),        # core phase: consume them
+    (True, (1,), False, False),     # Gauss-Seidel: one mode's rows
+    (False, (2, 0), True, True),
+    (True, (0, 1, 2), False, True),
+]
+
+
+@pytest.mark.parametrize("consume,row_modes,want_core,emit_c", FLAGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_every_phase_flag_matches_plain_on_card(
+        dev, consume, row_modes, want_core, emit_c, dtype):
+    rng = np.random.default_rng(3)
+    N, B, J, R = 3, 4099, 6, 4
+    a = torch.tensor(rng.normal(0, 0.5, (N, B, J)), dtype=dtype, device=dev)
+    b = torch.tensor(rng.normal(0, 0.5, (N, J, R)), dtype=dtype, device=dev)
+    val = torch.tensor(rng.normal(size=B), dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.random(B) > 0.2, dtype=torch.float32,
+                        device=dev)
+    scal = torch.tensor([1.0, 1 / mask.sum().item(), 0.01, 0.02, 1.0],
+                        dtype=torch.float32, device=dev)
+    c = torch.bmm(a.float(), b.float()) if consume else None
+    got = kruskal_grad.kruskal_grad(a, b, val, mask, scal, c,
+                                    row_modes=row_modes, want_core=want_core,
+                                    emit_c=emit_c)
+    want = ref.kruskal_grad_ref(a, b, val, mask, scal, c,
+                                row_modes=row_modes, want_core=want_core,
+                                emit_c=emit_c)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == torch.float32
+            _close(g, w, 1e-4 if i == 3 else 2e-5)
+    # a core pass fed the emitted c gives the joint core gradient exactly
+    joint = kruskal_grad.kruskal_grad(a, b, val, mask, scal)
+    fac = kruskal_grad.kruskal_grad(a, b, val, mask, scal, want_core=False,
+                                    emit_c=True)
+    core = kruskal_grad.kruskal_grad(a, b, val, mask, scal, fac.c,
+                                     row_modes=())
+    assert torch.equal(core.core_grads, joint.core_grads)
+    assert torch.equal(fac.row_grads, joint.row_grads)
+
+
+def test_sorted_phase_split_step_equals_joint_on_card(dev):
+    rng = np.random.default_rng(1)
+    dims = (300, 200, 100)
+    cfgs = {split: ft.FastTuckerConfig(
+        dims=dims, ranks=(4, 5, 6), core_rank=4, batch_size=512,
+        backend="cuda", sorted_batches=True, phase_split=split)
+        for split in (False, True)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p0 = ft.init_params(gen, cfgs[False], dev)
+    outs = {}
+    for split, cfg in cfgs.items():
+        st = ft.TrainState(p0, 0)
+        for _ in range(3):
+            idx = torch.tensor(
+                np.stack([rng.integers(0, d, 512) for d in dims], 1),
+                dtype=torch.int32, device=dev)
+            val = torch.tensor(rng.normal(size=512), dtype=torch.float32,
+                               device=dev)
+            st = ft.sgd_step_batch(st, idx, val, cfg)
+        outs[split] = st.params
+        rng = np.random.default_rng(1)
+    for x, y in zip(outs[False].factors + outs[False].core_factors,
+                    outs[True].factors + outs[True].core_factors):
+        assert torch.equal(x, y)
 
 
 def test_step_cuda_matches_torch_on_card(dev):

@@ -4,10 +4,12 @@
   carry on on the CPU unasked.
 * ``build.py`` forms the ``nvcc`` command for ``sm_90a`` into the
   gitignored ``build/kernels/`` (the command is not run here).
-* The CUDA wrappers raise on the phase flags the kernel does not take, and
-  on any tensor that is neither on the CPU nor on a CUDA card (``meta``
-  tensors stand in for the card here): no silent plain-path fallback.
-* ``FastTuckerConfig`` raises on the options still to be ported.
+* The CUDA wrappers raise on any tensor that is neither on the CPU nor on
+  a CUDA card (``meta`` tensors stand in for the card here), whatever the
+  phase flags: no silent plain-path fallback.
+* ``FastTuckerConfig`` takes the ported step options and raises on the
+  rest (the sketched warm start, an accumulation dtype other than f32,
+  unknown names).
 """
 from pathlib import Path
 
@@ -18,7 +20,7 @@ from repro_torch.core import fasttucker as ft
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (build, kruskal_contract, kruskal_grad,
-                                 scatter_accum)
+                                 scatter_accum, segment_reduce)
 from repro_torch.launch import std_train
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -69,12 +71,24 @@ def _meta(*shape, dtype=torch.float32):
     {"c": "cached"}, {"emit_c": True}, {"row_modes": (1,)},
     {"row_modes": ()}, {"want_core": False}])
 def test_grad_kernel_raises_on_phase_flags(flags):
+    """Every phase flag is the kernel's own now: off the CPU and off a card
+    the wrapper raises the no-fallback error, not NotImplementedError."""
     a, b = _meta(3, 8, 4), _meta(3, 4, 4)
     v, s = _meta(8), _meta(5)
     if "c" in flags:
         flags = {"c": _meta(3, 8, 4)}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA"):
         kruskal_grad.kruskal_grad(a, b, v, v, s, **flags)
+
+
+def test_row_mode_code_packs_an_ordered_list():
+    assert kruskal_grad.row_mode_code(3, None) == 3 | 0 << 4 | 1 << 8 | 2 << 12
+    assert kruskal_grad.row_mode_code(3, ()) == 0
+    assert kruskal_grad.row_mode_code(4, (2, 0)) == 2 | 2 << 4 | 0 << 8
+    assert kruskal_grad.row_mode_code(10, (9,)) == 1 | 9 << 4
+    for bad in ((3,), (-1,), (0,) * 11):
+        with pytest.raises(ValueError, match="row_modes"):
+            kruskal_grad.row_mode_code(3, bad)
 
 
 def test_wrappers_refuse_non_cuda_devices_instead_of_falling_back():
@@ -86,15 +100,33 @@ def test_wrappers_refuse_non_cuda_devices_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         scatter_accum.scatter_accum(_meta(8, 4),
                                     _meta(8, dtype=torch.int32), 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_reduce.segment_reduce(_meta(8, 4),
+                                      _meta(8, dtype=torch.int32), 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        kruskal_contract.kruskal_contract(_meta(3, 8, 4, dtype=torch.bfloat16),
+                                          _meta(3, 4, 4, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("option", [
-    {"update_order": "gauss_seidel"}, {"phase_split": True},
-    {"sorted_batches": True}, {"dtype": "bfloat16"}, {"init": "sketched"}])
+    {"init": "sketched"}, {"accum_dtype": "bfloat16"}, {"dtype": "float16"},
+    {"update_order": "gauss_southwell"},
+    {"init": "sketched", "sorted_batches": True}])
 def test_config_raises_on_options_not_ported(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Only the sketched start is still to port; the reference itself
+    refuses the other values."""
+    exc = NotImplementedError if "init" in option else ValueError
+    with pytest.raises(exc, match=next(iter(option))):
         ft.FastTuckerConfig(dims=(5, 4, 3), ranks=(2, 2, 2), core_rank=2,
                             **option)
+
+
+def test_config_accepts_the_ported_step_options():
+    cfg = ft.FastTuckerConfig(dims=(5, 4, 3), ranks=(2, 2, 2), core_rank=2,
+                              update_order="gauss_seidel", phase_split=True,
+                              sorted_batches=True, dtype="bfloat16",
+                              accum_dtype="float32")
+    assert cfg.param_dtype == torch.bfloat16 and cfg.order == 3
 
 
 def test_config_resolves_backend(monkeypatch):
