@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastTucker on one CUDA card and check it.
 
-    python3 chip_smoke.py [--steps 600] [--nnz 99072112] [--report PATH]
+    python3 chip_smoke.py [--steps 600] [--nnz 99072112] [--lm-layers 40]
+                          [--report PATH]
 
 Phases (each failure ends the run with a non-zero exit code):
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch and
-   nvcc versions, and the parallel ``nvcc`` build of the four kernels
+   nvcc versions, and the parallel ``nvcc`` build of the six kernels
    from ``src/repro_torch/kernels/csrc`` (with ptxas' register report).
 2. Each kernel against its plain PyTorch version on the card, over
    N ∈ {3, 4}, J = R ∈ {4, 16, 32}, B ∈ {4096, 4099, 262144}, with masked
@@ -37,6 +38,28 @@ Phases (each failure ends the run with a non-zero exit code):
    factor-phase, core-phase, Gauss–Seidel and bf16 variants.
 6. ``torch.profiler`` traces of steady training steps of each of the three
    paths: device time per kernel and the device's busy share.
+7. The LM's two kernels against their plain versions at the serving
+   path's shapes: ``tucker_matmul`` for M ∈ {8192, 4, 8191}, both FFN
+   directions (5120 → 17408 and back), x in bf16 and f32 against f32
+   factors, ragged K and N at M = 8191; ``flash_attention`` at B·H = 160
+   heads over 32 KV heads (G = 5), D = 128, S ∈ {2048, 2047}, causal and
+   not, with ``kv_len < Sk`` and ``q_offset > 0``.
+8. LM serving at full width: ``repro_torch.launch.serve.run`` on
+   Qwen3-14B with every FFN Tucker-compressed at rank 512, ``--lm-layers``
+   layers (the published 40 by default; a cut is printed), batch 4, a
+   2048-token prompt, 32 greedy tokens, random weights drawn on the card.
+   A warm-up request first, then the measured one: prefill seconds,
+   decode tokens/s, peak device bytes, finite logits, and launch counts
+   that must be 3·L ``tucker_matmul`` per forward call and L
+   ``flash_attention`` per prefill.  ``torch.profiler`` traces of one
+   prefill and of three decode steps: device time per kernel, device
+   operations and the busy share of each window.
+9. LM parity at full width and 2 layers (batch 2, prompt 2048, 4 decode
+   steps on the same fed tokens): ``"cuda"`` against ``"torch"`` from the
+   same weights, prefill and decode logits.
+10. The LM kernels' times at the path's shapes, as in phase 5, beside
+   their bounds, their plain versions and one library call each (three
+   ``torch.matmul``; ``scaled_dot_product_attention`` in f32).
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
@@ -45,6 +68,7 @@ record there as JSON.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -68,14 +92,25 @@ TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     "segment_reduce": 0.0,       # ordered fold, no atomics: exact
     "trajectory": 1e-4,          # 20 steps, each op within the above
     "trajectory.bf16": 2.0 ** -6,  # four bf16 ulps (2^-8) at the max
+    "tucker_matmul": 5e-4,       # f32 sums over K <= 17408 in another order
+    "flash_attention": 2e-5,     # online against dense softmax, f32
+    # bf16 logits: the residual stream rounds to bf16 after every sublayer,
+    # so last-bit f32 differences flip roundings; a few ulps of the max
+    "lm.logits": 2.0 ** -5,
 }
+LM_RANK = 512        # the largest rank tucker_matmul.py designs for
+LM_SERVE = dict(batch=4, prompt_len=2048, gen=32)
+LM_PARITY = dict(layers=2, batch=2, prompt_len=2048, gen=4)
 BF16_BAND = (1.6, 0.02)  # bf16 RMSE <= 1.6·f32 + 0.02 (the reference's band)
 REPLACES = {
     "kruskal_contract": "src/repro/kernels/kruskal_contract.py:30",
     "kruskal_grad": "src/repro/kernels/kruskal_grad.py:83",
     "scatter_accum": "src/repro/kernels/scatter_accum.py:26",
     "segment_reduce": "src/repro/kernels/segment_reduce.py:34",
+    "tucker_matmul": "src/repro/kernels/tucker_matmul.py:26",
+    "flash_attention": "src/repro/kernels/flash_attention.py:28",
 }
+LM_KERNELS = ("tucker_matmul", "flash_attention")
 FLAGS = [
     # (consume c, row_modes, want_core, emit_c) of kruskal_grad
     (False, None, True, False),     # the joint pass
@@ -166,7 +201,9 @@ def phase_kernels_vs_plain(torch, K) -> dict:
     sr = K.segment_reduce.segment_reduce
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    worst = {k: [0.0, 0.0] for k in TOL if not k.startswith("trajectory")}
+    worst = {k: [0.0, 0.0] for k in TOL
+             if k.split(".")[0] in ("kruskal_contract", "kruskal_grad",
+                                    "scatter_accum", "segment_reduce")}
 
     def record(key, got, want, what):
         e, r = rel_err(got, want)
@@ -410,20 +447,36 @@ def phase_parity(torch, ft, res) -> dict:
 # phase 5
 # ---------------------------------------------------------------------------
 
+def host_ms(torch, fn, iters: int = 20) -> float:
+    """Host time to issue one ``fn()`` call, in ms (the device drained
+    before and after; a call that waits for the device includes that)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def device_ms(torch, fn, iters: int = 100) -> float:
     """Median device time of one ``fn()`` call, in ms.
 
-    All calls and their event pairs are queued behind a device-side sleep,
-    so the card runs them back to back and an event pair spans only the
-    call's own kernels, not the host's launch latency (unless ``fn``
-    itself waits for the device, as the plain ``segment_reduce`` does).
+    All calls and their event pairs are queued behind a device-side sleep
+    long enough to cover the host's time to issue them all (twice the
+    measured issue time, at least ~0.1 s), so the card runs them back to
+    back and an event pair spans only the call's own kernels, not the
+    host's launch latency (unless ``fn`` itself waits for the device, as
+    the plain ``segment_reduce`` does).
     """
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     evs = [(torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(200_000_000)  # ~0.1 s of device cycles
+    issue_s = host_ms(torch, fn, 5) * 1e-3 * iters
+    torch.cuda._sleep(int(min(max(2e8, 2 * issue_s * 2e9), 4e10)))
     for s, e in evs:
         s.record()
         fn()
@@ -628,12 +681,366 @@ def phase_profile(torch, ft, res, cfg, steps: int = 50) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+def _tucker_inputs(torch, gen, M, K, N, xdt, R=LM_RANK):
+    """x (M, K) and f32 factors scaled like the model's init."""
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+    u1 = torch.randn((K, R), generator=gen, device=dev) / math.sqrt(K)
+    g = torch.randn((R, R), generator=gen, device=dev) / math.sqrt(R)
+    u2 = torch.randn((N, R), generator=gen, device=dev) / math.sqrt(N)
+    return x, u1, g, u2
+
+
+def _flash_inputs(torch, gen, Sq, Sk, B=4, H=40, Hk=8, D=128):
+    dev = torch.device("cuda")
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev)
+    k = torch.randn((B, Sk, Hk, D), generator=gen, device=dev)
+    v = torch.randn((B, Sk, Hk, D), generator=gen, device=dev)
+    return q, k, v
+
+
+def phase_lm_kernels_vs_plain(torch, K, cfg) -> dict:
+    ref = K.ref
+    tm = K.tucker_matmul.tucker_matmul
+    fa = K.flash_attention.flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    worst = {k: [0.0, 0.0] for k in LM_KERNELS}
+
+    def record(key, got, want, what):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{key} {what}: {got.dtype} "
+                                 f"{tuple(got.shape)} against the plain "
+                                 f"version's {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        e, r = rel_err(got, want)
+        worst[key][0] = max(worst[key][0], e)
+        worst[key][1] = max(worst[key][1], r)
+        log(f"  {key} {what}: max abs err {e:.3g}, relative {r:.3g}")
+        if not r <= TOL[key]:
+            raise AssertionError(f"{key} {what}: max abs err {e:.3g}, "
+                                 f"relative {r:.3g} > {TOL[key]}")
+
+    d, f = cfg.d_model, cfg.d_ff
+    for M in (8192, 4, 8191):
+        for name, (Kd, N) in (("up/gate", (d, f)), ("down", (f, d))):
+            if M == 8191:                      # ragged K and N as well
+                Kd, N = Kd - 1, N - 3
+            for xdt in (torch.bfloat16, torch.float32):
+                x, u1, g, u2 = _tucker_inputs(torch, gen, M, Kd, N, xdt)
+                record("tucker_matmul", tm(x, u1, g, u2),
+                       ref.tucker_matmul_ref(x, u1, g, u2),
+                       f"{name} M={M} K={Kd} N={N} x {str(xdt)[6:]}")
+    cases = [  # (Sq, Sk, causal, kv_len, q_offset)
+        (2048, 2048, True, 2048, 0),     # the no-cache forward
+        (2048, 2080, True, 2048, 0),     # prefill into the serving cache
+        (2047, 2047, False, 2047, 0),
+        (2047, 2080, True, 2064, 17),    # a chunk behind 17 cached keys
+        (2047, 2080, False, 1999, 17),
+    ]
+    for Sq, Sk, causal, kv_len, q_offset in cases:
+        q, k, v = _flash_inputs(torch, gen, Sq, Sk)
+        record("flash_attention",
+               fa(q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset),
+               ref.flash_attention_ref(q, k, v, causal, kv_len=kv_len,
+                                       q_offset=q_offset),
+               f"B*H=160 G=5 Sq={Sq} Sk={Sk} causal={causal} "
+               f"kv_len={kv_len} q_offset={q_offset}")
+        del q, k, v
+    torch.cuda.synchronize()
+    for key, (e, r) in worst.items():
+        log(f"{key}: max abs err {e:.3g}, max relative err {r:.3g} "
+            f"(tolerance {TOL[key]})")
+    return {k: {"max_abs_err": e, "max_rel_err": r, "tol": TOL[k]}
+            for k, (e, r) in worst.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+def phase_lm_serve(torch, K, serve, cfg) -> dict:
+    from repro_torch.models import init_model
+
+    if cfg.num_layers != 40:
+        log(f"CUT: {cfg.num_layers} layers instead of Qwen3-14B's 40")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"LM: qwen3_14b, tucker_rank {cfg.tucker_rank}, {cfg.num_layers} "
+        f"layers, {n_params:,} f32 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    warm = serve.run(cfg, batch=LM_SERVE["batch"],
+                     prompt_len=LM_SERVE["prompt_len"], gen=2, seed=1,
+                     device="cuda", backend="cuda", params=params)
+    log(f"LM warm-up request: prefill {warm['prefill_seconds']:.3f}s")
+    del warm
+    K.reset_launch_counts()
+    res = serve.run(cfg, **LM_SERVE, seed=0, device="cuda", backend="cuda",
+                    params=params)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    L, G = cfg.num_layers, LM_SERVE["gen"]
+    want = {"tucker_matmul": 3 * L * G, "flash_attention": L}
+    log(f"LM serve: batch {LM_SERVE['batch']}, prompt "
+        f"{LM_SERVE['prompt_len']}, {G} tokens: prefill "
+        f"{res['prefill_seconds']:.4f}s, decode "
+        f"{res['decode_tokens_per_s']:.2f} tokens/s "
+        f"({res['decode_seconds']:.4f}s for {G - 1} steps), peak device "
+        f"bytes {res['peak_device_bytes']:,}, logits finite "
+        f"{res['finite']}")
+    log(f"LM serve: sample generation {res['generated'][0].tolist()}")
+    log(f"LM serve: launch counts {counts} (want {want}: 3·L per forward "
+        f"call × {G} calls, L per prefill)")
+    if not res["finite"]:
+        raise AssertionError("LM serve: non-finite prefill logits")
+    if res["generated"].shape != (LM_SERVE["batch"], G):
+        raise AssertionError(f"LM serve: generated {res['generated'].shape}")
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"LM serve: {k} launched {counts[k]} "
+                                 f"times, want {n}")
+    for k in REPLACES:
+        if k not in want and counts[k] != 0:
+            raise AssertionError(f"LM serve: launched {k}, which the LM "
+                                 "path does not use")
+    prof = phase_lm_profile(torch, serve, cfg, params)
+    out = {k: res[k] for k in ("init_seconds", "prefill_seconds",
+                               "decode_seconds", "decode_tokens_per_s",
+                               "peak_device_bytes", "finite")}
+    out.update(layers=L, tucker_rank=cfg.tucker_rank, params=n_params,
+               launch_counts=counts, profile=prof,
+               generated=res["generated"].tolist())
+    del params, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_window(torch, fn) -> tuple[float, dict]:
+    """(wall seconds, {device op name: [calls, us]}) of ``fn()`` under the
+    profiler, closed by a device synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels: dict = {}
+    for ev in prof.events():
+        if "CUDA" in str(ev.device_type):   # a kernel or copy on the card
+            kernels.setdefault(ev.name, [0, 0.0])
+            kernels[ev.name][0] += 1
+            kernels[ev.name][1] += ev.time_range.elapsed_us()
+    return wall, kernels
+
+
+def phase_lm_profile(torch, serve, cfg, params, steps: int = 3) -> dict:
+    """One prefill, then ``steps`` decode steps, each window profiled."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_cache
+
+    B, P = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    caches = init_cache(cfg, B, P + steps + 1, dtype=torch.float32,
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda")
+    prefill = S.make_prefill_step(cfg, "cuda")
+    decode = S.make_decode_step(cfg, "cuda")
+    state = {}
+
+    def run_prefill():
+        last, state["caches"] = prefill(params, {"tokens": prompts}, caches)
+        state["tok"] = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+
+    def run_decode():
+        tok, c, index = state["tok"], state["caches"], P
+        for _ in range(steps):
+            tok, c, index = decode(params, c, index, {"tokens": tok})
+
+    out = {}
+    for name, fn, n in (("prefill", run_prefill, 1),
+                        ("decode", run_decode, steps)):
+        wall, kernels = _profile_window(torch, fn)
+        if not kernels:
+            log(f"LM profile [{name}]: the profiler recorded no device "
+                "time (not measured)")
+            out[name] = {"measured": False, "wall_ms": wall * 1e3 / n}
+            continue
+        busy = sum(v[1] for v in kernels.values())
+        ops = sum(v[0] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+        log(f"LM profile [{name}]: {n} call(s), {wall * 1e3 / n:.2f} ms "
+            f"wall per call under the profiler; device busy "
+            f"{busy / 1e3 / n:.2f} ms per call = {busy / (wall * 1e6):.1%} "
+            f"of wall; {ops / n:.0f} device operations per call")
+        for kname, (cnt, us) in top:
+            log(f"  {us / 1e3 / n:9.3f} ms/call  {cnt / n:7.1f}/call  "
+                f"{kname[:90]}")
+        out[name] = {"measured": True, "calls": n,
+                     "wall_ms_per_call": wall * 1e3 / n,
+                     "device_busy_ms_per_call": busy / 1e3 / n,
+                     "device_ops_per_call": ops / n,
+                     "top_kernels": [{"name": k, "per_call": c / n,
+                                      "ms_per_call": us / 1e3 / n}
+                                     for k, (c, us) in top]}
+    del caches, state
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+def phase_lm_parity(torch, cfg) -> dict:
+    from repro_torch.models import decode_step, init_cache, init_model
+
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_PARITY["layers"])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = init_model(cfg2, gen, "cuda")
+    B, P, G = LM_PARITY["batch"], LM_PARITY["prompt_len"], LM_PARITY["gen"]
+    prompts = torch.randint(0, cfg2.vocab_size, (B, P), generator=gen,
+                            device="cuda")
+    caches = {bk: init_cache(cfg2, B, P + G, dtype=torch.float32,
+                             device="cuda") for bk in ("cuda", "torch")}
+    out = {"prefill": None, "decode": [], "tokens_agree": []}
+    logits = {bk: decode_step(params, cfg2, {"tokens": prompts}, caches[bk],
+                              0, backend=bk)[0] for bk in caches}
+    worst = 0.0
+    e, r = rel_err(logits["cuda"], logits["torch"])
+    out["prefill"] = {"max_abs_diff": e, "max_rel_diff": r}
+    worst = max(worst, r)
+    log(f"LM parity prefill ({cfg2.num_layers} layers, batch {B}, prompt "
+        f"{P}): cuda vs torch logits max abs diff {e:.4g}, relative "
+        f"{r:.4g} (tolerance {TOL['lm.logits']:.4g})")
+    for i in range(G):
+        toks = {bk: l[:, -1].float().argmax(-1) for bk, l in logits.items()}
+        agree = bool(torch.equal(toks["cuda"], toks["torch"]))
+        out["tokens_agree"].append(agree)
+        fed = toks["cuda"].to(torch.int32)[:, None]   # both get the same
+        logits = {bk: decode_step(params, cfg2, {"tokens": fed}, caches[bk],
+                                  P + i, backend=bk)[0] for bk in caches}
+        e, r = rel_err(logits["cuda"], logits["torch"])
+        worst = max(worst, r)
+        out["decode"].append({"max_abs_diff": e, "max_rel_diff": r})
+        log(f"LM parity decode step {i}: max abs diff {e:.4g}, relative "
+            f"{r:.4g}; greedy tokens before it agree: {agree}")
+    torch.cuda.synchronize()
+    for l in logits.values():
+        if not torch.isfinite(l).all():
+            raise AssertionError("LM parity: non-finite logits")
+    if not worst <= TOL["lm.logits"]:
+        raise AssertionError(f"LM parity: cuda vs torch logits differ by "
+                             f"{worst:.4g} of the largest")
+    out["max_rel_diff"] = worst
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+def phase_lm_times(torch, K, cfg) -> list[dict]:
+    import torch.nn.functional as F
+
+    ref = K.ref
+    tm = K.tucker_matmul.tucker_matmul
+    fa = K.flash_attention.flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    d, f = cfg.d_model, cfg.d_ff
+    R = cfg.tucker_rank
+    B, P = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    rows = []
+    # tucker_matmul: prefill M = B·P first (the row the kernels line takes)
+    variants = [
+        ("prefill up/gate, x bf16", B * P, d, f, torch.bfloat16,
+         "2 per layer per forward call"),
+        ("prefill down, x f32", B * P, f, d, torch.float32,
+         "1 per layer per forward call"),
+        ("decode up/gate, x bf16", B, d, f, torch.bfloat16,
+         "2 per layer per decode step"),
+        ("decode down, x f32", B, f, d, torch.float32,
+         "1 per layer per decode step"),
+    ]
+    for tag, M, Kd, N, xdt, per in variants:
+        x, u1, g, u2 = _tucker_inputs(torch, gen, M, Kd, N, xdt, R)
+        x32 = x.float()
+        it = 30 if M > 64 else 200
+        calls = (lambda: tm(x, u1, g, u2),
+                 lambda: ref.tucker_matmul_ref(x, u1, g, u2),
+                 lambda: torch.matmul(torch.matmul(torch.matmul(x32, u1), g),
+                                      u2.T))
+        ms, plain, lib = (device_ms(torch, c, iters=it) for c in calls)
+        host = tuple(host_ms(torch, c) for c in calls)
+        nbytes = x.element_size() * M * Kd + 4 * (Kd * R + R * R + N * R) \
+            + 4 * M * N
+        t_b, by = bound(nbytes, 2 * M * (Kd * R + R * R + R * N))
+        rows.append(("tucker_matmul", tag, ms, plain, lib, t_b, by, per,
+                     host))
+        del x, x32, u1, g, u2
+    # flash_attention: the prefill call (B·H = 160, G = 5, into the cache)
+    Sk = P + LM_SERVE["gen"]
+    q, k, v = _flash_inputs(torch, gen, P, Sk, B=B, H=cfg.num_heads,
+                            Hk=cfg.num_kv_heads, D=cfg.head_dim)
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kernel_call = lambda: fa(q, k, v, causal=True, kv_len=P)  # noqa: E731
+    plain_call = lambda: ref.flash_attention_ref(  # noqa: E731
+        q, k, v, True, kv_len=P)
+    ms = device_ms(torch, kernel_call, iters=30)
+    plain = device_ms(torch, plain_call, iters=10)
+    host = (host_ms(torch, kernel_call), host_ms(torch, plain_call, 5), None)
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :P].transpose(1, 2) for t in (k, v))
+    try:
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=30)
+    except TypeError as exc:   # a torch without enable_gqa
+        log(f"scaled_dot_product_attention(enable_gqa=True): {exc}")
+        lib = None
+    pairs = P * (P + 1) // 2          # causal (i, j ≤ i), all below kv_len
+    nbytes = 4 * (2 * B * P * H * D + 2 * B * P * Hk * D)
+    t_b, by = bound(nbytes, 4 * D * pairs * B * H)
+    rows.append(("flash_attention", f"prefill B={B} H={H} Kv={Hk} S={P} "
+                 f"D={D} causal, cache {Sk}", ms, plain, lib, t_b, by,
+                 "1 per layer per prefill", host))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    out = []
+    for name, tag, ms, plain, lib, t_b, by, per, host in rows:
+        log(f"{name} [{tag}]: {ms:.4f} ms/call (plain {plain:.4f} ms"
+            + (f", library {lib:.4f} ms" if lib is not None else "")
+            + f"), bound {t_b:.4f} ms by {by} "
+            f"({t_b / ms:.1%} of it); {per}; host time to issue one call: "
+            + ", ".join(f"{k} {h:.4f} ms" for k, h in
+                        zip(("kernel", "plain", "library"), host)
+                        if h is not None))
+        out.append({"name": name, "variant": tag, "ms": ms,
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": t_b,
+                    "bound_by": by, "launches_note": per,
+                    "host_ms": {"kernel": host[0], "plain": host[1],
+                                "library": host[2]}})
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--nnz", type=int, default=NETFLIX_NNZ,
                     help="nonzeros of the Netflix-shaped tensor (a cut is "
+                         "printed)")
+    ap.add_argument("--lm-layers", type=int, default=40,
+                    help="layers of the served Qwen3-14B (a cut is "
                          "printed)")
     ap.add_argument("--report", default="",
                     help="also write the full record as JSON to this path")
@@ -648,8 +1055,9 @@ def main(argv: list[str] | None = None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels as K
     from repro_torch.core import fasttucker as ft
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.launch import std_train
+    from repro_torch.launch import serve, std_train
 
     t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
@@ -675,15 +1083,28 @@ def main(argv: list[str] | None = None) -> int:
         name: phase_profile(torch, ft, paths[name]["result"],
                             paths[name]["result"]["cfg"])
         for name in PATHS}
+    lm_cfg = dataclasses.replace(get_config("qwen3_14b"),
+                                 tucker_rank=LM_RANK,
+                                 num_layers=args.lm_layers)
+    report["lm_kernels_vs_plain"] = phase_lm_kernels_vs_plain(torch, K,
+                                                              lm_cfg)
+    report["lm_serve"] = phase_lm_serve(torch, K, serve, lm_cfg)
+    for k in LM_KERNELS:
+        counts[k] = report["lm_serve"]["launch_counts"][k]
+    report["lm_parity"] = phase_lm_parity(torch, lm_cfg)
+    times += phase_lm_times(torch, K, lm_cfg)
     report["seconds"] = time.perf_counter() - t_start
 
     errs = report["kernels_vs_plain"]
+    lm_errs = report["lm_kernels_vs_plain"]
     max_err = {
         "kruskal_contract": errs["kruskal_contract"]["max_abs_err"],
         "kruskal_grad": max(errs["kruskal_grad.rows"]["max_abs_err"],
                             errs["kruskal_grad.core"]["max_abs_err"]),
         "scatter_accum": errs["scatter_accum"]["max_abs_err"],
         "segment_reduce": errs["segment_reduce"]["max_abs_err"],
+        "tucker_matmul": lm_errs["tucker_matmul"]["max_abs_err"],
+        "flash_attention": lm_errs["flash_attention"]["max_abs_err"],
     }
     kernels = []
     for name in sorted(REPLACES):
@@ -700,7 +1121,8 @@ def main(argv: list[str] | None = None) -> int:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(report, indent=1, default=str))
-    log(f"launches over the three paths: {counts}")
+    log(f"launches on the main paths (the three training paths; the LM "
+        f"serve for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -9,6 +9,8 @@ Layout (counterparts of ``repro.kernels``):
     kruskal_grad.py      fused forward + Eq. 13/17 gradient pass
     scatter_accum.py     factor-row scatter of unsorted row gradients
     segment_reduce.py    factor-row scatter of mode-sorted row gradients
+    tucker_matmul.py     Tucker-2 factorized linear layer (the LM's FFNs)
+    flash_attention.py   online-softmax attention forward (the LM's prefill)
     ref.py               plain PyTorch versions of every kernel (oracles)
     build.py             nvcc build (sm_90a) + ctypes loading of csrc/*.cu
     csrc/                the CUDA C++ sources
@@ -18,12 +20,13 @@ Each kernel wrapper counts its launches in a plain integer attribute
 its CUDA kernel; ``launch_counts`` reads them all and
 ``reset_launch_counts`` sets them to 0.
 """
-from . import (dispatch, kruskal_contract, kruskal_grad, ref, scatter_accum,
-               segment_reduce)
+from . import (dispatch, flash_attention, kruskal_contract, kruskal_grad, ref,
+               scatter_accum, segment_reduce, tucker_matmul)
 from .dispatch import get_backend
 
 KERNELS = (kruskal_contract.kruskal_contract, kruskal_grad.kruskal_grad,
-           scatter_accum.scatter_accum, segment_reduce.segment_reduce)
+           scatter_accum.scatter_accum, segment_reduce.segment_reduce,
+           tucker_matmul.tucker_matmul, flash_attention.flash_attention)
 
 
 def launch_counts() -> dict[str, int]:

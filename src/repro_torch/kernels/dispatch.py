@@ -3,8 +3,8 @@
     ``"torch"``  plain PyTorch ops; the numerics oracle (the reference's
                  ``"xla"`` backend); runs on any device
     ``"cuda"``   the hand-written CUDA kernels (``kruskal_contract``,
-                 ``kruskal_grad``, ``scatter_accum``, ``segment_reduce``);
-                 the default.  On CPU
+                 ``kruskal_grad``, ``scatter_accum``, ``segment_reduce``,
+                 ``tucker_matmul``, ``flash_attention``); the default.  On CPU
                  tensors each kernel wrapper computes its plain version,
                  so this backend is testable on the CPU the way the
                  reference's ``"pallas_interpret"`` is; on CUDA tensors it
@@ -22,8 +22,10 @@ to every dot product and get zero gradients.
 
 Ops per backend: ``kruskal_contract``, ``kruskal_grad`` (every phase flag),
 ``scatter_accum`` (unsorted batches), ``segment_reduce`` (mode-sorted
-batches, ``core.sampling.sorted_batch_order``) and ``mode_dot`` (a plain
-matmul on both).  Rows and factors may be stored in bf16; every dot,
+batches, ``core.sampling.sorted_batch_order``), ``mode_dot`` (a plain
+matmul on both), and the LM's ``tucker_matmul`` (Tucker-2 factorized
+linear) and ``flash_attention`` (softmax attention of the model's
+(B, S, H, D) layout with grouped KV heads, ``q_offset`` and ``kv_len``).  Rows and factors may be stored in bf16; every dot,
 residual and gradient is f32, the only accumulation dtype the reference's
 config takes.
 """
@@ -183,6 +185,19 @@ class TorchBackend:
 
         return segment_reduce_ref(grads, idx, num_rows)
 
+    def tucker_matmul(self, x, u1, g, u2) -> torch.Tensor:
+        from .ref import tucker_matmul_ref
+
+        return tucker_matmul_ref(x, u1, g, u2)
+
+    def flash_attention(self, q, k, v, *, causal: bool = True,
+                        kv_len: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+        from .ref import flash_attention_ref
+
+        return flash_attention_ref(q, k, v, causal, kv_len=kv_len,
+                                   q_offset=q_offset)
+
 
 # ---------------------------------------------------------------------------
 # "cuda" — the hand-written kernels
@@ -315,6 +330,19 @@ class CudaBackend:
 
         return sr(grads.contiguous(), idx.to(torch.int32).contiguous(),
                   num_rows)
+
+    def tucker_matmul(self, x, u1, g, u2) -> torch.Tensor:
+        from .tucker_matmul import tucker_matmul as tm
+
+        return tm(x.contiguous(), u1.contiguous(), g.contiguous(),
+                  u2.contiguous())
+
+    def flash_attention(self, q, k, v, *, causal: bool = True,
+                        kv_len: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+        from .flash_attention import flash_attention as fa
+
+        return fa(q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,104 @@
+"""Flash-attention forward: CUDA kernel wrapper, launch count, plain path.
+
+Replaces ``src/repro/kernels/flash_attention.py::flash_attention_fwd`` (a
+Pallas TPU kernel).  The kernel is ``csrc/flash_attention.cu``: the online
+softmax over 64-key tiles with an f32 accumulator, causal or not, keys at or
+past ``kv_len`` masked, scale 1/sqrt(D); its source note gives its bound on
+the card.  It takes the Pallas layout (BH, S, D) and the model's layout
+(B, S, H, D), with grouped key/value heads read in place (query head h
+reads head h // G) and a ``q_offset`` for prefill into a cache.  Any
+strides with D contiguous are read as they are: a KV cache slice is not
+copied.  On CPU tensors the wrapper computes the plain version
+(``ref.flash_attention_ref``); on CUDA tensors it launches the kernel or
+raises — it never falls back.  f32 only; D in {16, 32, 64, 128}.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+from .ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _as_4d(t: torch.Tensor) -> torch.Tensor:
+    """(BH, S, D) -> the (1, S, BH, D) view; (B, S, H, D) as it is."""
+    return t.transpose(0, 1).unsqueeze(0) if t.dim() == 3 else t
+
+
+def _check(q, k, v, kv_len, q_offset) -> None:
+    if any(t.device.type != "cuda" or t.device != q.device
+           for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention: the CUDA kernel takes CUDA tensors on one "
+            f"device, got {[str(t.device) for t in (q, k, v)]}")
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise TypeError("flash_attention: the kernel takes float32 q, k, v "
+                        f"(bf16 inputs are not ported), got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not (q.dim() == k.dim() == v.dim() and q.dim() in (3, 4)):
+        raise ValueError("flash_attention: q, k, v must all be (BH, S, D) "
+                         "or all (B, S, H, D)")
+    q4, k4, v4 = _as_4d(q), _as_4d(k), _as_4d(v)
+    B, Sq, H, D = q4.shape
+    Sk, Hk = k4.shape[1], k4.shape[2]
+    if k4.shape != v4.shape or k4.shape[0] != B or k4.shape[3] != D:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes D in "
+                         f"{HEAD_DIMS}, got {D}")
+    if H % Hk:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {Hk} key/value heads")
+    if not 1 <= kv_len <= Sk or q_offset < 0:
+        raise ValueError(f"flash_attention: kv_len {kv_len} outside "
+                         f"[1, {Sk}] or q_offset {q_offset} < 0")
+    if any(t.stride(3) != 1 for t in (q4, k4, v4)):
+        raise ValueError("flash_attention: the head dimension D must be "
+                         "contiguous")
+    if max(B, H) > 65535 or max(Sq, Sk) >= 2 ** 31:
+        raise ValueError("flash_attention: sizes out of range")
+
+
+def flash_attention(
+    q: torch.Tensor,   # (BH, Sq, D) or (B, Sq, H, D)
+    k: torch.Tensor,   # (BH/G, Sk, D) or (B, Sk, H/G, D)
+    v: torch.Tensor,   # like k
+    *,
+    causal: bool = True,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Softmax attention with an online softmax -> q's shape, f32."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, kv_len=kv_len,
+                                   q_offset=q_offset)
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    _check(q, k, v, kv_len, q_offset)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    q4, k4, v4, o4 = _as_4d(q), _as_4d(k), _as_4d(v), _as_4d(out)
+    B, Sq, H, D = q4.shape
+    Sk, Hk = k4.shape[1], k4.shape[2]
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
+    fn = build.function(
+        "flash_attention", "flash_attention_f32",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check("flash_attention", fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, H, Hk, D, strides, kv_len, int(q_offset),
+            int(causal), 1.0 / math.sqrt(D), stream))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

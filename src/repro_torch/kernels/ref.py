@@ -14,6 +14,8 @@ two bf16 tensors would round its result to bf16).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.kruskal import exclusive_products
@@ -134,3 +136,61 @@ def segment_reduce_ref(
     for sel in torch.split(order, counts):
         out.index_add_(0, target[sel], grads[sel])
     return out[:num_rows]
+
+
+def tucker_matmul_ref(
+    x: torch.Tensor,   # (M, K)
+    u1: torch.Tensor,  # (K, R1)
+    g: torch.Tensor,   # (R1, R2)
+    u2: torch.Tensor,  # (N, R2)
+) -> torch.Tensor:
+    """y = ((x U1) G) U2ᵀ — Tucker-2 factorized linear layer.
+
+    Every product runs in f32 and the result is cast to the promoted dtype
+    of the four inputs, as the kernel (and the Pallas kernel, whose
+    intermediates live in f32 scratch) computes it.  When that dtype is f32
+    — the LM's mix of bf16 or f32 activations with f32 factors — this is
+    the reference's ``((x @ u1) @ g) @ u2.T`` under JAX's promotion.
+    """
+    out = torch.promote_types(torch.promote_types(x.dtype, u1.dtype),
+                              torch.promote_types(g.dtype, u2.dtype))
+    y = ((x.float() @ u1.float()) @ g.float()) @ u2.float().T
+    return y.to(out)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,   # (BH, Sq, D) or (B, Sq, H, D)
+    k: torch.Tensor,   # (BH/G, Sk, D) or (B, Sk, H/G, D)
+    v: torch.Tensor,   # like k
+    causal: bool = True,
+    *,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Dense-softmax oracle of the flash-attention kernel.
+
+    The reference's ``flash_attention_ref`` (logits / sqrt(D), masked to
+    −1e30, softmax in f32, probabilities cast to v's dtype) with the
+    kernel's two extensions: query head h reads key/value head h // G
+    (G = H / H_kv, no copies), query i sits at position ``q_offset + i``,
+    and keys at or past ``kv_len`` (default Sk) are masked.  3-D inputs
+    are the Pallas layout (batch·heads flattened), the case B = 1.
+    """
+    if q.dim() == 3:
+        out = flash_attention_ref(
+            *(t.transpose(0, 1).unsqueeze(0) for t in (q, k, v)), causal,
+            kv_len=kv_len, q_offset=q_offset)
+        return out[0].transpose(0, 1)
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hk, H // Hk, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(D)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = (k_pos < (Sk if kv_len is None else kv_len))[None, :]
+    if causal:
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits.float(), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, v.shape[-1])

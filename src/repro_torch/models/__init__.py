@@ -1,0 +1,19 @@
+"""The LM stack: dense GQA models with dense or Tucker-compressed FFNs.
+
+Counterpart of ``repro.models`` (MLA, MoE, the SSM/xLSTM mixers and the
+frontends are not ported yet; see ROADMAP.md).
+"""
+from .model import (
+    Model,
+    cross_entropy_loss,
+    decode_step,
+    forward,
+    init_cache,
+    init_model,
+    loss_fn,
+)
+
+__all__ = [
+    "Model", "cross_entropy_loss", "decode_step", "forward", "init_cache",
+    "init_model", "loss_fn",
+]

@@ -1,0 +1,125 @@
+"""Top-level model: embeddings → layers → head.
+
+Counterpart of ``repro.models.model`` for the dense GQA models.
+``init_model`` builds an ``nn.Module`` (a ``ModuleList`` of layers) on the
+device, from a ``torch.Generator`` on that device, so a full-size model's
+weights are drawn where they live; ``forward``/``decode_step`` take it as
+their ``params``.  Dropped, being JAX-only: the boxed axes tree, the
+``_grad_safe_barrier`` (an identity), ``remat`` (the port runs forward
+only), ``dist_ctx.constrain`` (one device) and the scan over stacked layer
+groups (an eager loop here).  ``backend`` selects the kernel backend of
+``tucker_linear`` and of the flash region of ``chunked_attention``
+(``None``: ``$REPRO_TORCH_KERNEL_BACKEND``, else ``"cuda"``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import require_ported
+from repro_torch.device import resolve_device
+
+from .blocks import apply_layer, init_layer, init_layer_cache, layer_specs
+from .layers import Embedding, dense_param, embed, make_norm
+
+
+def activation_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Model(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator, device=None):
+        super().__init__()
+        require_ported(cfg)
+        norm_cls, _ = make_norm(cfg.norm_type)
+        self.specs = layer_specs(cfg)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, generator, device)
+        self.layers = nn.ModuleList(
+            init_layer(cfg, spec, generator, device) for spec in self.specs)
+        self.ln_f = norm_cls(cfg.d_model, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = dense_param((cfg.d_model, cfg.vocab_size),
+                                       generator, device)
+
+
+def init_model(cfg, generator: torch.Generator | None = None,
+               device=None) -> Model:
+    """Random weights drawn on ``device`` (default: the current card) from
+    ``generator`` (default: one on that device seeded 0)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return Model(cfg, generator, device)
+
+
+def embed_inputs(params: Model, cfg, batch: dict) -> torch.Tensor:
+    """batch["tokens"] (B, S) → (B, S, d) activations in the config's
+    dtype."""
+    return embed(params.embed, batch["tokens"]).to(activation_dtype(cfg))
+
+
+def _run_layers(params: Model, cfg, x, positions, *, caches=None,
+                cache_index=None, backend=None):
+    new_caches = [] if caches is not None else None
+    for i, (layer, spec) in enumerate(zip(params.layers, params.specs)):
+        x, nc = apply_layer(layer, cfg, spec, x, positions=positions,
+                            cache=caches[i] if caches is not None else None,
+                            cache_index=cache_index, backend=backend)
+        if new_caches is not None:
+            new_caches.append(nc)
+    return x, new_caches
+
+
+def _head(params: Model, cfg, x: torch.Tensor) -> torch.Tensor:
+    _, norm = make_norm(cfg.norm_type)
+    x = norm(params.ln_f, x, cfg.norm_eps)
+    head = (params.embed.embedding.T if cfg.tie_embeddings
+            else params.lm_head)
+    return x @ head.to(x.dtype)   # a per-call copy of the head, as x.dtype
+
+
+def forward(params: Model, cfg, batch: dict, *,
+            backend: str | None = None) -> torch.Tensor:
+    """Training/prefill forward → logits (B, S, vocab), no cache."""
+    x = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_layers(params, cfg, x, positions, backend=backend)
+    return _head(params, cfg, x)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> list:
+    """One cache per layer (the reference stacks them per layer group)."""
+    device = resolve_device(device)
+    return [init_layer_cache(cfg, spec, batch, max_len, dtype, device)
+            for spec in layer_specs(cfg)]
+
+
+def decode_step(params: Model, cfg, batch: dict, caches: list,
+                cache_index: int, *, backend: str | None = None):
+    """One step from ``cache_index``: batch["tokens"] (B, S) → (logits
+    (B, S, V), caches).  S = 1 decodes; S > 1 from index 0 is prefill.
+    The caches are updated in place and returned."""
+    x = embed_inputs(params, cfg, batch)
+    positions = cache_index + torch.arange(x.shape[1], device=x.device)
+    x, new_caches = _run_layers(params, cfg, x, positions, caches=caches,
+                                cache_index=cache_index, backend=backend)
+    return _head(params, cfg, x), new_caches
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean CE over non-ignored positions; stable log-softmax in f32."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    labels_safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def loss_fn(params: Model, cfg, batch: dict, *,
+            backend: str | None = None) -> torch.Tensor:
+    logits = forward(params, cfg, batch, backend=backend)
+    return cross_entropy_loss(logits, batch["labels"])

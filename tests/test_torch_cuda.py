@@ -16,9 +16,10 @@ import pytest
 import torch
 
 from repro_torch.core import fasttucker as ft
-from repro_torch.kernels import (dispatch, kruskal_contract, kruskal_grad,
-                                 launch_counts, ref, reset_launch_counts,
-                                 scatter_accum, segment_reduce)
+from repro_torch.kernels import (dispatch, flash_attention, kruskal_contract,
+                                 kruskal_grad, launch_counts, ref,
+                                 reset_launch_counts, scatter_accum,
+                                 segment_reduce, tucker_matmul)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +68,8 @@ def test_kernels_match_plain_on_card(dev, N, J, R, B):
     assert torch.equal(sr, ref.segment_reduce_ref(got.row_grads[0], sidx, 50))
     torch.cuda.synchronize()
     assert launch_counts() == {"kruskal_contract": 1, "kruskal_grad": 1,
-                               "scatter_accum": 1, "segment_reduce": 1}
+                               "scatter_accum": 1, "segment_reduce": 1,
+                               "tucker_matmul": 0, "flash_attention": 0}
 
 
 FLAGS = [
@@ -167,3 +169,88 @@ def test_step_cuda_matches_torch_on_card(dev):
         rows_t, p0.core_factors)[0].sum().backward()
     for r, rt in zip(rows, rows_t):
         _close(r.grad, rt.grad, 2e-5)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("M,K,R1,R2,N", [(300, 512, 32, 32, 600),
+                                         (65, 130, 8, 16, 127),
+                                         (4, 1000, 64, 48, 3000),
+                                         (1, 7, 3, 5, 9)])
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_tucker_matmul_matches_plain_on_card(dev, M, K, R1, R2, N, xdt,
+                                             wdt):
+    """Ragged M, K, N (no padding: masked in the kernel), small M (split
+    K), the path's bf16-x/f32-factor mix; f32 sums in another order."""
+    rng = np.random.default_rng(M + K)
+    x = torch.tensor(rng.normal(size=(M, K)), device=dev).to(xdt)
+    u1 = torch.tensor(rng.normal(size=(K, R1)) / np.sqrt(K),
+                      device=dev).to(wdt)
+    g = torch.tensor(rng.normal(size=(R1, R2)), device=dev).to(wdt)
+    u2 = torch.tensor(rng.normal(size=(N, R2)), device=dev).to(wdt)
+    reset_launch_counts()
+    y = tucker_matmul.tucker_matmul(x, u1, g, u2)
+    want = ref.tucker_matmul_ref(x, u1, g, u2)
+    torch.cuda.synchronize()
+    assert y.dtype == want.dtype == torch.promote_types(xdt, wdt)
+    # bf16 output: the same f32 value rounds once, at most one ulp apart
+    assert _rel(y, want) <= (5e-4 if y.dtype == torch.float32 else 2 ** -8)
+    assert launch_counts()["tucker_matmul"] == 1
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain_on_card(dev, D, causal):
+    """GQA (G = 3) read in place, ragged lengths, q_offset and kv_len."""
+    rng = np.random.default_rng(D)
+    B, Sq, Sk, H, Hk = 2, 133, 200, 6, 2
+    q = torch.tensor(rng.normal(size=(B, Sq, H, D)), dtype=torch.float32,
+                     device=dev)
+    k, v = (torch.tensor(rng.normal(size=(B, Sk, Hk, D)),
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    reset_launch_counts()
+    for kv_len, q_offset in ((Sk, 0), (150, 17), (133, 0)):
+        got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              kv_len=kv_len,
+                                              q_offset=q_offset)
+        want = ref.flash_attention_ref(q, k, v, causal, kv_len=kv_len,
+                                       q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 2e-5
+    # the Pallas layout (BH, S, D), a strided view of the same heads
+    q3 = q.permute(0, 2, 1, 3).reshape(B * H, Sq, D)
+    k3 = k.permute(0, 2, 1, 3).reshape(B * Hk, Sk, D)
+    v3 = v.permute(0, 2, 1, 3).reshape(B * Hk, Sk, D)
+    got = flash_attention.flash_attention(q3, k3, v3, causal=causal)
+    want = ref.flash_attention_ref(q3, k3, v3, causal)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 2e-5
+    assert launch_counts()["flash_attention"] == 4
+
+
+def test_lm_serve_cuda_matches_torch_on_card(dev):
+    """Reduced qwen3_14b with Tucker FFNs at a prompt that reaches the
+    flash region: the "cuda" backend against "torch" from the same
+    weights, prefill and decode logits (f32: 1e-4 of the largest)."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_14b import REDUCED
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(REDUCED, tucker_rank=8)
+    reset_launch_counts()
+    res = serve.run(cfg, batch=2, prompt_len=1100, gen=3, device=dev,
+                    backend="cuda")
+    counts = launch_counts()
+    assert counts["tucker_matmul"] == 3 * cfg.num_layers * 3
+    assert counts["flash_attention"] == cfg.num_layers
+    plain = serve.run(cfg, batch=2, prompt_len=1100, gen=3, device=dev,
+                      backend="torch", params=res["params"])
+    assert res["finite"] and plain["finite"]
+    assert _rel(res["last_logits"], plain["last_logits"]) <= 1e-4
+    assert torch.equal(res["generated"], plain["generated"])

@@ -19,9 +19,10 @@ import torch
 from repro_torch.core import fasttucker as ft
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
-from repro_torch.kernels import (build, kruskal_contract, kruskal_grad,
-                                 scatter_accum, segment_reduce)
-from repro_torch.launch import std_train
+from repro_torch.kernels import (build, flash_attention, kruskal_contract,
+                                 kruskal_grad, scatter_accum, segment_reduce,
+                                 tucker_matmul)
+from repro_torch.launch import serve, std_train
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,6 +45,17 @@ def test_entry_points_raise_without_cuda_or_device(no_cuda):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_raises_without_cuda_unless_asked_for_the_cpu(no_cuda):
+    argv = ["--arch", "qwen3_14b", "--reduced", "--batch", "1",
+            "--prompt-len", "4", "--gen", "2", "--tucker-rank", "4"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv)
+    res = serve.main(argv + ["--device", "cpu"])
+    assert res["generated"].shape == (1, 2) and res["finite"]
+    assert res["backend"] == "cuda" and res["device"] == "cpu"
+    assert res["peak_device_bytes"] is None     # not measured on the CPU
 
 
 def test_nvcc_command_targets_sm90a_into_gitignored_build_dir():
@@ -106,6 +118,14 @@ def test_wrappers_refuse_non_cuda_devices_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         kruskal_contract.kruskal_contract(_meta(3, 8, 4, dtype=torch.bfloat16),
                                           _meta(3, 4, 4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tucker_matmul.tucker_matmul(_meta(8, 16), _meta(16, 4), _meta(4, 4),
+                                    _meta(12, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(_meta(2, 70, 4, 16),
+                                        _meta(2, 70, 2, 16),
+                                        _meta(2, 70, 2, 16), kv_len=60,
+                                        q_offset=3)
 
 
 @pytest.mark.parametrize("option", [

@@ -1,0 +1,222 @@
+"""The LM's two kernels (plain path on CPU tensors) against the JAX reference.
+
+The same numpy inputs go to the port's ``tucker_matmul`` and
+``flash_attention`` wrappers on CPU tensors (which take the plain PyTorch
+versions) and to the reference's Pallas kernels in interpret mode, its jnp
+oracles (``repro.kernels.ref``), its custom-VJP ``models.flash`` and its
+``chunked_attention`` scan.
+
+Tolerances, with their reasons:
+
+* f32, port against any reference: max |Δ| ≤ 1e-5 · max |reference|
+  (``tucker_matmul``) — the same three f32 products summed in another
+  order; ``flash_attention``: the reference's own kernel-vs-oracle
+  tolerance (rtol 2e-4, atol 2e-5, ``tests/test_kernels.py``): dense
+  softmax against an online one.
+* bf16 inputs, port against the Pallas kernel: both keep the products in
+  f32 and round once at the end, so they differ by at most one bf16 ulp:
+  2⁻⁸ of the output's scale.  Against the jnp oracle, which rounds after
+  every product, the reference test's own bf16 tolerance.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_fwd as j_flash
+from repro.kernels.tucker_matmul import tucker_matmul as j_tucker
+from repro.models import attention as j_attention
+from repro.models import flash as j_models_flash
+from repro_torch.kernels import (flash_attention, launch_counts, ref,
+                                 reset_launch_counts, tucker_matmul)
+from repro_torch.models import attention, flash
+
+TUCKER_SHAPES = [(300, 512, 32, 32, 600), (128, 300, 16, 8, 200),
+                 (65, 128, 8, 16, 127)]     # tests/test_kernels.py:62-64
+FLASH_SHAPES = [(4, 256, 32, 64, 64), (2, 300, 16, 128, 64),
+                (1, 128, 64, 128, 128)]     # tests/test_kernels.py:115-117
+FLASH_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    reset_launch_counts()
+    yield
+    # CPU tensors take the plain path: no kernel was launched
+    assert launch_counts()["tucker_matmul"] == 0
+    assert launch_counts()["flash_attention"] == 0
+
+
+def _scaled_close(port, want, rel):
+    port = np.asarray(port, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.abs(port - want).max()
+    assert err <= rel * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def _tucker_inputs(M, K, R1, R2, N):
+    rng = np.random.default_rng(M)
+    return (rng.normal(size=(M, K)).astype(np.float32),
+            (rng.normal(size=(K, R1)) / np.sqrt(K)).astype(np.float32),
+            rng.normal(size=(R1, R2)).astype(np.float32),
+            rng.normal(size=(N, R2)).astype(np.float32))
+
+
+@pytest.mark.parametrize("M,K,R1,R2,N", TUCKER_SHAPES)
+def test_tucker_matmul_f32_matches_reference(M, K, R1, R2, N):
+    arrs = _tucker_inputs(M, K, R1, R2, N)
+    y = tucker_matmul.tucker_matmul(*map(torch.tensor, arrs))
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    j = [jnp.asarray(a) for a in arrs]
+    _scaled_close(y, j_tucker(*j, block_m=64, block_n=128, block_k=128,
+                              interpret=True), 1e-5)
+    _scaled_close(y, jref.tucker_matmul_ref(*j), 1e-5)
+
+
+@pytest.mark.parametrize("M,K,R1,R2,N", TUCKER_SHAPES)
+def test_tucker_matmul_bf16_matches_reference(M, K, R1, R2, N):
+    arrs = _tucker_inputs(M, K, R1, R2, N)
+    y = tucker_matmul.tucker_matmul(
+        *(torch.tensor(a).bfloat16() for a in arrs))
+    assert y.dtype == torch.bfloat16
+    j = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    _scaled_close(y.float(), j_tucker(*j, block_m=64, block_n=128,
+                                      block_k=128, interpret=True), 2 ** -8)
+    want = np.asarray(jref.tucker_matmul_ref(*j), np.float32)
+    np.testing.assert_allclose(y.float().numpy(), want, rtol=8e-2,
+                               atol=0.05 * (np.abs(want).max() + 1))
+
+
+@pytest.mark.parametrize("M,K,R1,R2,N", TUCKER_SHAPES)
+def test_tucker_matmul_path_mix_bf16_x_f32_factors(M, K, R1, R2, N):
+    """The LM path's mix: x in bf16 (an rmsnorm output under
+    dtype="bfloat16"), f32 factors.  JAX promotes to f32, and so does the
+    port: the output is f32, the reference's "xla" route's result."""
+    x, u1, g, u2 = _tucker_inputs(M, K, R1, R2, N)
+    y = tucker_matmul.tucker_matmul(torch.tensor(x).bfloat16(),
+                                    *map(torch.tensor, (u1, g, u2)))
+    assert y.dtype == torch.float32
+    want = jref.tucker_matmul_ref(jnp.asarray(x, jnp.bfloat16),
+                                  *map(jnp.asarray, (u1, g, u2)))
+    assert want.dtype == jnp.float32
+    _scaled_close(y, want, 1e-5)
+
+
+def _qkv(shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=shape_q).astype(np.float32),
+            rng.normal(size=shape_kv).astype(np.float32),
+            rng.normal(size=shape_kv).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,S,D,bq,bk", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_kernel(BH, S, D, bq, bk, causal):
+    q, k, v = _qkv((BH, S, D), (BH, S, D), S + D)
+    out = flash_attention.flash_attention(
+        *map(torch.tensor, (q, k, v)), causal=causal)
+    assert out.shape == (BH, S, D) and out.dtype == torch.float32
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(j_flash(jq, jk, jv, causal=causal,
+                                        block_q=bq, block_k=bk,
+                                        interpret=True)), **FLASH_TOL)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(jref.flash_attention_ref(
+            jq, jk, jv, causal=causal)), **FLASH_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa_matches_reference_custom_vjp_flash(causal):
+    """Grouped heads without copies: query head (kv, g) reads kv.
+
+    Sq = Sk = 320, a multiple of the reference's kv_chunk: its flash pads
+    the keys to a chunk multiple and, when not causal, does not mask the
+    padded keys (``repro/models/flash.py::_fwd_impl``; ROADMAP.md
+    Queue 3).  The port masks them; the offset test below covers ragged
+    lengths against the reference's scan, which does mask them."""
+    B, Sq, Kv, G, D = 2, 320, 2, 3, 32
+    q, k, v = _qkv((B, Sq, Kv, G, D), (B, Sq, Kv, D), 7)
+    want = j_models_flash.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal, 128, 64)
+    got = flash.flash_attention(*map(torch.tensor, (q, k, v)), causal)
+    assert got.shape == (B, Sq, Kv, G, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLASH_TOL)
+    # the Pallas layout of the same heads: (BH, S, D), KV rows BH / G
+    q3 = torch.tensor(q).permute(0, 2, 3, 1, 4).reshape(B * Kv * G, Sq, D)
+    k3, v3 = (torch.tensor(t).permute(0, 2, 1, 3).reshape(B * Kv, Sq, D)
+              for t in (k, v))
+    got3 = flash_attention.flash_attention(q3, k3, v3, causal=causal)
+    np.testing.assert_allclose(
+        got3.reshape(B, Kv, G, Sq, D).permute(0, 3, 1, 2, 4).numpy(),
+        np.asarray(want), **FLASH_TOL)
+
+
+@pytest.mark.parametrize("q_offset,kv_valid,causal", [
+    (0, 300, True),        # prefill from index 0 into a longer cache
+    (37, 337, True),       # a chunk of queries behind 37 cached positions
+    (37, 337, False),
+    (0, 330, False)])
+def test_flash_offset_and_kv_len_match_reference_scan(q_offset, kv_valid,
+                                                      causal):
+    """q_offset and kv_len against the reference's ``chunked_attention``
+    scan (a traced offset and a valid length, as under a cache), and the
+    port's own ``chunked_attention`` taking the kernel for that region."""
+    B, Sq, Sk, H, Kv, D = 2, 300, 360, 4, 2, 16
+    q, k, v = _qkv((B, Sq, H, D), (B, Sk, Kv, D), q_offset + kv_valid)
+    want = j_attention.chunked_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal,
+        q_offset=jnp.asarray(q_offset, jnp.int32),
+        kv_valid_len=jnp.asarray(kv_valid, jnp.int32), q_chunk=64,
+        kv_chunk=64)
+    got = flash_attention.flash_attention(
+        *map(torch.tensor, (q, k, v)), causal=causal, kv_len=kv_valid,
+        q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLASH_TOL)
+    chunked = attention.chunked_attention(
+        *map(torch.tensor, (q, k, v)), causal=causal, q_offset=q_offset,
+        kv_valid_len=kv_valid, q_chunk=64, kv_chunk=64)
+    np.testing.assert_allclose(chunked.numpy(), np.asarray(want),
+                               **FLASH_TOL)
+
+
+def test_chunked_attention_dense_branch_matches_reference():
+    """Sq·Sk within one block: the dense masked softmax (every decode
+    step), with an offset and a valid length."""
+    B, Sq, Sk, H, Kv, D = 2, 1, 40, 4, 2, 16
+    q, k, v = _qkv((B, Sq, H, D), (B, Sk, Kv, D), 3)
+    want = j_attention.chunked_attention(
+        *map(jnp.asarray, (q, k, v)), causal=True,
+        q_offset=jnp.asarray(33, jnp.int32),
+        kv_valid_len=jnp.asarray(34, jnp.int32))
+    got = attention.chunked_attention(*map(torch.tensor, (q, k, v)),
+                                      causal=True, q_offset=33,
+                                      kv_valid_len=34)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_plain_versions_are_the_wrappers_cpu_path():
+    arrs = _tucker_inputs(65, 128, 8, 16, 127)
+    t = list(map(torch.tensor, arrs))
+    assert torch.equal(tucker_matmul.tucker_matmul(*t),
+                       ref.tucker_matmul_ref(*t))
+    q, k, v = map(torch.tensor, _qkv((2, 50, 4, 16), (2, 50, 2, 16), 1))
+    assert torch.equal(
+        flash_attention.flash_attention(q, k, v, kv_len=45, q_offset=3),
+        ref.flash_attention_ref(q, k, v, True, kv_len=45, q_offset=3))
+
+
+def test_split_k_keeps_prefill_in_one_pass_and_splits_decode():
+    """The kernel's K-split rule at the LM's shapes: every prefill product
+    (M = 8192) in one pass over K; the decode products (M = 4) split so
+    their few output tiles keep the card's memory busy."""
+    d, f, r = 5120, 17408, 512
+    for M in (8192, 8191):
+        assert [tucker_matmul.split_k(M, n, k) for n, k in
+                ((r, d), (r, r), (f, r), (r, f), (d, r))] == [1] * 5
+    assert tucker_matmul.split_k(4, r, d) == d // tucker_matmul.MIN_SPLIT_K
+    assert tucker_matmul.split_k(4, r, f) == tucker_matmul.MAX_SPLITS
+    assert tucker_matmul.split_k(4, f, r) == r // tucker_matmul.MIN_SPLIT_K
+    assert tucker_matmul.split_k(1, 9, 7) == 1       # K too short to split

@@ -1,0 +1,232 @@
+"""The port's LM serving path against the live JAX reference, on the CPU.
+
+Reduced ``qwen3_14b`` (2 layers, d_model 64, 4 heads over 2 KV heads,
+vocab 512) with ``tucker_rank`` 8 (Tucker FFNs) and 0 (dense FFNs), in
+f32 and in ``dtype="bfloat16"``.  The reference's weights
+(``unbox(init_model(PRNGKey(0), cfg))``, numpy leaves) go into the port
+through ``models.convert.params_from_numpy``; tokens come from numpy.  The
+port runs its default ``"cuda"`` backend, which on CPU tensors takes the
+kernels' plain versions; the reference runs its default (``"xla"``
+``tucker_matmul``, jnp attention), jitted as its serve driver jits it.
+
+Tolerances, max |Δ| over max |reference logit|, with their reasons:
+
+* f32: 1e-5.  Every product is f32 on both sides, summed in another
+  order; two layers and the head keep that near 1e-6.
+* bf16: 2⁻⁵.  The residual stream is rounded to bf16 after every
+  sublayer and the head runs in bf16: a last-bit difference in an f32
+  sublayer output flips a bf16 rounding (2⁻⁸ of that value), and such
+  flips pass through the later layers into the logits, whose own bf16
+  ulp is 2⁻⁸ to 2⁻⁷ of the largest.  2⁻⁵ is a few ulps of the largest
+  logit.  Greedy tokens are compared in f32 only: bf16 logits tie often.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.qwen3_14b import REDUCED as J_REDUCED
+from repro.launch import steps as j_steps
+from repro.models import decode_step as j_decode_step
+from repro.models import flash as j_flash
+from repro.models import forward as j_forward
+from repro.models import init_cache as j_init_cache
+from repro.models import init_model as j_init_model
+from repro.models import loss_fn as j_loss_fn
+from repro.models import unbox
+from repro_torch.configs import get_config, require_ported
+from repro_torch.configs.qwen3_14b import REDUCED
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch import steps
+from repro_torch.models import (decode_step, flash, forward, init_cache,
+                                init_model, loss_fn)
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+PROMPT = 1100   # Sq·Sk = 1100·1104 > 1024²: the online-softmax region
+FED = 4         # decode steps on fed tokens
+_MODELS: dict = {}
+
+
+def _pair(rank: int, dtype: str):
+    """(reference cfg, port cfg, reference params, port model), cached."""
+    key = (rank, dtype)
+    if key not in _MODELS:
+        jc = dataclasses.replace(J_REDUCED, tucker_rank=rank, dtype=dtype)
+        tc = dataclasses.replace(REDUCED, tucker_rank=rank, dtype=dtype)
+        tree = jax.tree.map(np.asarray,
+                            unbox(j_init_model(jax.random.PRNGKey(0), jc)))
+        _MODELS[key] = (jc, tc, tree, params_from_numpy(tc, tree, "cpu"))
+    return _MODELS[key]
+
+
+def _close(port: torch.Tensor, want, dtype: str) -> float:
+    port = port.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert port.shape == want.shape
+    assert np.isfinite(port).all()
+    rel = np.abs(port - want).max() / np.abs(want).max()
+    assert rel <= TOL[dtype], rel
+    return rel
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    reset_launch_counts()
+    yield
+    assert not any(launch_counts().values())  # CPU: the plain versions
+
+
+@pytest.fixture
+def flash_calls(monkeypatch):
+    """Counts the calls of both sides' flash region."""
+    calls = {"jax": 0, "port": 0}
+    j_orig, t_orig = j_flash.flash_attention, flash.flash_attention
+
+    def j_spy(*a, **k):
+        calls["jax"] += 1
+        return j_orig(*a, **k)
+
+    def t_spy(*a, **k):
+        calls["port"] += 1
+        return t_orig(*a, **k)
+
+    monkeypatch.setattr(j_flash, "flash_attention", j_spy)
+    monkeypatch.setattr(flash, "flash_attention", t_spy)
+    return calls
+
+
+@pytest.mark.parametrize("S", [16, PROMPT])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [8, 0])
+def test_forward_and_loss_match_reference(rank, dtype, S, flash_calls):
+    jc, tc, tree, model = _pair(rank, dtype)
+    rng = np.random.default_rng(S + rank)
+    toks = rng.integers(0, jc.vocab_size, (2, S)).astype(np.int32)
+    labels = rng.integers(0, jc.vocab_size, (2, S)).astype(np.int32)
+    labels[0, :3] = -100                       # ignored positions
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    want_logits, want_loss = jax.jit(lambda p, b: (
+        j_forward(p, jc, b), j_loss_fn(p, jc, b)))(tree, jbatch)
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(labels)}
+    logits = forward(model, tc, batch)
+    assert logits.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                            else torch.float32)
+    _close(logits, want_logits, dtype)
+    loss = loss_fn(model, tc, batch)
+    assert abs(loss.item() - float(want_loss)) <= TOL[dtype] * float(
+        want_loss)
+    # S = 1100 reaches the flash region on both sides (once per layer);
+    # S = 16 the dense block
+    want_calls = tc.num_layers if S == PROMPT else 0
+    assert flash_calls["port"] == 2 * want_calls   # forward + loss_fn
+    assert (flash_calls["jax"] > 0) == (want_calls > 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [8, 0])
+def test_prefill_and_decode_steps_match_reference(rank, dtype, flash_calls):
+    """Prefill of a 1100-token prompt into a cache of 1104, then 4 decode
+    steps on fed tokens, through both sides' step functions; the decode
+    logits through ``decode_step``."""
+    jc, tc, tree, model = _pair(rank, dtype)
+    B = 2
+    rng = np.random.default_rng(rank + 1)
+    toks = rng.integers(0, jc.vocab_size, (B, PROMPT + FED)).astype(np.int32)
+    j_caches = j_init_cache(jc, B, PROMPT + FED, dtype=jnp.float32)
+    caches = init_cache(tc, B, PROMPT + FED, dtype=torch.float32,
+                        device="cpu")
+    want_last, j_caches = jax.jit(j_steps.make_prefill_step(jc))(
+        tree, {"tokens": jnp.asarray(toks[:, :PROMPT])}, j_caches)
+    last, caches = steps.make_prefill_step(tc)(
+        model, {"tokens": torch.from_numpy(toks[:, :PROMPT])}, caches)
+    _close(last, want_last, dtype)
+    # a cache from index 0 takes the reference's scan and the port's kernel
+    assert flash_calls["port"] == tc.num_layers and flash_calls["jax"] == 0
+
+    j_step = jax.jit(lambda p, b, c, i: j_decode_step(p, jc, b, c, i))
+    j_serve = jax.jit(j_steps.make_decode_step(jc))
+    serve = steps.make_decode_step(tc)
+    index = PROMPT
+    for i in range(FED):
+        fed = toks[:, PROMPT + i:PROMPT + i + 1]
+        want, _ = j_step(tree, {"tokens": jnp.asarray(fed)}, j_caches,
+                         jnp.asarray(index, jnp.int32))
+        want_tok, j_caches, _ = j_serve(tree, j_caches,
+                                        jnp.asarray(index, jnp.int32),
+                                        {"tokens": jnp.asarray(fed)})
+        got, _ = decode_step(model, tc, {"tokens": torch.from_numpy(fed)},
+                             caches, index)
+        tok, caches, index = serve(model, caches, index,
+                                   {"tokens": torch.from_numpy(fed)})
+        _close(got, want, dtype)
+        assert tok.shape == (B, 1) and tok.dtype == torch.int32
+        assert torch.equal(tok[:, 0], got[:, -1].float().argmax(-1).int())
+        if dtype == "float32":
+            np.testing.assert_array_equal(tok.numpy(), np.asarray(want_tok))
+    assert index == PROMPT + FED
+    # the filled caches: the reference stacks its one group's two layers
+    (group,) = j_caches
+    for name in ("k", "v"):
+        want_kv = np.asarray(group["attn"][name])
+        got_kv = torch.stack([c["attn"][name] for c in caches]).numpy()
+        assert np.abs(got_kv - want_kv).max() <= TOL[dtype] * np.abs(
+            want_kv).max()
+
+
+def test_params_round_trip_through_the_reference_tree():
+    """params_from_numpy then params_to_numpy gives back the reference's
+    tree, bitwise: groups restacked, every name and shape kept."""
+    for rank in (8, 0):
+        jc, tc, tree, model = _pair(rank, "float32")
+        back = params_to_numpy(model, tc)
+        flat_want = jax.tree_util.tree_leaves_with_path(tree)
+        flat_got = jax.tree_util.tree_leaves_with_path(back)
+        assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+        for (path, g), (_, w) in zip(flat_got, flat_want):
+            assert g.shape == w.shape and np.array_equal(g, w), path
+    # a 3-layer config stacks three identical layers into one group
+    jc = dataclasses.replace(J_REDUCED, tucker_rank=4, num_layers=3)
+    tc = dataclasses.replace(REDUCED, tucker_rank=4, num_layers=3)
+    tree = jax.tree.map(np.asarray,
+                        unbox(j_init_model(jax.random.PRNGKey(1), jc)))
+    assert tree["groups"][0]["ffn"]["up"]["u1"].shape == (3, 64, 4)
+    model = params_from_numpy(tc, tree, "cpu")
+    assert np.array_equal(model.layers[2].ffn.up.u1.numpy(),
+                          tree["groups"][0]["ffn"]["up"]["u1"][2])
+    back = params_to_numpy(model, tc)
+    assert np.array_equal(back["groups"][0]["mixer"]["wq"],
+                          tree["groups"][0]["mixer"]["wq"])
+
+
+def test_full_config_matches_the_reference_config():
+    """The port's copy of Qwen3-14B is the reference's, field by field."""
+    from repro.configs.qwen3_14b import CONFIG as J_CONFIG
+
+    cfg = get_config("qwen3_14b")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(J_CONFIG)
+    assert dataclasses.asdict(get_config("qwen3_14b", reduced=True)) \
+        == dataclasses.asdict(J_REDUCED)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b",
+                                  "xlstm_125m", "hubert_xlarge"])
+def test_unported_architectures_raise_naming_the_roadmap(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("change", [
+    {"use_mla": True}, {"num_experts": 4}, {"mixer": "mamba2"},
+    {"mixer": "xlstm"}, {"frontend": "vision"}, {"encoder_only": True},
+    {"mixed_precision": True}])
+def test_unported_parts_of_a_config_raise(change):
+    cfg = dataclasses.replace(REDUCED, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        require_ported(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        init_model(cfg, device="cpu")
