@@ -59,7 +59,17 @@ Phases (each failure ends the run with a non-zero exit code):
    same weights, prefill and decode logits.
 10. The LM kernels' times at the path's shapes, as in phase 5, beside
    their bounds, their plain versions and one library call each (three
-   ``torch.matmul``; ``scaled_dot_product_attention`` in f32).
+   ``torch.matmul``; ``scaled_dot_product_attention`` in f32).  Each
+   shape's ``tucker_matmul.plan()`` is printed.  The decode shapes rotate
+   over ``COLD_SETS`` distinct factor sets (236 MB, past the 50 MB L2),
+   for the kernel, the plain version and the library call alike, so each
+   call finds its factors cold as a 40-layer decode step does.  Each
+   call's bound is that of the units its kernel runs on: per product, the
+   plan's tensor-core passes times its operations at 495 TFLOP/s (3xTF32:
+   3 passes, 2 with a bf16 side; flash_attention 3 in both products), or
+   its operations at 67 TFLOP/s where the plan streams in f32 fmaf.  The
+   f32 bound (all operations at 67 TFLOP/s) is printed beside it; each
+   share names the bound it is taken against.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
@@ -80,6 +90,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 on the tensor cores
+COLD_SETS = 5               # factor sets rotated at decode (5 x 47 MB > L2)
 NETFLIX_DIMS = (480_189, 17_770, 2_182)
 NETFLIX_NNZ = 99_072_112
 TRAIN_BATCH = 4096
@@ -92,7 +104,9 @@ TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     "segment_reduce": 0.0,       # ordered fold, no atomics: exact
     "trajectory": 1e-4,          # 20 steps, each op within the above
     "trajectory.bf16": 2.0 ** -6,  # four bf16 ulps (2^-8) at the max
-    "tucker_matmul": 5e-4,       # f32 sums over K <= 17408 in another order
+    # 3xTF32 tensor-core tiles (prefill) and f32 streams (decode): f32
+    # accuracy, ~1e-6 measured; one pass of TF32 would give ~3e-4 and fail
+    "tucker_matmul": 2e-5,
     "flash_attention": 2e-5,     # online against dense softmax, f32
     # bf16 logits: the residual stream rounds to bf16 after every sublayer,
     # so last-bit f32 differences flip roundings; a few ulps of the max
@@ -488,6 +502,18 @@ def device_ms(torch, fn, iters: int = 100) -> float:
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tc_bound(bytes_moved: float,
+             products: list[tuple[int, float]]) -> tuple[float, str]:
+    """The bound of f32-accurate work as the kernel lays it out: each
+    product's (passes, operations), where ``passes`` tensor-core TF32
+    products stand for one f32 product at the 495 TFLOP/s TF32 peak, and
+    0 passes means f32 fmaf at the 67 TFLOP/s f32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n * f / TF32_FLOPS_PER_S if n else f / F32_FLOPS_PER_S
+                for n, f in products) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -972,21 +998,40 @@ def phase_lm_times(torch, K, cfg) -> list[dict]:
          "1 per layer per decode step"),
     ]
     for tag, M, Kd, N, xdt, per in variants:
-        x, u1, g, u2 = _tucker_inputs(torch, gen, M, Kd, N, xdt, R)
-        x32 = x.float()
+        cold = M <= 64                      # decode: factors cold in L2
+        sets = [_tucker_inputs(torch, gen, M, Kd, N, xdt, R)
+                for _ in range(COLD_SETS if cold else 1)]
+        sets = [(x, x.float(), u1, g, u2) for x, u1, g, u2 in sets]
+        p = K.tucker_matmul.plan(M, Kd, R, R, N, xdt)
+        log(f"tucker_matmul [{tag}] plan: {p}"
+            + (f"; {len(sets)} factor sets rotated" if cold else ""))
         it = 30 if M > 64 else 200
-        calls = (lambda: tm(x, u1, g, u2),
-                 lambda: ref.tucker_matmul_ref(x, u1, g, u2),
-                 lambda: torch.matmul(torch.matmul(torch.matmul(x32, u1), g),
-                                      u2.T))
+
+        def rotating(f):
+            state = {"i": 0}
+
+            def call():
+                x, x32, u1, g, u2 = sets[state["i"] % len(sets)]
+                state["i"] += 1
+                return f(x, x32, u1, g, u2)
+            return call
+
+        calls = (
+            rotating(lambda x, x32, u1, g, u2: tm(x, u1, g, u2)),
+            rotating(lambda x, x32, u1, g, u2:
+                     ref.tucker_matmul_ref(x, u1, g, u2)),
+            rotating(lambda x, x32, u1, g, u2: torch.matmul(
+                torch.matmul(torch.matmul(x32, u1), g), u2.T)))
         ms, plain, lib = (device_ms(torch, c, iters=it) for c in calls)
         host = tuple(host_ms(torch, c) for c in calls)
-        nbytes = x.element_size() * M * Kd + 4 * (Kd * R + R * R + N * R) \
-            + 4 * M * N
-        t_b, by = bound(nbytes, 2 * M * (Kd * R + R * R + R * N))
-        rows.append(("tucker_matmul", tag, ms, plain, lib, t_b, by, per,
-                     host))
-        del x, x32, u1, g, u2
+        nbytes = sets[0][0].element_size() * M * Kd \
+            + 4 * (Kd * R + R * R + N * R) + 4 * M * N
+        flops = [2 * M * Kd * R, 2 * M * R * R, 2 * M * R * N]
+        rows.append(("tucker_matmul", tag, ms, plain, lib,
+                     tc_bound(nbytes, list(zip(p.passes, flops))), per,
+                     host, bound(nbytes, sum(flops)),
+                     dataclasses.asdict(p)))
+        del sets
     # flash_attention: the prefill call (B·H = 160, G = 5, into the cache)
     Sk = P + LM_SERVE["gen"]
     q, k, v = _flash_inputs(torch, gen, P, Sk, B=B, H=cfg.num_heads,
@@ -1008,24 +1053,28 @@ def phase_lm_times(torch, K, cfg) -> list[dict]:
         lib = None
     pairs = P * (P + 1) // 2          # causal (i, j ≤ i), all below kv_len
     nbytes = 4 * (2 * B * P * H * D + 2 * B * P * Hk * D)
-    t_b, by = bound(nbytes, 4 * D * pairs * B * H)
+    flops = 4 * D * pairs * B * H     # Q Kᵀ and P V, 3xTF32 in both
     rows.append(("flash_attention", f"prefill B={B} H={H} Kv={Hk} S={P} "
-                 f"D={D} causal, cache {Sk}", ms, plain, lib, t_b, by,
-                 "1 per layer per prefill", host))
+                 f"D={D} causal, cache {Sk}", ms, plain, lib,
+                 tc_bound(nbytes, [(3, flops)]), "1 per layer per prefill",
+                 host, bound(nbytes, flops), None))
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     out = []
-    for name, tag, ms, plain, lib, t_b, by, per, host in rows:
+    for name, tag, ms, plain, lib, (t_b, by), per, host, f32, p in rows:
         log(f"{name} [{tag}]: {ms:.4f} ms/call (plain {plain:.4f} ms"
             + (f", library {lib:.4f} ms" if lib is not None else "")
-            + f"), bound {t_b:.4f} ms by {by} "
-            f"({t_b / ms:.1%} of it); {per}; host time to issue one call: "
+            + f"), bound on the kernel's units {t_b:.4f} ms by {by} "
+            f"({t_b / ms:.1%} of it), f32 bound {f32[0]:.4f} ms by "
+            f"{f32[1]} ({f32[0] / ms:.1%} of the f32 bound); {per}; host "
+            "time to issue one call: "
             + ", ".join(f"{k} {h:.4f} ms" for k, h in
                         zip(("kernel", "plain", "library"), host)
                         if h is not None))
         out.append({"name": name, "variant": tag, "ms": ms,
                     "plain_ms": plain, "library_ms": lib, "bound_ms": t_b,
-                    "bound_by": by, "launches_note": per,
+                    "bound_by": by, "f32_bound_ms": f32[0],
+                    "f32_bound_by": f32[1], "plan": p, "launches_note": per,
                     "host_ms": {"kernel": host[0], "plain": host[1],
                                 "library": host[2]}})
     return out

@@ -17,6 +17,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 #define REPRO_MAX_MODES 10
 #define REPRO_MAX_WIDTH 32
 #define REPRO_FULL_MASK 0xffffffffu

@@ -14,64 +14,74 @@
 // with D contiguous, so a KV cache (B, S_max, Kv, D) is read in place and
 // the (BH, S, D) layout of the Pallas kernel is the case B = 1, H = BH.
 //
-// Design.  One block of 256 threads per (64-query tile, head, batch).  The
-// Q tile stays in shared memory; the block walks the 64-key tiles of K and
-// V, which it stores transposed (K) and row-major (V) in shared memory, and
-// keeps the (64, D) f32 accumulator in registers: thread (ty, tx) owns
-// query rows ty·4 + {0..3}, score columns tx + 16·{0..3} and output columns
-// tx + 16·{0..D/16-1}.  Row max and row sum are reduced over the 16 lanes
-// that share a row with shuffles.  The probabilities go through shared
-// memory (into the K buffer, whose tile is spent by then) for the P·V
-// product.  Key tiles that lie wholly past kv_len, or wholly above the
-// diagonal under causal masking, are skipped: there every p is 0 and
-// alpha is 1, so skipping changes nothing.  Masked entries get p = 0
-// exactly.  Query tiles are launched last-first, so that the longest
-// causal rows start first.  expf, IEEE division, fmaf; no tensor cores and
-// no TF32: f32 means f32.
+// Design.  One block of 8 warps per (128-query tile, head, batch); each
+// warp owns 16 query rows.  Both products run on the tensor cores in 3xTF32
+// (mma_tf32.cuh: m16n8k8 fragments, f32 accuracy): S = Q·Kᵀ, each pass in
+// its own accumulator, with the Q tile loaded once into shared memory and
+// its fragments split per use, and O += P·V with the (16, D) f32
+// accumulator in registers, each tile's P·V chained in fresh accumulators
+// and added to it in f32.  K and V come in 32-key tiles through a
+// double-buffered cp.async ring (16-byte copies, read in place through the
+// strides; keys at or past kv_len are zero-filled), so the next tile is in
+// flight while this one is multiplied.  Each landed tile is split into its
+// TF32 big and small parts once for the block (not once per warp that
+// reads it).  Shared rows are padded so every fragment load is free of bank
+// conflicts (Q and K rows D + 8, read in 64-bit pairs; V rows D + 4); at
+// D = 128 a block takes 172 KB, one block (8 warps) per SM.  The row max
+// and row sum are taken in registers from the S accumulator fragments (a
+// row lives in one quad of lanes: two shuffles), in base 2 (exp2f).  With k
+// permuted inside each group of 8 keys (mma_tf32.cuh), the S accumulator
+// fragment is already P's A fragment for P·V: P never leaves the
+// registers.  Key tiles that lie wholly past kv_len, or wholly above the
+// diagonal under causal masking, are not loaded (per block) or not
+// multiplied (per warp): there every p is 0 and alpha is 1, so skipping
+// changes nothing.  Masked entries get p = 0 exactly.  Query tiles are
+// launched last-first, so that the longest causal rows start first.  IEEE
+// division; one pass of TF32 is never used: f32 means f32.
 //
 // Bound on the card.  Prefill of the LM (B = 4, H = 40, Kv = 8, S = 2048,
 // D = 128, causal): 2·B·H·S²·D = 172 GFLOP of causal work against 403 MB
-// of bytes — bound by operations (2.6 ms at the 67 TFLOP/s f32 peak).  The
-// shared-memory reads (about one per two fmaf) and the SIMT core keep this
-// kernel well below that; tensor cores are later work.
+// of bytes — bound by operations: 2.6 ms at the 67 TFLOP/s f32 SIMT peak,
+// 1.0 ms for 3 x that work at the 495 TFLOP/s TF32 tensor-core peak.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 256;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;   // query rows per block
+constexpr int BKV = 32;          // keys per tile
 constexpr float NEG = -1e30f;
 
 template <int D>
 struct Smem {
-  static constexpr int QS = D + 1;                  // Qs[BQ][D+1]
-  static constexpr int KS = BKV + 1;                // Kt[D][BKV+1], then P
-  static constexpr int VS = D + 1;                  // Vs[BKV][D+1]
-  static constexpr int KROWS = D > BQ ? D : BQ;     // P[BQ][BKV+1] reuses Kt
-  static constexpr int FLOATS = BQ * QS + KROWS * KS + BKV * VS;
+  // row strides (floats), fragments read as in mma_tf32.cuh:
+  static constexpr int QS = D + 8;   // Q, K: pairs (g, 2t..2t+1), 8g + 2t
+  static constexpr int KS = D + 8;
+  static constexpr int VS = D + 4;   // V: rows 2t and 2t+1, column g: 8t + g
+  static constexpr int STAGE = BKV * (KS + VS);
+  // two ring stages of K and V, the small parts of the current stage, Q
+  static constexpr int FLOATS = 3 * STAGE + BQ * QS;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
     int G, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, int kv_len,
     int q_offset, int causal, float scale) {
-  constexpr int DJ = D / 16;
+  constexpr int DK = D / 8;     // k8 steps of Q·Kᵀ; n8 tiles of O
+  constexpr int NK = BKV / 8;   // n8 tiles of S; k8 steps of P·V
   using S = Smem<D>;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Kt = Qs + BQ * S::QS;
-  float* Ps = Kt;
-  float* Vs = Kt + S::KROWS * S::KS;
+  extern __shared__ __align__(16) float smem[];
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float* Sm = smem + 2 * S::STAGE;   // small parts of the current K/V tile
+  float* Qs = smem + 3 * S::STAGE;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -79,111 +89,179 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + hk * ksh;
   const float* vb = v + b * vsb + hk * vsh;
+  const int wq0 = q0 + warp * 16;             // this warp's first row
+  const int rows[2] = {wq0 + g, wq0 + g + 8};  // this thread's two rows
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    Qs[r * S::QS + d] = q0 + r < Sq ? qb[(q0 + r) * qss + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
+  // the softmax runs in base 2: logits scaled by log2(e)/sqrt(D), so m is
+  // the running max of those and p = exp2(x - m) = exp(logit - max)
+  const float scale2 = scale * 1.4426950408889634f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[DK][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
+  for (int d = 0; d < DK; ++d)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
 
   // keys this tile can see: below kv_len and, if causal, at or before the
   // position of its last query row
-  int k_end = min(kv_len, Sk);
+  const int k_lim = min(kv_len, Sk);
+  int k_end = k_lim;
   if (causal) k_end = min(k_end, q_offset + min(q0 + BQ, Sq));
+  const int ntiles = (k_end + BKV - 1) / BKV;
+  // the last key position this warp's rows can see
+  const int w_last = q_offset + min(wq0 + 15, Sq - 1);
+  const bool warp_rows = wq0 < Sq;
 
-  for (int k0 = 0; k0 < k_end; k0 += BKV) {
-    __syncthreads();  // the previous tile's P and V are spent
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      const bool in = k0 + c < Sk;
-      Kt[d * S::KS + c] = in ? kb[(k0 + c) * kss + d] : 0.f;
-      Vs[c * S::VS + d] = in ? vb[(k0 + c) * vss + d] : 0.f;
+  auto load = [&](int tile) {
+    float* Ks = smem + (tile & 1) * S::STAGE;
+    float* Vs = Ks + BKV * S::KS;
+    const int k0 = tile * BKV;
+    constexpr int CH = D / 4;   // 16-byte chunks per row
+#pragma unroll
+    for (int i = threadIdx.x; i < BKV * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool in = k0 + r < k_lim;
+      cp_async16(Ks + r * S::KS + c, in ? kb + (k0 + r) * kss + c : kb,
+                 in ? 16 : 0);
+      cp_async16(Vs + r * S::VS + c, in ? vb + (k0 + r) * vss + c : vb,
+                 in ? 16 : 0);
     }
+  };
+
+  // the Q tile (rows past Sq zero-filled), with the first K/V tile
+  for (int i = threadIdx.x; i < BQ * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool in = q0 + r < Sq;
+    cp_async16(Qs + r * S::QS + c, in ? qb + (q0 + r) * qss + c : qb,
+               in ? 16 : 0);
+  }
+  if (ntiles > 0) load(0);
+  cp_async_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile it has landed (this thread's copies)
+    __syncthreads();      // ... and every thread's
+    // split the tile once for the block: big parts in place, small to Sm
+    split_smem(smem + (it & 1) * S::STAGE, Sm, S::STAGE / 4);
     __syncthreads();
+    const int k0 = it * BKV;
+    if (warp_rows && (!causal || k0 <= w_last)) {
+      const float* Ks = smem + (it & 1) * S::STAGE;
+      const float* Vs = Ks + BKV * S::KS;
+      // S = Q·Kᵀ, each 3xTF32 pass in its own accumulator (three chains of
+      // D/8 dependent products instead of one of 3·D/8), summed after
+      float s[NK][4], s_bs[NK][4], s_sb[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = s_bs[j][e] = s_sb[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < DK; ++kd) {
+        const float* qp = Qs + (warp * 16 + g) * S::QS + kd * 8 + 2 * t;
+        const float2 lo = load_pair(qp), hi = load_pair(qp + 8 * S::QS);
+        const float qv[4] = {lo.x, hi.x, lo.y, hi.y};
+        Frag<4> qa;
+        frag_split<false>(qv, qa);
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const int ko = (j * 8 + g) * S::KS + kd * 8 + 2 * t;
+          const float2 kbig = load_pair(Ks + ko), ksml = load_pair(Sm + ko);
+          const Frag<2> kf = {
+              {__float_as_uint(kbig.x), __float_as_uint(kbig.y)},
+              {__float_as_uint(ksml.x), __float_as_uint(ksml.y)}};
+          mma_tf32(s_bs[j], qa.big, kf.small);
+          mma_tf32(s_sb[j], qa.small, kf.big);
+          mma_tf32(s[j], qa.big, kf.big);
+        }
+      }
 
-    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * S::QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Kt[d * S::KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
-    }
-    __syncthreads();  // every thread is done with Kt: P may overwrite it
+        for (int e = 0; e < 4; ++e) s[j][e] += s_bs[j][e] + s_sb[j][e];
 
+      // online softmax of rows g (half 0) and g + 8 (half 1); a row's 32
+      // scores sit in the 4 lanes of one quad, 8 each
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = NEG;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int qpos = q_offset + rows[hf];
+        bool ok[NK][2];
+        float mx = NEG;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < kv_len && kpos < Sk && (!causal || qpos >= kpos);
-        s[i][j] = ok[j] ? s[i][j] * scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = k0 + j * 8 + 2 * t + e;
+            ok[j][e] = kpos < k_lim && (!causal || qpos >= kpos);
+            const float x = ok[j][e] ? s[j][2 * hf + e] * scale2 : NEG;
+            s[j][2 * hf + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(REPRO_FULL_MASK, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(REPRO_FULL_MASK, mx, 2));
+        const float m_new = fmaxf(m[hf], mx);
+        const float alpha = exp2f(m[hf] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ok[j][e] ? exp2f(s[j][2 * hf + e] - m_new) : 0.f;
+            s[j][2 * hf + e] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(REPRO_FULL_MASK, sum, 1);
+        sum += __shfl_xor_sync(REPRO_FULL_MASK, sum, 2);
+        l[hf] = l[hf] * alpha + sum;
+        m[hf] = m_new;
+#pragma unroll
+        for (int d = 0; d < DK; ++d) {
+          acc[d][2 * hf] *= alpha;
+          acc[d][2 * hf + 1] *= alpha;
+        }
+      }
+
+      // this tile's P·V in fresh accumulators (see mma_tf32.cuh)
+      float pv_acc[DK][4];
+#pragma unroll
+      for (int d = 0; d < DK; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv_acc[d][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        // S's accumulator over keys 8kk.. is P·V's A fragment (mma_tf32.cuh)
+        const float pv[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+        Frag<4> pa;
+        frag_split<false>(pv, pa);
+#pragma unroll
+        for (int d = 0; d < DK; ++d) {
+          const int vo = (kk * 8 + 2 * t) * S::VS + d * 8 + g;
+          const float* vs = Sm + BKV * S::KS + vo;
+          const Frag<2> vf = {
+              {__float_as_uint(Vs[vo]), __float_as_uint(Vs[vo + S::VS])},
+              {__float_as_uint(vs[0]), __float_as_uint(vs[S::VS])}};
+          mma_3xtf32<false, false>(pv_acc[d], pa, vf);
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(REPRO_FULL_MASK, mx, off, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+      for (int d = 0; d < DK; ++d)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * S::KS + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(REPRO_FULL_MASK, sum, off, 16);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+        for (int e = 0; e < 4; ++e) acc[d][e] += pv_acc[d][e];
     }
-    __syncwarp();  // a row of P is written and read by one half-warp
-
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * S::KS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * S::VS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
   float* ob = o + b * osb + h * osh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = rows[hf];
     if (r >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[hf], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[r * oss + tx + 16 * j] = acc[i][j] / den;
+    for (int d = 0; d < DK; ++d)
+      *reinterpret_cast<float2*>(ob + r * oss + d * 8 + 2 * t) =
+          make_float2(acc[d][2 * hf] / den, acc[d][2 * hf + 1] / den);
   }
 }
 

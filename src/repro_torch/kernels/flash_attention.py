@@ -8,7 +8,10 @@ the card.  It takes the Pallas layout (BH, S, D) and the model's layout
 (B, S, H, D), with grouped key/value heads read in place (query head h
 reads head h // G) and a ``q_offset`` for prefill into a cache.  Any
 strides with D contiguous are read as they are: a KV cache slice is not
-copied.  On CPU tensors the wrapper computes the plain version
+copied, but the kernel's 16-byte ``cp.async`` copies need every base
+pointer and every (batch, sequence, head) stride in 16-byte units (a
+stride of a dimension of size 1 is never stepped and is not checked).  On
+CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_ref``); on CUDA tensors it launches the kernel or
 raises — it never falls back.  f32 only; D in {16, 32, 64, 128}.
 """
@@ -23,6 +26,7 @@ from . import build
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+ALIGN = 16    # bytes: the kernel's cp.async copies
 
 
 def _as_4d(t: torch.Tensor) -> torch.Tensor:
@@ -61,6 +65,15 @@ def _check(q, k, v, kv_len, q_offset) -> None:
     if any(t.stride(3) != 1 for t in (q4, k4, v4)):
         raise ValueError("flash_attention: the head dimension D must be "
                          "contiguous")
+    for name, t in (("q", q4), ("k", k4), ("v", v4)):
+        if t.data_ptr() % ALIGN or any(
+                st * t.element_size() % ALIGN
+                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(
+                f"flash_attention: {name} must start on a {ALIGN}-byte "
+                f"boundary with (batch, seq, head) strides in {ALIGN}-byte "
+                f"units, got address {t.data_ptr()} and strides "
+                f"{t.stride()[:3]}")
     if max(B, H) > 65535 or max(Sq, Sk) >= 2 ** 31:
         raise ValueError("flash_attention: sizes out of range")
 

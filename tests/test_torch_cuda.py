@@ -7,6 +7,9 @@ fixture, never at import).  On the GPU machine:
 
 Tolerances: f32 sums in another order than the plain version (cuBLAS), and
 atomics for the scatter — max |kernel − plain| ≤ 2e-5 · max |plain|
+(``tucker_matmul`` and ``flash_attention`` included: their 3xTF32
+tensor-core products are f32-accurate, and one pass of TF32, ~3e-4, would
+fail)
 (1e-4 for the core gradient, summed over the whole batch).  The sorted
 scatter (``segment_reduce``) has no atomics and folds in the plain
 version's order: it must match it exactly.
@@ -176,8 +179,37 @@ def _rel(got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+TUCKER_F32_TOL = 2e-5   # 3xTF32 and f32 sums: ~1e-6; one TF32 pass: ~3e-4
+
+
+def _tucker_inputs(dev, M, K, R1, R2, N, xdt, wdt, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(M, K)), device=dev).to(xdt)
+    u1 = torch.tensor(rng.normal(size=(K, R1)) / np.sqrt(K),
+                      device=dev).to(wdt)
+    g = torch.tensor(rng.normal(size=(R1, R2)), device=dev).to(wdt)
+    u2 = torch.tensor(rng.normal(size=(N, R2)), device=dev).to(wdt)
+    return x, u1, g, u2
+
+
+def _check_tucker(x, u1, g, u2):
+    """Kernel against plain, twice: the same bits on both calls."""
+    reset_launch_counts()
+    y = tucker_matmul.tucker_matmul(x, u1, g, u2)
+    y2 = tucker_matmul.tucker_matmul(x, u1, g, u2)
+    want = ref.tucker_matmul_ref(x, u1, g, u2)
+    torch.cuda.synchronize()
+    assert y.dtype == want.dtype == torch.promote_types(x.dtype, u1.dtype)
+    # bf16 output: the same f32 value rounds once, at most one ulp apart
+    assert _rel(y, want) <= (TUCKER_F32_TOL if y.dtype == torch.float32
+                             else 2 ** -8)
+    assert torch.equal(y, y2)
+    assert launch_counts()["tucker_matmul"] == 2
+
+
 @pytest.mark.parametrize("M,K,R1,R2,N", [(300, 512, 32, 32, 600),
                                          (65, 130, 8, 16, 127),
+                                         (17, 64, 3, 4, 40),
                                          (4, 1000, 64, 48, 3000),
                                          (1, 7, 3, 5, 9)])
 @pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
@@ -185,22 +217,37 @@ def _rel(got, want):
                                      (torch.bfloat16, torch.bfloat16)])
 def test_tucker_matmul_matches_plain_on_card(dev, M, K, R1, R2, N, xdt,
                                              wdt):
-    """Ragged M, K, N (no padding: masked in the kernel), small M (split
-    K), the path's bf16-x/f32-factor mix; f32 sums in another order."""
-    rng = np.random.default_rng(M + K)
-    x = torch.tensor(rng.normal(size=(M, K)), device=dev).to(xdt)
-    u1 = torch.tensor(rng.normal(size=(K, R1)) / np.sqrt(K),
-                      device=dev).to(wdt)
-    g = torch.tensor(rng.normal(size=(R1, R2)), device=dev).to(wdt)
-    u2 = torch.tensor(rng.normal(size=(N, R2)), device=dev).to(wdt)
-    reset_launch_counts()
-    y = tucker_matmul.tucker_matmul(x, u1, g, u2)
-    want = ref.tucker_matmul_ref(x, u1, g, u2)
-    torch.cuda.synchronize()
-    assert y.dtype == want.dtype == torch.promote_types(xdt, wdt)
-    # bf16 output: the same f32 value rounds once, at most one ulp apart
-    assert _rel(y, want) <= (5e-4 if y.dtype == torch.float32 else 2 ** -8)
-    assert launch_counts()["tucker_matmul"] == 1
+    """Ragged M, K, N (no padding: masked in the kernel), both routes
+    (tensor-core tiles; factor streams at M <= 16), an odd M R1 (t past
+    t1 in the workspace), the path's bf16-x/f32-factor mix; f32 accuracy,
+    the same bits run to run."""
+    _check_tucker(*_tucker_inputs(dev, M, K, R1, R2, N, xdt, wdt, M + K))
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 17])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+def test_tucker_matmul_decode_shapes_on_card(dev, M, xdt):
+    """The LM's up/gate product at decode batches (K = 5120, R = 512,
+    N = 17408): the streaming route up to M = 16, tensor cores at 17."""
+    route = tucker_matmul.plan(M, 5120, 512, 512, 17408, xdt).routes[0]
+    assert route == ("rows" if M <= 16 else "mma")
+    _check_tucker(*_tucker_inputs(dev, M, 5120, 512, 512, 17408, xdt,
+                                  torch.float32, M))
+
+
+@pytest.mark.parametrize("M", [4, 65])
+def test_tucker_matmul_unaligned_x_takes_narrow_loads(dev, M):
+    """x one element past a 16-byte boundary (a view at storage offset 1):
+    the plan's 4-byte loads for x U1, the same result as plain."""
+    x, u1, g, u2 = _tucker_inputs(dev, M, 512, 64, 64, 300, torch.float32,
+                                  torch.float32, 5)
+    buf = torch.empty(M * 512 + 1, device=dev)
+    xo = buf[1:].view(M, 512)
+    xo.copy_(x)
+    assert xo.is_contiguous() and xo.data_ptr() % 16 == 4
+    p = tucker_matmul.plan(M, 512, 64, 64, 300, torch.float32, x_align=4)
+    assert p.load_bytes[0] == (16 if p.stream else 4)
+    _check_tucker(xo, u1, g, u2)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -231,6 +278,49 @@ def test_flash_attention_matches_plain_on_card(dev, D, causal):
     torch.cuda.synchronize()
     assert _rel(got, want) <= 2e-5
     assert launch_counts()["flash_attention"] == 4
+
+
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_tiles_bitwise_on_card(dev, D, causal):
+    """Sq and Sk not multiples of the 128-query or 32-key tiles, with
+    kv_len and q_offset inside the last tile; two calls give the same
+    bits."""
+    rng = np.random.default_rng(D + causal)
+    B, Sq, Sk, H, Hk = 1, 197, 171, 4, 1
+    q = torch.tensor(rng.normal(size=(B, Sq, H, D)), dtype=torch.float32,
+                     device=dev)
+    k, v = (torch.tensor(rng.normal(size=(B, Sk, Hk, D)),
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    for kv_len, q_offset in ((Sk, 0), (163, 41), (97, 0)):
+        got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              kv_len=kv_len,
+                                              q_offset=q_offset)
+        again = flash_attention.flash_attention(q, k, v, causal=causal,
+                                                kv_len=kv_len,
+                                                q_offset=q_offset)
+        want = ref.flash_attention_ref(q, k, v, causal, kv_len=kv_len,
+                                       q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 2e-5
+        assert torch.equal(got, again)
+
+
+def test_flash_attention_unaligned_q_raises(dev):
+    """q one element past a 16-byte boundary: the wrapper raises (the
+    kernel's cp.async copies need 16-byte rows); it never falls back."""
+    B, S, H, D = 1, 64, 2, 32
+    buf = torch.zeros(B * S * H * D + 1, device=dev)
+    q = buf[1:].view(B, S, H, D)
+    k = torch.zeros((B, S, H, D), device=dev)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.flash_attention(q, k, k)
+    # a head stride that is not a 16-byte multiple raises too
+    k6 = torch.zeros((B, S, H, D + 1), device=dev)[..., :D]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.flash_attention(k, k6, k6)
+    assert launch_counts()["flash_attention"] == 0
 
 
 def test_lm_serve_cuda_matches_torch_on_card(dev):

@@ -208,15 +208,110 @@ def test_plain_versions_are_the_wrappers_cpu_path():
         ref.flash_attention_ref(q, k, v, True, kv_len=45, q_offset=3))
 
 
-def test_split_k_keeps_prefill_in_one_pass_and_splits_decode():
-    """The kernel's K-split rule at the LM's shapes: every prefill product
-    (M = 8192) in one pass over K; the decode products (M = 4) split so
-    their few output tiles keep the card's memory busy."""
-    d, f, r = 5120, 17408, 512
-    for M in (8192, 8191):
-        assert [tucker_matmul.split_k(M, n, k) for n, k in
-                ((r, d), (r, r), (f, r), (r, f), (d, r))] == [1] * 5
-    assert tucker_matmul.split_k(4, r, d) == d // tucker_matmul.MIN_SPLIT_K
-    assert tucker_matmul.split_k(4, r, f) == tucker_matmul.MAX_SPLITS
-    assert tucker_matmul.split_k(4, f, r) == r // tucker_matmul.MIN_SPLIT_K
-    assert tucker_matmul.split_k(1, 9, 7) == 1       # K too short to split
+D_MODEL, D_FF, LM_RANK = 5120, 17408, 512   # qwen3_14b, rank-512 FFNs
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("M,K,N,xdt,x_align,load,passes", [
+    # prefill, both FFN directions: one tensor-core pass over K each,
+    # 16-byte loads; x in bf16 skips its small pass (2 passes, not 3)
+    (8192, D_MODEL, D_FF, BF16, 16, (16, 16, 16), (2, 3, 3)),
+    (8192, D_FF, D_MODEL, F32, 16, (16, 16, 16), (3, 3, 3)),
+    # ragged K: x's rows are not 16-byte multiples, so x U1 takes 4 bytes
+    (8191, D_MODEL - 1, D_FF - 3, BF16, 16, (4, 16, 16), (2, 3, 3)),
+    (8191, D_FF - 1, D_MODEL - 3, F32, 16, (4, 16, 16), (3, 3, 3)),
+    # x one element off a 16-byte boundary: the same
+    (8192, D_MODEL, D_FF, F32, 4, (4, 16, 16), (3, 3, 3)),
+    # M = 17: past the streaming route, the tensor-core tiles
+    (17, D_MODEL, D_FF, BF16, 16, (16, 16, 16), (2, 3, 3)),
+    # decode: the streaming route, f32 fmaf, whatever x's alignment
+    (1, D_MODEL, D_FF, BF16, 2, (16, 16, 16), (0, 0, 0)),
+    (4, D_MODEL, D_FF, BF16, 16, (16, 16, 16), (0, 0, 0)),
+    (4, D_FF, D_MODEL, F32, 16, (16, 16, 16), (0, 0, 0)),
+    (16, D_MODEL, D_FF, BF16, 16, (16, 16, 16), (0, 0, 0)),
+    (16, D_FF, D_MODEL, F32, 4, (16, 16, 16), (0, 0, 0)),
+])
+def test_plan_routes_splits_loads_and_workspace(M, K, N, xdt, x_align, load,
+                                                passes):
+    """The launch plan at the LM's shapes: prefill (M > 16) takes three
+    tensor-core GEMMs in one pass over K; decode (M <= 16) streams the
+    factors in three launches, splitting K for the first two products only;
+    both routes' workspace is t1 and t."""
+    R = LM_RANK
+    p = tucker_matmul.plan(M, K, R, R, N, xdt, x_align=x_align)
+    assert p.launches == 3
+    assert p.load_bytes == load and p.passes == passes
+    # t1 and t, once each, t right after t1 (M R is a multiple of 4 here)
+    assert p.t_offset == M * R and p.workspace == M * 2 * R
+    if M > tucker_matmul.STREAM_MAX_M:
+        assert p.routes == ("mma",) * 3 and p.splits == (1, 1, 1)
+        assert p.col_blocks == 0
+        return
+    s1, s2, s3 = p.splits
+    assert p.routes == ("rows", "rows", "cols") and s3 == 1
+    # each streamed factor's rows split over one cluster of at most 8
+    # blocks per 32-column strip, each split at least MIN_ROWS rows, none
+    # empty (the split-K sums stay inside the clusters: no partial slabs);
+    # the last product on two blocks per SM
+    for k, s in ((K, s1), (R, s2)):
+        assert 1 <= s <= tucker_matmul.MAX_CLUSTER
+        rows = -(-k // s)
+        assert rows >= tucker_matmul.MIN_ROWS and -(-k // rows) == s
+    assert p.col_blocks == tucker_matmul.STREAM_BLOCKS
+
+
+@pytest.mark.parametrize("M,R1,R2", [(17, 3, 4), (1, 3, 5), (5, 7, 2),
+                                     (65, 8, 16)])
+def test_plan_puts_t_on_a_16_byte_boundary(M, R1, R2):
+    """t starts at M R1 rounded up to 4 floats, so its 16-byte loads and
+    8-byte stores stay aligned whatever M R1 is; the workspace holds it."""
+    p = tucker_matmul.plan(M, 64, R1, R2, 40, F32)
+    assert p.t_offset % 4 == 0 and 0 <= p.t_offset - M * R1 < 4
+    assert p.workspace == p.t_offset + M * R2
+
+
+def test_plan_small_and_unaligned_factors_take_narrow_loads():
+    p = tucker_matmul.plan(1, 7, 3, 5, 9, F32)
+    assert p.routes == ("rows", "rows", "cols") and p.splits == (1, 1, 1)
+    assert p.load_bytes == (4, 4, 4)
+    p = tucker_matmul.plan(300, 512, 32, 32, 600, F32, w_align=8)
+    assert p.routes == ("mma",) * 3 and p.load_bytes == (4, 4, 4)
+    # t (M x R2) past the streaming route's shared memory: tensor cores
+    assert tucker_matmul.plan(16, 512, 64, 1024, 64, F32).routes[0] == "mma"
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest, ties away from
+    zero: what ``cvt.rna.tf32.f32`` does."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tf32_emulation_separates_three_passes_from_one():
+    """The card's tolerance (2e-5 of the output's scale) admits 3xTF32 and
+    refuses one pass of TF32, at the LM's longest K (17408).  Products of
+    two TF32 values are exact in f32, so an f32 matmul of rounded operands
+    is what one tensor-core pass with f32 accumulators computes."""
+    rng = np.random.default_rng(17408)
+    K = D_FF
+    a = torch.tensor(rng.normal(size=(64, K)), dtype=F32)
+    b = torch.tensor(rng.normal(size=(K, 64)) / np.sqrt(K), dtype=F32)
+    want = a.double() @ b.double()
+
+    def rel(y):
+        return ((y.double() - want).abs().max() / want.abs().max()).item()
+
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    one = ab @ bb
+    three = ab @ b_s + a_s @ bb + ab @ bb
+    plain = a @ b
+    tol = 2e-5
+    assert rel(one) > 10 * tol           # ~3e-4: one pass fails the check
+    assert rel(three) <= tol / 10        # ~1e-7: f32-level
+    assert rel(three) <= 4 * rel(plain) + 1e-7
+    # bf16 x is exact in TF32: its small part is 0, two passes suffice
+    x = a.bfloat16().float()
+    assert torch.equal(_tf32(x), x)
+    want = x.double() @ b.double()
+    assert rel(_tf32(x) @ b_s + _tf32(x) @ bb) <= tol / 10
