@@ -15,7 +15,8 @@ Phases (each failure ends the run with a non-zero exit code):
    storage, and scatter ids outside ``[0, rows)``.  ``segment_reduce`` must
    match exactly, over sorted ids with long runs (rows = 64) and short
    ones, twice with the same bits; a core pass fed the emitted mode
-   products must give the joint core gradient exactly.
+   products must give the joint core gradient exactly.  ``segment_reduce``
+   also writes into memory that last held NaN and must match exactly.
 3. Three training paths at the paper's size, through
    ``repro_torch.launch.std_train`` on the ``"cuda"`` backend, over one
    planted tensor of the Netflix tensor's published shape (480,189 ×
@@ -35,9 +36,15 @@ Phases (each failure ends the run with a non-zero exit code):
    is not in them), the plain version's, ``zeros`` + ``index_add_`` for
    the scatters, and the bound (larger of bytes at 3.35 TB/s and f32 flops
    at 67 TFLOP/s, the H100 SXM's published peaks), for the joint,
-   factor-phase, core-phase, Gauss–Seidel and bf16 variants.
+   factor-phase, core-phase, Gauss–Seidel and bf16 variants, and for the
+   scatters at each of the three modes.  Beside each, the launch floor:
+   the same event-pair time of an empty kernel launched through the same
+   ctypes path (``repro_noop``).
 6. ``torch.profiler`` traces of steady training steps of each of the three
-   paths: device time per kernel and the device's busy share.
+   paths: device time per kernel and the device's busy share.  Each
+   wrapper launch must be exactly one device kernel (``kruskal_grad`` and
+   ``segment_reduce`` counted against their wrappers' counts), and no
+   ``core_reduce_kernel`` may run.
 7. The LM's two kernels against their plain versions at the serving
    path's shapes: ``tucker_matmul`` for M ∈ {8192, 4, 8191}, both FFN
    directions (5120 → 17408 and back), x in bf16 and f32 against f32
@@ -69,15 +76,18 @@ Phases (each failure ends the run with a non-zero exit code):
    3 passes, 2 with a bf16 side; flash_attention 3 in both products), or
    its operations at 67 TFLOP/s where the plan streams in f32 fmaf.  The
    f32 bound (all operations at 67 TFLOP/s) is printed beside it; each
-   share names the bound it is taken against.
+   share names the bound it is taken against.  The launch floor is
+   measured again beside these rows.
 
-It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
+floor, beside each kernel), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
 record there as JSON.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -317,15 +327,27 @@ def phase_kernels_vs_plain(torch, K) -> dict:
     record("scatter_accum", sa(g, idx, NETFLIX_DIMS[0]),
            ref.scatter_accum_ref(g, idx, NETFLIX_DIMS[0]), "Netflix mode 0")
     sidx, perm = torch.sort(idx, stable=True)
-    record("segment_reduce", sr(g[perm], sidx, NETFLIX_DIMS[0]),
-           ref.segment_reduce_ref(g[perm], sidx, NETFLIX_DIMS[0]),
+    gp = g[perm]
+    want = ref.segment_reduce_ref(gp, sidx, NETFLIX_DIMS[0])
+    record("segment_reduce", sr(gp, sidx, NETFLIX_DIMS[0]), want,
            "Netflix mode 0")
+    # the kernel writes every row itself: memory that held NaN shows none
+    nan = torch.full((NETFLIX_DIMS[0], 4), math.nan, device=dev)
+    nan_ptr = nan.data_ptr()
+    del nan
+    got = sr(gp, sidx, NETFLIX_DIMS[0])
+    if got.data_ptr() != nan_ptr:
+        raise AssertionError("segment_reduce: the output did not reuse the "
+                             "NaN block, so the check would not test it")
+    record("segment_reduce", got, want, "Netflix mode 0 into NaN memory")
     torch.cuda.synchronize()
     for key, (e, r) in worst.items():
         log(f"{key}: max abs err {e:.3g}, max relative err {r:.3g} "
             f"(tolerance {TOL[key]}) over {cases} shapes")
     log(f"kruskal_grad: {len(FLAGS)} flag combinations x f32/bf16; the core "
         "pass fed emitted c equals the joint core gradient bitwise")
+    log("segment_reduce: into memory that held NaN (the same block), equal "
+        "to the plain version bitwise")
     return {k: {"max_abs_err": e, "max_rel_err": r, "tol": TOL[k]}
             for k, (e, r) in worst.items()}
 
@@ -499,6 +521,18 @@ def device_ms(torch, fn, iters: int = 100) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
+def floor_ms(torch, build) -> float:
+    """The launch floor: ``device_ms`` of an empty kernel launched through
+    the same ctypes path as the kernels (``repro_noop`` in common.cuh)."""
+    fn = build.function("segment_reduce", "repro_noop", [ctypes.c_void_p])
+
+    def call():
+        with torch.cuda.device(0):
+            build.check("segment_reduce",
+                        fn(torch.cuda.current_stream().cuda_stream))
+    return device_ms(torch, call)
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -563,14 +597,12 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
     Be = ea.shape[1]
     joint = kg(a, b, val, mask, scal)
     c = kg(a, b, val, mask, scal, want_core=False, emit_c=True).c
-    g0 = joint.row_grads[0].contiguous()
     cols = idx.t().contiguous()
     lay = sorted_batch_order(idx)
-    gs0 = g0.index_select(0, lay.perm[0])
-    rows0 = cfg.dims[0]
     torch.cuda.synchronize()
     B = TRAIN_BATCH
     out = []
+    floor = floor_ms(torch, K.build)
 
     # kruskal_grad: the joint pass first (the row the kernels line takes)
     variants = [
@@ -595,37 +627,27 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
                                    cc is not None, emit))
         out.append(("kruskal_grad", tag, ms, plain, None, t_b, by, per))
 
-    # scatter_accum and segment_reduce, mode 0 (the widest: 480,189 rows)
-    ms = device_ms(torch, lambda: K.scatter_accum.scatter_accum(
-        g0, cols[0], rows0))
-    plain = device_ms(torch, lambda: ref.scatter_accum_ref(g0, cols[0],
-                                                           rows0))
-    long_ids = cols[0].long()
-    lib = device_ms(torch, lambda: torch.zeros(
-        (rows0, J), device="cuda").index_add_(0, long_ids, g0))
-    t_b, by = bound(4 * (B * J + B + rows0 * J), B * J)
-    out.append(("scatter_accum", "mode 0", ms, plain, lib, t_b, by,
-                f"{N} per unsorted step (one per mode; timed at mode 0, "
-                f"{rows0:,} rows)"))
-    ms = device_ms(torch, lambda: K.segment_reduce.segment_reduce(
-        gs0, lay.sorted_rows[0], rows0))
-    plain = device_ms(torch, lambda: ref.segment_reduce_ref(
-        gs0, lay.sorted_rows[0], rows0), iters=30)
-    sorted_ids = lay.sorted_rows[0].long()
-    lib = device_ms(torch, lambda: torch.zeros(
-        (rows0, J), device="cuda").index_add_(0, sorted_ids, gs0))
-    out.append(("segment_reduce", "mode 0", ms, plain, lib, t_b, by,
-                f"{N} per sorted step (one per mode; timed at mode 0, "
-                f"{rows0:,} rows)"))
-    for n in range(1, N):
+    # scatter_accum and segment_reduce at every mode, mode 0 (the widest:
+    # 480,189 rows) first, the row the kernels line takes
+    for n in range(N):
+        rows_n = cfg.dims[n]
         gn = joint.row_grads[n].contiguous()
-        ms_sa = device_ms(torch, lambda: K.scatter_accum.scatter_accum(
-            gn, cols[n], cfg.dims[n]))
         gsn = gn.index_select(0, lay.perm[n])
-        ms_sr = device_ms(torch, lambda: K.segment_reduce.segment_reduce(
-            gsn, lay.sorted_rows[n], cfg.dims[n]))
-        log(f"mode {n} ({cfg.dims[n]:,} rows): scatter_accum "
-            f"{ms_sa * 1e3:.2f} us, segment_reduce {ms_sr * 1e3:.2f} us")
+        t_b, by = bound(4 * (B * J + B + rows_n * J), B * J)
+        for name, kernel, plain_fn, g_, ids, plain_iters, per in (
+                ("scatter_accum", K.scatter_accum.scatter_accum,
+                 ref.scatter_accum_ref, gn, cols[n], 100, "unsorted"),
+                ("segment_reduce", K.segment_reduce.segment_reduce,
+                 ref.segment_reduce_ref, gsn, lay.sorted_rows[n], 30,
+                 "sorted")):
+            ms = device_ms(torch, lambda: kernel(g_, ids, rows_n))
+            plain = device_ms(torch, lambda: plain_fn(g_, ids, rows_n),
+                              iters=plain_iters)
+            long_ids = ids.long()
+            lib = device_ms(torch, lambda: torch.zeros(
+                (rows_n, J), device="cuda").index_add_(0, long_ids, g_))
+            out.append((name, f"mode {n}, {rows_n:,} rows", ms, plain, lib,
+                        t_b, by, f"1 per mode per {per} step"))
 
     # kruskal_contract at the evaluation chunk, f32 and bf16
     for tag, x, y in (("f32", ea, b), ("bf16 storage", ea.bfloat16(), b16)):
@@ -640,16 +662,19 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
                     "(one per 262,144-row chunk)"))
 
     rows_out = []
+    log(f"launch floor (an empty kernel through ctypes): "
+        f"{floor * 1e3:.2f} us")
     for name, tag, ms, plain, lib, t_b, by, per in out:
         log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call (plain "
             f"{plain * 1e3:.2f} us"
             + (f", zeros + index_add_ {lib * 1e3:.2f} us"
                if lib is not None else "")
-            + f"), bound {t_b * 1e3:.3f} us by {by}; launches on the paths "
-            f"{counts[name]}; {per}")
+            + f"), bound {t_b * 1e3:.3f} us by {by}, launch floor "
+            f"{floor * 1e3:.2f} us; launches on the paths {counts[name]}; "
+            f"{per}")
         rows_out.append({"name": name, "variant": tag, "ms": ms,
                          "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": t_b, "bound_by": by,
+                         "bound_ms": t_b, "bound_by": by, "floor_ms": floor,
                          "launches_note": per})
     return rows_out
 
@@ -658,7 +683,7 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
 # phase 6
 # ---------------------------------------------------------------------------
 
-def phase_profile(torch, ft, res, cfg, steps: int = 50) -> dict:
+def phase_profile(torch, K, ft, res, cfg, steps: int = 50) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     train_t = res["train"]
@@ -667,6 +692,7 @@ def phase_profile(torch, ft, res, cfg, steps: int = 50) -> dict:
     for _ in range(10):
         st = ft.sgd_step(st, gen, train_t.indices, train_t.values, cfg)
     torch.cuda.synchronize()
+    K.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -674,6 +700,7 @@ def phase_profile(torch, ft, res, cfg, steps: int = 50) -> dict:
             st = ft.sgd_step(st, gen, train_t.indices, train_t.values, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launches = K.launch_counts()
     kernels = {}
     for ev in prof.events():
         if "CUDA" in str(ev.device_type):   # a kernel or copy on the card
@@ -696,11 +723,28 @@ def phase_profile(torch, ft, res, cfg, steps: int = 50) -> dict:
     for name, (cnt, us) in top:
         log(f"  {us / steps:8.2f} us/step  {cnt / steps:5.1f}/step  "
             f"{name[:90]}")
+    # one device kernel per wrapper launch, and no second reduction kernel
+    per_call = {}
+    for k in ("kruskal_grad", "segment_reduce"):
+        found = sum(c for n, (c, _) in kernels.items()
+                    if f"{k}_kernel" in n)
+        if found != launches[k]:
+            raise AssertionError(f"profile [{tag}]: {found} {k} device "
+                                 f"kernels for {launches[k]} launches")
+        per_call[k] = {"launches": launches[k], "device_kernels": found}
+    stray = [n for n in kernels if "core_reduce" in n]
+    if stray:
+        raise AssertionError(f"profile [{tag}]: {stray} ran")
+    log(f"profile [{tag}]: device kernels per wrapper launch: "
+        + ", ".join(f"{k} {v['device_kernels']}/{v['launches']}"
+                    for k, v in per_call.items())
+        + "; no core_reduce_kernel")
     return {"measured": True, "steps": steps, "config": tag,
             "wall_ms_per_step": wall / steps * 1e3,
             "device_busy_us_per_step": busy_us / steps,
             "device_ops_per_step": sum(v[0] for v in kernels.values())
             / steps,
+            "kernels_per_launch": per_call,
             "top_kernels": [{"name": n, "calls_per_step": c / steps,
                              "us_per_step": us / steps}
                             for n, (c, us) in top]}
@@ -986,6 +1030,9 @@ def phase_lm_times(torch, K, cfg) -> list[dict]:
     R = cfg.tucker_rank
     B, P = LM_SERVE["batch"], LM_SERVE["prompt_len"]
     rows = []
+    floor = floor_ms(torch, K.build)
+    log(f"launch floor (an empty kernel through ctypes): "
+        f"{floor * 1e3:.2f} us")
     # tucker_matmul: prefill M = B·P first (the row the kernels line takes)
     variants = [
         ("prefill up/gate, x bf16", B * P, d, f, torch.bfloat16,
@@ -1065,7 +1112,8 @@ def phase_lm_times(torch, K, cfg) -> list[dict]:
         log(f"{name} [{tag}]: {ms:.4f} ms/call (plain {plain:.4f} ms"
             + (f", library {lib:.4f} ms" if lib is not None else "")
             + f"), bound on the kernel's units {t_b:.4f} ms by {by} "
-            f"({t_b / ms:.1%} of it), f32 bound {f32[0]:.4f} ms by "
+            f"({t_b / ms:.1%} of it), launch floor {floor:.4f} ms, f32 "
+            f"bound {f32[0]:.4f} ms by "
             f"{f32[1]} ({f32[0] / ms:.1%} of the f32 bound); {per}; host "
             "time to issue one call: "
             + ", ".join(f"{k} {h:.4f} ms" for k, h in
@@ -1073,7 +1121,8 @@ def phase_lm_times(torch, K, cfg) -> list[dict]:
                         if h is not None))
         out.append({"name": name, "variant": tag, "ms": ms,
                     "plain_ms": plain, "library_ms": lib, "bound_ms": t_b,
-                    "bound_by": by, "f32_bound_ms": f32[0],
+                    "bound_by": by, "floor_ms": floor,
+                    "f32_bound_ms": f32[0],
                     "f32_bound_by": f32[1], "plan": p, "launches_note": per,
                     "host_ms": {"kernel": host[0], "plain": host[1],
                                 "library": host[2]}})
@@ -1129,7 +1178,7 @@ def main(argv: list[str] | None = None) -> int:
     times = phase_times(torch, K, ft, base, counts)
     report["times"] = times
     report["profile"] = {
-        name: phase_profile(torch, ft, paths[name]["result"],
+        name: phase_profile(torch, K, ft, paths[name]["result"],
                             paths[name]["result"]["cfg"])
         for name in PATHS}
     lm_cfg = dataclasses.replace(get_config("qwen3_14b"),
@@ -1164,7 +1213,8 @@ def main(argv: list[str] | None = None) -> int:
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "floor_ms": t["floor_ms"]})
     report["kernels"] = kernels
     if args.report:
         path = Path(args.report)

@@ -40,22 +40,23 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 //   bs     the Kruskal factors in shared memory, bs[(n*J + j)*(R+1) + r]
 //          (row stride R+1, so lanes reading one column hit distinct banks)
 // On return lane r < R holds c[n] = Σ_j a[n][j]·B[n][j][r], summed in j
-// order with fmaf (lanes past R hold 0).
+// order with fmaf from 0 (lanes past R hold 0).  The j loop is outside the
+// mode loop, so the N chains are independent and interleave.
 __device__ __forceinline__ void group_mode_dots(
     const float (&av)[REPRO_MAX_MODES], const float* __restrict__ bs,
     int N, int J, int R, int sub, int W, float (&c)[REPRO_MAX_MODES]) {
   const int RP = R + 1;
 #pragma unroll
-  for (int n = 0; n < REPRO_MAX_MODES; ++n) {
-    c[n] = 0.f;
-    if (n < N) {
-      float acc = 0.f;
-      for (int j = 0; j < J; ++j) {
+  for (int n = 0; n < REPRO_MAX_MODES; ++n) c[n] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int n = 0; n < REPRO_MAX_MODES; ++n) {
+      if (n < N) {
         const float aj = __shfl_sync(REPRO_FULL_MASK, av[n], j, W);
         const float bv = sub < R ? bs[(n * J + j) * RP + sub] : 0.f;
-        acc = fmaf(aj, bv, acc);
+        c[n] = fmaf(aj, bv, c[n]);
       }
-      c[n] = acc;
     }
   }
 }
@@ -97,14 +98,23 @@ __device__ __forceinline__ void theorem1_forward(
   group_exclusive_products(c, N, pexc);
 }
 
+// floor(i / d) for 0 <= i < 2^20 and 1 <= d <= 1024, from d's f32
+// reciprocal: (i + 0.5)·(1/d) is at least 0.5/d from an integer and its
+// rounding error is below 2^-23·i/d, so truncation is exact.  It replaces
+// an integer division (a chain of a dozen dependent instructions).
+__device__ __forceinline__ int div_small(int i, float inv_d) {
+  return static_cast<int>((static_cast<float>(i) + 0.5f) * inv_d);
+}
+
 // Copies the (N, J, R) Kruskal factors into shared memory as f32, with
 // row stride R+1 (see group_mode_dots).  The caller synchronises the block.
 template <typename T>
 __device__ __forceinline__ void load_factors(
     const T* __restrict__ bfac, float* __restrict__ bs, int N, int J, int R) {
   const int NJR = N * J * R;
+  const float inv_r = 1.f / R;
   for (int i = threadIdx.x; i < NJR; i += blockDim.x) {
-    const int nj = i / R;
+    const int nj = div_small(i, inv_r);
     bs[nj * (R + 1) + (i - nj * R)] = to_float(bfac[i]);
   }
 }
@@ -117,6 +127,23 @@ static inline int group_width(int J, int R) {
   return w;
 }
 
+// log2 of a power of two.
+static inline int log2_pow2(int w) {
+  int k = 0;
+  while ((1 << k) < w) ++k;
+  return k;
+}
+
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// An empty kernel behind the same C interface as the others: its time,
+// launched through ctypes, is the launch floor that chip_smoke.py prints
+// beside every kernel's time.
+__global__ void repro_noop_kernel() {}
+
+extern "C" int repro_noop(void* stream) {
+  repro_noop_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

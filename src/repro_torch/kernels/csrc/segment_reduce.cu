@@ -1,64 +1,164 @@
-// Sorted segment-sum of mode-sorted row gradients, Hopper (sm_90a).
+// Sorted segment-sum of mode-sorted row gradients, Hopper (sm_90a), in one
+// launch that writes every output row exactly once.
 //
 // Replaces src/repro/kernels/segment_reduce.py::segment_reduce (the Pallas
 // TPU kernel `_kernel`).  Inputs: g (B, J) f32 row gradients already
 // permuted into mode-sorted order, and the sorted int32 row ids (B,)
-// (duplicates adjacent, in batch order: a stable sort).  out (rows, J)
-// must be zeroed by the caller; then for every run of equal ids
-//     out[id][j] = ((0 + g[p][j]) + g[p+1][j]) + …     if 0 <= id < rows
+// (duplicates adjacent, in batch order: a stable sort).  The output (rows,
+// J) may hold anything on entry; on return
+//     out[r][j] = ((0 + g[p][j]) + g[p+1][j]) + …   over the run of id r
+//     out[r][j] = 0                                 where no id is r
 // in ascending sorted position, and ids outside [0, rows) are dropped.
 //
 // The TPU kernel walks the batch tiles in order on one core and adds each
-// entry into a VMEM-resident output.  Blocks here run in no order, so the
-// walk is split at the run heads instead: one group of W = next_pow2(J)
-// lanes takes each run head (a position p where p == 0 or
-// ids[p] != ids[p-1]), folds g[p], g[p+1], … while the id stays the same,
-// and writes its row once.  The fold starts from 0.f and adds with
-// __fadd_rn, so no FMA contraction changes the order or the rounding.
-// There are no atomics, so the result is the same bits on every run,
-// bitwise equal to the ordered plain version (ref.segment_reduce_ref),
-// and bitwise equal to jax.ops.segment_sum of the unsorted batch — the
-// reference's own contract (segment_reduce.py:13-18).
+// entry into a VMEM-resident output.  Here each block owns a contiguous
+// range of RB output rows (segment_reduce.py::plan) and:
+//   1. zeroes its rows in a shared-memory tile;
+//   2. finds the span [lo, hi) of sorted positions whose ids fall in its
+//      range, by two lower-bound searches over the sorted ids that one
+//      warp runs while the others zero the tile: each round tests 32
+//      positions per target and counts them with a ballot, so a range
+//      shrinks 32-fold a round (3 rounds at B = 4096).  Every block searches
+//      the same ids, so more probes a round (a block-wide search, or all
+//      4096 ids at once) measured slower: they crowd the same L2 lines;
+//   3. stages the span's ids and gradient rows in shared memory, CH
+//      positions at a time, and folds each run of equal ids with one group
+//      of W = next_pow2(J) lanes into the tile.  A run starts from the
+//      tile's value: 0 at a run's first entry, the running sum where a run
+//      goes on from the last chunk, so the adds are those of one walk from
+//      0.f in sorted order, with __fadd_rn (no FMA contraction);
+//   4. writes its rows with 16-byte stores where the range's start is
+//      16-byte aligned (RB is a multiple of 4, so it is for any J on an
+//      aligned output), 4-byte stores for the rest.
+// Ids below 0 come before block 0's span and ids >= rows after the last
+// block's, so they are dropped with no test.  There are no atomics: the
+// result is the same bits on every run, bitwise equal to the ordered plain
+// version (ref.segment_reduce_ref) and to jax.ops.segment_sum of the
+// unsorted batch — the reference's own contract (segment_reduce.py:13-18).
 //
-// Bound on the card: memory.  It reads B·J + B values and must write the
-// dense rows·J output (zeroed by the caller), which at the training shapes
-// is most of the bytes (mode 0 of the Netflix shape: 480,189 × 4 floats).
-// Run lengths depend on the data; at the training batch they are short,
-// and a long run is walked by one group alone.
+// Bound on the card: memory.  It reads B·J + B values and writes the dense
+// rows·J output, which at the training shapes is most of the bytes (mode 0
+// of the Netflix shape: 480,189 × 4 floats).  At the smaller modes a call
+// moves a few tens of kB and the launch and the searches' latency set its
+// time; one launch (no separate zero fill) is what the design buys there.
+#include <cstdint>
+
 #include "common.cuh"
+
+// First positions in [0, B) whose ids are >= t0 and >= t1 (B where there
+// is none), searched by one warp: each round every lane tests one position
+// per target (the same one while the two ranges agree) and a ballot counts
+// the ids below, so a range shrinks 32-fold a round with no block barrier
+// (3 rounds at B = 4096).  Few probes a round keep the blocks, which all
+// search the same ids, from crowding the same L2 lines.
+__device__ __forceinline__ void warp_lower_bounds(
+    const int* __restrict__ idx, long long B, long long t0, long long t1,
+    long long& lo, long long& hi) {
+  const int lane = threadIdx.x & 31;
+  long long a[2] = {0, 0};
+  long long b[2] = {B, B};
+  const long long target[2] = {t0, t1};
+  // invariant: ids before a[k] are < target[k], ids from b[k] on are >=
+  while (a[0] < b[0] || a[1] < b[1]) {   // the same bounds in every lane
+    long long stride[2];
+    int v[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      stride[k] = (b[k] - a[k] + 31) / 32;
+      const long long q = a[k] + lane * stride[k];
+      v[k] = a[k] < b[k] && q < b[k] ? idx[q] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const long long q = a[k] + lane * stride[k];
+      const int count = __popc(__ballot_sync(
+          REPRO_FULL_MASK, a[k] < b[k] && q < b[k] && v[k] < target[k]));
+      if (a[k] >= b[k]) continue;
+      // the tested ids are sorted: the first count of them are below
+      if (count == 0) {
+        b[k] = a[k];
+      } else {
+        const long long next = a[k] + count * stride[k];
+        a[k] += (count - 1) * stride[k] + 1;
+        if (next < b[k]) b[k] = next;
+      }
+    }
+  }
+  lo = a[0];
+  hi = a[1];
+}
 
 __global__ void __launch_bounds__(256) segment_reduce_kernel(
     const float* __restrict__ g, const int* __restrict__ idx,
-    float* __restrict__ out, long long B, int J, long long rows, int W) {
-  const int sub = threadIdx.x & (W - 1);
-  const long long group =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / W;
-  const long long groups =
-      static_cast<long long>(gridDim.x) * blockDim.x / W;
-  for (long long p = group; p < B; p += groups) {
-    const int id = idx[p];
-    if (p > 0 && idx[p - 1] == id) continue;    // not a run head
-    if (id < 0 || id >= rows || sub >= J) continue;
-    float acc = 0.f;
-    for (long long q = p; q < B && idx[q] == id; ++q)
-      acc = __fadd_rn(acc, g[q * J + sub]);
-    out[static_cast<long long>(id) * J + sub] = acc;
+    float* __restrict__ out, long long B, int J, long long rows, int W,
+    int RB, int CH) {
+  extern __shared__ float smem[];
+  float* tile = smem;                               // (RB, J) block's rows
+  int* ids = reinterpret_cast<int*>(tile + RB * J);  // (CH,) sorted ids
+  float* gs = reinterpret_cast<float*>(ids + CH);    // (CH, J) their rows
+  const long long r0 = static_cast<long long>(blockIdx.x) * RB;
+  const int nr = static_cast<int>(min(static_cast<long long>(RB), rows - r0));
+  __shared__ long long span[2];
+  const int total = nr * J;
+  if (threadIdx.x < 32) {
+    long long lo, hi;
+    warp_lower_bounds(idx, B, r0, r0 + nr, lo, hi);
+    if (threadIdx.x == 0) {
+      span[0] = lo;
+      span[1] = hi;
+    }
   }
+  for (int i = threadIdx.x; i < total; i += blockDim.x) tile[i] = 0.f;
+  __syncthreads();
+  const long long lo = span[0];
+  const long long hi = span[1];
+  const int sub = threadIdx.x & (W - 1);
+  const int group = threadIdx.x / W;
+  const int groups = blockDim.x / W;
+  for (long long c0 = lo; c0 < hi; c0 += CH) {
+    const int n = static_cast<int>(min(static_cast<long long>(CH), hi - c0));
+    for (int k = threadIdx.x; k < n; k += blockDim.x) ids[k] = idx[c0 + k];
+    for (int k = threadIdx.x; k < n * J; k += blockDim.x)
+      gs[k] = g[c0 * J + k];
+    __syncthreads();
+    // one group per run of equal ids in the chunk (a run's first entry,
+    // or the chunk's first, which may go on from the last chunk)
+    for (int p = group; p < n; p += groups) {
+      const int id = ids[p];
+      if ((p > 0 && ids[p - 1] == id) || sub >= J) continue;
+      float* dst = tile + static_cast<long long>(id - r0) * J + sub;
+      float acc = *dst;
+      for (int q = p; q < n && ids[q] == id; ++q)
+        acc = __fadd_rn(acc, gs[q * J + sub]);
+      *dst = acc;
+    }
+    __syncthreads();
+  }
+  float* dst = out + r0 * J;
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    head = total / 4 * 4;
+    const float4* src4 = reinterpret_cast<const float4*>(tile);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < total / 4; i += blockDim.x)
+      dst4[i] = src4[i];
+  }
+  for (int i = head + threadIdx.x; i < total; i += blockDim.x)
+    dst[i] = tile[i];
 }
 
 extern "C" int segment_reduce_f32(
     const float* g, const int* idx, float* out, long long B, int J,
-    long long rows, void* stream) {
-  if (B < 1 || J < 1 || J > REPRO_MAX_WIDTH || rows < 1)
+    long long rows, int RB, int CH, long long blocks, void* stream) {
+  if (B < 1 || J < 1 || J > REPRO_MAX_WIDTH || rows < 1 || RB < 4 ||
+      RB % 4 != 0 || CH < 1 || blocks < 1 || blocks > 0x7fffffffLL ||
+      blocks * RB < rows || (blocks - 1) * RB >= rows)
     return static_cast<int>(cudaErrorInvalidValue);
-  int W = 1;
-  while (W < J) W <<= 1;
-  const int threads = 256;
-  const long long groups = threads / W;
-  long long blocks = (B + groups - 1) / groups;
-  if (blocks > 8192) blocks = 8192;
-  segment_reduce_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+  const size_t smem = sizeof(float) * (static_cast<size_t>(RB) * J +
+                                       static_cast<size_t>(CH) * (J + 1));
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  segment_reduce_kernel<<<static_cast<unsigned>(blocks), 256, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      g, idx, out, B, J, rows, W);
+      g, idx, out, B, J, rows, group_width(J, J), RB, CH);
   return static_cast<int>(cudaGetLastError());
 }

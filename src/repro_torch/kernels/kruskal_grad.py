@@ -2,18 +2,20 @@
 
 Replaces ``src/repro/kernels/kruskal_grad.py::kruskal_grad`` (a Pallas TPU
 kernel).  The kernel is ``csrc/kruskal_grad.cu``; its source note gives its
-bound on the card (memory, and at the training batch the launch itself)
-and how the core gradient is reduced across blocks without atomics.
+bound on the card (at the training batch, the launch and chains of
+latency) and how the core gradient is reduced across blocks in the same
+launch, without float atomics.
 
 The CUDA kernel takes every phase flag of the reference: ``emit_c``
 (write the mode products it used), ``c=`` (consume cached ones instead of
-the N dots), an ordered ``row_modes`` list and ``want_core``.  The tile
-size and the block count do not depend on the flags, so a core pass fed
+the N dots), an ordered ``row_modes`` list and ``want_core``.  Its tiling,
+``plan(N, J, R, B)``, does not depend on the flags, so a core pass fed
 with emitted ``c`` gives the joint pass's core gradient bit for bit.
 Storage may be f32 or bf16 (``a_rows`` and ``b_fac`` alike); every output
 is f32.  On CPU tensors the wrapper computes the plain version
-(``ref.kruskal_grad_ref``); on CUDA tensors it launches the kernel or
-raises — it never falls back.
+(``ref.kruskal_grad_ref``); on CUDA tensors it launches the kernel (one
+device kernel per call, whatever the flags) or raises — it never falls
+back.
 """
 from __future__ import annotations
 
@@ -29,8 +31,12 @@ MAX_MODES = 10
 MAX_WIDTH = 32          # J, R <= one warp
 MAX_BLOCKS = 256        # core partials; a constant, so results do not
                         # depend on the card's SM count
+MAX_THREADS = 256       # threads of a block: BT lane groups of W lanes
+MAX_TILE = 32           # samples per tile; <= 32 gives >= 128 blocks at
+                        # the training batch B = 4096
+LANE_ENTRIES = 2        # core entries a lane of the last block sums at
+                        # once (the cross-block sum's shared memory)
 SMEM_LIMIT = 232_448    # bytes of shared memory a Hopper block may use
-TILES = (64, 32, 16)    # samples per shared-memory tile, largest that fits
 STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}  # C entry suffix
 
 
@@ -43,16 +49,44 @@ class KernelOuts(NamedTuple):
     c: Optional[torch.Tensor] = None          # (N, B, R) mode products
 
 
-def tile_size(N: int, J: int, R: int) -> int:
-    """Samples per tile: the largest of ``TILES`` whose shared memory fits
-    with the core tiles on.  It depends on the shapes only, never on the
-    phase flags (see the module note)."""
-    for bt in TILES:
-        floats = N * J * (R + 1) + N * bt * (J + R) + N * J * R
-        if 4 * floats <= SMEM_LIMIT:
-            return bt
-    raise ValueError(f"kruskal_grad: N={N}, J={J}, R={R} does not fit in "
-                     "shared memory")
+class Plan(NamedTuple):
+    """The kernel's tiling for one shape (see ``plan``)."""
+    bt: int          # samples per tile, one lane group each
+    blocks: int      # blocks launched (= core partials)
+    threads: int     # threads per block: bt lane groups of width W
+    slices: int      # Eq. 17 fold: each (n, j, r) entry in this many slices
+    smem_bytes: int  # dynamic shared memory with the core stages on
+
+
+def group_width(J: int, R: int) -> int:
+    """Lanes per sample: the next power of two >= max(J, R)."""
+    return 1 << (max(J, R) - 1).bit_length()
+
+
+def plan(N: int, J: int, R: int, B: int) -> Plan:
+    """Tile, blocks, threads, fold slices and shared memory for N modes of
+    width J, core rank R and B samples.  It reads the shapes only, never
+    the phase flags or the card, so every flag combination folds the same
+    terms in the same order on any card."""
+    if not (1 <= N <= MAX_MODES and 1 <= J <= MAX_WIDTH
+            and 1 <= R <= MAX_WIDTH and B >= 1):
+        raise ValueError(
+            f"kruskal_grad: the kernel takes N <= {MAX_MODES}, "
+            f"J, R <= {MAX_WIDTH} and B >= 1, got N={N}, J={J}, R={R}, "
+            f"B={B}")
+    W = group_width(J, R)
+    bt = min(MAX_TILE, MAX_THREADS // W)
+    blocks = min(-(-B // bt), MAX_BLOCKS)
+    njr = N * J * R
+    tile_floats = N * J * (R + 1) + N * bt * (J + R) + njr
+    smem = 4 * max(tile_floats, bt * W * LANE_ENTRIES)
+    slices = 1          # the most that keep the fold to one pass
+    while 2 * slices * njr <= bt * W and 2 * slices <= min(bt, MAX_WIDTH):
+        slices *= 2
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kruskal_grad: N={N}, J={J}, R={R} needs {smem} "
+                         "bytes of shared memory")
+    return Plan(bt, blocks, bt * W, slices, smem)
 
 
 def row_mode_code(N: int, row_modes: tuple[int, ...] | None) -> int:
@@ -103,16 +137,26 @@ def _check(a_rows, b_fac, val, mask, scal, c) -> tuple[int, ...]:
     if c is not None and c.shape != (N, B, R):
         raise ValueError(f"kruskal_grad: c must be ({N}, {B}, {R}), got "
                          f"{tuple(c.shape)}")
-    if not (1 <= N <= MAX_MODES and 1 <= J <= MAX_WIDTH
-            and 1 <= R <= MAX_WIDTH):
-        raise ValueError(
-            f"kruskal_grad: the kernel takes N <= {MAX_MODES} and "
-            f"J, R <= {MAX_WIDTH}, got N={N}, J={J}, R={R}")
     return N, B, J, R
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+# One 4-byte ticket per (device, stream): the blocks of a call count
+# themselves on it and the last one puts it back to 0, so it is zeroed only
+# here, when it is made, and calls queued on one stream reuse it in turn.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
 
 
 def kruskal_grad(
@@ -141,26 +185,28 @@ def kruskal_grad(
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
+    pl = plan(N, J, R, B)
     pred, err = out(B), out(B)
     rg = out(nrow, B, J) if nrow else None
     cg = out(N, J, R) if want_core else None
     c_out = out(N, B, R) if emit_c else None
-    bt = tile_size(N, J, R)
-    blocks = min(-(-B // bt), MAX_BLOCKS)
-    partial = out(blocks, N * J * R) if want_core else None
     fn = build.function(
         "kruskal_grad", f"kruskal_grad_{STORAGE[a_rows.dtype]}",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        partial = ticket = None
+        if want_core:
+            partial = out(pl.blocks, N * J * R)
+            ticket = _ticket(dev, stream)
         build.check("kruskal_grad", fn(
             a_rows.data_ptr(), b_fac.data_ptr(), val.data_ptr(),
             mask.data_ptr(), scal.data_ptr(), _ptr(c), pred.data_ptr(),
             err.data_ptr(), _ptr(rg), _ptr(cg), _ptr(c_out), _ptr(partial),
-            N, B, J, R, bt, blocks, code, int(want_core), stream))
+            _ptr(ticket), N, B, J, R, pl.bt, pl.slices, pl.blocks, code,
+            int(want_core), stream))
     kruskal_grad.launches += 1
     return KernelOuts(pred, err, rg, cg, c_out)
 

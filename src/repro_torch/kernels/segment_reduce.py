@@ -1,25 +1,55 @@
 """Sorted-batch row scatter: CUDA kernel wrapper, launch count, plain path.
 
 Replaces ``src/repro/kernels/segment_reduce.py::segment_reduce`` (a Pallas
-TPU kernel).  The kernel is ``csrc/segment_reduce.cu``: one lane group per
-run of equal ids folds the run in sorted order, with no atomics; its
-source note gives its bound on the card.  The result is bitwise equal to
-the plain version (``ref.segment_reduce_ref``), and so to the reference's
-``jax.ops.segment_sum`` of the unsorted batch, on every run.  Ids outside
-``[0, num_rows)`` are dropped.  The ids must be sorted ascending
-(``layout.sorted_rows[n]``), which the wrapper does not check: that would
-cost a host round trip.
+TPU kernel).  The kernel is ``csrc/segment_reduce.cu``: one launch in which
+each block owns a contiguous range of output rows (``plan``), zeroes it,
+finds the sorted positions that fall in it and folds each run of equal ids
+in sorted order, with no atomics; its source note gives its bound on the
+card.  It writes every output row exactly once, so the wrapper allocates
+the output with ``torch.empty`` and launches no fill.  The result is
+bitwise equal to the plain version (``ref.segment_reduce_ref``), and so to
+the reference's ``jax.ops.segment_sum`` of the unsorted batch, on every
+run.  Ids outside ``[0, num_rows)`` are dropped.  The ids must be sorted
+ascending (``layout.sorted_rows[n]``), which the wrapper does not check:
+that would cost a host round trip.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .ref import segment_reduce_ref
 
-MAX_WIDTH = 32  # J <= one warp
+MAX_WIDTH = 32        # J <= one warp
+TARGET_BLOCKS = 256   # row ranges a call aims for, so small modes fill the
+                      # card too
+TILE_FLOATS = 4096    # a block's rows in shared memory (16 kB)
+STAGE_FLOATS = 8192   # staged sorted ids and gradient rows (32 kB)
+
+
+class Plan(NamedTuple):
+    """The kernel's partition for one shape (see ``plan``)."""
+    rows_per_block: int  # block k owns rows [k·rows_per_block, …)
+    blocks: int
+    chunk: int           # sorted positions staged in shared memory at once
+    smem_bytes: int
+
+
+def plan(num_rows: int, J: int) -> Plan:
+    """Row ranges and staging for ``num_rows`` output rows of width J.
+    ``rows_per_block`` is a multiple of 4, so each range starts on a
+    16-byte boundary of an aligned output for any J."""
+    if num_rows < 1 or not 1 <= J <= MAX_WIDTH:
+        raise ValueError(f"segment_reduce: the kernel takes num_rows >= 1 "
+                         f"and J <= {MAX_WIDTH}, got {num_rows} and {J}")
+    per = -(-num_rows // TARGET_BLOCKS)
+    rows_per_block = min(-(-per // 4) * 4, TILE_FLOATS // J // 4 * 4)
+    chunk = 1 << (STAGE_FLOATS // (J + 1)).bit_length() - 1
+    return Plan(rows_per_block, -(-num_rows // rows_per_block), chunk,
+                4 * (rows_per_block * J + chunk * (J + 1)))
 
 
 def _check(grads: torch.Tensor, idx: torch.Tensor, num_rows: int) -> None:
@@ -39,12 +69,6 @@ def _check(grads: torch.Tensor, idx: torch.Tensor, num_rows: int) -> None:
         raise ValueError(f"segment_reduce: grads (B, J) and idx (B,) "
                          f"expected, got {tuple(grads.shape)} and "
                          f"{tuple(idx.shape)}")
-    if not 1 <= grads.shape[1] <= MAX_WIDTH:
-        raise ValueError(f"segment_reduce: the kernel takes J <= "
-                         f"{MAX_WIDTH}, got {grads.shape[1]}")
-    if num_rows < 1:
-        raise ValueError(f"segment_reduce: num_rows must be >= 1, got "
-                         f"{num_rows}")
 
 
 def segment_reduce(
@@ -57,17 +81,20 @@ def segment_reduce(
         return segment_reduce_ref(grads, idx, num_rows)
     _check(grads, idx, num_rows)
     B, J = grads.shape
-    out = torch.zeros((num_rows, J), dtype=torch.float32,
+    pl = plan(num_rows, J)
+    out = torch.empty((num_rows, J), dtype=torch.float32,
                       device=grads.device)
     fn = build.function(
         "segment_reduce", "segment_reduce_f32",
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_void_p])
+                                 ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_longlong,
+                                 ctypes.c_void_p])
     with torch.cuda.device(grads.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check("segment_reduce", fn(
             grads.data_ptr(), idx.data_ptr(), out.data_ptr(), B, J,
-            num_rows, stream))
+            num_rows, pl.rows_per_block, pl.chunk, pl.blocks, stream))
     segment_reduce.launches += 1
     return out
 

@@ -40,7 +40,7 @@ def _close(got, want, rel):
 
 
 @pytest.mark.parametrize("N,J,R,B", [(3, 4, 4, 1000), (4, 7, 5, 333),
-                                     (3, 32, 32, 4099)])
+                                     (3, 32, 32, 4099), (4, 32, 32, 4096)])
 def test_kernels_match_plain_on_card(dev, N, J, R, B):
     rng = np.random.default_rng(N * 100 + J)
     a = torch.tensor(rng.normal(0, 0.5, (N, B, J)), dtype=torch.float32,
@@ -119,6 +119,154 @@ def test_kernel_every_phase_flag_matches_plain_on_card(
                                      row_modes=())
     assert torch.equal(core.core_grads, joint.core_grads)
     assert torch.equal(fac.row_grads, joint.row_grads)
+
+
+def _device_kernels(fn, calls=3):
+    """Names of the device kernels that ``calls`` calls of ``fn`` issue,
+    from ``torch.profiler``, after a first call that builds the library and
+    makes the stream's ticket.  A marker kernel (``torch.cuda._sleep``)
+    opens each window: a trace without it recorded no device activity at
+    all, and is taken again (at most three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if "CUDA" in str(e.device_type)]
+        if any("spin" in n for n in names):
+            return [n for n in names if "spin" not in n]
+    raise AssertionError("the profiler recorded no device activity")
+
+
+def _grad_inputs(dev, N, B, J, R, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.tensor(rng.normal(0, 0.5, (N, B, J)), dtype=dtype, device=dev)
+    b = torch.tensor(rng.normal(0, 0.5, (N, J, R)), dtype=dtype, device=dev)
+    val = torch.tensor(rng.normal(size=B), dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.random(B) > 0.2, dtype=torch.float32,
+                        device=dev)
+    scal = torch.tensor([1.0, 1 / max(mask.sum().item(), 1.0), 0.01, 0.02,
+                         1.0], dtype=torch.float32, device=dev)
+    return a, b, val, mask, scal
+
+
+def _check_grad(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None)
+        if g is not None:
+            _close(g, w, 1e-4 if i == 3 else 2e-5)
+
+
+@pytest.mark.parametrize("consume,row_modes,want_core,emit_c", FLAGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kruskal_grad_is_one_device_kernel_per_call(
+        dev, consume, row_modes, want_core, emit_c, dtype):
+    """Every flag combination and storage dtype: one kernel, the core sum
+    across blocks included (no second reduction launch)."""
+    a, b, val, mask, scal = _grad_inputs(dev, 3, 4096, 4, 4, dtype)
+    c = torch.bmm(a.float(), b.float()) if consume else None
+    names = _device_kernels(lambda: kruskal_grad.kruskal_grad(
+        a, b, val, mask, scal, c, row_modes=row_modes, want_core=want_core,
+        emit_c=emit_c))
+    assert len(names) == 3, names
+    assert all("kruskal_grad_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("B", [1, 7, 4099, 1_000_000])
+def test_kruskal_grad_edge_batches_on_card(dev, B):
+    """One sample, fewer than a tile, a ragged last tile, and several tiles
+    a block at MAX_BLOCKS: plain within tolerance, the same bits twice."""
+    N, J, R = 3, 4, 4
+    pl = kruskal_grad.plan(N, J, R, B)
+    if B == 1_000_000:
+        assert pl.blocks == kruskal_grad.MAX_BLOCKS
+        assert -(-B // pl.bt) > 2 * pl.blocks
+    a, b, val, mask, scal = _grad_inputs(dev, N, B, J, R, seed=B)
+    got = kruskal_grad.kruskal_grad(a, b, val, mask, scal)
+    again = kruskal_grad.kruskal_grad(a, b, val, mask, scal)
+    _check_grad(got, ref.kruskal_grad_ref(a, b, val, mask, scal))
+    for g, h in zip(got[:4], again[:4]):
+        assert torch.equal(g, h)
+
+
+def test_kruskal_grad_ticket_reused_across_calls_and_streams(dev):
+    """Back-to-back calls with 128, 1, 256 and 3 blocks share the stream's
+    ticket; calls on two other streams at once use their own.  Every core
+    gradient is the bits of the same call alone on the default stream."""
+    shapes = [4096, 5, 1_000_000, 70]
+    ins = {B: _grad_inputs(dev, 3, B, 4, 4, seed=B) for B in shapes}
+    alone = {}
+    for B in shapes:
+        alone[B] = kruskal_grad.kruskal_grad(*ins[B]).core_grads
+        torch.cuda.synchronize()
+    assert [kruskal_grad.plan(3, 4, 4, B).blocks for B in shapes] == [
+        128, 1, 256, 3]
+    for B in shapes + shapes[::-1]:           # queued back to back
+        assert torch.equal(kruskal_grad.kruskal_grad(*ins[B]).core_grads,
+                           alone[B])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s, B in zip(streams, (1_000_000, 4096)):
+            with torch.cuda.stream(s):
+                outs.append((B, kruskal_grad.kruskal_grad(*ins[B])))
+    torch.cuda.synchronize()
+    for B, o in outs:
+        assert torch.equal(o.core_grads, alone[B])
+    _close(alone[4096], ref.kruskal_grad_ref(*ins[4096])[3], 1e-4)
+
+
+def test_segment_reduce_is_one_device_kernel_per_call(dev):
+    """No zero fill beside the kernel: it writes every row itself."""
+    rng = np.random.default_rng(2)
+    g = torch.tensor(rng.normal(size=(4096, 4)), dtype=torch.float32,
+                     device=dev)
+    idx = torch.tensor(np.sort(rng.integers(0, 480_189, 4096)),
+                       dtype=torch.int32, device=dev)
+    names = _device_kernels(
+        lambda: segment_reduce.segment_reduce(g, idx, 480_189))
+    assert len(names) == 3, names
+    assert all("segment_reduce_kernel" in n for n in names), names
+
+
+SEGMENT_CASES = {
+    "all_equal": (4096, 50, lambda rng, B, rows: np.full(B, 17)),
+    "outside": (4096, 300,
+                lambda rng, B, rows: rng.integers(-40, rows + 40, B)),
+    "one_row": (1000, 1, lambda rng, B, rows: rng.integers(-1, 2, B)),
+    "netflix_mode0": (4096, 480_189,
+                      lambda rng, B, rows: rng.integers(0, rows, B)),
+}
+
+
+@pytest.mark.parametrize("J", [1, 3, 4, 32])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_reduce_bitwise_into_nan_memory_on_card(dev, case, J):
+    """One run of length B, ids below 0 and >= rows, rows = 1, and the
+    Netflix mode 0 shape, each written into memory that held NaN: bitwise
+    the plain version."""
+    B, rows, draw = SEGMENT_CASES[case]
+    rng = np.random.default_rng(J)
+    g = torch.tensor(rng.normal(size=(B, J)), dtype=torch.float32,
+                     device=dev)
+    idx = torch.tensor(np.sort(draw(rng, B, rows)), dtype=torch.int32,
+                       device=dev)
+    want = ref.segment_reduce_ref(g, idx, rows)
+    nan = torch.full((rows, J), float("nan"), device=dev)
+    ptr = nan.data_ptr()
+    del nan
+    got = segment_reduce.segment_reduce(g, idx, rows)
+    assert got.data_ptr() == ptr     # the NaN block, reused
+    assert torch.equal(got, want)
+    assert torch.equal(segment_reduce.segment_reduce(g, idx, rows), want)
 
 
 def test_sorted_phase_split_step_equals_joint_on_card(dev):

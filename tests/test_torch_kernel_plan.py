@@ -1,0 +1,91 @@
+"""The CUDA kernels' launch plans, checked on the CPU (no card needed).
+
+``kruskal_grad.plan`` sets the tile, the block count, the fold and the
+cross-block reduction's chunk; ``segment_reduce.plan`` partitions the
+output rows among blocks.  Both are pure functions of the shapes, so the
+bits of a result do not depend on the phase flags or on the card.
+"""
+import inspect
+import itertools
+
+import numpy as np
+import pytest
+
+from repro_torch.kernels import kruskal_grad, segment_reduce
+
+GRAD_SHAPES = list(itertools.product(
+    (1, 3, 4, 10),                      # N
+    (1, 3, 4, 16, 32),                  # J
+    (1, 4, 5, 32),                      # R
+    (1, 7, 4096, 4099, 262_144, 1_000_000)))  # B
+
+
+def test_grad_plan_reads_the_shapes_only():
+    """No flag, device or card reaches the plan: the same shapes give the
+    same tiling for every flag combination."""
+    assert list(inspect.signature(kruskal_grad.plan).parameters) == [
+        "N", "J", "R", "B"]
+    assert kruskal_grad.plan(3, 4, 4, 4096) == kruskal_grad.plan(3, 4, 4,
+                                                                 4096)
+
+
+def test_grad_plan_fills_the_card_at_the_training_shape():
+    pl = kruskal_grad.plan(3, 4, 4, 4096)
+    assert pl.bt <= 32 and pl.blocks >= 128
+    assert (pl.threads, pl.slices) == (128, 2)   # 96 of 128 threads fold
+    assert pl.blocks <= kruskal_grad.MAX_BLOCKS
+
+
+@pytest.mark.parametrize("N", [1, 3, 4, 10])
+def test_grad_plan_is_launchable_for_every_width(N):
+    for n, J, R, B in (s for s in GRAD_SHAPES if s[0] == N):
+        pl = kruskal_grad.plan(n, J, R, B)
+        W = kruskal_grad.group_width(J, R)
+        assert W >= max(J, R) and W & (W - 1) == 0 and W <= 32
+        assert pl.threads == pl.bt * W
+        assert pl.threads % 32 == 0 and pl.threads <= 256
+        assert 1 <= pl.blocks <= min(kruskal_grad.MAX_BLOCKS,
+                                     -(-B // pl.bt))
+        s = pl.slices   # the fold: powers of two within a warp, one pass
+        assert s & (s - 1) == 0 and s <= 32 and pl.bt % s == 0
+        assert s == 1 or s * n * J * R <= pl.threads
+        assert 2 * s * n * J * R > pl.threads or 2 * s > min(pl.bt, 32)
+        njr = n * J * R
+        tile = n * J * (R + 1) + n * pl.bt * (J + R) + njr
+        # the tiles, or the last block's per-lane sums of the partials
+        assert pl.smem_bytes == 4 * max(tile, 2 * pl.threads)
+        assert pl.smem_bytes <= kruskal_grad.SMEM_LIMIT == 232_448
+
+
+def test_grad_plan_rejects_shapes_the_kernel_does_not_take():
+    for bad in ((11, 4, 4, 10), (3, 33, 4, 10), (3, 4, 33, 10),
+                (3, 4, 4, 0), (0, 4, 4, 10)):
+        with pytest.raises(ValueError, match="kruskal_grad"):
+            kruskal_grad.plan(*bad)
+
+
+@pytest.mark.parametrize("J", [1, 3, 4, 32])
+@pytest.mark.parametrize("rows", [1, 2182, 17_770, 480_189])
+def test_segment_plan_covers_every_row_once(rows, J):
+    pl = segment_reduce.plan(rows, J)
+    assert pl.rows_per_block % 4 == 0   # 16-byte aligned starts, any J
+    hits = np.zeros(rows, np.int64)
+    for k in range(pl.blocks):
+        hits[k * pl.rows_per_block:(k + 1) * pl.rows_per_block] += 1
+    assert (hits == 1).all()
+    assert (pl.blocks - 1) * pl.rows_per_block < rows
+    assert pl.chunk & (pl.chunk - 1) == 0
+    assert pl.smem_bytes == 4 * (pl.rows_per_block * J
+                                 + pl.chunk * (J + 1))
+    assert pl.smem_bytes <= 48 * 1024   # no opt-in attribute needed
+
+
+def test_segment_plan_spreads_small_modes_over_many_blocks():
+    """The Netflix modes at J = 4: even 2,182 rows take over 128 blocks."""
+    blocks = [segment_reduce.plan(r, 4).blocks
+              for r in (480_189, 17_770, 2_182)]
+    assert blocks == [469, 247, 182]
+    with pytest.raises(ValueError, match="segment_reduce"):
+        segment_reduce.plan(0, 4)
+    with pytest.raises(ValueError, match="segment_reduce"):
+        segment_reduce.plan(10, 33)
