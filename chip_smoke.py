@@ -10,13 +10,18 @@ Phases (each failure ends the run with a non-zero exit code):
    nvcc versions, and the parallel ``nvcc`` build of the six kernels
    from ``src/repro_torch/kernels/csrc`` (with ptxas' register report).
 2. Each kernel against its plain PyTorch version on the card, over
-   N ∈ {3, 4}, J = R ∈ {4, 16, 32}, B ∈ {4096, 4099, 262144}, with masked
-   rows, ``pred_coef = 0``, every phase flag of ``kruskal_grad``, bf16
-   storage, and scatter ids outside ``[0, rows)``.  ``segment_reduce`` must
-   match exactly, over sorted ids with long runs (rows = 64) and short
-   ones, twice with the same bits; a core pass fed the emitted mode
-   products must give the joint core gradient exactly.  ``segment_reduce``
-   also writes into memory that last held NaN and must match exactly.
+   N ∈ {3, 4}, J = R ∈ {4, 16, 32, 48, 64}, B ∈ {4096, 4099, 262144},
+   with masked rows, ``pred_coef = 0``, every phase flag of
+   ``kruskal_grad``, bf16 storage, ``kruskal_contract`` with and without
+   ``pexc`` (the same ``pred`` bits), and scatter ids outside
+   ``[0, rows)``.  Both scatters must match exactly: ``segment_reduce``
+   over sorted ids with long runs (rows = 64) and short ones, twice with
+   the same bits; ``scatter_accum`` (unsorted) at the three Netflix modes
+   (J = 4 and 64), with every id equal, twice with the same bits, and
+   equal to ``segment_reduce`` of the stable-sorted batch.  A core pass fed
+   the emitted mode products must give the joint core gradient exactly.
+   Both scatters also write into memory that last held NaN and must match
+   exactly.
 3. Three training paths at the paper's size, through
    ``repro_torch.launch.std_train`` on the ``"cuda"`` backend, over one
    planted tensor of the Netflix tensor's published shape (480,189 ×
@@ -26,25 +31,37 @@ Phases (each failure ends the run with a non-zero exit code):
    bfloat16``.  Held-out RMSE/MAE before and after.  The launch counts are
    set to 0 just before each path and read just after: each path must
    launch the kernels it names and not the scatter it does not use.
+   Then two short runs at the reference's wider ranks, over a tensor of
+   the same shape cut to ``WIDE_NNZ`` nonzeros: ``--rank 48 --core-rank
+   48`` (unsorted) and ``--rank 64 --core-rank 64 --sorted-batches
+   --phase-split``, each with finite RMSE/MAE and its kernels launched.
 4. Parity on the card: 20 fed-batch steps on ``"cuda"`` against
    ``"torch"`` from the same parameters, for every {jacobi, gauss_seidel}
-   × {joint, phase-split} × {unsorted, sorted} and for bf16; the sorted
-   jacobi phase-split step must equal the sorted joint step bitwise.
+   × {joint, phase-split} × {unsorted, sorted}, for bf16, and at
+   J = R = 64; the sorted jacobi phase-split step must equal the sorted
+   joint step bitwise, the unsorted f32 step the sorted one for every
+   {order × phase}, and the unsorted step itself when run again.
 5. Times at the path's shapes (B = 4096 for the gradient passes and the
    scatters, B = 262,144 for the contraction): median device time per call
    (CUDA events, calls queued behind a sleep so the host's launch latency
    is not in them), the plain version's, ``zeros`` + ``index_add_`` for
    the scatters, and the bound (larger of bytes at 3.35 TB/s and f32 flops
    at 67 TFLOP/s, the H100 SXM's published peaks), for the joint,
-   factor-phase, core-phase, Gauss–Seidel and bf16 variants, and for the
-   scatters at each of the three modes.  Beside each, the launch floor:
-   the same event-pair time of an empty kernel launched through the same
-   ctypes path (``repro_noop``).
+   factor-phase, core-phase, Gauss–Seidel and bf16 variants, for the
+   scatters at each of the three modes, for the contraction in f32 and
+   bf16, each with and without ``pexc`` (``torch.einsum`` of the rows and
+   factors as the library call of ``pred`` alone), and for
+   ``kruskal_grad`` and ``kruskal_contract`` at J = R = 64.  Beside each,
+   the launch floor (the same event-pair time of an empty kernel launched
+   through the same ctypes path, ``repro_noop``) and the kernel's own
+   device duration from ``torch.profiler``, with the share of the bound
+   read from it.
 6. ``torch.profiler`` traces of steady training steps of each of the three
-   paths: device time per kernel and the device's busy share.  Each
-   wrapper launch must be exactly one device kernel (``kruskal_grad`` and
-   ``segment_reduce`` counted against their wrappers' counts), and no
-   ``core_reduce_kernel`` may run.
+   paths: device time per kernel, device operations per step and the
+   device's busy share.  Each wrapper launch must be exactly one device
+   kernel (``kruskal_grad``, ``segment_reduce`` and ``scatter_accum``
+   counted against their wrappers' counts), no ``core_reduce_kernel`` may
+   run, and the unsorted path runs no fill kernel at all.
 7. The LM's two kernels against their plain versions at the serving
    path's shapes: ``tucker_matmul`` for M ∈ {8192, 4, 8191}, both FFN
    directions (5120 → 17408 and back), x in bf16 and f32 against f32
@@ -80,7 +97,8 @@ Phases (each failure ends the run with a non-zero exit code):
    measured again beside these rows.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
-floor, beside each kernel), the ``nvidia-smi`` line, and last
+floor, and ``device_ms``, the profiler's device duration where phase 5
+took it, beside each kernel), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
 record there as JSON.  It imports nothing of JAX.
 """
@@ -106,11 +124,13 @@ NETFLIX_DIMS = (480_189, 17_770, 2_182)
 NETFLIX_NNZ = 99_072_112
 TRAIN_BATCH = 4096
 EVAL_CHUNK = 262_144
+WIDE_NNZ = 2_000_000   # nonzeros of the short runs at ranks 48 and 64
+WIDE_STEPS = 20
 TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     "kruskal_contract": 2e-5,
     "kruskal_grad.rows": 2e-5,   # pred, err, row grads, emitted c
     "kruskal_grad.core": 1e-4,   # sums over up to 262,144 samples
-    "scatter_accum": 2e-5,       # atomics: run-to-run order of duplicates
+    "scatter_accum": 0.0,        # ordered fold, no atomics: exact
     "segment_reduce": 0.0,       # ordered fold, no atomics: exact
     "trajectory": 1e-4,          # 20 steps, each op within the above
     "trajectory.bf16": 2.0 ** -6,  # four bf16 ulps (2^-8) at the max
@@ -144,6 +164,17 @@ FLAGS = [
     (False, (2, 0), True, True),
     (True, (0, 1, 2), False, True),
 ]
+# name -> (std_train flags, kernels it must launch, kernels it must not)
+WIDE_PATHS = {
+    "rank48": (["--rank", "48", "--core-rank", "48"],
+               ("kruskal_contract", "kruskal_grad", "scatter_accum"),
+               ("segment_reduce",)),
+    "rank64_sorted_phase_split": (
+        ["--rank", "64", "--core-rank", "64", "--sorted-batches",
+         "--phase-split"],
+        ("kruskal_contract", "kruskal_grad", "segment_reduce"),
+        ("scatter_accum",)),
+}
 # name -> (extra std_train flags, kernels it must launch, kernels it must not)
 PATHS = {
     "unsorted": ([], ("kruskal_contract", "kruskal_grad", "scatter_accum"),
@@ -252,7 +283,7 @@ def phase_kernels_vs_plain(torch, K) -> dict:
 
     cases = 0
     for N in (3, 4):
-        for JR in (4, 16, 32):
+        for JR in (4, 16, 32, 48, 64):
             for B in (4096, 4099, 262_144):
                 what = f"N={N} J=R={JR} B={B}"
                 a = 0.5 * torch.randn((N, B, JR), generator=gen, device=dev)
@@ -265,6 +296,10 @@ def phase_kernels_vs_plain(torch, K) -> dict:
                            f"{what} {st} pred")
                     record("kruskal_contract", pexc, pexc_r,
                            f"{what} {st} pexc")
+                    only, none = kc(x, y, want_pexc=False)
+                    if none is not None or not torch.equal(only, pred):
+                        raise AssertionError(f"kruskal_contract {what} {st}:"
+                                             " pred differs without pexc")
 
                 val = torch.randn((B,), generator=gen, device=dev)
                 mask = (torch.rand((B,), generator=gen, device=dev)
@@ -320,34 +355,68 @@ def phase_kernels_vs_plain(torch, K) -> dict:
                         raise AssertionError(f"segment_reduce {what}: two "
                                              "launches gave other bits")
                 cases += 1
-    # the training path's widest scatters: mode 0 of the Netflix shape
+    # the training path's scatters at the three Netflix modes: the unsorted
+    # kernel exact, twice the same bits, and equal to the sorted kernel
+    # over the stable-sorted batch (what makes the two steps equal)
+    for rows_n in NETFLIX_DIMS:
+        for J in (4, 64):
+            what = f"Netflix mode rows={rows_n} J={J}"
+            g = torch.randn((TRAIN_BATCH, J), generator=gen, device=dev)
+            for tag, idx in (
+                    ("", torch.randint(0, rows_n, (TRAIN_BATCH,),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)),
+                    (" ids outside [0, rows)",
+                     torch.randint(-5, rows_n + 5, (TRAIN_BATCH,),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)),
+                    (" every id equal",
+                     torch.full((TRAIN_BATCH,), rows_n // 2, device=dev,
+                                dtype=torch.int32))):
+                got = sa(g, idx, rows_n)
+                record("scatter_accum", got,
+                       ref.scatter_accum_ref(g, idx, rows_n), what + tag)
+                if not torch.equal(sa(g, idx, rows_n), got):
+                    raise AssertionError(f"scatter_accum {what}{tag}: two "
+                                         "launches gave other bits")
+                sidx, perm = torch.sort(idx, stable=True)
+                gp = g[perm]
+                record("segment_reduce", sr(gp, sidx, rows_n),
+                       ref.segment_reduce_ref(gp, sidx, rows_n), what + tag)
+                if not torch.equal(sr(gp, sidx, rows_n), got):
+                    raise AssertionError(f"{what}{tag}: the unsorted and "
+                                         "the sorted scatter differ")
+    # both kernels write every row themselves: memory that held NaN shows
+    # none (mode 0 of the Netflix shape)
     g = torch.randn((TRAIN_BATCH, 4), generator=gen, device=dev)
     idx = torch.randint(0, NETFLIX_DIMS[0], (TRAIN_BATCH,), generator=gen,
                         device=dev, dtype=torch.int32)
-    record("scatter_accum", sa(g, idx, NETFLIX_DIMS[0]),
-           ref.scatter_accum_ref(g, idx, NETFLIX_DIMS[0]), "Netflix mode 0")
     sidx, perm = torch.sort(idx, stable=True)
     gp = g[perm]
-    want = ref.segment_reduce_ref(gp, sidx, NETFLIX_DIMS[0])
-    record("segment_reduce", sr(gp, sidx, NETFLIX_DIMS[0]), want,
-           "Netflix mode 0")
-    # the kernel writes every row itself: memory that held NaN shows none
-    nan = torch.full((NETFLIX_DIMS[0], 4), math.nan, device=dev)
-    nan_ptr = nan.data_ptr()
-    del nan
-    got = sr(gp, sidx, NETFLIX_DIMS[0])
-    if got.data_ptr() != nan_ptr:
-        raise AssertionError("segment_reduce: the output did not reuse the "
-                             "NaN block, so the check would not test it")
-    record("segment_reduce", got, want, "Netflix mode 0 into NaN memory")
+    for key, fn, want in (
+            ("segment_reduce", lambda: sr(gp, sidx, NETFLIX_DIMS[0]),
+             ref.segment_reduce_ref(gp, sidx, NETFLIX_DIMS[0])),
+            ("scatter_accum", lambda: sa(g, idx, NETFLIX_DIMS[0]),
+             ref.scatter_accum_ref(g, idx, NETFLIX_DIMS[0]))):
+        nan = torch.full((NETFLIX_DIMS[0], 4), math.nan, device=dev)
+        nan_ptr = nan.data_ptr()
+        del nan
+        got = fn()
+        if got.data_ptr() != nan_ptr:
+            raise AssertionError(f"{key}: the output did not reuse the NaN "
+                                 "block, so the check would not test it")
+        record(key, got, want, "Netflix mode 0 into NaN memory")
+        del got
     torch.cuda.synchronize()
     for key, (e, r) in worst.items():
         log(f"{key}: max abs err {e:.3g}, max relative err {r:.3g} "
             f"(tolerance {TOL[key]}) over {cases} shapes")
     log(f"kruskal_grad: {len(FLAGS)} flag combinations x f32/bf16; the core "
         "pass fed emitted c equals the joint core gradient bitwise")
-    log("segment_reduce: into memory that held NaN (the same block), equal "
-        "to the plain version bitwise")
+    log("kruskal_contract: pred the same bits with and without pexc")
+    log("segment_reduce, scatter_accum: into memory that held NaN (the same "
+        "block), equal to the plain version bitwise; scatter_accum equal to "
+        "segment_reduce of the stable-sorted batch at the Netflix modes")
     return {k: {"max_abs_err": e, "max_rel_err": r, "tol": TOL[k]}
             for k, (e, r) in worst.items()}
 
@@ -404,6 +473,44 @@ def phase_slice(torch, K, std_train, steps: int, nnz: int) -> dict:
     if not r16 <= scale * r32 + shift:
         raise AssertionError(f"bf16 RMSE {r16} outside the band of the f32 "
                              f"run {r32}")
+    return out
+
+
+def phase_wide(torch, K, std_train) -> dict:
+    """Short runs at ranks 48 and 64 on the card (the reference's workloads
+    use N = 3 at those ranks): finite RMSE/MAE, and the kernels of each
+    path launched at that width."""
+    log(f"CUT: {WIDE_NNZ:,} nonzeros and {WIDE_STEPS} steps for the runs at "
+        "ranks 48 and 64")
+    base = ["--dims", ",".join(map(str, NETFLIX_DIMS)), "--nnz",
+            str(WIDE_NNZ), "--steps", str(WIDE_STEPS), "--batch",
+            str(TRAIN_BATCH), "--eval-every", str(WIDE_STEPS // 2), "--seed",
+            "0", "--backend", "cuda", "--device", "cuda"]
+    out = {}
+    for name, (flags, must, must_not) in WIDE_PATHS.items():
+        args = std_train.parse_args(base + flags)
+        K.reset_launch_counts()
+        res = std_train.run(args)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        hist = res["history"]
+        log(f"wide {name} ({' '.join(flags)}): {WIDE_STEPS} steps at "
+            f"{res['steps_per_s']:.1f} steps/s; rmse " + " -> ".join(
+                f"{h['rmse']:.5f}@{h['step']}" for h in hist)
+            + f"; launch counts {counts}")
+        if not all(math.isfinite(h["rmse"]) and math.isfinite(h["mae"])
+                   for h in hist):
+            raise AssertionError(f"wide {name}: non-finite RMSE/MAE: {hist}")
+        missing = [k for k in must if counts[k] <= 0]
+        stray = [k for k in must_not if counts[k] != 0]
+        if missing or stray:
+            raise AssertionError(f"wide {name}: not launched {missing}, "
+                                 f"launched but not on the path {stray}")
+        out[name] = {"history": hist, "steps_per_s": res["steps_per_s"],
+                     "launch_counts": counts,
+                     "peak_device_bytes": res["peak_device_bytes"]}
+        del res
+        torch.cuda.empty_cache()
     return out
 
 
@@ -476,6 +583,53 @@ def phase_parity(torch, ft, res) -> dict:
         f"sorted gauss_seidel phase-split == joint bitwise: {gs_same}")
     out["sorted_split_equals_joint_bitwise"] = True
     out["sorted_gauss_seidel_split_equals_joint_bitwise"] = gs_same
+    # the unsorted f32 step is the sorted one, bit for bit, in every form
+    for o in ("jacobi", "gauss_seidel"):
+        for p in (False, True):
+            tag = f"update_order={o},phase_split={p}"
+            if not same(finals[f"{tag},sorted_batches=False"],
+                        finals[f"{tag},sorted_batches=True"]):
+                raise AssertionError(f"{tag}: the unsorted step differs "
+                                     "from the sorted one on the card")
+    # and repeats itself
+    cfg = ft.FastTuckerConfig(dims=cfg0.dims, ranks=cfg0.ranks,
+                              core_rank=cfg0.core_rank,
+                              batch_size=TRAIN_BATCH, backend="cuda")
+    st = ft.TrainState(start.params, 0)
+    for idx, val in batches:
+        st = ft.sgd_step_batch(st, idx, val, cfg)
+    if not same(st.params, finals["update_order=jacobi,phase_split=False,"
+                                  "sorted_batches=False"]):
+        raise AssertionError("the unsorted step gave other bits when run "
+                             "again")
+    log("parity: on cuda, the unsorted f32 step == the sorted one bitwise "
+        "for every {jacobi, gauss_seidel} x {joint, phase-split}, over 20 "
+        "fed batches; the unsorted step repeats itself bitwise")
+    out["unsorted_equals_sorted_bitwise"] = True
+    out["unsorted_repeats_bitwise"] = True
+    # cuda against torch at J = R = 64 from one fresh start
+    wide = {}
+    for backend in ("cuda", "torch"):
+        cfg = ft.FastTuckerConfig(dims=cfg0.dims, ranks=(64,) * cfg0.order,
+                                  core_rank=64, batch_size=TRAIN_BATCH,
+                                  backend=backend)
+        st = ft.TrainState(ft.init_params(
+            torch.Generator(device="cuda").manual_seed(64), cfg, "cuda"), 0)
+        for idx, val in batches:
+            st = ft.sgd_step_batch(st, idx, val, cfg)
+        wide[backend] = st.params
+    torch.cuda.synchronize()
+    worst = worst_abs = 0.0
+    for got, want in zip(wide["cuda"].factors + wide["cuda"].core_factors,
+                         wide["torch"].factors + wide["torch"].core_factors):
+        e, r = rel_err(got, want)
+        worst, worst_abs = max(worst, r), max(worst_abs, e)
+    log(f"parity J=R=64: 20 fed-batch steps cuda vs torch: max abs diff "
+        f"{worst_abs:.3g}, max relative diff {worst:.3g} (tolerance "
+        f"{TOL['trajectory']:.3g})")
+    if not worst <= TOL["trajectory"]:
+        raise AssertionError(f"trajectory at J=R=64 differs: {worst:.3g}")
+    out["J=R=64"] = {"max_rel_diff": worst, "max_abs_diff": worst_abs}
     return out
 
 
@@ -531,6 +685,38 @@ def floor_ms(torch, build) -> float:
             build.check("segment_reduce",
                         fn(torch.cuda.current_stream().cuda_stream))
     return device_ms(torch, call)
+
+
+# the device kernel of each wrapper, as torch.profiler names it
+DEVICE_KERNEL = {
+    "kruskal_grad": "kruskal_grad_kernel",
+    "scatter_accum": "scatter_accum_kernel",
+    "segment_reduce": "segment_reduce_kernel",
+    "kruskal_contract": "contract_",
+}
+
+
+def profiled_ms(torch, fn, key: str, calls: int = 20) -> float | None:
+    """Median device duration of the kernel named ``key`` over ``calls``
+    calls of ``fn``, from ``torch.profiler`` (the kernel alone, without the
+    launch floor the event method includes).  A trace that did not record
+    one such kernel per call is taken again, three times at most; None
+    where none did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        durs = [ev.time_range.elapsed_us() for ev in prof.events()
+                if "CUDA" in str(ev.device_type) and key in ev.name]
+        if len(durs) == calls:
+            return statistics.median(durs) * 1e-3
+    return None
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -625,7 +811,11 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
             x, y, val, mask, scal, cc, **flags))
         t_b, by = bound(*grad_cost(N, B, J, R, x.element_size(), nrow, core,
                                    cc is not None, emit))
-        out.append(("kruskal_grad", tag, ms, plain, None, t_b, by, per))
+        dev_ms = profiled_ms(torch, lambda: kg(x, y, val, mask, scal, cc,
+                                               **flags),
+                             DEVICE_KERNEL["kruskal_grad"])
+        out.append(("kruskal_grad", tag, ms, plain, None, t_b, by, per,
+                    dev_ms))
 
     # scatter_accum and segment_reduce at every mode, mode 0 (the widest:
     # 480,189 rows) first, the row the kernels line takes
@@ -636,7 +826,7 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
         t_b, by = bound(4 * (B * J + B + rows_n * J), B * J)
         for name, kernel, plain_fn, g_, ids, plain_iters, per in (
                 ("scatter_accum", K.scatter_accum.scatter_accum,
-                 ref.scatter_accum_ref, gn, cols[n], 100, "unsorted"),
+                 ref.scatter_accum_ref, gn, cols[n], 30, "unsorted"),
                 ("segment_reduce", K.segment_reduce.segment_reduce,
                  ref.segment_reduce_ref, gsn, lay.sorted_rows[n], 30,
                  "sorted")):
@@ -646,36 +836,92 @@ def phase_times(torch, K, ft, res, counts) -> list[dict]:
             long_ids = ids.long()
             lib = device_ms(torch, lambda: torch.zeros(
                 (rows_n, J), device="cuda").index_add_(0, long_ids, g_))
+            dev_ms = profiled_ms(torch, lambda: kernel(g_, ids, rows_n),
+                                 DEVICE_KERNEL[name])
             out.append((name, f"mode {n}, {rows_n:,} rows", ms, plain, lib,
-                        t_b, by, f"1 per mode per {per} step"))
+                        t_b, by, f"1 per mode per {per} step", dev_ms))
 
-    # kruskal_contract at the evaluation chunk, f32 and bf16
-    for tag, x, y in (("f32", ea, b), ("bf16 storage", ea.bfloat16(), b16)):
+    # kruskal_contract at the evaluation chunk, f32 and bf16, pred alone
+    # (what evaluation and predict ask for: the row the kernels line
+    # takes) and with pexc; one torch.einsum of the rows and factors is the
+    # library call of pred alone (no one call returns pred and pexc)
+    per_eval = (f"{math.ceil(test_t.nnz / EVAL_CHUNK)} per evaluation (one "
+                "per 262,144-row chunk)")
+    letters = "ijklmnopq"[:N]
+    expr = (",".join(f"b{c}" for c in letters) + ","
+            + ",".join(f"{c}r" for c in letters) + "->b")
+    for tag, x, y in (("f32, pred only", ea, b),
+                      ("f32, with pexc", ea, b),
+                      ("bf16 storage, pred only", ea.bfloat16(), b16),
+                      ("bf16 storage, with pexc", ea.bfloat16(), b16)):
+        want_pexc = "pexc" in tag
         ms = device_ms(torch, lambda: K.kruskal_contract.kruskal_contract(
-            x, y))
+            x, y, want_pexc))
         plain = device_ms(torch, lambda: ref.kruskal_contract_ref(x, y))
+        lib = None
+        if not want_pexc:
+            xs = [x[n].float() for n in range(N)]
+            ys = [y[n].float() for n in range(N)]
+            lib = device_ms(torch, lambda: torch.einsum(expr, *xs, *ys),
+                            iters=30)
         st = x.element_size()
-        t_b, by = bound(st * (N * Be * J + N * J * R) + 4 * (Be + N * Be * R),
+        nbytes = st * (N * Be * J + N * J * R) + 4 * Be
+        if want_pexc:
+            nbytes += 4 * N * Be * R
+        t_b, by = bound(nbytes,
                         2 * N * Be * J * R + 3 * N * Be * R + 2 * Be * R)
-        out.append(("kruskal_contract", tag, ms, plain, None, t_b, by,
-                    f"{math.ceil(test_t.nnz / EVAL_CHUNK)} per evaluation "
-                    "(one per 262,144-row chunk)"))
+        dev_ms = profiled_ms(torch, lambda: K.kruskal_contract
+                             .kruskal_contract(x, y, want_pexc),
+                             DEVICE_KERNEL["kruskal_contract"])
+        out.append(("kruskal_contract", tag, ms, plain, lib, t_b, by,
+                    per_eval + (" (evaluation and predict ask for pred "
+                                "alone)" if not want_pexc else
+                                "; not on the paths"), dev_ms))
+
+    # kruskal_grad and kruskal_contract at J = R = 64 (the reference's
+    # widest workload rank), N = 3
+    JW = 64
+    aw = 0.5 * torch.randn((N, B, JW), generator=gen, device="cuda")
+    bw = torch.randn((N, JW, JW), generator=gen, device="cuda") / JW
+    ms = device_ms(torch, lambda: kg(aw, bw, val, mask, scal))
+    plain = device_ms(torch, lambda: ref.kruskal_grad_ref(aw, bw, val, mask,
+                                                          scal))
+    t_b, by = bound(*grad_cost(N, B, JW, JW, 4, N, True, False, False))
+    dev_ms = profiled_ms(torch, lambda: kg(aw, bw, val, mask, scal),
+                         DEVICE_KERNEL["kruskal_grad"])
+    out.append(("kruskal_grad", f"joint, J = R = {JW}", ms, plain, None,
+                t_b, by, "1 per step at --rank 64; not on the paths", dev_ms))
+    aw = 0.5 * torch.randn((N, Be, JW), generator=gen, device="cuda")
+    ms = device_ms(torch, lambda: K.kruskal_contract.kruskal_contract(
+        aw, bw))
+    plain = device_ms(torch, lambda: ref.kruskal_contract_ref(aw, bw))
+    t_b, by = bound(4 * (N * Be * JW + N * JW * JW) + 4 * (Be + N * Be * JW),
+                    2 * N * Be * JW * JW + 3 * N * Be * JW + 2 * Be * JW)
+    dev_ms = profiled_ms(torch, lambda: K.kruskal_contract.kruskal_contract(
+        aw, bw), DEVICE_KERNEL["kruskal_contract"])
+    out.append(("kruskal_contract", f"f32, with pexc, J = R = {JW}", ms,
+                plain, None, t_b, by, "not on the paths", dev_ms))
+    del aw, bw
 
     rows_out = []
     log(f"launch floor (an empty kernel through ctypes): "
         f"{floor * 1e3:.2f} us")
-    for name, tag, ms, plain, lib, t_b, by, per in out:
+    for name, tag, ms, plain, lib, t_b, by, per, dev_ms in out:
+        library = ("torch.einsum" if name == "kruskal_contract"
+                   else "zeros + index_add_")
         log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call (plain "
             f"{plain * 1e3:.2f} us"
-            + (f", zeros + index_add_ {lib * 1e3:.2f} us"
-               if lib is not None else "")
-            + f"), bound {t_b * 1e3:.3f} us by {by}, launch floor "
-            f"{floor * 1e3:.2f} us; launches on the paths {counts[name]}; "
-            f"{per}")
+            + (f", {library} {lib * 1e3:.2f} us" if lib is not None else "")
+            + f"), bound {t_b * 1e3:.3f} us by {by} ({t_b / ms:.1%} of the "
+            "event time), launch floor "
+            f"{floor * 1e3:.2f} us; profiler device duration "
+            + (f"{dev_ms * 1e3:.2f} us ({t_b / dev_ms:.1%} of it is the "
+               "bound)" if dev_ms else "not measured")
+            + f"; launches on the paths {counts[name]}; {per}")
         rows_out.append({"name": name, "variant": tag, "ms": ms,
                          "plain_ms": plain, "library_ms": lib,
                          "bound_ms": t_b, "bound_by": by, "floor_ms": floor,
-                         "launches_note": per})
+                         "device_ms": dev_ms, "launches_note": per})
     return rows_out
 
 
@@ -725,7 +971,7 @@ def phase_profile(torch, K, ft, res, cfg, steps: int = 50) -> dict:
             f"{name[:90]}")
     # one device kernel per wrapper launch, and no second reduction kernel
     per_call = {}
-    for k in ("kruskal_grad", "segment_reduce"):
+    for k in ("kruskal_grad", "segment_reduce", "scatter_accum"):
         found = sum(c for n, (c, _) in kernels.items()
                     if f"{k}_kernel" in n)
         if found != launches[k]:
@@ -735,15 +981,39 @@ def phase_profile(torch, K, ft, res, cfg, steps: int = 50) -> dict:
     stray = [n for n in kernels if "core_reduce" in n]
     if stray:
         raise AssertionError(f"profile [{tag}]: {stray} ran")
+    fills = sum(c for n, (c, _) in kernels.items() if "FillFunctor" in n)
     log(f"profile [{tag}]: device kernels per wrapper launch: "
         + ", ".join(f"{k} {v['device_kernels']}/{v['launches']}"
                     for k, v in per_call.items())
-        + "; no core_reduce_kernel")
+        + f"; no core_reduce_kernel; {fills / steps:.1f} FillFunctor "
+        "kernels/step")
+    if not cfg.sorted_batches and fills:
+        raise AssertionError(f"profile [{tag}]: {fills} fill kernels on the "
+                             "unsorted path")
+    if not cfg.sorted_batches:
+        # the step's scatter call, alone: its one kernel and no fill
+        g = torch.randn((cfg.batch_size, cfg.ranks[0]), generator=gen,
+                        device="cuda")
+        ids = train_t.indices[:cfg.batch_size, 0].contiguous()
+        bk = K.dispatch.get_backend(cfg.backend)
+        for _ in range(3):   # a window the profiler saw no kernel in: again
+            _, alone = _profile_window(torch, lambda: [
+                bk.scatter_accum(g, ids, cfg.dims[0]) for _ in range(3)])
+            if alone:
+                break
+        calls = sum(c for c, _ in alone.values())
+        if calls != 3 or not all("scatter_accum_kernel" in n
+                                 for n in alone):
+            raise AssertionError(f"profile [{tag}]: three scatter_accum "
+                                 f"calls issued {alone}")
+        log(f"profile [{tag}]: three scatter_accum calls through the "
+            "backend: three scatter_accum_kernel, no fill")
     return {"measured": True, "steps": steps, "config": tag,
             "wall_ms_per_step": wall / steps * 1e3,
             "device_busy_us_per_step": busy_us / steps,
             "device_ops_per_step": sum(v[0] for v in kernels.values())
             / steps,
+            "fills_per_step": fills / steps,
             "kernels_per_launch": per_call,
             "top_kernels": [{"name": n, "calls_per_step": c / steps,
                              "us_per_step": us / steps}
@@ -1173,6 +1443,7 @@ def main(argv: list[str] | None = None) -> int:
         for k, v in p["counts"].items():
             counts[k] += v
     report["nnz"] = args.nnz
+    report["wide"] = phase_wide(torch, K, std_train)
     base = paths["unsorted"]["result"]
     report["parity"] = phase_parity(torch, ft, base)
     times = phase_times(torch, K, ft, base, counts)
@@ -1214,7 +1485,7 @@ def main(argv: list[str] | None = None) -> int:
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "floor_ms": t["floor_ms"]})
+            "floor_ms": t["floor_ms"], "device_ms": t.get("device_ms")})
     report["kernels"] = kernels
     if args.report:
         path = Path(args.report)

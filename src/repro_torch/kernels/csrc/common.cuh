@@ -4,14 +4,16 @@
 // load goes through to_float, so all arithmetic after the load is f32.
 //
 // Layout convention of every kernel here: one sampled nonzero is handled by
-// a GROUP of W lanes of one warp, W the next power of two >= max(J, R)
-// (W <= 32), so a warp holds 32/W samples at once.  Lane `sub` of a group
-// owns column j = sub of the gathered rows and column r = sub of the
-// Kruskal factors.  At the paper's J = R = 4 that puts 8 samples in a warp
-// instead of leaving 28 of its 32 lanes idle.  Every loop that contains a
-// shuffle runs a warp-uniform trip count; lanes without work carry a
-// `valid` flag instead of leaving the loop, so the full-mask shuffles
-// below always see all 32 lanes.
+// a GROUP of W lanes of one warp, W = min(next power of two >= max(J, R),
+// 32), so a warp holds 32/W samples at once.  Each lane holds E =
+// ceil(max(J, R)/32) entries (1, or 2 for widths 33..64): entry e of lane
+// `sub` is column j = sub + 32e of the gathered rows and column r = sub +
+// 32e of the Kruskal factors.  At the paper's J = R = 4 that puts 8
+// samples in a warp instead of leaving 28 of its 32 lanes idle; at E = 1
+// every result keeps the bits it had before widths above 32 were taken.
+// Every loop that contains a shuffle runs a warp-uniform trip count;
+// lanes without work carry a `valid` flag instead of leaving the loop, so
+// the full-mask shuffles below always see all 32 lanes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,7 +22,7 @@
 #include "mma_tf32.cuh"
 
 #define REPRO_MAX_MODES 10
-#define REPRO_MAX_WIDTH 32
+#define REPRO_MAX_WIDTH 64   // J, R: E <= 2 entries a lane
 #define REPRO_FULL_MASK 0xffffffffu
 
 // Sum of v over the W lanes of this lane's group; every lane gets the sum.
@@ -35,27 +37,48 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// Entry e of a lane's E entries, for e known only at run time (a select
+// chain over the unrolled entries, so the array stays in registers).
+template <int E>
+__device__ __forceinline__ float pick(const float (&v)[E], int e) {
+  float x = v[0];
+#pragma unroll
+  for (int k = 1; k < E; ++k)
+    if (e == k) x = v[k];
+  return x;
+}
+
 // Mode products of the sample held by this lane's group.
-//   av[n]  this lane's entry a[n][b][sub] of the gathered rows (0 past J)
-//   bs     the Kruskal factors in shared memory, bs[(n*J + j)*(R+1) + r]
-//          (row stride R+1, so lanes reading one column hit distinct banks)
-// On return lane r < R holds c[n] = Σ_j a[n][j]·B[n][j][r], summed in j
-// order with fmaf from 0 (lanes past R hold 0).  The j loop is outside the
-// mode loop, so the N chains are independent and interleave.
+//   av[n][e]  this lane's entry j = sub + 32e of a[n][b] (0 past J)
+//   bs        the Kruskal factors in shared memory, bs[(n*J + j)*(R+1) + r]
+//             (row stride R+1, so lanes reading one column hit distinct
+//             banks)
+// On return c[n][e] holds c[n][r] = Σ_j a[n][j]·B[n][j][r] for r = sub +
+// 32e < R, summed in j order with fmaf from 0 (entries past R hold 0).
+// The j loop is outside the mode loop, so the N chains are independent and
+// interleave.
+template <int E>
 __device__ __forceinline__ void group_mode_dots(
-    const float (&av)[REPRO_MAX_MODES], const float* __restrict__ bs,
-    int N, int J, int R, int sub, int W, float (&c)[REPRO_MAX_MODES]) {
+    const float (&av)[REPRO_MAX_MODES][E], const float* __restrict__ bs,
+    int N, int J, int R, int sub, int W, float (&c)[REPRO_MAX_MODES][E]) {
   const int RP = R + 1;
 #pragma unroll
-  for (int n = 0; n < REPRO_MAX_MODES; ++n) c[n] = 0.f;
+  for (int n = 0; n < REPRO_MAX_MODES; ++n)
+#pragma unroll
+    for (int e = 0; e < E; ++e) c[n][e] = 0.f;
 #pragma unroll 4
   for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int n = 0; n < REPRO_MAX_MODES; ++n) {
       if (n < N) {
-        const float aj = __shfl_sync(REPRO_FULL_MASK, av[n], j, W);
-        const float bv = sub < R ? bs[(n * J + j) * RP + sub] : 0.f;
-        c[n] = fmaf(aj, bv, c[n]);
+        const float aj =
+            __shfl_sync(REPRO_FULL_MASK, pick(av[n], j >> 5), j & 31, W);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int r = sub + 32 * e;
+          const float bv = r < R ? bs[(n * J + j) * RP + r] : 0.f;
+          c[n][e] = fmaf(aj, bv, c[n][e]);
+        }
       }
     }
   }
@@ -65,43 +88,51 @@ __device__ __forceinline__ void group_mode_dots(
 // times the suffix chain taken from the last mode down, the order of
 // torch.cumprod in the plain version, so pexc rounds as it does.  Every
 // pass that forms pexc (from its own dots or from cached c) runs this one
-// function, so equal c give equal pexc bits.
+// function, so equal c give equal pexc bits.  Each of the E entries is an
+// independent column r.
+template <int E>
 __device__ __forceinline__ void group_exclusive_products(
-    const float (&c)[REPRO_MAX_MODES], int N,
-    float (&pexc)[REPRO_MAX_MODES]) {
-  float acc = 1.f;
+    const float (&c)[REPRO_MAX_MODES][E], int N,
+    float (&pexc)[REPRO_MAX_MODES][E]) {
 #pragma unroll
-  for (int n = 0; n < REPRO_MAX_MODES; ++n) {
-    pexc[n] = 0.f;
-    if (n < N) {
-      pexc[n] = acc;
-      acc = __fmul_rn(acc, c[n]);
+  for (int e = 0; e < E; ++e) {
+    float acc = 1.f;
+#pragma unroll
+    for (int n = 0; n < REPRO_MAX_MODES; ++n) {
+      pexc[n][e] = 0.f;
+      if (n < N) {
+        pexc[n][e] = acc;
+        acc = __fmul_rn(acc, c[n][e]);
+      }
     }
-  }
-  acc = 1.f;
+    acc = 1.f;
 #pragma unroll
-  for (int n = REPRO_MAX_MODES - 1; n >= 0; --n) {
-    if (n < N) {
-      pexc[n] = __fmul_rn(pexc[n], acc);
-      acc = __fmul_rn(acc, c[n]);
+    for (int n = REPRO_MAX_MODES - 1; n >= 0; --n) {
+      if (n < N) {
+        pexc[n][e] = __fmul_rn(pexc[n][e], acc);
+        acc = __fmul_rn(acc, c[n][e]);
+      }
     }
   }
 }
 
-// Theorem-1 forward of the sample held by this lane's group: the mode
-// products c and the exclusive products pexc (see the two functions above).
-__device__ __forceinline__ void theorem1_forward(
-    const float (&av)[REPRO_MAX_MODES], const float* __restrict__ bs,
-    int N, int J, int R, int sub, int W,
-    float (&c)[REPRO_MAX_MODES], float (&pexc)[REPRO_MAX_MODES]) {
-  group_mode_dots(av, bs, N, J, R, sub, W, c);
-  group_exclusive_products(c, N, pexc);
+// pred of the sample held by this lane's group: Σ_r pexc[0][r]·c[0][r],
+// each lane's entries added in e order, then the W lanes' sums by a xor
+// tree (group_sum).  Every lane gets it.
+template <int E>
+__device__ __forceinline__ float group_pred(
+    const float (&c)[REPRO_MAX_MODES][E],
+    const float (&pexc)[REPRO_MAX_MODES][E], int W) {
+  float t = __fmul_rn(pexc[0][0], c[0][0]);
+#pragma unroll
+  for (int e = 1; e < E; ++e) t = __fadd_rn(t, __fmul_rn(pexc[0][e], c[0][e]));
+  return group_sum(t, W);
 }
 
-// floor(i / d) for 0 <= i < 2^20 and 1 <= d <= 1024, from d's f32
-// reciprocal: (i + 0.5)·(1/d) is at least 0.5/d from an integer and its
-// rounding error is below 2^-23·i/d, so truncation is exact.  It replaces
-// an integer division (a chain of a dozen dependent instructions).
+// floor(i / d) for 0 <= i < 2^22 and d >= 1, from d's f32 reciprocal:
+// (i + 0.5)·(1/d) is at least 0.5/d from an integer and its rounding error
+// is below 2^-23·(i + 0.5)/d, so truncation is exact.  It replaces an
+// integer division (a chain of a dozen dependent instructions).
 __device__ __forceinline__ int div_small(int i, float inv_d) {
   return static_cast<int>((static_cast<float>(i) + 0.5f) * inv_d);
 }
@@ -119,12 +150,19 @@ __device__ __forceinline__ void load_factors(
   }
 }
 
-// The group width for J and R: the next power of two >= max(J, R).
+// The group width for J and R: the next power of two >= max(J, R), at
+// most a warp.
 static inline int group_width(int J, int R) {
   int m = J > R ? J : R;
   int w = 1;
-  while (w < m) w <<= 1;
+  while (w < m && w < 32) w <<= 1;
   return w;
+}
+
+// Entries a lane holds for J and R: 1 up to 32, 2 up to 64.
+static inline int lane_entries(int J, int R) {
+  int m = J > R ? J : R;
+  return (m + 31) / 32;
 }
 
 // log2 of a power of two.

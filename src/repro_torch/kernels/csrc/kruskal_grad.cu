@@ -28,7 +28,10 @@
 // joint one, bit for bit.
 //
 // Storage: a and bfac are both f32 or both bf16 (converted to f32 on load,
-// in the λ_b·B seed too); every output is f32.
+// in the λ_b·B seed too); every output is f32.  Widths: J, R <= 64 (E = 1
+// or 2 entries a lane, common.cuh), a template parameter beside N; the
+// plan shrinks the tile where the factors and tiles would overflow shared
+// memory, and refuses the shapes where one sample a tile does not fit.
 //
 // Bound on the card: at the training batch (B = 4096, N = 3, J = R = 4) a
 // call moves ~0.4 MB, a tenth of a microsecond at 3.35 TB/s, and does 6·N·B·
@@ -74,24 +77,29 @@
 #define GRAD_LANE_ENTRIES 2  // (n, j, r) entries a lane sums at once
 
 // The global loads of one sample, issued before they are needed.
-template <int N>
+template <int N, int E>
 struct SampleLoads {
-  float av[N];   // lane sub's entry of each mode's row
-  float c[N];    // cached mode products (c_in), else 0
-  float v, m;    // val and mask
+  float av[N][E];  // lane sub's entries j = sub + 32e of each mode's row
+  float c[N][E];   // cached mode products (c_in), else 0
+  float v, m;      // val and mask
 };
 
-template <int N, typename T>
+template <int N, int E, typename T>
 __device__ __forceinline__ void load_sample(
     const T* __restrict__ a, const float* __restrict__ val,
     const float* __restrict__ mask, const float* __restrict__ c_in,
-    long long B, int J, int R, long long b, int sub, SampleLoads<N>& s) {
+    long long B, int J, int R, long long b, int sub, SampleLoads<N, E>& s) {
   const bool valid = b < B;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    s.av[n] = (valid && sub < J) ? to_float(a[(n * B + b) * J + sub]) : 0.f;
-    s.c[n] = (c_in != nullptr && valid && sub < R)
-                 ? c_in[(n * B + b) * R + sub] : 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = sub + 32 * e;
+      s.av[n][e] =
+          (valid && j < J) ? to_float(a[(n * B + b) * J + j]) : 0.f;
+      s.c[n][e] = (c_in != nullptr && valid && j < R)
+                      ? c_in[(n * B + b) * R + j] : 0.f;
+    }
   }
   s.v = valid ? val[b] : 0.f;
   s.m = valid ? mask[b] : 0.f;
@@ -109,7 +117,7 @@ __device__ __forceinline__ void fence_acq_rel_gpu() {
   asm volatile("fence.acq_rel.gpu;" ::: "memory");
 }
 
-template <typename T, int N>
+template <typename T, int N, int E>
 __global__ void __launch_bounds__(256) kruskal_grad_kernel(
     const T* __restrict__ a, const T* __restrict__ bfac,
     const float* __restrict__ val, const float* __restrict__ mask,
@@ -132,7 +140,7 @@ __global__ void __launch_bounds__(256) kruskal_grad_kernel(
   const int sub = threadIdx.x & (W - 1);
   const int s = threadIdx.x >> w_shift;  // the group's sample in the tile
   long long tile = blockIdx.x;     // < tiles: the plan's blocks <= tiles
-  SampleLoads<N> ld;
+  SampleLoads<N, E> ld;
   load_sample(a, val, mask, c_in, B, J, R, tile * BT + s, sub, ld);
   const float inv_row = scal[0];
   const float inv_core = scal[1];
@@ -144,8 +152,11 @@ __global__ void __launch_bounds__(256) kruskal_grad_kernel(
     for (int i = threadIdx.x; i < NJR; i += blockDim.x) acc[i] = 0.f;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    arrive(ld.av[n]);
-    arrive(ld.c[n]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      arrive(ld.av[n][e]);
+      arrive(ld.c[n][e]);
+    }
   }
   arrive(ld.v);
   arrive(ld.m);
@@ -154,19 +165,27 @@ __global__ void __launch_bounds__(256) kruskal_grad_kernel(
   for (; tile < tiles; tile += gridDim.x) {
     const long long b = tile * BT + s;
     const bool valid = b < B;
-    float c[REPRO_MAX_MODES], pexc[REPRO_MAX_MODES], av[REPRO_MAX_MODES];
+    float c[REPRO_MAX_MODES][E], pexc[REPRO_MAX_MODES][E];
+    float av[REPRO_MAX_MODES][E];
 #pragma unroll
     for (int n = 0; n < REPRO_MAX_MODES; ++n) {
-      av[n] = n < N ? ld.av[n] : 0.f;
-      c[n] = n < N ? ld.c[n] : 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        av[n][e] = n < N ? ld.av[n][e] : 0.f;
+        c[n][e] = n < N ? ld.c[n][e] : 0.f;
+      }
     }
     if (c_in == nullptr) group_mode_dots(av, bs, N, J, R, sub, W, c);
     group_exclusive_products(c, N, pexc);
-    if (c_out != nullptr && valid && sub < R) {
+    if (c_out != nullptr && valid) {
 #pragma unroll
-      for (int n = 0; n < N; ++n) c_out[(n * B + b) * R + sub] = c[n];
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (sub + 32 * e < R)
+            c_out[(n * B + b) * R + sub + 32 * e] = c[n][e];
     }
-    const float p = group_sum(__fmul_rn(pexc[0], c[0]), W);
+    const float p = group_pred(c, pexc, W);
     const float e =
         __fmul_rn(__fsub_rn(__fmul_rn(pred_coef, p), ld.v), ld.m);
     if (valid && sub == 0) {
@@ -179,37 +198,55 @@ __global__ void __launch_bounds__(256) kruskal_grad_kernel(
     if (want_core) {
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        if (sub < J) as[(n * BT + s) * J + sub] = av[n];
-        if (sub < R) wp[(n * BT + s) * R + sub] = __fmul_rn(w_core, pexc[n]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int jr = sub + 32 * e;
+          if (jr < J) as[(n * BT + s) * J + jr] = av[n][e];
+          if (jr < R)
+            wp[(n * BT + s) * R + jr] = __fmul_rn(w_core, pexc[n][e]);
+        }
       }
     }
-    // Eq. 13: lane j forms d[n] = Σ_r pexc[n][r]·B[n][j][r] for every
-    // mode side by side (branch-free), then stores the listed modes' rows
+    // Eq. 13: lane entry j forms d[n] = Σ_r pexc[n][r]·B[n][j][r] for
+    // every mode side by side (branch-free), then stores the listed modes'
+    // rows
     if (nrow > 0) {
-      float d[N];
+      float d[N][E];
 #pragma unroll
-      for (int n = 0; n < N; ++n) d[n] = 0.f;
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < E; ++e) d[n][e] = 0.f;
 #pragma unroll 4
       for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int n = 0; n < N; ++n) {
-          const float pr = __shfl_sync(REPRO_FULL_MASK, pexc[n], r, W);
-          const float bv = sub < J ? bs[(n * J + sub) * RP + r] : 0.f;
-          d[n] = fmaf(pr, bv, d[n]);
+          const float pr =
+              __shfl_sync(REPRO_FULL_MASK, pick(pexc[n], r >> 5), r & 31, W);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int j = sub + 32 * e;
+            const float bv = j < J ? bs[(n * J + j) * RP + r] : 0.f;
+            d[n][e] = fmaf(pr, bv, d[n][e]);
+          }
         }
       }
-      if (valid && sub < J) {
+      if (valid) {
         for (int jr = 0; jr < nrow; ++jr) {
           const int m = static_cast<int>((row_code >> (4 + 4 * jr)) & 15);
-          float dm = 0.f, am = 0.f;
 #pragma unroll
-          for (int n = 0; n < N; ++n)
-            if (n == m) {
-              dm = d[n];
-              am = av[n];
-            }
-          rg[(jr * B + b) * J + sub] =
-              __fadd_rn(__fmul_rn(w_row, dm), __fmul_rn(reg, am));
+          for (int e = 0; e < E; ++e) {
+            const int j = sub + 32 * e;
+            float dm = 0.f, am = 0.f;
+#pragma unroll
+            for (int n = 0; n < N; ++n)
+              if (n == m) {
+                dm = d[n][e];
+                am = av[n][e];
+              }
+            if (j < J)
+              rg[(jr * B + b) * J + j] =
+                  __fadd_rn(__fmul_rn(w_row, dm), __fmul_rn(reg, am));
+          }
         }
       }
     }
@@ -280,42 +317,42 @@ __global__ void __launch_bounds__(256) kruskal_grad_kernel(
   const int warps = blockDim.x >> 5;
   const int P = gridDim.x;
   const int rows_w = warp < P ? (P - 1 - warp) / warps + 1 : 0;
-  constexpr int E = GRAD_LANE_ENTRIES;
-  float* sums = smem;                // (warps, E·32), free now
+  constexpr int LE = GRAD_LANE_ENTRIES;
+  float* sums = smem;                // (warps, LE·32), free now
   const float lam_b = scal[3];
-  for (int c0 = 0; c0 < NJR; c0 += 32 * E) {
-    float t[E], seed[E];
-    int idx[E];
+  for (int c0 = 0; c0 < NJR; c0 += 32 * LE) {
+    float t[LE], seed[LE];
+    int idx[LE];
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
+    for (int e = 0; e < LE; ++e) {
       idx[e] = min(c0 + 32 * e + lane, NJR - 1);
       seed[e] = to_float(bfac[idx[e]]);
       t[e] = 0.f;
     }
     for (int k0 = 0; k0 < rows_w; k0 += GRAD_STAGE) {
-      float v[E][GRAD_STAGE];
+      float v[LE][GRAD_STAGE];
 #pragma unroll
       for (int u = 0; u < GRAD_STAGE; ++u) {
         const long long p = warp + warps * min(k0 + u, rows_w - 1);
 #pragma unroll
-        for (int e = 0; e < E; ++e) v[e][u] = partial[p * NJR + idx[e]];
+        for (int e = 0; e < LE; ++e) v[e][u] = partial[p * NJR + idx[e]];
       }
 #pragma unroll
       for (int u = 0; u < GRAD_STAGE; ++u)
         if (k0 + u < rows_w) {
 #pragma unroll
-          for (int e = 0; e < E; ++e) t[e] = __fadd_rn(t[e], v[e][u]);
+          for (int e = 0; e < LE; ++e) t[e] = __fadd_rn(t[e], v[e][u]);
         }
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) sums[warp * 32 * E + 32 * e + lane] = t[e];
+    for (int e = 0; e < LE; ++e) sums[warp * 32 * LE + 32 * e + lane] = t[e];
     __syncthreads();
     if (warp == 0) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
+      for (int e = 0; e < LE; ++e) {
         float x = __fmul_rn(lam_b, seed[e]);
         for (int w = 0; w < warps; ++w)
-          x = __fadd_rn(x, sums[w * 32 * E + 32 * e + lane]);
+          x = __fadd_rn(x, sums[w * 32 * LE + 32 * e + lane]);
         if (c0 + 32 * e + lane < NJR) cg[c0 + 32 * e + lane] = x;
       }
     }
@@ -337,7 +374,7 @@ static inline size_t grad_smem_bytes(int N, int J, int R, int BT, int threads,
   return sizeof(float) * floats;
 }
 
-template <typename T, int N>
+template <typename T, int N, int E>
 static int launch_modes(
     const T* a, const T* bfac, const float* val, const float* mask,
     const float* scal, const float* c_in, float* pred, float* err, float* rg,
@@ -349,11 +386,11 @@ static int launch_modes(
   // 48 kB that a launch may use without opting in
   if (smem > 47 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kruskal_grad_kernel<T, N>,
+        kruskal_grad_kernel<T, N, E>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kruskal_grad_kernel<T, N><<<blocks, BT * W, smem, s>>>(
+  kruskal_grad_kernel<T, N, E><<<blocks, BT * W, smem, s>>>(
       a, bfac, val, mask, scal, c_in, pred, err, rg, cg, c_out, partial,
       ticket, B, tiles, J, R, W, log2_pow2(W), BT, log2_pow2(S), row_code,
       want_core);
@@ -382,12 +419,20 @@ static int launch_grad(
     if (((row_code >> (4 + 4 * j)) & 15) >= N)
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = grad_smem_bytes(N, J, R, BT, threads, want_core);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int E = lane_entries(J, R);
 #define GRAD_LAUNCH(n)                                                     \
   case n:                                                                  \
-    return launch_modes<T, n>(a, bfac, val, mask, scal, c_in, pred, err,   \
-                              rg, cg, c_out, partial, ticket, B, J, R, W,  \
-                              BT, S, blocks, smem, row_code, want_core, s);
+    return E == 1                                                          \
+        ? launch_modes<T, n, 1>(a, bfac, val, mask, scal, c_in, pred, err, \
+                                rg, cg, c_out, partial, ticket, B, J, R,   \
+                                W, BT, S, blocks, smem, row_code,          \
+                                want_core, s)                              \
+        : launch_modes<T, n, 2>(a, bfac, val, mask, scal, c_in, pred, err, \
+                                rg, cg, c_out, partial, ticket, B, J, R,   \
+                                W, BT, S, blocks, smem, row_code,          \
+                                want_core, s);
   switch (N) {
     GRAD_LAUNCH(1) GRAD_LAUNCH(2) GRAD_LAUNCH(3) GRAD_LAUNCH(4)
     GRAD_LAUNCH(5) GRAD_LAUNCH(6) GRAD_LAUNCH(7) GRAD_LAUNCH(8)

@@ -23,7 +23,8 @@
 //      4096 ids at once) measured slower: they crowd the same L2 lines;
 //   3. stages the span's ids and gradient rows in shared memory, CH
 //      positions at a time, and folds each run of equal ids with one group
-//      of W = next_pow2(J) lanes into the tile.  A run starts from the
+//      of W = min(next_pow2(J), 32) lanes into the tile (lane l folds
+//      columns l, l + 32, … < J: up to two at J <= 64).  A run starts from the
 //      tile's value: 0 at a run's first entry, the running sum where a run
 //      goes on from the last chunk, so the adds are those of one walk from
 //      0.f in sorted order, with __fadd_rn (no FMA contraction);
@@ -125,12 +126,14 @@ __global__ void __launch_bounds__(256) segment_reduce_kernel(
     // or the chunk's first, which may go on from the last chunk)
     for (int p = group; p < n; p += groups) {
       const int id = ids[p];
-      if ((p > 0 && ids[p - 1] == id) || sub >= J) continue;
-      float* dst = tile + static_cast<long long>(id - r0) * J + sub;
-      float acc = *dst;
-      for (int q = p; q < n && ids[q] == id; ++q)
-        acc = __fadd_rn(acc, gs[q * J + sub]);
-      *dst = acc;
+      if (p > 0 && ids[p - 1] == id) continue;
+      for (int j = sub; j < J; j += 32) {
+        float* dst = tile + static_cast<long long>(id - r0) * J + j;
+        float acc = *dst;
+        for (int q = p; q < n && ids[q] == id; ++q)
+          acc = __fadd_rn(acc, gs[q * J + j]);
+        *dst = acc;
+      }
     }
     __syncthreads();
   }

@@ -20,7 +20,8 @@ gathered rows and ``(J_n, R)`` Kruskal factors with possibly distinct
 kernel layout and unpads the results — exact, since padded columns add 0
 to every dot product and get zero gradients.
 
-Ops per backend: ``kruskal_contract``, ``kruskal_grad`` (every phase flag),
+Ops per backend: ``kruskal_contract`` (``want_pexc=False`` returns ``pred``
+alone), ``kruskal_grad`` (every phase flag),
 ``scatter_accum`` (unsorted batches), ``segment_reduce`` (mode-sorted
 batches, ``core.sampling.sorted_batch_order``), ``mode_dot`` (a plain
 matmul on both), and the LM's ``tucker_matmul`` (Tucker-2 factorized
@@ -100,11 +101,12 @@ class TorchBackend:
         self,
         rows: Sequence[torch.Tensor],
         core_factors: Sequence[torch.Tensor],
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+        want_pexc: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
         from repro_torch.core.kruskal import exclusive_products, mode_dots
 
         full, pexc = exclusive_products(mode_dots(rows, core_factors))
-        return full.sum(dim=-1), pexc
+        return full.sum(dim=-1), (pexc if want_pexc else None)
 
     def kruskal_grad(
         self,
@@ -248,6 +250,20 @@ def _kernel_scalars(
                       (1.0 / core_denom).reshape(1), consts])
 
 
+# An all-ones mask per (device, batch), made once: the kernel only reads it,
+# and a fresh one each call would be a fill kernel in every step.
+_ONES: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ones_mask(val: torch.Tensor) -> torch.Tensor:
+    key = (val.device, val.shape[0])
+    ones = _ONES.get(key)
+    if ones is None:
+        ones = torch.ones(val.shape[0], dtype=torch.float32, device=val.device)
+        _ONES[key] = ones
+    return ones
+
+
 class CudaBackend:
     """The CUDA kernels; on CPU tensors each wrapper's plain version."""
 
@@ -259,11 +275,12 @@ class CudaBackend:
         self,
         rows: Sequence[torch.Tensor],
         core_factors: Sequence[torch.Tensor],
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+        want_pexc: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
         from .kruskal_contract import kruskal_contract as kc
 
         return kc(_stack_padded_rows(rows),
-                  _stack_padded_factors(core_factors))
+                  _stack_padded_factors(core_factors), want_pexc)
 
     def kruskal_grad(
         self,
@@ -287,7 +304,7 @@ class CudaBackend:
         a = _stack_padded_rows(rows)
         b = _stack_padded_factors(core_factors)
         if mask is None:
-            mask_f = torch.ones_like(val, dtype=torch.float32)
+            mask_f = _ones_mask(val)
         else:
             mask_f = mask.to(torch.float32)
         if err_override is not None:
@@ -381,7 +398,9 @@ def get_backend(name: str | None = None):
 class KruskalPredict(torch.autograd.Function):
     """Theorem-1 prediction whose two passes both run through a backend.
 
-    Forward: the backend's ``kruskal_contract``.  Backward: its fused
+    Forward: the backend's ``kruskal_contract``, asked for ``pred`` alone
+    (nothing reads the exclusive products here, so the kernel does not
+    write them).  Backward: its fused
     ``kruskal_grad`` with the cotangent ḡ injected as the residual
     (``err_override``), unit denominators and zero regularizers — which
     yields exactly ``∂pred/∂rows·ḡ`` and ``∂pred/∂B·ḡ``.  Counterpart of
@@ -391,8 +410,8 @@ class KruskalPredict(torch.autograd.Function):
     @staticmethod
     def forward(ctx, backend_name: str, n_modes: int, *tensors):
         rows, core_factors = tensors[:n_modes], tensors[n_modes:]
-        pred, _ = get_backend(backend_name).kruskal_contract(rows,
-                                                             core_factors)
+        pred, _ = get_backend(backend_name).kruskal_contract(
+            rows, core_factors, want_pexc=False)
         ctx.backend_name = backend_name
         ctx.n_modes = n_modes
         ctx.save_for_backward(*tensors)

@@ -2,11 +2,15 @@
 
 Replaces ``src/repro/kernels/kruskal_contract.py::kruskal_contract`` (a
 Pallas TPU kernel).  The kernel is ``csrc/kruskal_contract.cu``; its
-source note gives its bound on the card (memory) and what the design does
-about it.  On CPU tensors the wrapper computes the plain version
+source note gives its bound on the card (memory) and its two routes (one
+thread a sample up to width 8; a lane group a sample above).
+On CPU tensors the wrapper computes the plain version
 (``ref.kruskal_contract_ref``); on CUDA tensors it launches the kernel or
 raises — it never falls back.  Storage may be f32 or bf16 (``a_rows`` and
-``b_fac`` alike); the outputs are f32.
+``b_fac`` alike); the outputs are f32.  ``want_pexc=False`` returns
+``(pred, None)``: the same function restricted to the output a caller
+reads, and the kernel then writes ``pred`` alone (about half the bytes at
+the paper's widths).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from . import build
 from .ref import kruskal_contract_ref
 
 MAX_MODES = 10
-MAX_WIDTH = 32  # J, R <= one warp
+MAX_WIDTH = 64  # J, R <= two entries a lane
 STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}  # C entry suffix
 
 
@@ -53,13 +57,16 @@ def _check(a_rows: torch.Tensor, b_fac: torch.Tensor) -> tuple[int, ...]:
 def kruskal_contract(
     a_rows: torch.Tensor,  # (N, B, J) gathered rows, J zero-padded
     b_fac: torch.Tensor,   # (N, J, R) Kruskal core factors, zero-padded
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (pred (B,), pexc (N, B, R)), f32."""
+    want_pexc: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Returns (pred (B,), pexc (N, B, R) or None), f32."""
     if a_rows.device.type == "cpu":
-        return kruskal_contract_ref(a_rows, b_fac)
+        pred, pexc = kruskal_contract_ref(a_rows, b_fac)
+        return pred, (pexc if want_pexc else None)
     N, B, J, R = _check(a_rows, b_fac)
     pred = torch.empty((B,), dtype=torch.float32, device=a_rows.device)
-    pexc = torch.empty((N, B, R), dtype=torch.float32, device=a_rows.device)
+    pexc = (torch.empty((N, B, R), dtype=torch.float32,
+                        device=a_rows.device) if want_pexc else None)
     fn = build.function(
         "kruskal_contract", f"kruskal_contract_{STORAGE[a_rows.dtype]}",
         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
@@ -68,7 +75,7 @@ def kruskal_contract(
         stream = torch.cuda.current_stream().cuda_stream
         build.check("kruskal_contract", fn(
             a_rows.data_ptr(), b_fac.data_ptr(), pred.data_ptr(),
-            pexc.data_ptr(), N, B, J, R, stream))
+            None if pexc is None else pexc.data_ptr(), N, B, J, R, stream))
     kruskal_contract.launches += 1
     return pred, pexc
 

@@ -28,7 +28,7 @@ from . import build
 from .ref import NUM_SCALARS, kruskal_grad_ref
 
 MAX_MODES = 10
-MAX_WIDTH = 32          # J, R <= one warp
+MAX_WIDTH = 64          # J, R <= two entries a lane
 MAX_BLOCKS = 256        # core partials; a constant, so results do not
                         # depend on the card's SM count
 MAX_THREADS = 256       # threads of a block: BT lane groups of W lanes
@@ -59,15 +59,26 @@ class Plan(NamedTuple):
 
 
 def group_width(J: int, R: int) -> int:
-    """Lanes per sample: the next power of two >= max(J, R)."""
-    return 1 << (max(J, R) - 1).bit_length()
+    """Lanes per sample: the next power of two >= max(J, R), at most a
+    warp (above 32 each lane holds two columns)."""
+    return min(1 << (max(J, R) - 1).bit_length(), 32)
+
+
+def _smem_bytes(N: int, J: int, R: int, bt: int, W: int) -> int:
+    """The factors (N, J, R+1), the tiles (N, bt, J + R) and the partial
+    (N, J, R), or the last block's per-lane sums, whichever is larger."""
+    tile_floats = N * J * (R + 1) + N * bt * (J + R) + N * J * R
+    return 4 * max(tile_floats, bt * W * LANE_ENTRIES)
 
 
 def plan(N: int, J: int, R: int, B: int) -> Plan:
     """Tile, blocks, threads, fold slices and shared memory for N modes of
     width J, core rank R and B samples.  It reads the shapes only, never
     the phase flags or the card, so every flag combination folds the same
-    terms in the same order on any card."""
+    terms in the same order on any card.  The tile is the largest that
+    fits 256 threads, halved while its shared memory does not fit a block;
+    where even one sample a tile does not fit (N >= 7 at J = R = 64), it
+    raises."""
     if not (1 <= N <= MAX_MODES and 1 <= J <= MAX_WIDTH
             and 1 <= R <= MAX_WIDTH and B >= 1):
         raise ValueError(
@@ -76,16 +87,20 @@ def plan(N: int, J: int, R: int, B: int) -> Plan:
             f"B={B}")
     W = group_width(J, R)
     bt = min(MAX_TILE, MAX_THREADS // W)
-    blocks = min(-(-B // bt), MAX_BLOCKS)
-    njr = N * J * R
-    tile_floats = N * J * (R + 1) + N * bt * (J + R) + njr
-    smem = 4 * max(tile_floats, bt * W * LANE_ENTRIES)
-    slices = 1          # the most that keep the fold to one pass
-    while 2 * slices * njr <= bt * W and 2 * slices <= min(bt, MAX_WIDTH):
-        slices *= 2
+    # threads stay a whole number of warps: bt >= 32 / W
+    while (_smem_bytes(N, J, R, bt, W) > SMEM_LIMIT
+           and (bt // 2) * W % 32 == 0 and bt > 1):
+        bt //= 2
+    smem = _smem_bytes(N, J, R, bt, W)
     if smem > SMEM_LIMIT:
         raise ValueError(f"kruskal_grad: N={N}, J={J}, R={R} needs {smem} "
-                         "bytes of shared memory")
+                         f"bytes of shared memory at {bt} samples a tile, "
+                         f"more than a block's {SMEM_LIMIT}")
+    blocks = min(-(-B // bt), MAX_BLOCKS)
+    njr = N * J * R
+    slices = 1          # the most that keep the fold to one pass
+    while 2 * slices * njr <= bt * W and 2 * slices <= min(bt, 32):
+        slices *= 2
     return Plan(bt, blocks, bt * W, slices, smem)
 
 

@@ -94,16 +94,16 @@ def scatter_accum_ref(
 ) -> torch.Tensor:
     """Segment-sum scatter into (num_rows, J); ids < 0 or ≥ num_rows dropped.
 
-    ``index_add_`` rejects such ids rather than dropping them (as
-    ``jax.ops.segment_sum`` does), so they are sent to a spare row that is
-    cut off afterwards.
+    An ordered fold on any device: every row gets ((0 + g_b0) + g_b1) + …
+    over its hits in ascending batch position — what
+    ``jax.ops.segment_sum`` computes, and bitwise equal to it.  A stable
+    sort of the ids puts each row's hits side by side in batch order, and
+    ``segment_reduce_ref``'s passes fold them; ``index_add_`` alone would
+    add a row's duplicates in no fixed order on CUDA.
     """
-    keep = (idx >= 0) & (idx < num_rows)
-    target = torch.where(keep, idx.long(), num_rows)
-    out = torch.zeros((num_rows + 1, grads.shape[1]), dtype=grads.dtype,
-                      device=grads.device)
-    out.index_add_(0, target, grads)
-    return out[:num_rows]
+    sorted_idx, perm = torch.sort(idx, stable=True)
+    return segment_reduce_ref(grads.index_select(0, perm), sorted_idx,
+                              num_rows)
 
 
 def segment_reduce_ref(

@@ -23,7 +23,7 @@ import torch
 from . import build
 from .ref import segment_reduce_ref
 
-MAX_WIDTH = 32        # J <= one warp
+MAX_WIDTH = 64        # J <= two entries a lane
 TARGET_BLOCKS = 256   # row ranges a call aims for, so small modes fill the
                       # card too
 TILE_FLOATS = 4096    # a block's rows in shared memory (16 kB)

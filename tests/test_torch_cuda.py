@@ -5,14 +5,14 @@ fixture, never at import).  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 sums in another order than the plain version (cuBLAS), and
-atomics for the scatter — max |kernel − plain| ≤ 2e-5 · max |plain|
-(``tucker_matmul`` and ``flash_attention`` included: their 3xTF32
-tensor-core products are f32-accurate, and one pass of TF32, ~3e-4, would
-fail)
-(1e-4 for the core gradient, summed over the whole batch).  The sorted
-scatter (``segment_reduce``) has no atomics and folds in the plain
-version's order: it must match it exactly.
+Tolerances: f32 sums in another order than the plain version (cuBLAS) —
+max |kernel − plain| ≤ 2e-5 · max |plain| (``tucker_matmul`` and
+``flash_attention`` included: their 3xTF32 tensor-core products are
+f32-accurate, and one pass of TF32, ~3e-4, would fail) (1e-4 for the core
+gradient, summed over the whole batch).  The two scatters
+(``scatter_accum`` unsorted, ``segment_reduce`` sorted) have no atomics
+and fold each row in the plain version's order: they must match it
+exactly, and the unsorted step must equal the sorted one bit for bit.
 """
 import numpy as np
 import pytest
@@ -40,7 +40,8 @@ def _close(got, want, rel):
 
 
 @pytest.mark.parametrize("N,J,R,B", [(3, 4, 4, 1000), (4, 7, 5, 333),
-                                     (3, 32, 32, 4099), (4, 32, 32, 4096)])
+                                     (3, 32, 32, 4099), (4, 32, 32, 4096),
+                                     (3, 48, 48, 4099), (4, 64, 64, 4096)])
 def test_kernels_match_plain_on_card(dev, N, J, R, B):
     rng = np.random.default_rng(N * 100 + J)
     a = torch.tensor(rng.normal(0, 0.5, (N, B, J)), dtype=torch.float32,
@@ -64,8 +65,8 @@ def test_kernels_match_plain_on_card(dev, N, J, R, B):
     _close(got.core_grads, want[3], 1e-4)
     idx = torch.tensor(rng.integers(-3, 53, B), dtype=torch.int32,
                        device=dev)
-    _close(scatter_accum.scatter_accum(got.row_grads[0], idx, 50),
-           ref.scatter_accum_ref(got.row_grads[0], idx, 50), 2e-5)
+    assert torch.equal(scatter_accum.scatter_accum(got.row_grads[0], idx, 50),
+                       ref.scatter_accum_ref(got.row_grads[0], idx, 50))
     sidx = idx.sort(stable=True).values
     sr = segment_reduce.segment_reduce(got.row_grads[0], sidx, 50)
     assert torch.equal(sr, ref.segment_reduce_ref(got.row_grads[0], sidx, 50))
@@ -88,10 +89,11 @@ FLAGS = [
 
 @pytest.mark.parametrize("consume,row_modes,want_core,emit_c", FLAGS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("J,R", [(6, 4), (48, 48), (64, 64)])
 def test_kernel_every_phase_flag_matches_plain_on_card(
-        dev, consume, row_modes, want_core, emit_c, dtype):
+        dev, consume, row_modes, want_core, emit_c, dtype, J, R):
     rng = np.random.default_rng(3)
-    N, B, J, R = 3, 4099, 6, 4
+    N, B = 3, 4099
     a = torch.tensor(rng.normal(0, 0.5, (N, B, J)), dtype=dtype, device=dev)
     b = torch.tensor(rng.normal(0, 0.5, (N, J, R)), dtype=dtype, device=dev)
     val = torch.tensor(rng.normal(size=B), dtype=torch.float32, device=dev)
@@ -247,7 +249,7 @@ SEGMENT_CASES = {
 }
 
 
-@pytest.mark.parametrize("J", [1, 3, 4, 32])
+@pytest.mark.parametrize("J", [1, 3, 4, 32, 48, 64])
 @pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
 def test_segment_reduce_bitwise_into_nan_memory_on_card(dev, case, J):
     """One run of length B, ids below 0 and >= rows, rows = 1, and the
@@ -267,6 +269,135 @@ def test_segment_reduce_bitwise_into_nan_memory_on_card(dev, case, J):
     assert got.data_ptr() == ptr     # the NaN block, reused
     assert torch.equal(got, want)
     assert torch.equal(segment_reduce.segment_reduce(g, idx, rows), want)
+
+
+NETFLIX_ROWS = (480_189, 17_770, 2_182)
+
+
+@pytest.mark.parametrize("J", [4, 64])
+@pytest.mark.parametrize("rows", NETFLIX_ROWS)
+def test_scatter_accum_exact_at_the_netflix_modes_on_card(dev, rows, J):
+    """B = 4096 unsorted ids at each mode's row count: bitwise the ordered
+    plain version, and bitwise the sorted kernel over the stable-sorted
+    batch; the "torch" oracle repeats itself on the card too."""
+    rng = np.random.default_rng(rows + J)
+    g = torch.tensor(rng.normal(size=(4096, J)), dtype=torch.float32,
+                     device=dev)
+    idx = torch.tensor(rng.integers(0, rows, 4096), dtype=torch.int32,
+                       device=dev)
+    got = scatter_accum.scatter_accum(g, idx, rows)
+    want = ref.scatter_accum_ref(g, idx, rows)
+    assert torch.equal(got, want)
+    assert torch.equal(ref.scatter_accum_ref(g, idx, rows), want)
+    sidx, perm = torch.sort(idx, stable=True)
+    assert torch.equal(segment_reduce.segment_reduce(g[perm].contiguous(),
+                                                     sidx, rows), got)
+
+
+@pytest.mark.parametrize("J", [1, 4, 64])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_scatter_accum_bitwise_into_nan_memory_on_card(dev, case, J):
+    """Every id equal, ids below 0 and >= rows, rows = 1 (one block) and
+    the Netflix mode 0 shape, unsorted, each written into memory that held
+    NaN: bitwise the plain version, twice."""
+    B, rows, draw = SEGMENT_CASES[case]
+    rng = np.random.default_rng(J + 1)
+    g = torch.tensor(rng.normal(size=(B, J)), dtype=torch.float32,
+                     device=dev)
+    idx = torch.tensor(draw(rng, B, rows), dtype=torch.int32, device=dev)
+    want = ref.scatter_accum_ref(g, idx, rows)
+    nan = torch.full((rows, J), float("nan"), device=dev)
+    ptr = nan.data_ptr()
+    del nan
+    got = scatter_accum.scatter_accum(g, idx, rows)
+    assert got.data_ptr() == ptr     # the NaN block, reused
+    assert torch.equal(got, want)
+    assert torch.equal(scatter_accum.scatter_accum(g, idx, rows), want)
+
+
+@pytest.mark.parametrize("B,rows,J", [(10_000, 480_189, 64),
+                                      (9_000, 2_182, 4)])
+def test_scatter_accum_many_rounds_and_sub_tiles_on_card(dev, B, rows, J):
+    """More ids than one round (4096) and, at J = 64, a block range of
+    many sub-tiles: each sub-tile lists every round again; bitwise the
+    plain version."""
+    pl = scatter_accum.plan(rows, J, B)
+    assert pl.rounds == 3
+    rng = np.random.default_rng(B)
+    g = torch.tensor(rng.normal(size=(B, J)), dtype=torch.float32,
+                     device=dev)
+    idx = torch.tensor(rng.integers(-2, rows + 2, B), dtype=torch.int32,
+                       device=dev)
+    assert torch.equal(scatter_accum.scatter_accum(g, idx, rows),
+                       ref.scatter_accum_ref(g, idx, rows))
+
+
+def test_scatter_accum_is_one_device_kernel_per_call(dev):
+    """No zero fill beside the kernel: it writes every row itself."""
+    rng = np.random.default_rng(4)
+    g = torch.tensor(rng.normal(size=(4096, 4)), dtype=torch.float32,
+                     device=dev)
+    idx = torch.tensor(rng.integers(0, 480_189, 4096), dtype=torch.int32,
+                       device=dev)
+    names = _device_kernels(
+        lambda: scatter_accum.scatter_accum(g, idx, 480_189))
+    assert len(names) == 3, names
+    assert all("scatter_accum_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("order", ["jacobi", "gauss_seidel"])
+@pytest.mark.parametrize("split", [False, True])
+def test_unsorted_step_equals_sorted_on_card(dev, order, split):
+    """Five fed batches on "cuda", f32: the unsorted step equals the
+    mode-sorted one bitwise, and repeats itself bitwise."""
+    dims = (300, 200, 100)
+    cfgs = {srt: ft.FastTuckerConfig(
+        dims=dims, ranks=(4, 5, 6), core_rank=4, batch_size=512,
+        backend="cuda", update_order=order, phase_split=split,
+        sorted_batches=srt) for srt in (False, True)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p0 = ft.init_params(gen, cfgs[False], dev)
+    rng = np.random.default_rng(2)
+    batches = [(torch.tensor(np.stack([rng.integers(0, d, 512)
+                                       for d in dims], 1),
+                             dtype=torch.int32, device=dev),
+                torch.tensor(rng.normal(size=512), dtype=torch.float32,
+                             device=dev)) for _ in range(5)]
+    runs = []
+    for srt in (False, True, False):
+        st = ft.TrainState(p0, 0)
+        for idx, val in batches:
+            st = ft.sgd_step_batch(st, idx, val, cfgs[srt])
+        runs.append(st.params)
+    for run in runs[1:]:
+        for x, y in zip(runs[0].factors + runs[0].core_factors,
+                        run.factors + run.core_factors):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("N,J,R", [(3, 4, 4), (4, 8, 5), (3, 5, 3),
+                                   (5, 8, 8), (3, 48, 48), (4, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kruskal_contract_with_and_without_pexc_on_card(dev, N, J, R,
+                                                        dtype):
+    """Both routes (one thread a sample up to width 8, a lane group
+    above), with a batch that is not a multiple of any block: the plain
+    version within 2e-5, and pred the same bits with and without pexc."""
+    rng = np.random.default_rng(N * J + R)
+    B = 262_147
+    a = torch.tensor(rng.normal(0, 0.5, (N, B, J)), dtype=dtype, device=dev)
+    b = torch.tensor(rng.normal(0, 0.5, (N, J, R)), dtype=dtype, device=dev)
+    reset_launch_counts()
+    pred, pexc = kruskal_contract.kruskal_contract(a, b)
+    only, none = kruskal_contract.kruskal_contract(a, b, want_pexc=False)
+    pr, per = ref.kruskal_contract_ref(a, b)
+    torch.cuda.synchronize()
+    assert none is None and pexc.shape == (N, B, R)
+    _close(pred, pr, 2e-5)
+    _close(pexc, per, 2e-5)
+    assert torch.equal(only, pred)
+    assert torch.equal(kruskal_contract.kruskal_contract(a, b)[1], pexc)
+    assert launch_counts()["kruskal_contract"] == 3
 
 
 def test_sorted_phase_split_step_equals_joint_on_card(dev):

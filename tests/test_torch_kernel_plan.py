@@ -1,9 +1,10 @@
 """The CUDA kernels' launch plans, checked on the CPU (no card needed).
 
 ``kruskal_grad.plan`` sets the tile, the block count, the fold and the
-cross-block reduction's chunk; ``segment_reduce.plan`` partitions the
-output rows among blocks.  Both are pure functions of the shapes, so the
-bits of a result do not depend on the phase flags or on the card.
+cross-block reduction's chunk; ``segment_reduce.plan`` and
+``scatter_accum.plan`` partition the output rows among blocks.  All are
+pure functions of the shapes, so the bits of a result do not depend on
+the phase flags or on the card.
 """
 import inspect
 import itertools
@@ -11,7 +12,7 @@ import itertools
 import numpy as np
 import pytest
 
-from repro_torch.kernels import kruskal_grad, segment_reduce
+from repro_torch.kernels import kruskal_grad, scatter_accum, segment_reduce
 
 GRAD_SHAPES = list(itertools.product(
     (1, 3, 4, 10),                      # N
@@ -58,13 +59,41 @@ def test_grad_plan_is_launchable_for_every_width(N):
 
 
 def test_grad_plan_rejects_shapes_the_kernel_does_not_take():
-    for bad in ((11, 4, 4, 10), (3, 33, 4, 10), (3, 4, 33, 10),
-                (3, 4, 4, 0), (0, 4, 4, 10)):
+    for bad in ((11, 4, 4, 10), (3, 65, 4, 10), (3, 4, 65, 10),
+                (7, 64, 64, 10), (3, 4, 4, 0), (0, 4, 4, 10)):
         with pytest.raises(ValueError, match="kruskal_grad"):
             kruskal_grad.plan(*bad)
 
 
-@pytest.mark.parametrize("J", [1, 3, 4, 32])
+@pytest.mark.parametrize("N", [1, 2, 3, 4])
+@pytest.mark.parametrize("J,R", [(48, 48), (64, 64), (48, 64), (64, 4),
+                                 (4, 64), (33, 33)])
+def test_grad_plan_is_launchable_at_widths_up_to_64(N, J, R):
+    """A warp a sample (W = 32), two entries a lane; the tile fits 256
+    threads and a block's shared memory."""
+    for B in (1, 4096, 262_144):
+        pl = kruskal_grad.plan(N, J, R, B)
+        assert kruskal_grad.group_width(J, R) == 32
+        assert pl.threads == 32 * pl.bt and pl.threads <= 256
+        tile = N * J * (R + 1) + N * pl.bt * (J + R) + N * J * R
+        assert pl.smem_bytes == 4 * max(tile, 2 * pl.threads)
+        assert pl.smem_bytes <= kruskal_grad.SMEM_LIMIT
+        assert 1 <= pl.blocks <= min(kruskal_grad.MAX_BLOCKS,
+                                     -(-B // pl.bt))
+    assert kruskal_grad.plan(4, 64, 64, 4096).bt == 8   # no shrink needed
+
+
+def test_grad_plan_shrinks_the_tile_before_it_refuses():
+    """At J = R = 64 the factors, tiles and partial of N = 6 modes fit at
+    8 samples a tile; from N = 7 not even one sample fits."""
+    assert kruskal_grad.plan(6, 64, 64, 4096).bt == 8
+    assert kruskal_grad.plan(10, 50, 50, 4096).bt == 4   # shrunk
+    for N in (7, 8, 9, 10):
+        with pytest.raises(ValueError, match="shared memory"):
+            kruskal_grad.plan(N, 64, 64, 4096)
+
+
+@pytest.mark.parametrize("J", [1, 3, 4, 32, 48, 64])
 @pytest.mark.parametrize("rows", [1, 2182, 17_770, 480_189])
 def test_segment_plan_covers_every_row_once(rows, J):
     pl = segment_reduce.plan(rows, J)
@@ -88,4 +117,49 @@ def test_segment_plan_spreads_small_modes_over_many_blocks():
     with pytest.raises(ValueError, match="segment_reduce"):
         segment_reduce.plan(0, 4)
     with pytest.raises(ValueError, match="segment_reduce"):
-        segment_reduce.plan(10, 33)
+        segment_reduce.plan(10, 65)
+
+
+@pytest.mark.parametrize("J", [1, 4, 32, 48, 64])
+@pytest.mark.parametrize("rows", [1, 2182, 17_770, 480_189])
+def test_scatter_plan_covers_every_row_once(rows, J):
+    """Contiguous ranges, 16-byte aligned starts (ranges and sub-tiles),
+    every row in exactly one block; the hit list, the staged rows and a
+    sub-tile fit 88 kB (one block of 512 threads a SM)."""
+    pl = scatter_accum.plan(rows, J, 4096)
+    assert pl.rows_per_block % 4 == 0 and pl.tile_rows % 4 == 0
+    assert 4 <= pl.tile_rows <= pl.rows_per_block
+    assert pl.tile_rows * J <= scatter_accum.TILE_FLOATS
+    assert pl.rows_per_block <= 0xffff   # a hit packs its row in 16 bits
+    hits = np.zeros(rows, np.int64)
+    for k in range(pl.blocks):
+        hits[k * pl.rows_per_block:(k + 1) * pl.rows_per_block] += 1
+    assert (hits == 1).all()
+    assert (pl.blocks - 1) * pl.rows_per_block < rows
+    assert pl.smem_bytes == 4 * (scatter_accum.CHUNK
+                                 + scatter_accum.STAGE_FLOATS
+                                 + pl.tile_rows * J)
+    assert pl.smem_bytes <= 88 * 1024
+    assert scatter_accum.STAGE_FLOATS // J >= 32   # hits staged a pass
+    assert pl.rounds == 1
+
+
+def test_scatter_plan_reads_the_shapes_only():
+    """Every block reads every id, so the Netflix modes at J = 4 take at
+    most 128 blocks each, mode 0 in one sub-tile; B only sets the rounds
+    over the ids."""
+    assert list(inspect.signature(scatter_accum.plan).parameters) == [
+        "num_rows", "J", "B"]
+    blocks = [scatter_accum.plan(r, 4, 4096).blocks
+              for r in (480_189, 17_770, 2_182)]
+    assert blocks == [128, 127, 110]
+    pl = scatter_accum.plan(480_189, 4, 4096)
+    assert pl.tile_rows == pl.rows_per_block == 3752
+    assert scatter_accum.plan(480_189, 64, 4096).tile_rows == 256
+    # a range never outgrows 16 bits of row: huge modes take more blocks
+    assert scatter_accum.plan(10_000_000, 1, 4096).rows_per_block == 65_532
+    assert [scatter_accum.plan(50, 4, B).rounds
+            for B in (1, 4096, 4097, 262_144)] == [1, 1, 2, 64]
+    for bad in ((0, 4, 10), (10, 65, 10), (10, 4, 0)):
+        with pytest.raises(ValueError, match="scatter_accum"):
+            scatter_accum.plan(*bad)
