@@ -7,8 +7,9 @@
 Phases (each failure ends the run with a non-zero exit code):
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch and
-   nvcc versions, and the parallel ``nvcc`` build of the six kernels
-   from ``src/repro_torch/kernels/csrc`` (with ptxas' register report).
+   nvcc versions, and the parallel ``nvcc`` build of the seven kernel
+   sources in ``src/repro_torch/kernels/csrc`` (with ptxas' register
+   report).
 2. Each kernel against its plain PyTorch version on the card, over
    N ∈ {3, 4}, J = R ∈ {4, 16, 32, 48, 64}, B ∈ {4096, 4099, 262144},
    with masked rows, ``pred_coef = 0``, every phase flag of
@@ -67,7 +68,10 @@ Phases (each failure ends the run with a non-zero exit code):
    directions (5120 → 17408 and back), x in bf16 and f32 against f32
    factors, ragged K and N at M = 8191; ``flash_attention`` at B·H = 160
    heads over 32 KV heads (G = 5), D = 128, S ∈ {2048, 2047}, causal and
-   not, with ``kv_len < Sk`` and ``q_offset > 0``.
+   not, with ``kv_len < Sk`` and ``q_offset > 0``.  Also the training
+   backward's dx call, ``tucker_matmul(ȳ, U2, Gᵀ, U1)`` with a random
+   (not symmetric) core, at M = 4096 in both FFN directions, ȳ in bf16
+   and f32.
 8. LM serving at full width: ``repro_torch.launch.serve.run`` on
    Qwen3-14B with every FFN Tucker-compressed at rank 512, ``--lm-layers``
    layers (the published 40 by default; a cut is printed), batch 4, a
@@ -95,6 +99,38 @@ Phases (each failure ends the run with a non-zero exit code):
    f32 bound (all operations at 67 TFLOP/s) is printed beside it; each
    share names the bound it is taken against.  The launch floor is
    measured again beside these rows.
+11. The flash backward (``flash_attention_bwd``, SIMT f32) against its
+   plain version at the training shape (B = 2, H = 40 over 8 KV heads,
+   S = 2048, D = 128, causal), at S = 2047, G = 1, D = 64, and non-causal
+   with ``kv_len < Sk``: dq, dk and dv each within 1e-4 of that output's
+   largest magnitude, two calls bitwise equal, the forward's lse within
+   2e-5 of the plain one.  Its time at the training shape beside its
+   bound (bytes, and the five products' operations at the 67 TFLOP/s f32
+   peak, the units it runs on; beside it the bound of the same products
+   as 3xTF32 at 495 TFLOP/s), its plain version and the backward of
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` in
+   f32; the forward with the lse at the same shape.
+12. LM training at full width: ``repro_torch.launch.train.run`` on
+   Qwen3-14B with rank-512 Tucker FFNs, 8 layers (f32 AdamW state for 40
+   layers does not fit 80 GB), batch 2, seq 2048, 20 steps, a checkpoint
+   every 16 (asynchronous, the full state: 26.2 GiB at 8 layers, so one
+   fits the machine's disk).  Loss and grad norm finite on every step,
+   the loss at step 20 below step 1, peak device bytes under 80 GB,
+   steps/s and tokens/s, and
+   launch counts of exactly 6·L ``tucker_matmul`` (3·L forward, 3·L dx),
+   L ``flash_attention`` and L ``flash_attention_bwd`` per step.  One more
+   step under ``torch.profiler``: device busy share and the largest
+   device items.  Then the resume check: the step-16 checkpoint restored
+   into a fresh state, four more steps, losses within 1e-5 relative of
+   the uninterrupted run's steps 17–20.
+13. Training parity at full width, 2 layers, batch 1, seq 2048:
+   ``"cuda"`` against ``"torch"`` from the same state — the loss within
+   2⁻⁷ relative, each gradient leaf within 2⁻⁵ of its largest magnitude;
+   then one AdamW step from each (lr 1e-3, warmup 1): m and v within 2⁻⁵
+   of each leaf's largest, and the parameters within 2⁻⁵ of the lr where
+   |g| is past a quarter of its leaf's largest (Adam's first step is
+   lr·sign(g) plus weight decay, so a flipped sign fails by 2 and a zero
+   gradient by 1).
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -141,10 +177,29 @@ TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     # bf16 logits: the residual stream rounds to bf16 after every sublayer,
     # so last-bit f32 differences flip roundings; a few ulps of the max
     "lm.logits": 2.0 ** -5,
+    # the flash backward: SIMT f32 against a dense f32 recompute, each of
+    # dq, dk, dv against its own largest magnitude (~1e-6 measured)
+    "flash_attention_bwd": 1e-4,
+    # training, cuda against torch: the loss (f32 log-softmax of bf16
+    # logits), each gradient leaf, m and v after one AdamW step against
+    # the leaf's largest (a few bf16 ulps, as lm.logits), and the
+    # parameters' change against the step's lr
+    "lm.loss": 2.0 ** -7,
+    "lm.grads": 2.0 ** -5,
+    # resumed against uninterrupted losses: the embedding's backward adds
+    # with atomics on the card, so not bitwise there
+    "lm.resume": 1e-5,
 }
 LM_RANK = 512        # the largest rank tucker_matmul.py designs for
 LM_SERVE = dict(batch=4, prompt_len=2048, gen=32)
 LM_PARITY = dict(layers=2, batch=2, prompt_len=2048, gen=4)
+# one checkpoint (at step 16): the full f32 state of 8 layers is 26.2 GiB,
+# and the GPU machine takes at most 45 GiB of disk writes per call
+LM_TRAIN = dict(layers=8, batch=2, seq=2048, steps=20, ckpt_every=16,
+                resume_steps=4)
+LM_TRAIN_PARITY = dict(layers=2, batch=1, seq=2048)
+LM_TRAIN_PARITY_OPT = dict(lr=1e-3, warmup_steps=1)  # the step at full lr
+LM_SETTLED = 0.25   # |g| past this share of its leaf's largest: sign settled
 BF16_BAND = (1.6, 0.02)  # bf16 RMSE <= 1.6·f32 + 0.02 (the reference's band)
 REPLACES = {
     "kruskal_contract": "src/repro/kernels/kruskal_contract.py:30",
@@ -153,8 +208,10 @@ REPLACES = {
     "segment_reduce": "src/repro/kernels/segment_reduce.py:34",
     "tucker_matmul": "src/repro/kernels/tucker_matmul.py:26",
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
+    # no Pallas kernel: the reference's jnp custom-VJP backward
+    "flash_attention_bwd": "src/repro/models/flash.py:103",
 }
-LM_KERNELS = ("tucker_matmul", "flash_attention")
+LM_KERNELS = ("tucker_matmul", "flash_attention", "flash_attention_bwd")
 FLAGS = [
     # (consume c, row_modes, want_core, emit_c) of kruskal_grad
     (False, None, True, False),     # the joint pass
@@ -1073,6 +1130,15 @@ def phase_lm_kernels_vs_plain(torch, K, cfg) -> dict:
                 record("tucker_matmul", tm(x, u1, g, u2),
                        ref.tucker_matmul_ref(x, u1, g, u2),
                        f"{name} M={M} K={Kd} N={N} x {str(xdt)[6:]}")
+    # the training backward's dx = tucker_matmul(ȳ, U2, Gᵀ, U1) at the
+    # training shape (B·S = 4096), Gᵀ made contiguous as the backend does
+    for name, (Kd, N) in (("up/gate", (d, f)), ("down", (f, d))):
+        for xdt in (torch.bfloat16, torch.float32):
+            gy, u2, g, u1 = _tucker_inputs(torch, gen, 4096, N, Kd, xdt)
+            gt = g.t().contiguous()
+            record("tucker_matmul", tm(gy, u2, gt, u1),
+                   ref.tucker_matmul_ref(gy, u2, gt, u1),
+                   f"{name} dx M=4096 {N}->{Kd} Gᵀ ȳ {str(xdt)[6:]}")
     cases = [  # (Sq, Sk, causal, kv_len, q_offset)
         (2048, 2048, True, 2048, 0),     # the no-cache forward
         (2048, 2080, True, 2048, 0),     # prefill into the serving cache
@@ -1400,6 +1466,413 @@ def phase_lm_times(torch, K, cfg) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+def phase_flash_bwd(torch, K, cfg) -> tuple[dict, list[dict]]:
+    """The flash backward against its plain version, its parts checked
+    separately, the forward's lse, and its time beside the bound, the plain
+    version and the backward of ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    ref = K.ref
+    fa = K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cases = [  # (tag, Sq, Sk, H, Hk, D, causal, kv_len)
+        ("training shape", S, S, H, Hk, D, True, S),
+        ("S = 2047", S - 1, S - 1, H, Hk, D, True, S - 1),
+        ("G = 1", S, S, Hk, Hk, D, True, S),
+        ("D = 64", S, S, H, Hk, 64, True, S),
+        ("non-causal, kv_len < Sk", S - 1, S, H, Hk, D, False, S - 77),
+    ]
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "lse": 0.0}
+    worst_abs = 0.0
+    out = {"cases": []}
+    for tag, Sq, Sk, h, hk, d, causal, kv_len in cases:
+        q = torch.randn((B, Sq, h, d), generator=gen, device="cuda")
+        k, v = (torch.randn((B, Sk, hk, d), generator=gen, device="cuda")
+                for _ in range(2))
+        dout = torch.randn((B, Sq, h, d), generator=gen, device="cuda")
+        kw = dict(causal=causal, kv_len=kv_len)
+        o, lse = fa(q, k, v, return_lse=True, **kw)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal,
+                                                 kv_len=kv_len,
+                                                 return_lse=True)
+        got = fb(q, k, v, o, lse, dout, **kw)
+        again = fb(q, k, v, o, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal,
+                                           kv_len=kv_len)
+        torch.cuda.synchronize()
+        rec = {"case": tag, "shape": [B, Sq, Sk, h, hk, d],
+               "causal": causal, "kv_len": kv_len}
+        e, r = rel_err(lse, lse_ref)
+        rec["lse"] = {"max_abs_err": e, "max_rel_err": r}
+        worst["lse"] = max(worst["lse"], r)
+        if not r <= TOL["flash_attention"]:
+            raise AssertionError(f"flash forward lse [{tag}]: {r:.3g} of "
+                                 f"the scale > {TOL['flash_attention']}")
+        e_o, r_o = rel_err(o, o_ref)
+        if not r_o <= TOL["flash_attention"]:
+            raise AssertionError(f"flash forward with lse [{tag}]: output "
+                                 f"{r_o:.3g} of the scale")
+        msg = []
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            e, r = rel_err(g, w)
+            rec[name] = {"max_abs_err": e, "max_rel_err": r,
+                         "bitwise_repeat": bool(torch.equal(g, a))}
+            worst[name] = max(worst[name], r)
+            worst_abs = max(worst_abs, e)
+            msg.append(f"{name} {e:.3g} ({r:.3g} of its largest)")
+            if not r <= TOL["flash_attention_bwd"]:
+                raise AssertionError(
+                    f"flash backward [{tag}]: {name} max abs err {e:.3g}, "
+                    f"{r:.3g} of its largest > {TOL['flash_attention_bwd']}")
+            if not rec[name]["bitwise_repeat"]:
+                raise AssertionError(f"flash backward [{tag}]: two calls "
+                                     f"gave different {name} bits")
+        log(f"  flash_attention_bwd [{tag}: B={B} Sq={Sq} Sk={Sk} H={h} "
+            f"Kv={hk} D={d} causal={causal} kv_len={kv_len}]: "
+            + ", ".join(msg) + f"; two calls bitwise equal; forward lse "
+            f"{rec['lse']['max_abs_err']:.3g} "
+            f"({rec['lse']['max_rel_err']:.3g} of its largest)")
+        out["cases"].append(rec)
+        del q, k, v, dout, o, lse, o_ref, lse_ref, got, again, want
+    torch.cuda.empty_cache()
+    out.update(worst_rel=worst, max_abs_err=worst_abs,
+               tol=TOL["flash_attention_bwd"])
+    log(f"flash_attention_bwd: max relative err dq {worst['dq']:.3g}, dk "
+        f"{worst['dk']:.3g}, dv {worst['dv']:.3g} (tolerance "
+        f"{TOL['flash_attention_bwd']} of each output's largest); forward "
+        f"lse {worst['lse']:.3g} (tolerance {TOL['flash_attention']})")
+
+    # times at the training shape
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    k, v = (torch.randn((B, S, Hk, D), generator=gen, device="cuda")
+            for _ in range(2))
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    o, lse = fa(q, k, v, return_lse=True)
+    floor = floor_ms(torch, K.build)
+    kernel = lambda: fb(q, k, v, o, lse, dout)            # noqa: E731
+    plain = lambda: ref.flash_attention_bwd_ref(          # noqa: E731
+        q, k, v, o, lse, dout)
+    ms = device_ms(torch, kernel, iters=20)
+    plain_ms = device_ms(torch, plain, iters=5)
+    host = (host_ms(torch, kernel, 5), host_ms(torch, plain, 3), None)
+    lib = None
+    try:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        gt = dout.transpose(1, 2)
+        lib = device_ms(torch, lambda: torch.autograd.grad(
+            sd, (qt, kt, vt), gt, retain_graph=True), iters=10)
+        del sd
+    except (TypeError, RuntimeError) as exc:
+        log(f"scaled_dot_product_attention backward: {exc}")
+    pairs = S * (S + 1) // 2
+    nbytes = 4 * (4 * B * S * H * D + 4 * B * S * Hk * D + B * H * S)
+    flops = 5 * 2 * D * pairs * B * H    # Qkᵀ, dO vᵀ, Pᵀ dO, dS k, dSᵀ q
+    t_b, by = bound(nbytes, flops)       # SIMT f32: the 67 TFLOP/s peak
+    # the same products as 3xTF32 on the tensor cores, as the forward and
+    # tucker_matmul run them: the target of a tensor-core redesign
+    t_tc, by_tc = tc_bound(nbytes, [(3, flops)])
+    rows = [{"name": "flash_attention_bwd",
+             "variant": f"training B={B} H={H} Kv={Hk} S={S} D={D} causal",
+             "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+             "bound_ms": t_b, "bound_by": by, "floor_ms": floor,
+             "f32_bound_ms": t_b, "f32_bound_by": by,
+             "tc_bound_ms": t_tc, "tc_bound_by": by_tc, "plan": None,
+             "launches_note": "1 per layer per training step",
+             "host_ms": {"kernel": host[0], "plain": host[1],
+                         "library": None}}]
+    log(f"flash_attention_bwd [{rows[0]['variant']}]: {ms:.4f} ms/call "
+        f"(plain {plain_ms:.4f} ms"
+        + (f", scaled_dot_product_attention backward {lib:.4f} ms"
+           if lib is not None else "")
+        + f"), bound {t_b:.4f} ms by {by} (f32 SIMT, the units it runs on; "
+        f"{t_b / ms:.1%} of it), 3xTF32 tensor-core bound {t_tc:.4f} ms by "
+        f"{by_tc} ({t_tc / ms:.1%} of it), launch floor {floor:.4f} ms; "
+        f"{rows[0]['launches_note']}")
+    # the forward as training calls it: with the lse, B = 2
+    fwd = lambda: fa(q, k, v, return_lse=True)            # noqa: E731
+    fwd_plain = lambda: ref.flash_attention_ref(          # noqa: E731
+        q, k, v, True, return_lse=True)
+    f_ms = device_ms(torch, fwd, iters=20)
+    f_plain = device_ms(torch, fwd_plain, iters=5)
+    f_nbytes = 4 * (2 * B * S * H * D + 2 * B * S * Hk * D + B * H * S)
+    f_flops = 4 * D * pairs * B * H
+    f_tb, f_by = tc_bound(f_nbytes, [(3, f_flops)])
+    rows.append({"name": "flash_attention",
+                 "variant": f"training forward with lse B={B} S={S}",
+                 "ms": f_ms, "plain_ms": f_plain, "library_ms": None,
+                 "bound_ms": f_tb, "bound_by": f_by, "floor_ms": floor,
+                 "f32_bound_ms": bound(f_nbytes, f_flops)[0],
+                 "f32_bound_by": bound(f_nbytes, f_flops)[1], "plan": None,
+                 "launches_note": "1 per layer per training step",
+                 "host_ms": None})
+    log(f"flash_attention [{rows[1]['variant']}]: {f_ms:.4f} ms/call "
+        f"(plain {f_plain:.4f} ms), bound on the tensor cores {f_tb:.4f} "
+        f"ms ({f_tb / f_ms:.1%} of it)")
+    del q, k, v, dout, o, lse
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+def phase_lm_train(torch, K, train, cfg) -> dict:
+    """The training slice through ``launch/train.run``, one step profiled,
+    then the resume check from its checkpoint."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+
+    L = cfg.num_layers
+    B, T, N = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    every = LM_TRAIN["ckpt_every"]
+    ckpt_dir = ROOT / "build" / "train_ckpt"   # git-ignored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    K.reset_launch_counts()
+    res = train.run(cfg, steps=N, batch=B, seq=T, ckpt_dir=str(ckpt_dir),
+                    ckpt_every=every, log_every=5, device="cuda",
+                    backend="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    hist = res["history"]
+    n_params = sum(p.numel() for p in res["state"].params.parameters())
+    want = {"tucker_matmul": 6 * L * N, "flash_attention": L * N,
+            "flash_attention_bwd": L * N}
+    losses = [hist[i]["loss"] for i in range(1, N + 1)]
+    gnorms = [hist[i]["grad_norm"] for i in range(1, N + 1)]
+    step_s = sorted(hist[i]["seconds"] for i in range(2, N + 1))
+    med = statistics.median(step_s)
+    log(f"LM train: qwen3_14b, tucker_rank {cfg.tucker_rank}, {L} layers, "
+        f"{n_params:,} f32 parameters, batch {B} × seq {T}, {N} steps, "
+        f"checkpoint every {every}: {res['seconds']:.2f}s in all, "
+        f"{res['steps_per_s']:.3f} steps/s, {res['tokens_per_s']:.1f} "
+        f"tokens/s (checkpoints included); median step {med:.4f}s = "
+        f"{B * T / med:.1f} tokens/s; peak device bytes "
+        f"{res['peak_device_bytes']:,}")
+    log("LM train: loss per step " + ", ".join(f"{x:.4f}" for x in losses))
+    log("LM train: grad norm per step "
+        + ", ".join(f"{x:.4f}" for x in gnorms))
+    log(f"LM train: launch counts {counts} (want {want}: per step 6·L "
+        "tucker_matmul — 3·L forward, 3·L dx — and L of each flash kernel)")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError("LM train: a non-finite loss or grad norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"LM train: loss did not fall ({losses[0]:.4f} "
+                             f"→ {losses[-1]:.4f})")
+    if not res["peak_device_bytes"] < 80e9:
+        raise AssertionError("LM train: peak device bytes "
+                             f"{res['peak_device_bytes']:,} ≥ 80 GB")
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"LM train: {k} launched {counts[k]} "
+                                 f"times, want {n}")
+    for k in REPLACES:
+        if k not in want and counts[k] != 0:
+            raise AssertionError(f"LM train: launched {k}, which the LM "
+                                 "path does not use")
+    ckpt = CheckpointManager(ckpt_dir)
+    if ckpt.all_steps() != list(range(every, N + 1, every)):
+        raise AssertionError(f"LM train: checkpoints {ckpt.all_steps()}")
+
+    # one more step, profiled
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=T, global_batch=B))
+    opt_cfg = adamw.AdamWConfig(total_steps=N)
+    step = S.make_train_step(cfg, opt_cfg, "cuda")
+    state = res["state"]
+    box = {}
+
+    def one_step():
+        box["state"], box["m"] = step(state, train.device_batch(
+            pipe.global_batch(N), "cuda"))
+        float(box["m"]["loss"])
+
+    K.reset_launch_counts()
+    wall, kernels = _profile_window(torch, one_step)
+    per_step = K.launch_counts()
+    prof = {"measured": bool(kernels), "wall_ms": wall * 1e3,
+            "launch_counts": per_step}
+    if kernels:
+        busy = sum(v[1] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:14]
+        log(f"LM train profile [one step]: {wall * 1e3:.1f} ms wall under "
+            f"the profiler; device busy {busy / 1e3:.1f} ms = "
+            f"{busy / (wall * 1e6):.1%} of wall; "
+            f"{sum(v[0] for v in kernels.values())} device operations")
+        for kname, (cnt, us) in top:
+            log(f"  {us / 1e3:9.3f} ms  {cnt:5d}x  {kname[:90]}")
+        prof.update(device_busy_ms=busy / 1e3,
+                    device_ops=sum(v[0] for v in kernels.values()),
+                    top_kernels=[{"name": k, "calls": c, "ms": us / 1e3}
+                                 for k, (c, us) in top])
+    else:
+        log("LM train profile: the profiler recorded no device time "
+            "(not measured)")
+    one = {"tucker_matmul": 6 * L, "flash_attention": L,
+           "flash_attention_bwd": L}
+    log(f"LM train profile: launch counts of one step {per_step} (want "
+        f"{one})")
+    for k, n in one.items():
+        if per_step[k] != n:
+            raise AssertionError(f"LM train: one step launched {k} "
+                                 f"{per_step[k]} times, want {n}")
+    out = {"layers": L, "tucker_rank": cfg.tucker_rank, "params": n_params,
+           "batch": B, "seq": T, "steps": N, "losses": losses,
+           "grad_norms": gnorms, "seconds": res["seconds"],
+           "steps_per_s": res["steps_per_s"],
+           "tokens_per_s": res["tokens_per_s"],
+           "median_step_s": med, "median_tokens_per_s": B * T / med,
+           "step_seconds": [hist[i]["seconds"] for i in range(1, N + 1)],
+           "peak_device_bytes": res["peak_device_bytes"],
+           "launch_counts": counts, "profile": prof}
+    del state, box, res
+    torch.cuda.empty_cache()
+
+    # resume: the checkpoint into a fresh state, four more steps
+    t0 = time.perf_counter()
+    fresh = S.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    fresh, at = ckpt.restore(fresh, step=every)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = []
+    for i in range(at, at + LM_TRAIN["resume_steps"]):
+        fresh, m = step(fresh, train.device_batch(pipe.global_batch(i),
+                                                  "cuda"))
+        got.append(float(m["loss"]))
+    wantl = losses[at:at + LM_TRAIN["resume_steps"]]
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got, wantl))
+    log(f"LM train resume: restored step {at} into a fresh state in "
+        f"{restore_s:.2f}s; losses of steps {at + 1}..{at + len(got)} "
+        f"{[f'{x:.6f}' for x in got]} against the uninterrupted run's "
+        f"{[f'{x:.6f}' for x in wantl]}: max relative diff {worst:.3g} "
+        f"(tolerance {TOL['lm.resume']})")
+    if not worst <= TOL["lm.resume"]:
+        raise AssertionError(f"LM train resume: losses differ by {worst:.3g}")
+    out["resume"] = {"restored_step": at, "restore_seconds": restore_s,
+                     "losses": got, "want": wantl, "max_rel_diff": worst}
+    del fresh
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+def phase_lm_train_parity(torch, train, cfg) -> dict:
+    """``"cuda"`` against ``"torch"`` from the same state: the loss, every
+    gradient leaf, and the parameters after one AdamW step."""
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import adamw
+
+    P = LM_TRAIN_PARITY
+    cfg2 = dataclasses.replace(cfg, num_layers=P["layers"])
+    state = S.init_train_state(
+        cfg2, torch.Generator(device="cuda").manual_seed(11), "cuda")
+    params = adamw.named(state.params)
+    batch = train.device_batch(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg2.vocab_size, seq_len=P["seq"],
+        global_batch=P["batch"])).global_batch(0), "cuda")
+    loss, grads = {}, {}
+    for bk in ("cuda", "torch"):
+        lo = loss_fn(state.params, cfg2, batch, backend=bk)
+        grads[bk] = dict(zip(params, torch.autograd.grad(
+            lo, list(params.values()))))
+        loss[bk] = float(lo.detach())
+        del lo
+    rel_loss = abs(loss["cuda"] - loss["torch"]) / abs(loss["torch"])
+    worst_g, worst_name = 0.0, ""
+    for name in params:
+        _, r = rel_err(grads["cuda"][name], grads["torch"][name])
+        if r > worst_g:
+            worst_g, worst_name = r, name
+    log(f"LM train parity ({cfg2.num_layers} layers, batch {P['batch']}, "
+        f"seq {P['seq']}): loss cuda {loss['cuda']:.6f}, torch "
+        f"{loss['torch']:.6f}, relative diff {rel_loss:.3g} (tolerance "
+        f"{TOL['lm.loss']:.4g}); worst gradient leaf {worst_name}: "
+        f"{worst_g:.3g} of its largest (tolerance {TOL['lm.grads']:.4g})")
+    if not (math.isfinite(loss["cuda"]) and rel_loss <= TOL["lm.loss"]):
+        raise AssertionError(f"LM train parity: loss {loss}")
+    if not worst_g <= TOL["lm.grads"]:
+        raise AssertionError(f"LM train parity: gradient {worst_name} "
+                             f"differs by {worst_g:.3g} of its largest")
+
+    # one AdamW step from each backend's gradients, from the same state.
+    # Adam's first step is lr·g/(|g| + eps) plus weight decay: the moments
+    # carry the magnitudes (m = (1 − b1)·s·g and v = (1 − b2)·(s·g)², s
+    # the clip factor from each backend's own global norm), the parameters
+    # only the signs.  So m and v are held against each leaf's largest, and
+    # the parameters where |g| is past a quarter of its leaf's largest
+    # (eight times the gradient band, so the sign is the same on both
+    # backends) against the step's lr, which warmup 1 puts at 1e-3 (the
+    # default's 3e-6 at step 1 would be lost in f32 rounding).
+    opt_cfg = adamw.AdamWConfig(**LM_TRAIN_PARITY_OPT)
+    after = {n: p.detach().clone() for n, p in params.items()}
+    _, opt_c, _ = adamw.update(grads["cuda"], adamw.init(after), after,
+                               opt_cfg)
+    del grads["cuda"]
+    _, opt_t, met = adamw.update(grads["torch"], state.opt, params, opt_cfg)
+    lr = float(met["lr"])
+    worst = {k: [0.0, ""] for k in ("m", "v", "params")}
+    held = 0
+    for name, p in params.items():
+        for key, a, b in (("m", opt_c.m[name], opt_t.m[name]),
+                          ("v", opt_c.v[name], opt_t.v[name])):
+            r = rel_err(a, b)[1]
+            if r > worst[key][0]:
+                worst[key] = [r, name]
+        g = grads["torch"][name].abs()
+        settled = g > LM_SETTLED * g.max()
+        del g
+        d = (after[name] - p.detach())[settled]
+        held += d.numel()
+        r = d.abs().max().item() / lr if d.numel() else 0.0
+        if r > worst["params"][0]:
+            worst["params"] = [r, name]
+        del settled, d
+    del grads
+    torch.cuda.synchronize()
+    n_all = sum(p.numel() for p in params.values())
+    log(f"LM train parity: one AdamW step (lr {lr:.3g}, warmup 1): worst "
+        f"m leaf {worst['m'][1]}: {worst['m'][0]:.3g} of its largest, worst "
+        f"v leaf {worst['v'][1]}: {worst['v'][0]:.3g} (tolerance "
+        f"{TOL['lm.grads']:.4g}); parameters where |g| > "
+        f"{LM_SETTLED:g} of its leaf's largest ({held:,} of {n_all:,}): "
+        f"worst leaf {worst['params'][1]}: {worst['params'][0]:.3g} of the "
+        f"lr (tolerance {TOL['lm.grads']:.4g}; a flipped sign gives 2, a "
+        f"zero gradient 1)")
+    for key, (r, name) in worst.items():
+        if not r <= TOL["lm.grads"]:
+            raise AssertionError(f"LM train parity: {key} of {name} differs "
+                                 f"by {r:.3g} after one AdamW step")
+    del state, params, after, opt_c, opt_t
+    torch.cuda.empty_cache()
+    return {"layers": cfg2.num_layers, "loss": loss, "loss_rel_diff": rel_loss,
+            "worst_grad": {"leaf": worst_name, "rel_diff": worst_g},
+            "adamw_step": {"lr": lr, "settled_entries": held,
+                           "entries": n_all,
+                           **{f"worst_{k}": {"leaf": n, "rel_diff": r}
+                              for k, (r, n) in worst.items()}}}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -1425,7 +1898,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core import fasttucker as ft
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.launch import serve, std_train
+    from repro_torch.launch import serve, std_train, train
 
     t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
@@ -1458,10 +1931,20 @@ def main(argv: list[str] | None = None) -> int:
     report["lm_kernels_vs_plain"] = phase_lm_kernels_vs_plain(torch, K,
                                                               lm_cfg)
     report["lm_serve"] = phase_lm_serve(torch, K, serve, lm_cfg)
-    for k in LM_KERNELS:
-        counts[k] = report["lm_serve"]["launch_counts"][k]
     report["lm_parity"] = phase_lm_parity(torch, lm_cfg)
     times += phase_lm_times(torch, K, lm_cfg)
+    t_train = time.perf_counter()
+    report["flash_bwd"], bwd_times = phase_flash_bwd(torch, K, lm_cfg)
+    times += bwd_times
+    train_cfg = dataclasses.replace(lm_cfg, num_layers=LM_TRAIN["layers"])
+    report["lm_train"] = phase_lm_train(torch, K, train, train_cfg)
+    report["lm_train_parity"] = phase_lm_train_parity(torch, train,
+                                                      train_cfg)
+    report["train_phases_seconds"] = time.perf_counter() - t_train
+    log(f"phases 11-13 (LM training): {report['train_phases_seconds']:.1f}s")
+    for k in LM_KERNELS:   # the serve request and the training run
+        counts[k] = sum(report[p]["launch_counts"].get(k, 0)
+                        for p in ("lm_serve", "lm_train"))
     report["seconds"] = time.perf_counter() - t_start
 
     errs = report["kernels_vs_plain"]
@@ -1474,6 +1957,7 @@ def main(argv: list[str] | None = None) -> int:
         "segment_reduce": errs["segment_reduce"]["max_abs_err"],
         "tucker_matmul": lm_errs["tucker_matmul"]["max_abs_err"],
         "flash_attention": lm_errs["flash_attention"]["max_abs_err"],
+        "flash_attention_bwd": report["flash_bwd"]["max_abs_err"],
     }
     kernels = []
     for name in sorted(REPLACES):
@@ -1492,7 +1976,8 @@ def main(argv: list[str] | None = None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(report, indent=1, default=str))
     log(f"launches on the main paths (the three training paths; the LM "
-        f"serve for {', '.join(LM_KERNELS)}): {counts}")
+        f"serve request and the LM training run for "
+        f"{', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -81,7 +81,7 @@ class ModelConfig:
 
     # numerics / memory
     dtype: str = "bfloat16"          # activation (residual stream) dtype
-    remat: str = "block"             # JAX-only: the port runs forward only
+    remat: str = "block"             # JAX-only: the port does not remat
     mixed_precision: bool = False
     moe_sharded: bool = False
     repeat_kv: bool = False

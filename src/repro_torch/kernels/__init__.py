@@ -10,7 +10,9 @@ Layout (counterparts of ``repro.kernels``):
     scatter_accum.py     factor-row scatter of unsorted row gradients
     segment_reduce.py    factor-row scatter of mode-sorted row gradients
     tucker_matmul.py     Tucker-2 factorized linear layer (the LM's FFNs)
-    flash_attention.py   online-softmax attention forward (the LM's prefill)
+    flash_attention.py   online-softmax attention forward (the LM's prefill
+                         and training forward, with the rows' log-sum-exp)
+    flash_attention_bwd.py  its recompute backward (LM training)
     ref.py               plain PyTorch versions of every kernel (oracles)
     build.py             nvcc build (sm_90a) + ctypes loading of csrc/*.cu
     csrc/                the CUDA C++ sources
@@ -20,13 +22,15 @@ Each kernel wrapper counts its launches in a plain integer attribute
 its CUDA kernel; ``launch_counts`` reads them all and
 ``reset_launch_counts`` sets them to 0.
 """
-from . import (dispatch, flash_attention, kruskal_contract, kruskal_grad, ref,
-               scatter_accum, segment_reduce, tucker_matmul)
+from . import (dispatch, flash_attention, flash_attention_bwd,
+               kruskal_contract, kruskal_grad, ref, scatter_accum,
+               segment_reduce, tucker_matmul)
 from .dispatch import get_backend
 
 KERNELS = (kruskal_contract.kruskal_contract, kruskal_grad.kruskal_grad,
            scatter_accum.scatter_accum, segment_reduce.segment_reduce,
-           tucker_matmul.tucker_matmul, flash_attention.flash_attention)
+           tucker_matmul.tucker_matmul, flash_attention.flash_attention,
+           flash_attention_bwd.flash_attention_bwd)
 
 
 def launch_counts() -> dict[str, int]:

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("kruskal_contract", "kruskal_grad", "scatter_accum",
-           "segment_reduce", "tucker_matmul", "flash_attention")
+           "segment_reduce", "tucker_matmul", "flash_attention",
+           "flash_attention_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")

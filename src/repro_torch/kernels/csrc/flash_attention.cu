@@ -37,7 +37,10 @@
 // multiplied (per warp): there every p is 0 and alpha is 1, so skipping
 // changes nothing.  Masked entries get p = 0 exactly.  Query tiles are
 // launched last-first, so that the longest causal rows start first.  IEEE
-// division; one pass of TF32 is never used: f32 means f32.
+// division; one pass of TF32 is never used: f32 means f32.  On request
+// (a non-null lse) it also writes each row's log-sum-exp, m + log l in
+// natural-log units, which the backward (flash_attention_bwd.cu) recomputes
+// P from; without it nothing else changes, so serving keeps its bits.
 //
 // Bound on the card.  Prefill of the LM (B = 4, H = 40, Kv = 8, S = 2048,
 // D = 128, causal): 2·B·H·S²·D = 172 GFLOP of causal work against 403 MB
@@ -72,7 +75,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     int G, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, int kv_len,
-    int q_offset, int causal, float scale) {
+    int q_offset, int causal, float scale, float* __restrict__ lse) {
   constexpr int DK = D / 8;     // k8 steps of Q·Kᵀ; n8 tiles of O
   constexpr int NK = BKV / 8;   // n8 tiles of S; k8 steps of P·V
   using S = Smem<D>;
@@ -262,13 +265,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     for (int d = 0; d < DK; ++d)
       *reinterpret_cast<float2*>(ob + r * oss + d * 8 + 2 * t) =
           make_float2(acc[d][2 * hf] / den, acc[d][2 * hf + 1] / den);
+    // the log-sum-exp of the row's scaled logits, for the backward: m and
+    // l are base 2, so lse = (m + log2 l)·ln 2
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + r] =
+          (m[hf] + log2f(l[hf])) * 0.6931471805599453f;
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, int B,
            int Sq, int Sk, int H, int G, const long long* st, int kv_len,
-           int q_offset, int causal, float scale, cudaStream_t stream) {
+           int q_offset, int causal, float scale, float* lse,
+           cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -280,17 +289,19 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
       q, k, v, o, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], kv_len, q_offset, causal, scale);
+      st[7], st[8], st[9], st[10], st[11], kv_len, q_offset, causal, scale,
+      lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // strides: 12 values, (batch, seq, head) of q, k, v and o, in elements.
+// lse: null, or (B, H, Sq) f32 for the row log-sum-exps (the backward's).
 extern "C" int flash_attention_f32(
     const float* q, const float* k, const float* v, float* o, int B, int Sq,
     int Sk, int H, int Hk, int D, const long long* strides, int kv_len,
-    int q_offset, int causal, float scale, void* stream) {
+    int q_offset, int causal, float scale, float* lse, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || Hk < 1 || H % Hk != 0 ||
       kv_len < 1 || q_offset < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -298,13 +309,13 @@ extern "C" int flash_attention_f32(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                               q_offset, causal, scale, st);
+                               q_offset, causal, scale, lse, st);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                               q_offset, causal, scale, st);
+                               q_offset, causal, scale, lse, st);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                               q_offset, causal, scale, st);
+                               q_offset, causal, scale, lse, st);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                                 q_offset, causal, scale, st);
+                                 q_offset, causal, scale, lse, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,7 +4,8 @@
                  ``"xla"`` backend); runs on any device
     ``"cuda"``   the hand-written CUDA kernels (``kruskal_contract``,
                  ``kruskal_grad``, ``scatter_accum``, ``segment_reduce``,
-                 ``tucker_matmul``, ``flash_attention``); the default.  On CPU
+                 ``tucker_matmul``, ``flash_attention``,
+                 ``flash_attention_bwd``); the default.  On CPU
                  tensors each kernel wrapper computes its plain version,
                  so this backend is testable on the CPU the way the
                  reference's ``"pallas_interpret"`` is; on CUDA tensors it
@@ -25,9 +26,11 @@ alone), ``kruskal_grad`` (every phase flag),
 ``scatter_accum`` (unsorted batches), ``segment_reduce`` (mode-sorted
 batches, ``core.sampling.sorted_batch_order``), ``mode_dot`` (a plain
 matmul on both), and the LM's ``tucker_matmul`` (Tucker-2 factorized
-linear) and ``flash_attention`` (softmax attention of the model's
-(B, S, H, D) layout with grouped KV heads, ``q_offset`` and ``kv_len``).  Rows and factors may be stored in bf16; every dot,
-residual and gradient is f32, the only accumulation dtype the reference's
+linear), ``flash_attention`` (softmax attention of the model's
+(B, S, H, D) layout with grouped KV heads, ``q_offset`` and ``kv_len``;
+``return_lse`` also gives the rows' log-sum-exps) and
+``flash_attention_bwd`` (its gradients, recomputed from that lse).
+Rows and factors may be stored in bf16; every dot, residual and gradient is f32, the only accumulation dtype the reference's
 config takes.
 """
 from __future__ import annotations
@@ -193,12 +196,20 @@ class TorchBackend:
         return tucker_matmul_ref(x, u1, g, u2)
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
-                        kv_len: int | None = None,
-                        q_offset: int = 0) -> torch.Tensor:
+                        kv_len: int | None = None, q_offset: int = 0,
+                        return_lse: bool = False):
         from .ref import flash_attention_ref
 
         return flash_attention_ref(q, k, v, causal, kv_len=kv_len,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, return_lse=return_lse)
+
+    def flash_attention_bwd(self, q, k, v, o, lse, dout, *,
+                            causal: bool = True, kv_len: int | None = None,
+                            q_offset: int = 0):
+        from .ref import flash_attention_bwd_ref
+
+        return flash_attention_bwd_ref(q, k, v, o, lse, dout, causal,
+                                       kv_len=kv_len, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -355,11 +366,20 @@ class CudaBackend:
                   u2.contiguous())
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
-                        kv_len: int | None = None,
-                        q_offset: int = 0) -> torch.Tensor:
+                        kv_len: int | None = None, q_offset: int = 0,
+                        return_lse: bool = False):
         from .flash_attention import flash_attention as fa
 
-        return fa(q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset)
+        return fa(q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset,
+                  return_lse=return_lse)
+
+    def flash_attention_bwd(self, q, k, v, o, lse, dout, *,
+                            causal: bool = True, kv_len: int | None = None,
+                            q_offset: int = 0):
+        from .flash_attention_bwd import flash_attention_bwd as fb
+
+        return fb(q, k, v, o, lse, dout, causal=causal, kv_len=kv_len,
+                  q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------

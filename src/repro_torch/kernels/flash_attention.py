@@ -14,6 +14,8 @@ stride of a dimension of size 1 is never stepped and is not checked).  On
 CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_ref``); on CUDA tensors it launches the kernel or
 raises — it never falls back.  f32 only; D in {16, 32, 64, 128}.
+``return_lse`` adds each row's log-sum-exp, which the backward
+(``flash_attention_bwd``) recomputes the probabilities from.
 """
 from __future__ import annotations
 
@@ -86,32 +88,44 @@ def flash_attention(
     causal: bool = True,
     kv_len: int | None = None,
     q_offset: int = 0,
-) -> torch.Tensor:
-    """Softmax attention with an online softmax -> q's shape, f32."""
+    return_lse: bool = False,
+):
+    """Softmax attention with an online softmax -> q's shape, f32.
+
+    ``return_lse``: also return each row's log-sum-exp of the scaled
+    logits, f32, (B, H, Sq) — (BH, Sq) in the 3-D layout — for the
+    backward; without it the kernel is given no lse pointer.
+    """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, kv_len=kv_len,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, return_lse=return_lse)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len, q_offset)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = None
     q4, k4, v4, o4 = _as_4d(q), _as_4d(k), _as_4d(v), _as_4d(out)
     B, Sq, H, D = q4.shape
     Sk, Hk = k4.shape[1], k4.shape[2]
+    if return_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
     fn = build.function(
         "flash_attention", "flash_attention_f32",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-           ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check("flash_attention", fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, H, Hk, D, strides, kv_len, int(q_offset),
-            int(causal), 1.0 / math.sqrt(D), stream))
+            int(causal), 1.0 / math.sqrt(D),
+            None if lse is None else lse.data_ptr(), stream))
     flash_attention.launches += 1
-    return out
+    if not return_lse:
+        return out
+    return out, (lse[0] if q.dim() == 3 else lse)
 
 
 flash_attention.launches = 0

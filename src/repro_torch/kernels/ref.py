@@ -158,29 +158,9 @@ def tucker_matmul_ref(
     return y.to(out)
 
 
-def flash_attention_ref(
-    q: torch.Tensor,   # (BH, Sq, D) or (B, Sq, H, D)
-    k: torch.Tensor,   # (BH/G, Sk, D) or (B, Sk, H/G, D)
-    v: torch.Tensor,   # like k
-    causal: bool = True,
-    *,
-    kv_len: int | None = None,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """Dense-softmax oracle of the flash-attention kernel.
-
-    The reference's ``flash_attention_ref`` (logits / sqrt(D), masked to
-    −1e30, softmax in f32, probabilities cast to v's dtype) with the
-    kernel's two extensions: query head h reads key/value head h // G
-    (G = H / H_kv, no copies), query i sits at position ``q_offset + i``,
-    and keys at or past ``kv_len`` (default Sk) are masked.  3-D inputs
-    are the Pallas layout (batch·heads flattened), the case B = 1.
-    """
-    if q.dim() == 3:
-        out = flash_attention_ref(
-            *(t.transpose(0, 1).unsqueeze(0) for t in (q, k, v)), causal,
-            kv_len=kv_len, q_offset=q_offset)
-        return out[0].transpose(0, 1)
+def _attention_logits(q, k, causal, kv_len, q_offset):
+    """(B, Hk, G, Sq, Sk) scaled logits of (B, Sq, H, D) q against
+    (B, Sk, Hk, D) k, and the mask of the keys each query sees."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, Hk, H // Hk, D)
@@ -190,7 +170,89 @@ def flash_attention_ref(
     mask = (k_pos < (Sk if kv_len is None else kv_len))[None, :]
     if causal:
         mask = mask & (q_pos[:, None] >= k_pos[None, :])
+    return logits, mask
+
+
+def flash_attention_ref(
+    q: torch.Tensor,   # (BH, Sq, D) or (B, Sq, H, D)
+    k: torch.Tensor,   # (BH/G, Sk, D) or (B, Sk, H/G, D)
+    v: torch.Tensor,   # like k
+    causal: bool = True,
+    *,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+    return_lse: bool = False,
+):
+    """Dense-softmax oracle of the flash-attention kernel.
+
+    The reference's ``flash_attention_ref`` (logits / sqrt(D), masked to
+    −1e30, softmax in f32, probabilities cast to v's dtype) with the
+    kernel's two extensions: query head h reads key/value head h // G
+    (G = H / H_kv, no copies), query i sits at position ``q_offset + i``,
+    and keys at or past ``kv_len`` (default Sk) are masked.  3-D inputs
+    are the Pallas layout (batch·heads flattened), the case B = 1.
+    ``return_lse`` also returns each row's log-sum-exp of the scaled
+    logits, f32, (B, H, Sq) — (BH, Sq) in the 3-D layout — as the kernel
+    writes it for the backward.
+    """
+    if q.dim() == 3:
+        res = flash_attention_ref(
+            *(t.transpose(0, 1).unsqueeze(0) for t in (q, k, v)), causal,
+            kv_len=kv_len, q_offset=q_offset, return_lse=return_lse)
+        if return_lse:
+            return res[0][0].transpose(0, 1), res[1][0]
+        return res[0].transpose(0, 1)
+    B, Sq, H, D = q.shape
+    logits, mask = _attention_logits(q, k, causal, kv_len, q_offset)
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits.float(), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
-    return out.reshape(B, Sq, H, v.shape[-1])
+    out = out.reshape(B, Sq, H, v.shape[-1])
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits.float(), dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,     # (BH, Sq, D) or (B, Sq, H, D)
+    k: torch.Tensor,     # (BH/G, Sk, D) or (B, Sk, H/G, D)
+    v: torch.Tensor,     # like k
+    o: torch.Tensor,     # like q: the forward's output
+    lse: torch.Tensor,   # (BH, Sq) or (B, H, Sq): the forward's
+    dout: torch.Tensor,  # like q
+    causal: bool = True,
+    *,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense recompute oracle of the flash-attention backward, in f32.
+
+    What the reference's ``_flash_bwd`` computes, with P recomputed from
+    the saved log-sum-exp: P = exp(scale·q·kᵀ − lse) (0 where masked),
+    Di = Σ dO·o, dV = Pᵀ·dO, dS = P ∘ (dO·vᵀ − Di), dQ = scale·dS·k and
+    dK = scale·dSᵀ·q, each key/value head summing its G query heads.
+    Returns (dq, dk, dv) in q's and k's shapes, f32.
+    """
+    if q.dim() == 3:
+        dq, dk, dv = flash_attention_bwd_ref(
+            *(t.transpose(0, 1).unsqueeze(0) for t in (q, k, v, o)),
+            lse.unsqueeze(0), dout.transpose(0, 1).unsqueeze(0), causal,
+            kv_len=kv_len, q_offset=q_offset)
+        return tuple(t[0].transpose(0, 1) for t in (dq, dk, dv))
+    q, k, v, o, lse, dout = (t.float() for t in (q, k, v, o, lse, dout))
+    B, Sq, H, D = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    scale = 1.0 / math.sqrt(D)
+    logits, mask = _attention_logits(q, k, causal, kv_len, q_offset)
+    p = torch.where(mask, torch.exp(
+        logits - lse.reshape(B, Hk, G, Sq)[..., None]), 0.0)
+    dog = dout.reshape(B, Sq, Hk, G, -1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v)
+    di = (dout * o).sum(-1).reshape(B, Sq, Hk, G).permute(0, 2, 3, 1)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k).reshape(B, Sq, H, D) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.reshape(B, Sq, Hk, G, D)) * scale
+    return dq, dk, dv

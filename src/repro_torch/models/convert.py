@@ -11,7 +11,10 @@ run has more than one layer, every leaf is stacked along a leading axis
 (``repro.models.blocks.stack_boxed``).  The port keeps one module per
 layer, so the groups are unstacked into ``layers.<i>``.  Every other name
 is the same on both sides (``layers.<i>.mixer.wq`` ↔ ``mixer/wq``).
-``params_to_numpy`` is the inverse.
+``params_to_numpy`` is the inverse.  ``train_state_from_numpy`` and
+``train_state_to_numpy`` carry a training state — the parameters and the
+AdamW ``step``, ``m`` and ``v``, whose trees are the parameters' — across
+the same way, so both packages can start from one state.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ def _nest(flat: dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def params_from_numpy(cfg, tree: dict, device=None) -> Model:
-    """The reference's parameter tree (numpy leaves) as a port ``Model``."""
+def flat_from_tree(cfg, tree: dict) -> dict[str, np.ndarray]:
+    """The reference's parameter-shaped tree as port names → leaves (the
+    layer groups unstacked into ``layers.<i>``)."""
     flat = _flatten({k: v for k, v in tree.items() if k != "groups"})
     groups = group_specs(layer_specs(cfg))
     if len(tree["groups"]) != len(groups):
@@ -56,6 +60,31 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Model:
             for j in range(count):
                 flat[f"layers.{li + j}.{name}"] = val[j] if count > 1 else val
         li += count
+    return flat
+
+
+def tree_from_flat(cfg, state: dict[str, np.ndarray]) -> dict:
+    """Port names → leaves as the reference's tree (groups stacked)."""
+    top = {k: v for k, v in state.items() if not k.startswith("layers.")}
+    tree = _nest(top)
+    groups = []
+    li = 0
+    for _, count in group_specs(layer_specs(cfg)):
+        names = [k.split(".", 2)[2] for k in state
+                 if k.startswith(f"layers.{li}.")]
+        flat = {}
+        for name in names:
+            vals = [state[f"layers.{li + j}.{name}"] for j in range(count)]
+            flat[name] = np.stack(vals) if count > 1 else vals[0]
+        groups.append(_nest(flat))
+        li += count
+    tree["groups"] = groups
+    return tree
+
+
+def params_from_numpy(cfg, tree: dict, device=None) -> Model:
+    """The reference's parameter tree (numpy leaves) as a port ``Model``."""
+    flat = flat_from_tree(cfg, tree)
     model = init_model(cfg, device=device)
     state = model.state_dict()
     if set(state) != set(flat):
@@ -75,20 +104,45 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Model:
 
 def params_to_numpy(model: Model, cfg) -> dict:
     """The port's weights as the reference's tree (groups stacked)."""
-    state = {k: v.detach().cpu().numpy() for k, v in
-             model.state_dict().items()}
-    top = {k: v for k, v in state.items() if not k.startswith("layers.")}
-    tree = _nest(top)
-    groups = []
-    li = 0
-    for _, count in group_specs(layer_specs(cfg)):
-        names = [k.split(".", 2)[2] for k in state
-                 if k.startswith(f"layers.{li}.")]
-        flat = {}
-        for name in names:
-            vals = [state[f"layers.{li + j}.{name}"] for j in range(count)]
-            flat[name] = np.stack(vals) if count > 1 else vals[0]
-        groups.append(_nest(flat))
-        li += count
-    tree["groups"] = groups
-    return tree
+    return tree_from_flat(cfg, {k: v.detach().cpu().numpy() for k, v in
+                                 model.state_dict().items()})
+
+
+def train_state_from_numpy(cfg, state, device=None):
+    """The reference's ``TrainState(params, AdamWState(step, m, v))`` with
+    numpy leaves (or any ``(params, (step, m, v))`` nesting of them) as
+    the port's ``launch.steps.TrainState``: the parameters take gradients,
+    the moments are f32 and the step an int32 scalar on ``device``."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import AdamWState
+
+    params_tree, (step, m_tree, v_tree) = state
+    params = params_from_numpy(cfg, params_tree, device)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    names = dict(params.named_parameters())
+
+    def moments(tree):
+        flat = flat_from_tree(cfg, tree)
+        if set(flat) != set(names):
+            raise ValueError("moment names differ from the parameters': "
+                             f"{sorted(set(flat) ^ set(names))}")
+        return {n: torch.from_numpy(np.array(flat[n], np.float32)).to(
+            t.device) for n, t in names.items()}
+
+    dev = next(iter(names.values())).device
+    return TrainState(params, AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+        moments(m_tree), moments(v_tree)))
+
+
+def train_state_to_numpy(state, cfg) -> tuple:
+    """The port's ``TrainState`` as ``(params, (step, m, v))`` in the
+    reference's trees (groups stacked), numpy leaves."""
+    host = lambda d: {k: v.detach().cpu().numpy()   # noqa: E731
+                      for k, v in d.items()}
+    opt = state.opt
+    return (params_to_numpy(state.params, cfg),
+            (np.asarray(int(opt.step), np.int32),
+             tree_from_flat(cfg, host(opt.m)),
+             tree_from_flat(cfg, host(opt.v))))

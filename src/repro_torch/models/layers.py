@@ -163,21 +163,66 @@ def init_tucker_linear(generator: torch.Generator, d_in: int, d_out: int,
     return TuckerLinear(d_in, d_out, rank, generator, device)
 
 
+class TuckerMatmul(torch.autograd.Function):
+    """y = ((x U1) G) U2ᵀ through the backend's ``tucker_matmul``, with its
+    gradient.
+
+    The reference differentiates ``((x @ u1) @ g) @ u2.T`` through XLA.
+    Here dx = ((ȳ U2) Gᵀ) U1ᵀ is the same kernel with the factors in the
+    other roles, ``tucker_matmul(ȳ, U2, Gᵀ, U1)`` (the shape its ``plan``
+    takes in the other FFN direction); dU1 = xᵀ(ȳ U2 Gᵀ), dG = (x U1)ᵀ(ȳ U2)
+    and dU2 = ȳᵀ(x U1 G) are plain f32 matmuls, as in the reference (TF32
+    is off, ``repro_torch/__init__.py``).  Each gradient is cast back to
+    its input's dtype.  Only x and the factors are saved: x U1 is
+    recomputed in the backward.
+    """
+
+    @staticmethod
+    def forward(ctx, x, u1, g, u2, backend: str | None):
+        from repro_torch.kernels import dispatch
+
+        ctx.save_for_backward(x, u1, g, u2)
+        ctx.backend = backend
+        return dispatch.get_backend(backend).tucker_matmul(x, u1, g, u2)
+
+    @staticmethod
+    def backward(ctx, gy):
+        from repro_torch.kernels import dispatch
+
+        x, u1, g, u2 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx = du1 = dg = du2 = None
+        gy = gy.contiguous()
+        if need[0]:
+            dx = dispatch.get_backend(ctx.backend).tucker_matmul(
+                gy, u2, g.t(), u1).to(x.dtype)
+        if any(need[1:4]):
+            xf, gf, u1f, u2f, gyf = (t.float() for t in (x, g, u1, u2, gy))
+            t1 = xf @ u1f                  # x U1      (M, R1)
+            s2 = gyf @ u2f                 # ȳ U2      (M, R2)
+            if need[1]:
+                du1 = (xf.T @ (s2 @ gf.T)).to(u1.dtype)
+            if need[2]:
+                dg = (t1.T @ s2).to(g.dtype)
+            if need[3]:
+                du2 = (gyf.T @ (t1 @ gf)).to(u2.dtype)
+        return dx, du1, dg, du2, None
+
+
 def tucker_linear(params, x: torch.Tensor,
                   backend: str | None = None) -> torch.Tensor:
     """Tucker-2 factorized dense layer through the kernel registry.
 
     ``backend=None`` resolves as every port path does
-    (``$REPRO_TORCH_KERNEL_BACKEND``, else ``"cuda"``): the LM forward runs
-    the hand-written ``tucker_matmul``, which the reference reaches only on
-    request (``backend="pallas"``; its default is ``"xla"``, because the
-    Pallas kernel has no VJP — the port's path is forward only).
+    (``$REPRO_TORCH_KERNEL_BACKEND``, else ``"cuda"``): the LM runs the
+    hand-written ``tucker_matmul`` forward and in its backward
+    (``TuckerMatmul``), which the reference reaches only on request
+    (``backend="pallas"``; its default is ``"xla"``, because the Pallas
+    kernel has no VJP).
     """
-    from repro_torch.kernels import dispatch
-
     shape = x.shape
-    y = dispatch.get_backend(backend).tucker_matmul(
-        x.reshape(-1, shape[-1]), params.u1, params.g, params.u2)
+    y = TuckerMatmul.apply(x.reshape(-1, shape[-1]), params.u1, params.g,
+                           params.u2, backend)
     return y.reshape(*shape[:-1], -1)
 
 

@@ -4,10 +4,13 @@ Counterpart of ``repro.models.model`` for the dense GQA models.
 ``init_model`` builds an ``nn.Module`` (a ``ModuleList`` of layers) on the
 device, from a ``torch.Generator`` on that device, so a full-size model's
 weights are drawn where they live; ``forward``/``decode_step`` take it as
-their ``params``.  Dropped, being JAX-only: the boxed axes tree, the
-``_grad_safe_barrier`` (an identity), ``remat`` (the port runs forward
-only), ``dist_ctx.constrain`` (one device) and the scan over stacked layer
-groups (an eager loop here).  ``backend`` selects the kernel backend of
+their ``params``.  Its parameters take no gradient unless a caller asks
+(``launch.steps.init_train_state`` does; serving builds no autograd
+graph).  Dropped, being JAX-only: the boxed axes tree, the
+``_grad_safe_barrier`` (an identity), ``remat`` (training keeps every
+activation: at the trained depth they fit the card, and the flash
+attention saves only O(S) of its own), ``dist_ctx.constrain`` (one
+device) and the scan over stacked layer groups (an eager loop here).  ``backend`` selects the kernel backend of
 ``tucker_linear`` and of the flash region of ``chunked_attention``
 (``None``: ``$REPRO_TORCH_KERNEL_BACKEND``, else ``"cuda"``).
 """

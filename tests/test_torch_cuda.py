@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from repro_torch.core import fasttucker as ft
-from repro_torch.kernels import (dispatch, flash_attention, kruskal_contract,
+from repro_torch.kernels import (dispatch, flash_attention,
+                                 flash_attention_bwd, kruskal_contract,
                                  kruskal_grad, launch_counts, ref,
                                  reset_launch_counts, scatter_accum,
                                  segment_reduce, tucker_matmul)
@@ -73,7 +74,8 @@ def test_kernels_match_plain_on_card(dev, N, J, R, B):
     torch.cuda.synchronize()
     assert launch_counts() == {"kruskal_contract": 1, "kruskal_grad": 1,
                                "scatter_accum": 1, "segment_reduce": 1,
-                               "tucker_matmul": 0, "flash_attention": 0}
+                               "tucker_matmul": 0, "flash_attention": 0,
+                               "flash_attention_bwd": 0}
 
 
 FLAGS = [
@@ -623,3 +625,186 @@ def test_lm_serve_cuda_matches_torch_on_card(dev):
     assert res["finite"] and plain["finite"]
     assert _rel(res["last_logits"], plain["last_logits"]) <= 1e-4
     assert torch.equal(res["generated"], plain["generated"])
+
+
+# ---------------------------------------------------------------------------
+# LM training: the flash backward, the forward's lse, TuckerMatmul, a step
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_TOL = 1e-4   # of each output's largest magnitude; SIMT f32: ~1e-6
+
+
+def _flash_bwd_inputs(dev, B, Sq, Sk, H, Hk, D, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(rng.normal(size=(B, Sq, H, D)), dtype=torch.float32,
+                     device=dev)
+    k, v = (torch.tensor(rng.normal(size=(B, Sk, Hk, D)),
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    dout = torch.tensor(rng.normal(size=(B, Sq, H, D)), dtype=torch.float32,
+                        device=dev)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,D,causal,kv_len,q_offset", [
+    (2, 256, 256, 6, 2, 128, True, None, 0),     # GQA, tile multiples
+    (1, 197, 197, 4, 4, 64, True, None, 0),      # G = 1, ragged S
+    (2, 133, 200, 6, 2, 32, False, 150, 0),      # non-causal, kv_len < Sk
+    (1, 100, 171, 4, 1, 16, True, 163, 41),      # causal with q_offset
+    (1, 70, 70, 2, 1, 128, False, None, 0),
+])
+def test_flash_attention_bwd_matches_plain_on_card(dev, B, Sq, Sk, H, Hk, D,
+                                                   causal, kv_len, q_offset):
+    """dQ, dK, dV each within 1e-4 of that output's largest magnitude, the
+    forward's lse within 2e-5 of the plain one, two calls the same bits."""
+    q, k, v, dout = _flash_bwd_inputs(dev, B, Sq, Sk, H, Hk, D,
+                                      seed=Sq + D)
+    kw = dict(causal=causal, kv_len=kv_len, q_offset=q_offset)
+    reset_launch_counts()
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal, kv_len=kv_len,
+                                             q_offset=q_offset,
+                                             return_lse=True)
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                  **kw)
+    again = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                    **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal,
+                                       kv_len=kv_len, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Sq)
+    assert _rel(o, o_ref) <= 2e-5
+    assert _rel(lse, lse_ref) <= 2e-5
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert _rel(g, w) <= FLASH_BWD_TOL
+        assert torch.equal(g, a)
+    assert launch_counts()["flash_attention_bwd"] == 2
+    assert launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_bwd_pallas_layout_on_card(dev):
+    """The (BH, S, D) layout: strided views in, views of the same values
+    out, against the 4-D call."""
+    q, k, v, dout = _flash_bwd_inputs(dev, 1, 130, 130, 4, 4, 32, seed=3)
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True)
+    want = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, dout)
+    to3 = lambda t: t[0].transpose(0, 1)   # noqa: E731
+    got = flash_attention_bwd.flash_attention_bwd(
+        to3(q), to3(k), to3(v), to3(o), lse[0], to3(dout))
+    for g, w in zip(got, want):
+        assert torch.equal(g, to3(w))
+
+
+def test_flash_attention_serving_bits_without_lse_on_card(dev):
+    """The forward with and without an lse pointer: the same output bits
+    (serving passes none)."""
+    q, k, v, _ = _flash_bwd_inputs(dev, 2, 300, 320, 8, 2, 128, seed=5)
+    for kv_len, q_offset in ((320, 0), (310, 10)):
+        plain = flash_attention.flash_attention(q, k, v, kv_len=kv_len,
+                                                q_offset=q_offset)
+        with_lse, _ = flash_attention.flash_attention(
+            q, k, v, kv_len=kv_len, q_offset=q_offset, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(plain, with_lse)
+
+
+def test_flash_attention_bwd_refuses_what_it_cannot_take_on_card(dev):
+    """bf16, an odd head size and a CPU lse raise; nothing launches."""
+    q, k, v, dout = _flash_bwd_inputs(dev, 1, 64, 64, 2, 2, 32, seed=1)
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True)
+    reset_launch_counts()
+    with pytest.raises(TypeError):
+        flash_attention_bwd.flash_attention_bwd(
+            q.bfloat16(), k, v, o, lse, dout)
+    with pytest.raises(ValueError, match="D in"):
+        flash_attention_bwd.flash_attention_bwd(
+            q[..., :24], k[..., :24], v[..., :24], o[..., :24], lse,
+            dout[..., :24])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse.cpu(), dout)
+    assert launch_counts()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_tucker_matmul_function_cuda_matches_torch_on_card(dev, xdt):
+    """``TuckerMatmul`` forward and its four gradients, ``"cuda"`` (the
+    kernel forward and dx) against ``"torch"``: 2e-5 of each output's
+    largest (dx in bf16: one bf16 ulp, 2⁻⁸); two launches a call."""
+    from repro_torch.models.layers import TuckerLinear, tucker_linear
+
+    rng = np.random.default_rng(17)
+    M, K, R, N = 300, 512, 64, 600
+    mod = TuckerLinear(K, N, R, torch.Generator(device=dev).manual_seed(0),
+                       dev)
+    for p in mod.parameters():
+        p.requires_grad_(True)
+    x = torch.tensor(rng.normal(size=(3, M // 3, K)), dtype=xdt,
+                     device=dev)
+    gy = torch.tensor(rng.normal(size=(3, M // 3, N)), dtype=torch.float32,
+                      device=dev)
+    out = {}
+    for bk in ("cuda", "torch"):
+        xx = x.clone().requires_grad_(True)
+        reset_launch_counts()
+        y = tucker_linear(mod, xx, bk)
+        grads = torch.autograd.grad(y, [xx, mod.u1, mod.g, mod.u2], gy)
+        torch.cuda.synchronize()
+        assert launch_counts()["tucker_matmul"] == (2 if bk == "cuda" else 0)
+        out[bk] = (y, *grads)
+    for i, (a, b) in enumerate(zip(out["cuda"], out["torch"])):
+        assert a.dtype == b.dtype
+        tol = 2.0 ** -8 if a.dtype == torch.bfloat16 else 2e-5
+        assert _rel(a, b) <= tol, i
+
+
+def test_train_step_cuda_matches_torch_on_card(dev):
+    """One ``make_train_step`` on each backend from the same state, reduced
+    qwen3_14b (f32, Tucker rank 8) at seq 1088 (the flash region), lr 1e-3
+    with warmup 1 so the step is the full lr: the loss within 1e-5
+    relative; m and v within 1e-4 of each leaf's largest (the gradients'
+    magnitudes and the clip factor); the parameters within 2⁻⁸ of the lr
+    where |m| is past a quarter of its leaf's largest (Adam's first step is
+    lr·sign(g) plus weight decay: a flipped sign is off by 2, a zero
+    gradient by 1).  The cuda step launches 6·L tucker_matmul, L
+    flash_attention and L flash_attention_bwd, the torch step none."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_14b import REDUCED
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(REDUCED, tucker_rank=8)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    L = cfg.num_layers
+    batch = train.device_batch(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=1088, global_batch=2)
+    ).global_batch(0), dev)
+    res = {}
+    for bk in ("cuda", "torch"):
+        state = steps.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        step = steps.make_train_step(cfg, opt_cfg, bk)
+        reset_launch_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = ({"tucker_matmul": 6 * L, "flash_attention": L,
+                 "flash_attention_bwd": L} if bk == "cuda" else
+                {"tucker_matmul": 0, "flash_attention": 0,
+                 "flash_attention_bwd": 0})
+        assert {k: counts[k] for k in want} == want
+        res[bk] = (float(m["loss"]), float(m["lr"]), state)
+    (lc, lr, sc), (lt, _, st) = res["cuda"], res["torch"]
+    assert np.isfinite(lc) and abs(lc - lt) <= 1e-5 * abs(lt)
+    assert lr == pytest.approx(1e-3)
+    pc = dict(sc.params.named_parameters())
+    pt = dict(st.params.named_parameters())
+    for name in pc:
+        mt = st.opt.m[name]
+        assert _rel(sc.opt.m[name], mt) <= 1e-4, name
+        assert _rel(sc.opt.v[name], st.opt.v[name]) <= 1e-4, name
+        settled = mt.abs() > 0.25 * mt.abs().max()
+        assert settled.any(), name
+        d = (pc[name].detach() - pt[name].detach())[settled]
+        assert d.abs().max().item() <= 2.0 ** -8 * lr, name
