@@ -99,15 +99,17 @@ Phases (each failure ends the run with a non-zero exit code):
    f32 bound (all operations at 67 TFLOP/s) is printed beside it; each
    share names the bound it is taken against.  The launch floor is
    measured again beside these rows.
-11. The flash backward (``flash_attention_bwd``, SIMT f32) against its
-   plain version at the training shape (B = 2, H = 40 over 8 KV heads,
-   S = 2048, D = 128, causal), at S = 2047, G = 1, D = 64, and non-causal
-   with ``kv_len < Sk``: dq, dk and dv each within 1e-4 of that output's
-   largest magnitude, two calls bitwise equal, the forward's lse within
-   2e-5 of the plain one.  Its time at the training shape beside its
-   bound (bytes, and the five products' operations at the 67 TFLOP/s f32
-   peak, the units it runs on; beside it the bound of the same products
-   as 3xTF32 at 495 TFLOP/s), its plain version and the backward of
+11. The flash backward (``flash_attention_bwd``, 3xTF32 tensor cores)
+   against its plain version at the training shape (B = 2, H = 40 over 8
+   KV heads, S = 2048, D = 128, causal), at S = 2047, G = 1, D = 64, and
+   non-causal with ``kv_len < Sk``: dq, dk and dv each within 2e-5 of that
+   output's largest magnitude, two calls bitwise equal, the forward's lse
+   within 2e-5 of the plain one.  Its time at the training shape beside
+   its bound on the units it runs on (bytes, and the five products'
+   operations as 3xTF32 at 495 TFLOP/s, ``bound_ms``) and the f32 bound
+   (the same products at the 67 TFLOP/s f32 peak, ``f32_bound_ms``), with
+   its share of each; the device time of each of its three kernels (Di,
+   dK/dV, dQ) from a short profile; its plain version and the backward of
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` in
    f32; the forward with the lse at the same shape.
 12. LM training at full width: ``repro_torch.launch.train.run`` on
@@ -177,9 +179,10 @@ TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     # bf16 logits: the residual stream rounds to bf16 after every sublayer,
     # so last-bit f32 differences flip roundings; a few ulps of the max
     "lm.logits": 2.0 ** -5,
-    # the flash backward: SIMT f32 against a dense f32 recompute, each of
-    # dq, dk, dv against its own largest magnitude (~1e-6 measured)
-    "flash_attention_bwd": 1e-4,
+    # the flash backward: 3xTF32 tensor cores against a dense f32
+    # recompute, each of dq, dk, dv against its own largest magnitude
+    # (~5e-6 measured; one TF32 pass emulates to ~4e-4 on the CPU)
+    "flash_attention_bwd": 2e-5,
     # training, cuda against torch: the loss (f32 log-softmax of bf16
     # logits), each gradient leaf, m and v after one AdamW step against
     # the leaf's largest (a few bf16 ulps, as lm.logits), and the
@@ -744,6 +747,10 @@ def floor_ms(torch, build) -> float:
     return device_ms(torch, call)
 
 
+# the flash backward's three device kernels (Di, dK/dV, dQ), as
+# torch.profiler names them (not cuBLAS's dot_kernel)
+BWD_KERNELS = ("namespace)::dot_kernel", "namespace)::dkdv_kernel",
+               "namespace)::dq_kernel")
 # the device kernel of each wrapper, as torch.profiler names it
 DEVICE_KERNEL = {
     "kruskal_grad": "kruskal_grad_kernel",
@@ -1575,17 +1582,37 @@ def phase_flash_bwd(torch, K, cfg) -> tuple[dict, list[dict]]:
         log(f"scaled_dot_product_attention backward: {exc}")
     pairs = S * (S + 1) // 2
     nbytes = 4 * (4 * B * S * H * D + 4 * B * S * Hk * D + B * H * S)
-    flops = 5 * 2 * D * pairs * B * H    # Qkᵀ, dO vᵀ, Pᵀ dO, dS k, dSᵀ q
-    t_b, by = bound(nbytes, flops)       # SIMT f32: the 67 TFLOP/s peak
-    # the same products as 3xTF32 on the tensor cores, as the forward and
-    # tucker_matmul run them: the target of a tensor-core redesign
-    t_tc, by_tc = tc_bound(nbytes, [(3, flops)])
+    # the function's five products (Qkᵀ, dO vᵀ, Pᵀ dO, dS k, dSᵀ q), each
+    # as 3xTF32 on the tensor cores (the plan's passes) at 495 TFLOP/s:
+    # the units the kernel runs them on (its dQ pass recomputes two of
+    # them, which the bound does not count); beside it the same products
+    # at the 67 TFLOP/s f32 SIMT peak
+    flops = 5 * 2 * D * pairs * B * H
+    bplan = K.flash_attention_bwd.plan(B, S, S, H, Hk, D)
+    t_tc, by_tc = tc_bound(nbytes, [(n, flops / 5) for n in bplan.passes])
+    t_b, by = bound(nbytes, flops)
+    # each of the call's three kernels, from a short profile of 5 calls:
+    # the mean over the launches the trace recorded (it may miss the
+    # first), taken again, three times at most, if it missed a kernel
+    keys = tuple(zip(("Di", "dK/dV", "dQ"), BWD_KERNELS))
+    for _ in range(3):
+        _, prof = _profile_window(torch,
+                                  lambda: [kernel() for _ in range(5)])
+        hits = {part: [(n, us) for name, (n, us) in prof.items()
+                       if key in name] for part, key in keys}
+        if all(len(h) == 1 for h in hits.values()):
+            break
+    else:
+        raise AssertionError("flash_attention_bwd profile: want one device "
+                             f"kernel of each part, recorded {hits}")
+    parts = {part: h[0][1] / h[0][0] * 1e-3 for part, h in hits.items()}
+    dev = sum(parts.values())
     rows = [{"name": "flash_attention_bwd",
              "variant": f"training B={B} H={H} Kv={Hk} S={S} D={D} causal",
              "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-             "bound_ms": t_b, "bound_by": by, "floor_ms": floor,
-             "f32_bound_ms": t_b, "f32_bound_by": by,
-             "tc_bound_ms": t_tc, "tc_bound_by": by_tc, "plan": None,
+             "bound_ms": t_tc, "bound_by": by_tc, "floor_ms": floor,
+             "f32_bound_ms": t_b, "f32_bound_by": by, "device_ms": dev,
+             "kernel_ms": parts, "plan": dataclasses.asdict(bplan),
              "launches_note": "1 per layer per training step",
              "host_ms": {"kernel": host[0], "plain": host[1],
                          "library": None}}]
@@ -1593,10 +1620,12 @@ def phase_flash_bwd(torch, K, cfg) -> tuple[dict, list[dict]]:
         f"(plain {plain_ms:.4f} ms"
         + (f", scaled_dot_product_attention backward {lib:.4f} ms"
            if lib is not None else "")
-        + f"), bound {t_b:.4f} ms by {by} (f32 SIMT, the units it runs on; "
-        f"{t_b / ms:.1%} of it), 3xTF32 tensor-core bound {t_tc:.4f} ms by "
-        f"{by_tc} ({t_tc / ms:.1%} of it), launch floor {floor:.4f} ms; "
-        f"{rows[0]['launches_note']}")
+        + f"), bound on the tensor cores {t_tc:.4f} ms by {by_tc} (3xTF32, "
+        f"the units it runs on; {t_tc / ms:.1%} of it), f32 bound "
+        f"{t_b:.4f} ms by {by} ({t_b / ms:.1%} of it), launch floor "
+        f"{floor:.4f} ms; device time by kernel "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f" (sum {dev:.4f} ms); {rows[0]['launches_note']}")
     # the forward as training calls it: with the lse, B = 2
     fwd = lambda: fa(q, k, v, return_lse=True)            # noqa: E731
     fwd_plain = lambda: ref.flash_attention_ref(          # noqa: E731
@@ -1714,10 +1743,20 @@ def phase_lm_train(torch, K, train, cfg) -> dict:
             f"{sum(v[0] for v in kernels.values())} device operations")
         for kname, (cnt, us) in top:
             log(f"  {us / 1e3:9.3f} ms  {cnt:5d}x  {kname[:90]}")
+        # the flash backward's three kernels (Di, dK/dV, dQ) in this step
+        bwd = {key: [sum(v[i] for k, v in kernels.items() if key in k)
+                     for i in (0, 1)]
+               for key in BWD_KERNELS}
+        log("LM train profile: flash_attention_bwd's kernels "
+            + ", ".join(f"{k} {n}x {us / 1e3:.3f} ms"
+                        for k, (n, us) in bwd.items())
+            + f" (of {busy / 1e3:.1f} ms busy)")
         prof.update(device_busy_ms=busy / 1e3,
                     device_ops=sum(v[0] for v in kernels.values()),
                     top_kernels=[{"name": k, "calls": c, "ms": us / 1e3}
-                                 for k, (c, us) in top])
+                                 for k, (c, us) in top],
+                    flash_bwd_kernels={k: {"calls": n, "ms": us / 1e3}
+                                       for k, (n, us) in bwd.items()})
     else:
         log("LM train profile: the profiler recorded no device time "
             "(not measured)")

@@ -4,7 +4,9 @@
 cross-block reduction's chunk; ``segment_reduce.plan`` and
 ``scatter_accum.plan`` partition the output rows among blocks.  All are
 pure functions of the shapes, so the bits of a result do not depend on
-the phase flags or on the card.
+the phase flags or on the card.  ``flash_attention_bwd.plan`` lays out
+the flash backward's three launches (Di, dK/dV, dQ), which its C entry
+refuses unless they are the build's.
 """
 import inspect
 import itertools
@@ -12,7 +14,8 @@ import itertools
 import numpy as np
 import pytest
 
-from repro_torch.kernels import kruskal_grad, scatter_accum, segment_reduce
+from repro_torch.kernels import (flash_attention_bwd, kruskal_grad,
+                                 scatter_accum, segment_reduce)
 
 GRAD_SHAPES = list(itertools.product(
     (1, 3, 4, 10),                      # N
@@ -163,3 +166,74 @@ def test_scatter_plan_reads_the_shapes_only():
     for bad in ((0, 4, 10), (10, 65, 10), (10, 4, 0)):
         with pytest.raises(ValueError, match="scatter_accum"):
             scatter_accum.plan(*bad)
+
+
+# flash backward: (B, Sq, Sk, H, Hk) — the LM's training shape, ragged
+# sequences off the 128/32 tiles, GQA and not, a single row
+BWD_SHAPES = [(2, 2048, 2048, 40, 8), (1, 301, 333, 10, 2),
+              (2, 200, 290, 4, 2), (3, 129, 127, 6, 3), (1, 1, 1, 1, 1),
+              (2, 2047, 2047, 40, 8)]
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_bwd_plan_fits_shared_memory_at_every_head_size(D):
+    """Both kernels' shared memory fits the 232,448 bytes a block may
+    take; at D = 128 each takes all of it."""
+    p = flash_attention_bwd.plan(2, 2048, 2048, 40, 8, D)
+    assert all(0 < b <= 232_448 for b in p.smem)
+    assert p.warps == 8 and p.kv_tile[0] == p.q_tile[0] == 16 * p.warps
+    if D == 128:
+        assert p.smem == (232_448, 232_448)
+
+
+def test_flash_bwd_plan_runs_every_product_in_3xtf32():
+    """Three tensor-core passes for each of the five products, never one
+    pass of TF32; the C entry gets them packed two bits each."""
+    p = flash_attention_bwd.plan(2, 2048, 2048, 40, 8, 128)
+    assert flash_attention_bwd.PRODUCTS == ("S", "dP", "dV", "dK", "dQ")
+    assert p.passes == (3, 3, 3, 3, 3)
+    c = list(p.to_c())
+    assert len(c) == 11 and c[5] == 3 * (1 + 4 + 16 + 64 + 256)
+    assert c[:5] == [8, 128, 32, 128, 32] and c[6:8] == list(p.smem)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk", BWD_SHAPES)
+def test_flash_bwd_plan_grid_covers_every_tile_once(B, Sq, Sk, H, Hk):
+    """Each (batch, KV head, key) row belongs to one dK/dV block and each
+    (batch, head, query) row to one dQ block, the blocks with the most
+    causal work first; the Di launch has a warp for every row."""
+    p = flash_attention_bwd.plan(B, Sq, Sk, H, Hk, 64)
+    (dot, _, _), (kv, _, _), (qg, _, _) = p.grids
+    assert all(g[1:] == (1, 1) for g in p.grids)
+    assert dot * 8 >= B * H * Sq > (dot - 1) * 8   # 8 warps a block
+    bk, bq = p.kv_tile[0], p.q_tile[0]
+    keys = np.zeros((B, Hk, Sk), np.int64)
+    tiles = []
+    for x in range(kv):
+        kt, hk, b = x // (Hk * B), x % Hk, x // Hk % B
+        keys[b, hk, kt * bk:(kt + 1) * bk] += 1
+        tiles.append(kt)
+    assert (keys == 1).all() and tiles == sorted(tiles)
+    rows = np.zeros((B, H, Sq), np.int64)
+    tiles = []
+    nq = -(-Sq // bq)
+    for x in range(qg):
+        qt, h, b = nq - 1 - x // (H * B), x % H, x // H % B
+        rows[b, h, qt * bq:(qt + 1) * bq] += 1
+        tiles.append(qt)
+    assert (rows == 1).all() and tiles == sorted(tiles, reverse=True)
+
+
+def test_flash_bwd_plan_workspace_at_the_training_shape():
+    """The only scratch is Di, (B, H, Sq) f32: 655,360 bytes at the
+    training shape; dQ is a second pass, with no partials."""
+    assert flash_attention_bwd.plan(2, 2048, 2048, 40, 8,
+                                    128).workspace == 4 * 2 * 40 * 2048
+    assert flash_attention_bwd.plan(1, 301, 333, 10, 2,
+                                    32).workspace == 4 * 10 * 301
+
+
+@pytest.mark.parametrize("D", [8, 24, 96, 256])
+def test_flash_bwd_plan_refuses_head_sizes_the_kernel_lacks(D):
+    with pytest.raises(ValueError, match="D in"):
+        flash_attention_bwd.plan(1, 64, 64, 2, 2, D)

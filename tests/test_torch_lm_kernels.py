@@ -315,3 +315,45 @@ def test_tf32_emulation_separates_three_passes_from_one():
     assert torch.equal(_tf32(x), x)
     want = x.double() @ b.double()
     assert rel(_tf32(x) @ b_s + _tf32(x) @ bb) <= tol / 10
+
+
+def test_tf32_emulation_sets_the_flash_backward_tolerance():
+    """The flash backward's five products (S = q kᵀ, dP = dO vᵀ, dV = Pᵀ dO,
+    dK = dSᵀ q, dQ = dS k) emulated as 3xTF32 and as one TF32 pass, at one
+    head of the training shape's contraction lengths (S = 2048, D = 128,
+    causal), against the f32 plain version: 3xTF32 within 2e-5 of each
+    output's largest (~1e-6), one pass not (~4e-4), so the card holds the
+    kernel to 2e-5 (``TOL["flash_attention_bwd"]`` in ``chip_smoke.py``,
+    ``FLASH_BWD_TOL`` in ``test_torch_cuda.py``)."""
+    rng = np.random.default_rng(2048)
+    S, D = 2048, 128
+    q, k, v, dout = (torch.tensor(rng.normal(size=(1, S, 1, D)), dtype=F32)
+                     for _ in range(4))
+    o, lse = ref.flash_attention_ref(q, k, v, True, return_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, True)
+
+    def three(a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        return ab @ _tf32(b - bb) + _tf32(a - ab) @ bb + ab @ bb
+
+    def one(a, b):
+        return _tf32(a) @ _tf32(b)
+
+    def backward(mm):
+        qh, kh, vh, oh, dh = (t[0, :, 0] for t in (q, k, v, o, dout))
+        mask = torch.ones(S, S, dtype=torch.bool).tril()
+        p = torch.where(mask, torch.exp(mm(qh, kh.T) / np.sqrt(D)
+                                        - lse[0, 0][:, None]), 0.0)
+        ds = p * (mm(dh, vh.T) - (dh * oh).sum(-1)[:, None])
+        return (mm(ds, kh) / np.sqrt(D), mm(ds.T, qh) / np.sqrt(D),
+                mm(p.T, dh))
+
+    def rel(got, w):
+        got = got.reshape(w.shape).double()
+        return ((got - w.double()).abs().max() / w.abs().max()).item()
+
+    tol = 2e-5
+    for got, w in zip(backward(three), want):
+        assert rel(got, w) <= tol / 10
+    for got, w in zip(backward(one), want):
+        assert rel(got, w) > 10 * tol
