@@ -133,6 +133,31 @@ Phases (each failure ends the run with a non-zero exit code):
    |g| is past a quarter of its leaf's largest (Adam's first step is
    lr·sign(g) plus weight decay, so a flipped sign fails by 2 and a zero
    gradient by 1).
+14. The single-device driver over phase 3's tensor: ``std_train.run``
+   with ``--strategy local`` on the unsorted f32 path, ``--steps`` steps
+   with a checkpoint at every third of the run (``--ckpt-dir``); a second
+   run into another directory stops at two thirds (a kill after its
+   second commit), and a fresh ``run`` with ``--resume`` restores that
+   and finishes.  Its factors, core factors and generator state must
+   equal the uninterrupted run's bitwise, and the uninterrupted run's
+   parameters phase 3's unsorted run's.  Then three uncompressed and
+   three ``--compress`` (int8 error feedback) runs, alternating: each
+   kind repeats its bits, the compressed RMSE is finite and falls at
+   every evaluation, its residuals are finite and not all zero, and its
+   final RMSE is within ``COMPRESS_GAP`` (relative) of the uncompressed
+   run's; the steps/s of each run and the medians' ratio are printed.
+   Each run's launch counts (the unsorted path's kernels, no
+   ``segment_reduce``), steps/s, and the checkpoints' bytes and seconds.
+15. The paper's baselines over the same tensor from one cold init: cuTucker
+   SGD (the full core, ``einsum``) for ``--steps`` steps at batch 4096
+   (exactly N ``scatter_accum`` launches a step and no other kernel), one
+   ALS epoch and one CCD epoch (no kernel; run twice, and whether the two
+   epochs give the same bits is printed): seconds, held-out RMSE/MAE
+   before and after (must fall) and peak device bytes of each.  Then
+   ``bench_accuracy`` at ``FULL`` through the ``"cuda"`` backend, whose
+   validator must pass (the paper's two accuracy claims), and cuTucker on
+   ``"cuda"`` against ``"torch"``: 20 fed-batch steps from the same
+   parameters within the 1e-4 relative of phase 4.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -204,6 +229,11 @@ LM_TRAIN_PARITY = dict(layers=2, batch=1, seq=2048)
 LM_TRAIN_PARITY_OPT = dict(lr=1e-3, warmup_steps=1)  # the step at full lr
 LM_SETTLED = 0.25   # |g| past this share of its leaf's largest: sign settled
 BF16_BAND = (1.6, 0.02)  # bf16 RMSE <= 1.6·f32 + 0.02 (the reference's band)
+# int8 error feedback: final RMSE within this share of the uncompressed
+# run's at the Netflix tensor and 600 steps.  Both trajectories repeat
+# their bits on the card; they ended 6.7e-8 apart (H100 80GB HBM3, 700 W),
+# and the bound is about 4.5 times that
+COMPRESS_GAP = 3e-7
 REPLACES = {
     "kruskal_contract": "src/repro/kernels/kruskal_contract.py:30",
     "kruskal_grad": "src/repro/kernels/kruskal_grad.py:83",
@@ -1912,6 +1942,278 @@ def phase_lm_train_parity(torch, train, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+def _same_bits(x, y) -> bool:
+    return len(x) == len(y) and all(a.equal(b) for a, b in zip(x, y))
+
+
+def _params(res) -> tuple:
+    p = res["state"].params
+    return tuple(p.factors) + tuple(p.core_factors)
+
+
+def _check_path(name, counts, must, must_not) -> None:
+    missing = [k for k in must if counts[k] <= 0]
+    stray = [k for k in must_not if counts[k] != 0]
+    if missing or stray:
+        raise AssertionError(f"{name}: not launched {missing}, launched but "
+                             f"not on the path {stray}")
+
+
+def phase_driver(torch, K, std_train, base_res, steps: int) -> dict:
+    """``std_train --strategy local`` over phase 3's tensor: checkpoints,
+    a bitwise resume, the int8 error-feedback run against the uncompressed
+    one in alternating runs, launches and costs."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    data = (base_res["train"], base_res["test"])
+    third = max(steps // 3, 1)
+    base = ["--strategy", "local", "--dims",
+            ",".join(map(str, NETFLIX_DIMS)), "--rank", "4", "--core-rank",
+            "4", "--batch", str(TRAIN_BATCH), "--eval-every", str(third),
+            "--seed", "0", "--backend", "cuda", "--device", "cuda"]
+    must, must_not = PATHS["unsorted"][1:]
+    runs, run_counts, committed = {}, {}, {}
+    (ROOT / "build").mkdir(exist_ok=True)   # git-ignored
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        whole_ck, cut_ck = str(Path(tmp) / "whole"), str(Path(tmp) / "cut")
+        # the interrupted run stops after its second commit, as a kill
+        # there would; then the compression pair alternates, u c c u u c
+        order = [("uninterrupted", steps, ["--ckpt-dir", whole_ck]),
+                 ("interrupted", 2 * third, ["--ckpt-dir", cut_ck]),
+                 ("resumed", steps, ["--ckpt-dir", cut_ck, "--resume"])]
+        order += [(f"{kind} {i}", steps, flags) for i, kind, flags in (
+            (1, "uncompressed", []), (1, "compressed", ["--compress"]),
+            (2, "compressed", ["--compress"]), (2, "uncompressed", []),
+            (3, "uncompressed", []), (3, "compressed", ["--compress"]))]
+        for name, n, flags in order:
+            K.reset_launch_counts()
+            res = std_train.run(
+                std_train.parse_args(base + ["--steps", str(n)] + flags),
+                data)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            hist = res["history"]
+            log(f"driver {name} ({' '.join(flags) or 'no checkpoint'}): "
+                f"{hist[-1]['step'] - hist[0]['step']} steps at "
+                f"{res['steps_per_s']:.1f} steps/s = "
+                f"{res['nnz_per_s']:.4g} nnz/s, peak device bytes "
+                f"{res['peak_device_bytes']:,}; rmse " + " -> ".join(
+                    f"{h['rmse']:.7f}@{h['step']}" for h in hist))
+            log(f"driver {name}: launch counts {counts}")
+            if res["ckpt_bytes"] is not None:
+                log(f"driver {name}: {len(hist) - 1} checkpoints of "
+                    f"{res['ckpt_bytes']:,} bytes, {res['ckpt_seconds']:.4f}s "
+                    f"in all ({res['ckpt_seconds'] / (len(hist) - 1):.4f}s "
+                    "each)")
+            if not all(math.isfinite(h["rmse"]) and math.isfinite(h["mae"])
+                       for h in hist):
+                raise AssertionError(f"driver {name}: non-finite RMSE/MAE: "
+                                     f"{hist}")
+            _check_path(f"driver {name}", counts, must, must_not)
+            runs[name], run_counts[name] = res, counts
+            if name in ("uninterrupted", "interrupted"):
+                committed[name] = CheckpointManager(flags[1]).all_steps()
+    want = {"uninterrupted": sorted({*range(third, steps + 1, third),
+                                     steps}),
+            "interrupted": [third, 2 * third]}
+    if committed["interrupted"] != want["interrupted"] or (
+            committed["uninterrupted"] != want["uninterrupted"]):
+        raise AssertionError(f"driver: checkpoints {committed}, want {want}")
+    whole, resumed = runs["uninterrupted"], runs["resumed"]
+    if resumed["resumed_from"] != 2 * third:
+        raise AssertionError(f"driver: resumed from "
+                             f"{resumed['resumed_from']}, want {2 * third}")
+    if not (_same_bits(_params(whole), _params(resumed))
+            and whole["dstate"].rng.equal(resumed["dstate"].rng)):
+        raise AssertionError("driver: the resumed run's parameters differ "
+                             "from the uninterrupted run's")
+    if not _same_bits(_params(whole), _params(base_res)):
+        raise AssertionError("driver: the uninterrupted local run differs "
+                             "from phase 3's unsorted run")
+    log(f"driver: resumed at step {2 * third} and finished bitwise equal to "
+        "the uninterrupted run (factors, core factors, generator state); "
+        "the uninterrupted run bitwise equal to phase 3's unsorted run")
+
+    plain = [runs[f"uncompressed {i}"] for i in (1, 2, 3)]
+    comp = [runs[f"compressed {i}"] for i in (1, 2, 3)]
+    if not all(_same_bits(_params(r), _params(whole)) for r in plain):
+        raise AssertionError("driver: an uncompressed run differs from the "
+                             "uninterrupted run")
+    if not all(_same_bits(_params(r) + r["dstate"].ef,
+                          _params(comp[0]) + comp[0]["dstate"].ef)
+               for r in comp[1:]):
+        raise AssertionError("driver: the compressed runs differ")
+    ef = comp[0]["dstate"].ef
+    if not all(bool(torch.isfinite(e).all()) and float(e.abs().max()) > 0
+               for e in ef):
+        raise AssertionError("driver compressed: error-feedback residuals "
+                             "zero or not finite")
+    sps_u = [r["steps_per_s"] for r in plain]
+    sps_c = [r["steps_per_s"] for r in comp]
+    med_u, med_c = statistics.median(sps_u), statistics.median(sps_c)
+    log(f"driver: steps/s uncompressed {[round(x, 1) for x in sps_u]} "
+        f"(max/min {max(sps_u) / min(sps_u):.3f}), compressed "
+        f"{[round(x, 1) for x in sps_c]} (max/min "
+        f"{max(sps_c) / min(sps_c):.3f}); medians {med_u:.1f} / "
+        f"{med_c:.1f}, compressed/uncompressed {med_c / med_u:.3f}")
+    hist = comp[0]["history"]
+    r_c, r_u = hist[-1]["rmse"], whole["history"][-1]["rmse"]
+    gap = abs(r_c - r_u) / r_u
+    log(f"driver compressed: final rmse {r_c:.9f} against {r_u:.9f} "
+        f"uncompressed: {gap:.3e} relative, bound {COMPRESS_GAP:g}; the "
+        "three compressed runs bitwise equal, the three uncompressed runs "
+        "bitwise the uninterrupted run")
+    if not all(b["rmse"] < a["rmse"] for a, b in zip(hist, hist[1:])):
+        raise AssertionError(f"driver compressed: RMSE did not fall: {hist}")
+    if not gap <= COMPRESS_GAP:
+        raise AssertionError(f"driver compressed: RMSE {r_c} is {gap:.3e} "
+                             f"from the uncompressed run's {r_u}, past "
+                             f"{COMPRESS_GAP:g}")
+    out = {"runs": {}}
+    for name, res in runs.items():
+        out["runs"][name] = {k: res[k] for k in (
+            "history", "steps_per_s", "nnz_per_s", "peak_device_bytes",
+            "train_seconds", "ckpt_seconds", "ckpt_bytes", "resumed_from")}
+        out["runs"][name]["launch_counts"] = run_counts[name]
+    out.update(resume_bitwise=True, equals_phase3_bitwise=True,
+               compressed_gap=gap, steps_per_s_median={
+                   "uncompressed": med_u, "compressed": med_c})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+
+def _rmse(torch, params, test_t, predict) -> tuple[float, float]:
+    from repro_torch.core.metrics import rmse_mae
+
+    r, m = rmse_mae(params, test_t, predict)
+    return float(r), float(m)
+
+
+def phase_baselines(torch, K, base_res, steps: int) -> dict:
+    """cuTucker SGD, one ALS epoch and one CCD epoch over phase 3's tensor
+    from one cold init; ``bench_accuracy`` at FULL on the card; cuTucker
+    ``"cuda"`` against ``"torch"`` on 20 fed batches."""
+    from repro_torch.benchmarks import bench_accuracy
+    from repro_torch.core import als, ccd
+    from repro_torch.core import cutucker as cu
+    from repro_torch.core.sampling import sample_batch_arrays
+
+    train_t, test_t = base_res["train"], base_res["test"]
+    dims = train_t.dims
+    J = base_res["cfg"].ranks[0]
+    ccfg = cu.CuTuckerConfig(dims=dims, ranks=(J,) * len(dims),
+                             batch_size=TRAIN_BATCH, backend="cuda")
+    params0 = cu.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             ccfg, "cuda")
+    before = _rmse(torch, params0, test_t, cu.predict)
+    out = {"init": {"rmse": before[0], "mae": before[1]}}
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        return res, dt, counts, peak
+
+    def run_cu():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        st = cu.CuState(params0, 0)
+        for _ in range(steps):
+            st = cu.sgd_step(st, gen, train_t.indices, train_t.values, ccfg)
+        return st.params
+
+    rows = {}
+    cu_params, dt, counts, peak = measured(run_cu)
+    rows["cutucker"] = dict(params=cu_params, seconds=dt, counts=counts,
+                            peak=peak, rate=f"{steps / dt:.1f} steps/s "
+                            f"({steps} steps at batch {TRAIN_BATCH})")
+    want_cu = {k: (len(dims) * steps if k == "scatter_accum" else 0)
+               for k in REPLACES}
+    if counts != want_cu:
+        raise AssertionError(f"cuTucker: launch counts {counts}, want "
+                             f"{want_cu}")
+    for name, mod, cfg_cls in (("als", als, als.ALSConfig),
+                               ("ccd", ccd, ccd.CCDConfig)):
+        epoch = getattr(mod, f"{name}_epoch")
+        cfg = cfg_cls(dims=dims, ranks=(J,) * len(dims))
+        p, dt, counts, peak = measured(lambda: epoch(params0, train_t, cfg))
+        p2, dt2, _, _ = measured(lambda: epoch(params0, train_t, cfg))
+        repeats = _same_bits(tuple(p.factors), tuple(p2.factors))
+        rows[name] = dict(params=p, seconds=dt, counts=counts, peak=peak,
+                          rate=f"{dt:.4f} s an epoch ({dt2:.4f} s again; "
+                          f"the two epochs' bits equal: {repeats})",
+                          repeats_bitwise=repeats, seconds_again=dt2)
+        if any(counts.values()):
+            raise AssertionError(f"{name}: launched kernels {counts}; its "
+                                 "segment sums are index_add_")
+    for name, row in rows.items():
+        r, m = _rmse(torch, row.pop("params"), test_t, cu.predict)
+        log(f"baseline {name}: {row['rate']}; held-out rmse {before[0]:.5f} "
+            f"-> {r:.5f}, mae {before[1]:.5f} -> {m:.5f}; peak device "
+            f"bytes {row['peak']:,}; launch counts {row['counts']}")
+        if not (math.isfinite(r) and math.isfinite(m) and r < before[0]):
+            raise AssertionError(f"baseline {name}: rmse {before[0]} -> {r}")
+        out[name] = dict(row, rmse=r, mae=m)
+    fast = base_res["steps_per_s"]
+    log(f"baseline cutucker: {steps / out['cutucker']['seconds']:.1f} steps/s "
+        f"against FastTucker's unsorted {fast:.1f} (phase 3)")
+
+    # Fig. 3-4 at FULL through the "cuda" backend
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = bench_accuracy.run(smoke=False, device="cuda", backend="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    log(f"bench_accuracy FULL on {doc['platform']}: "
+        f"{time.perf_counter() - t0:.1f}s, validator passed; launch counts "
+        f"{counts}")
+    for r in doc["results"]:
+        log(f"bench_accuracy {r['model']}/{r['variant']} J={r['rank']}: "
+            f"rmse {r['rmse']:.5f} mae {r['mae']:.5f} ({r['train_s']:.2f}s)")
+    _check_path("bench_accuracy", counts,
+                ("kruskal_contract", "kruskal_grad", "scatter_accum"),
+                ("segment_reduce",))
+    out["bench_accuracy"] = {"doc": doc, "launch_counts": counts}
+
+    # cuTucker "cuda" against "torch": 20 fed batches from params0
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    batches = [sample_batch_arrays(gen, train_t.indices, train_t.values,
+                                   TRAIN_BATCH) for _ in range(20)]
+    finals = {}
+    for backend in ("cuda", "torch"):
+        cfg = dataclasses.replace(ccfg, backend=backend)
+        st = cu.CuState(params0, 0)
+        for idx, val in batches:
+            st = cu.sgd_step_batch(st, idx, val, cfg)
+        finals[backend] = tuple(st.params.factors) + (st.params.core,)
+    torch.cuda.synchronize()
+    worst = worst_abs = 0.0
+    for got, want in zip(finals["cuda"], finals["torch"]):
+        e, r = rel_err(got, want)
+        worst, worst_abs = max(worst, r), max(worst_abs, e)
+    log(f"baseline parity: cuTucker 20 fed-batch steps cuda vs torch: max "
+        f"abs diff {worst_abs:.3g}, max relative diff {worst:.3g} "
+        f"(tolerance {TOL['trajectory']:.3g})")
+    if not worst <= TOL["trajectory"]:
+        raise AssertionError(f"cuTucker cuda vs torch differs: {worst:.3g}")
+    out["parity"] = {"max_rel_diff": worst, "max_abs_diff": worst_abs}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -1984,6 +2286,19 @@ def main(argv: list[str] | None = None) -> int:
     for k in LM_KERNELS:   # the serve request and the training run
         counts[k] = sum(report[p]["launch_counts"].get(k, 0)
                         for p in ("lm_serve", "lm_train"))
+    t_new = time.perf_counter()
+    report["driver"] = phase_driver(torch, K, std_train, base, args.steps)
+    report["baselines"] = phase_baselines(torch, K, base, args.steps)
+    report["driver_baselines_seconds"] = time.perf_counter() - t_new
+    log(f"phases 14-15 (driver, baselines): "
+        f"{report['driver_baselines_seconds']:.1f}s")
+    for run in report["driver"]["runs"].values():
+        for k, v in run["launch_counts"].items():
+            counts[k] += v
+    for part in (report["baselines"]["cutucker"]["counts"],
+                 report["baselines"]["bench_accuracy"]["launch_counts"]):
+        for k, v in part.items():
+            counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
 
     errs = report["kernels_vs_plain"]
@@ -2014,8 +2329,9 @@ def main(argv: list[str] | None = None) -> int:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(report, indent=1, default=str))
-    log(f"launches on the main paths (the three training paths; the LM "
-        f"serve request and the LM training run for "
+    log(f"launches on the main paths (the three training paths, the "
+        f"driver's nine runs, cuTucker's SGD run and bench_accuracy; the "
+        f"LM serve request and the LM training run for "
         f"{', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,7 @@
-"""Core: FastTucker STD with a Kruskal core + SGD on one device."""
+"""Core: FastTucker STD with a Kruskal core + SGD on one device, and the
+paper's baselines (``cutucker``: the full core; ``als`` and ``ccd``: exact
+per-row solvers)."""
+from . import als, ccd, cutucker
 from .fasttucker import (
     FastTuckerConfig,
     FastTuckerParams,
@@ -27,6 +30,9 @@ from .sampling import (SortedBatchLayout, SortedBatchOrder,
 from .sptensor import SparseTensor
 
 __all__ = [
+    "als",
+    "ccd",
+    "cutucker",
     "SparseTensor",
     "FastTuckerConfig",
     "FastTuckerParams",

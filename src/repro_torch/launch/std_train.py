@@ -1,20 +1,32 @@
 """STD (sparse Tucker) training driver on one device — the paper's workload.
 
-Counterpart of ``repro.launch.std_train`` with ``--strategy local``: a
-planted tensor (``data.synthetic.planted_tensor``, 10 % held out), cold
-init, ``sgd_step`` on batches drawn on the device, and held-out RMSE/MAE
-through ``predict`` before training, every ``--eval-every`` steps and at
-the end.  It logs steps/s and nnz/s over the training intervals (evals
-excluded, each interval closed by a device synchronize) and the peak
-device bytes (``torch.cuda.max_memory_allocated``).  The step flags are
-the reference's: ``--phase-split``, ``--sorted-batches``, ``--dtype`` and
-``--accum-dtype`` (``update_order`` stays config-only, as there).  The
-sketched warm start, checkpoints and the multi-device strategies are not
-ported yet.
+Counterpart of ``repro.launch.std_train``: a planted tensor
+(``data.synthetic.planted_tensor``, 10 % held out), cold init, and one
+strategy-agnostic loop that drives a ``DistStrategy`` from the port's
+registry (``repro_torch.distributed``; ``--strategy local``, the only one
+ported, is the default).
+Held-out RMSE/MAE through ``predict`` before training, every
+``--eval-every`` steps and at the end.  It logs steps/s and nnz/s over the
+training intervals (evals and checkpoints excluded, each interval closed
+by a device synchronize) and the peak device bytes
+(``torch.cuda.max_memory_allocated``).
+
+The step flags are the reference's: ``--phase-split``,
+``--sorted-batches``, ``--dtype`` and ``--accum-dtype`` (``update_order``
+stays config-only, as there); ``--compress`` runs the int8 error-feedback
+gradient round trip.  ``--ckpt-dir`` saves the strategy state (parameters,
+step, the sampling generator's state and the EF residuals) at every
+evaluation through ``checkpoint.manager.CheckpointManager``; ``--resume``
+restores its latest committed step and continues, drawing the same
+batches the uninterrupted run draws, so a resumed run ends on its bits.
+The reference's ``--mode`` alias, ``--donate``, the sketched warm start,
+the adaptive rank and the out-of-core store are not ported: argparse
+refuses their flags.
 
     PYTHONPATH=src python -m repro_torch.launch.std_train \\
         --dims 1000,800,600 --nnz 200000 --steps 300 --batch 4096 \\
-        --sorted-batches --phase-split [--dtype bfloat16]
+        --sorted-batches --phase-split [--dtype bfloat16] [--compress] \\
+        [--ckpt-dir DIR [--resume]]
 
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
 cpu --backend torch`` runs the plain path on the CPU.
@@ -28,11 +40,14 @@ from functools import partial
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager, flatten
 from repro_torch.core import fasttucker as ft
 from repro_torch.core.metrics import rmse_mae
 from repro_torch.core.sptensor import SparseTensor
 from repro_torch.data.synthetic import planted_tensor
 from repro_torch.device import resolve_device
+from repro_torch.distributed import available_strategies, get_strategy
+from repro_torch.distributed.base import checkpoint_tree
 from repro_torch.kernels import dispatch
 
 log = logging.getLogger("repro_torch.std")
@@ -40,6 +55,9 @@ log = logging.getLogger("repro_torch.std")
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--strategy", default="local",
+                    help="training strategy: local (sync, strata and "
+                         "strata_overlap are not ported yet)")
     ap.add_argument("--dims", default="1000,800,600")
     ap.add_argument("--nnz", type=int, default=200_000)
     ap.add_argument("--rank", type=int, default=8,
@@ -48,6 +66,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--eval-every", type=int, default=50)
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 error-feedback gradient compression")
     ap.add_argument("--seed", type=int, default=0,
                     help="data/split/init/sampling seed")
     ap.add_argument("--backend", default=None,
@@ -72,6 +92,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="dot / gradient accumulation dtype; only float32, "
                          "kept so that the reference's command lines run "
                          "unchanged")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save the strategy state here at every evaluation")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint in --ckpt-dir (the "
+                         "dir must belong to a run with the same config and "
+                         "strategy)")
     return ap.parse_args(argv)
 
 
@@ -92,6 +118,8 @@ def run(
     """
     device = resolve_device(args.device)
     backend = dispatch.resolve_backend_name(args.backend)
+    # fail fast on strategy typos and unported strategies, before the data
+    strategy = get_strategy(args.strategy)
     dims = tuple(int(x) for x in args.dims.split(","))
     # fail fast on bad options, before the data is made
     cfg = ft.FastTuckerConfig(
@@ -99,11 +127,13 @@ def run(
         batch_size=args.batch, backend=backend,
         phase_split=args.phase_split, sorted_batches=args.sorted_batches,
         dtype=args.dtype, accum_dtype=args.accum_dtype)
-    log.info("device %s, kernel backend %s, dims %s, nnz %d, J=%d, R=%d, "
-             "batch %d, phase_split %s, sorted_batches %s, dtype %s, "
-             "accum_dtype %s", device, backend, dims, args.nnz, args.rank,
-             args.core_rank, args.batch, cfg.phase_split, cfg.sorted_batches,
-             cfg.dtype, cfg.accum_dtype)
+    log.info("strategy %s (available: %s), device %s, kernel backend %s, "
+             "dims %s, nnz %d, J=%d, R=%d, batch %d, phase_split %s, "
+             "sorted_batches %s, dtype %s, accum_dtype %s, compress %s",
+             strategy.name, "/".join(available_strategies()), device,
+             backend, dims, args.nnz, args.rank, args.core_rank, args.batch,
+             cfg.phase_split, cfg.sorted_batches, cfg.dtype, cfg.accum_dtype,
+             args.compress)
 
     t0 = time.perf_counter()
     if data is None:
@@ -122,51 +152,90 @@ def run(
     log.info("data: %d train / %d test nonzeros in %.1fs", train_t.nnz,
              test_t.nnz, data_s)
 
+    plan = strategy.prepare(train_t, cfg, None, compress=args.compress,
+                            seed=args.seed)
+    # one generator draws the cold init, then every batch
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = ft.init_state(gen, cfg, device)
+    dstate = strategy.init(plan, ft.init_state(gen, cfg, device), gen)
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    resumed_from = None
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        dstate = strategy.restore(plan, ckpt, dstate)
+        resumed_from = dstate.step
+        log.info("resumed from step %d", dstate.step)
+        if dstate.step >= args.steps:
+            log.warning(
+                "checkpoint step %d >= --steps %d: nothing to train — is %s "
+                "a stale dir from another run?", dstate.step, args.steps,
+                args.ckpt_dir)
     predict_fn = partial(ft.predict, backend=backend)
 
-    def evaluate(step: int) -> dict:
-        r, m = rmse_mae(state.params, test_t, predict_fn)
-        rec = {"step": step, "rmse": float(r), "mae": float(m)}
-        log.info("step %d rmse %.4f mae %.4f", step, rec["rmse"], rec["mae"])
+    def evaluate() -> dict:
+        params = strategy.eval_params(plan, dstate)
+        r, m = rmse_mae(params, test_t, predict_fn)
+        rec = {"step": dstate.step, "rmse": float(r), "mae": float(m)}
+        log.info("step %d rmse %.4f mae %.4f", rec["step"], rec["rmse"],
+                 rec["mae"])
         return rec
 
-    history = [evaluate(0)]
+    step_fn = strategy.make_step(plan)
+    nnz_step = strategy.nnz_per_step(plan)
+    history = [evaluate()]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    train_s = 0.0
+    start = last = dstate.step
+    train_s = ckpt_s = 0.0
+    ckpt_bytes = None
     t_int = time.perf_counter()
-    last = 0
-    for i in range(1, args.steps + 1):
-        state = ft.sgd_step(state, gen, train_t.indices, train_t.values, cfg)
-        if i % args.eval_every == 0 or i == args.steps:
+    while dstate.step < args.steps:
+        dstate = step_fn(dstate)
+        i = dstate.step
+        # crossing an --eval-every boundary (a strategy may advance more
+        # than one step a call)
+        if i // args.eval_every > last // args.eval_every or i >= args.steps:
             _sync(device)
             dt = time.perf_counter() - t_int
             train_s += dt
             sps = (i - last) / dt
             log.info("throughput: %.1f steps/s, %.4g nnz/s", sps,
-                     sps * cfg.batch_size)
-            history.append(evaluate(i))
+                     sps * nnz_step)
+            history.append(evaluate())
             last = i
+            if ckpt:
+                t_ck = time.perf_counter()
+                strategy.save(plan, ckpt, dstate)
+                ckpt_s += time.perf_counter() - t_ck
+                leaves = flatten(checkpoint_tree(dstate)).values()
+                ckpt_bytes = sum(t.numel() * t.element_size()
+                                 for t in leaves)
             t_int = time.perf_counter()
-    steps_per_s = args.steps / train_s if train_s > 0 else float("nan")
+    steps_done = dstate.step - start
+    steps_per_s = steps_done / train_s if train_s > 0 else float("nan")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
     log.info("done: %d steps, %.1f steps/s, %.4g nnz/s, peak device bytes "
-             "%s", args.steps, steps_per_s, steps_per_s * cfg.batch_size,
+             "%s", steps_done, steps_per_s, steps_per_s * nnz_step,
              "not measured (cpu)" if peak is None else f"{peak:,}")
+    if ckpt:
+        log.info("checkpoints: %s bytes each, %.3fs in all", ckpt_bytes,
+                 ckpt_s)
     return {
         "history": history,
         "steps_per_s": steps_per_s,
-        "nnz_per_s": steps_per_s * cfg.batch_size,
+        "nnz_per_s": steps_per_s * nnz_step,
         "peak_device_bytes": peak,
         "data_seconds": data_s,
         "train_seconds": train_s,
         "device": str(device),
         "backend": backend,
+        "strategy": strategy.name,
+        "resumed_from": resumed_from,
+        "ckpt_seconds": ckpt_s,
+        "ckpt_bytes": ckpt_bytes,
         "cfg": cfg,
-        "state": state,
+        "state": ft.TrainState(strategy.eval_params(plan, dstate),
+                               dstate.step),
+        "dstate": dstate,
         "train": train_t,
         "test": test_t,
     }

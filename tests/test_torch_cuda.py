@@ -825,3 +825,147 @@ def test_train_step_cuda_matches_torch_on_card(dev):
         assert settled.any(), name
         d = (pc[name].detach() - pt[name].detach())[settled]
         assert d.abs().max().item() <= 2.0 ** -8 * lr, name
+
+
+# ---------------------------------------------------------------------------
+# the single-device driver and the baselines on the card
+# ---------------------------------------------------------------------------
+
+STD_CARD = ["--dims", "300,200,100", "--nnz", "40000", "--rank", "4",
+            "--core-rank", "4", "--batch", "1024", "--eval-every", "10",
+            "--seed", "3", "--device", "cuda", "--backend", "cuda"]
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_std_train_resume_bitwise_on_card(dev, tmp_path, compress):
+    """A run killed after its step-20 checkpoint and resumed with
+    ``--resume`` ends on the uninterrupted run's bits: the unsorted f32
+    step repeats itself on the card, and the generator state is part of
+    the checkpoint."""
+    from repro_torch.launch import std_train
+
+    extra = ["--compress"] if compress else []
+    whole = std_train.main(STD_CARD + extra + [
+        "--steps", "30", "--ckpt-dir", str(tmp_path / "a")])
+    std_train.main(STD_CARD + extra + ["--steps", "20", "--ckpt-dir",
+                                       str(tmp_path / "b")])
+    reset_launch_counts()
+    res = std_train.main(STD_CARD + extra + [
+        "--steps", "30", "--ckpt-dir", str(tmp_path / "b"), "--resume"])
+    torch.cuda.synchronize()
+    assert res["resumed_from"] == 20
+    assert launch_counts()["scatter_accum"] == 3 * 10
+    a, b = whole["state"].params, res["state"].params
+    for x, y in zip(a.factors + a.core_factors + whole["dstate"].ef,
+                    b.factors + b.core_factors + res["dstate"].ef):
+        assert torch.equal(x, y)
+    assert torch.equal(whole["dstate"].rng, res["dstate"].rng)
+
+
+def test_cutucker_cuda_matches_torch_on_card(dev):
+    """20 fed-batch cuTucker steps: the ``scatter_accum`` kernel (3 a
+    step) against the plain scatter, within 1e-4 of each leaf's largest
+    (the trajectory bound of the FastTucker parity tests)."""
+    from repro_torch.core import cutucker as cu
+    from repro_torch.core.sampling import sample_batch_arrays
+    from repro_torch.data.synthetic import planted_tensor
+
+    dims = (3000, 2000, 100)
+    t = planted_tensor(dims, 200_000, rank=4, core_rank=4, seed=1,
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [sample_batch_arrays(gen, t.indices, t.values, 4096)
+               for _ in range(20)]
+    out = {}
+    for bk in ("cuda", "torch"):
+        cfg = cu.CuTuckerConfig(dims=dims, ranks=(4, 4, 4), batch_size=4096,
+                                backend=bk)
+        st = cu.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev)
+        reset_launch_counts()
+        for idx, val in batches:
+            st = cu.sgd_step_batch(st, idx, val, cfg)
+        torch.cuda.synchronize()
+        assert launch_counts()["scatter_accum"] == (60 if bk == "cuda"
+                                                    else 0)
+        out[bk] = st.params.factors + (st.params.core,)
+    for x, y in zip(out["cuda"], out["torch"]):
+        _close(x, y, 1e-4)
+
+
+@pytest.mark.parametrize("mag", [1.0, 1e-5, 300.0])
+def test_compress_ef_card_equals_cpu(dev, mag):
+    """The int8 error-feedback round trip gives the CPU's bits on the card
+    for the same input (the scale is a true division there too)."""
+    from repro_torch.optim.compression import compress_ef, decompress
+
+    rng = np.random.default_rng(int(mag * 7) + 1)
+    g = torch.tensor(rng.normal(size=(4099, 4)) * mag, dtype=torch.float32)
+    e = torch.tensor(rng.normal(size=(4099, 4)) * mag * 1e-2,
+                     dtype=torch.float32)
+    g[5] = 0.0
+    e[5] = 0.0
+    want = compress_ef(g, e)
+    got = compress_ef(g.to(dev), e.to(dev))
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(decompress(*got[:2]).cpu(), decompress(*want[:2]))
+
+
+def test_compressed_local_step_card_matches_cpu(dev):
+    """Five compressed ``local`` steps on the card (the kernels) against
+    the CPU (the plain versions) from the same parameters and fed batches,
+    at the default λ.  The kernel's and the plain version's gradients
+    differ in their last bits, so an entry near a rounding boundary can
+    take the neighbouring int8 code on one side only: its factor then
+    moves by one quantum (lr·scale) and its residual by the opposite
+    amount.  F − lr·e has no jump there (the dequantised gradient plus
+    the new residual is g + e): it is held within 1e-5 of each leaf's
+    largest, and so are the core factors.  The raw factors are held
+    within one quantum of the last step, per entry, plus that 1e-5."""
+    from repro_torch.core.sptensor import SparseTensor
+    from repro_torch.data.synthetic import planted_arrays
+    from repro_torch.distributed import get_strategy, local
+    from repro_torch.optim.compression import compress_ef
+
+    dims, steps = (300, 200, 100), 5
+    idx, val = planted_arrays(dims, 40_000, seed=4)
+    rng = np.random.default_rng(6)
+    picks = [torch.from_numpy(rng.integers(0, len(val), 1024))
+             for _ in range(steps)]
+    st = get_strategy("local")
+    out = {}
+    for device, bk in ((dev, "cuda"), (torch.device("cpu"), "torch")):
+        t = SparseTensor.from_numpy(idx, val, dims, device)
+        cfg = ft.FastTuckerConfig(dims=dims, ranks=(4, 4, 4), core_rank=4,
+                                  batch_size=1024, backend=bk)
+        plan = st.prepare(t, cfg, compress=True)
+        p0 = ft.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        params = ft.FastTuckerParams(
+            tuple(f.to(device) for f in p0.factors),
+            tuple(b.to(device) for b in p0.core_factors))
+        ds = st.init(plan, ft.TrainState(params, 0),
+                     torch.Generator(device=device))
+        for pick in picks:
+            last = ds
+            p = pick.to(device)
+            ds = local.step_batch(plan, ds, t.indices[p], t.values[p])
+        assert all(e.abs().max() > 0 for e in ds.ef)
+        out[bk] = ds
+    # the last step's per-row int8 scale, from the CPU's pieces
+    p = picks[-1]
+    grads = ft.step_gradients(last.params, t.indices[p], t.values[p], cfg)
+    dense = ft.scatter_row_grads(last.params.factors, t.indices[p],
+                                 grads.row_grads, backend="torch")
+    scales = [compress_ef(g, e)[1] for g, e in zip(dense, last.ef)]
+    lr = ft.dynamic_lr(cfg.alpha_a, cfg.beta_a, steps - 1)
+    got, want = out["cuda"], out["torch"]
+    for f_c, e_c, f_p, e_p, scale in zip(
+            got.params.factors, got.ef, want.params.factors, want.ef,
+            scales):
+        f_c, e_c = f_c.cpu(), e_c.cpu()
+        _close(f_c - lr * e_c, f_p - lr * e_p, 1e-5)
+        slack = 1e-5 * f_p.abs().max()
+        assert ((f_c - f_p).abs() <= lr * scale + slack).all()
+    for x, y in zip(got.params.core_factors, want.params.core_factors):
+        _close(x.cpu(), y, 1e-5)
