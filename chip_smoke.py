@@ -158,6 +158,32 @@ Phases (each failure ends the run with a non-zero exit code):
    validator must pass (the paper's two accuracy claims), and cuTucker on
    ``"cuda"`` against ``"torch"``: 20 fed-batch steps from the same
    parameters within the 1e-4 relative of phase 4.
+16. Tucker serving (``repro_torch.serve``) of phase 3's unsorted model
+   (J = R = 4) and of the rank-64 model of phase 3's wide run, no new
+   training: ``predict`` on ``"cuda"`` against a ``"torch"`` server
+   (2e-5 of the largest), a request's bits alone and inside a full 2048
+   bucket, exactly one ``kruskal_contract`` per bucket chunk and no kernel
+   from ``top_k``, ``reconstruct_rows``, ``update_rows`` or
+   ``refresh_tables``; ``top_k(mode 0 -> 1, k = 10)`` against a dense f32
+   recompute (ids equal where the k-th and (k+1)-th scores differ by more
+   than 1e-5) and ``reconstruct_rows`` of four 17,770 x 2,182 slices
+   against ``dense_reconstruct`` (2e-5); the reference's FULL closed-loop
+   traffic (``benchmarks/bench_serve.py:44-47``: predict at 4,000, 16,000
+   and 64,000 q/s offered, top_k at 2,000; 16 clients, microbatch 256,
+   3 s each), achieved QPS, p50/p95/p99 and sheds, every admitted request
+   answered.  Then a ``RefreshSupervisor`` over the paper's model with
+   ``LocalStrategy`` on phase 3's tensor: 4 rounds of 65,536 held-out
+   arrivals, K = 4 steps at batch 4096 each, beside a query thread;
+   exactly K ``kruskal_grad`` and 3K ``scatter_accum`` a round; the
+   patched tables bitwise a fresh server's from the refreshed params; a
+   second run under ``FaultPlan.parse("refresh@0:1:2,publish@0")``
+   degrades, recovers and ends on the first run's tables, factors and
+   generator state bitwise; ``update_rows`` against ``refresh_tables``
+   seconds, dirty rows per round and the staleness the queries saw.
+   ``kruskal_contract`` (pred only) at B in {256, 2048}, J = R in {4, 64}
+   by phase 5's method beside its byte bound and ``torch.einsum``; peak
+   device bytes; one profiled closed-loop second (busy share, device
+   operations per flush).
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -245,6 +271,17 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/models/flash.py:103",
 }
 LM_KERNELS = ("tucker_matmul", "flash_attention", "flash_attention_bwd")
+# phase 16: the reference's FULL closed-loop traffic
+# (benchmarks/bench_serve.py:44-47)
+SERVE_LOAD = dict(predict_qps=(4_000.0, 16_000.0, 64_000.0),
+                  top_k_qps=2_000.0, concurrency=16, microbatch=256,
+                  max_request=64, duration_s=3.0, k=10)
+SERVE_POOL = 1_000_000        # held-out tuples the clients draw from
+SERVE_REFRESH = dict(rounds=4, arrivals=65_536, steps=4)
+SERVE_FAULTS = "refresh@0:1:2,publish@0"
+SERVE_TIME_SHAPES = ((256, 4), (2048, 4), (256, 64), (2048, 64))
+SERVE_TOP_IDS = 16            # top_k entities checked against dense slices
+SERVE_SLICE_IDS = 4           # reconstruct_rows ids (17,770 x 2,182 each)
 FLAGS = [
     # (consume c, row_modes, want_core, emit_c) of kruskal_grad
     (False, None, True, False),     # the joint pass
@@ -566,10 +603,11 @@ def phase_slice(torch, K, std_train, steps: int, nnz: int) -> dict:
     return out
 
 
-def phase_wide(torch, K, std_train) -> dict:
+def phase_wide(torch, K, std_train) -> tuple[dict, object]:
     """Short runs at ranks 48 and 64 on the card (the reference's workloads
     use N = 3 at those ranks): finite RMSE/MAE, and the kernels of each
-    path launched at that width."""
+    path launched at that width.  Returns the record and the rank-64 run's
+    final parameters, which phase 16 serves."""
     log(f"CUT: {WIDE_NNZ:,} nonzeros and {WIDE_STEPS} steps for the runs at "
         "ranks 48 and 64")
     base = ["--dims", ",".join(map(str, NETFLIX_DIMS)), "--nnz",
@@ -599,9 +637,11 @@ def phase_wide(torch, K, std_train) -> dict:
         out[name] = {"history": hist, "steps_per_s": res["steps_per_s"],
                      "launch_counts": counts,
                      "peak_device_bytes": res["peak_device_bytes"]}
+        if name == "rank64_sorted_phase_split":
+            kept = res["state"].params
         del res
         torch.cuda.empty_cache()
-    return out
+    return out, kept
 
 
 # ---------------------------------------------------------------------------
@@ -2214,6 +2254,428 @@ def phase_baselines(torch, K, base_res, steps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+def _counts_are(what, counts, want) -> None:
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, want {want}")
+
+
+def _serve_queries(torch, K, name, srv, plain, params, pool) -> dict:
+    """One server: predict against the plain backend, bucket invariance,
+    launch counts of every entry point, top-k and slices against dense
+    slices of the tensor."""
+    import numpy as np
+
+    from repro_torch.core.kruskal import dense_reconstruct
+    from repro_torch.serve import split_batch
+
+    zero = {k: 0 for k in REPLACES}
+    q = pool[:65_536]
+    K.reset_launch_counts()
+    got = srv.predict(q)
+    torch.cuda.synchronize()
+    chunks = len(split_batch(len(q), srv.ladder))
+    _counts_are(f"serving [{name}] predict of {len(q):,} tuples",
+                K.launch_counts(), dict(zero, kruskal_contract=chunks))
+    err, rel = rel_err(got, plain.predict(q))
+    alone, inside = srv.predict(q[:37]), srv.predict(q[:2048])
+    same = bool(torch.equal(alone, inside[:37]))
+    log(f"serving [{name}]: predict of {len(q):,} tuples in {chunks} bucket "
+        f"chunks, {chunks} kruskal_contract launches; cuda vs torch max abs "
+        f"diff {err:.3g}, {rel:.3g} of the largest (tolerance "
+        f"{TOL['kruskal_contract']:g}); 37 tuples alone and inside a full "
+        f"2048 bucket: same bits {same}")
+    if not rel <= TOL["kruskal_contract"]:
+        raise AssertionError(f"serving [{name}]: cuda predict differs from "
+                             f"torch by {rel:.3g}")
+    if not same:
+        raise AssertionError(f"serving [{name}]: a request's predictions "
+                             "depend on its bucket")
+
+    k = SERVE_LOAD["k"]
+    ids = pool[:SERVE_TOP_IDS, 0].copy()
+    K.reset_launch_counts()
+    scores, items = srv.top_k(0, ids, k)          # target 1, sums mode 2
+    slices = srv.reconstruct_rows(0, ids[:SERVE_SLICE_IDS])
+    uid = np.unique(ids)
+    rows = srv.params.factors[0].index_select(
+        0, torch.from_numpy(uid).long().cuda())
+    srv.update_rows(0, uid, rows)
+    srv.refresh_tables()
+    torch.cuda.synchronize()
+    _counts_are(f"serving [{name}] top_k, reconstruct_rows, update_rows, "
+                "refresh_tables", K.launch_counts(), zero)
+    ids_t = torch.from_numpy(ids).long().cuda()
+    checked = 0
+    worst_score = worst_slice = 0.0
+    for c in range(0, len(ids), SERVE_SLICE_IDS):
+        sel = ids_t[c:c + SERVE_SLICE_IDS]
+        dense = dense_reconstruct(
+            (params.factors[0].index_select(0, sel),) + tuple(
+                params.factors[1:]), params.core_factors)
+        if c == 0:
+            worst_slice = rel_err(slices, dense)[1]
+        dsc = dense.sum(dim=2)                     # (4, I_1), f32
+        del dense
+        for b in range(len(sel)):
+            d, scale = dsc[b], dsc[b].abs().max().item()
+            got_ids = items[c + b].long()
+            worst_score = max(worst_score, (
+                scores[c + b] - d[got_ids]).abs().max().item() / scale)
+            top = torch.topk(d, k + 1)
+            gap = (top.values[k - 1] - top.values[k]).item() / scale
+            if gap > 1e-5:
+                checked += 1
+                if set(got_ids.tolist()) != set(top.indices[:k].tolist()):
+                    raise AssertionError(
+                        f"serving [{name}]: top_k ids of entity {ids[c + b]}"
+                        f" {sorted(got_ids.tolist())} differ from the dense "
+                        f"recompute's {sorted(top.indices[:k].tolist())}")
+    log(f"serving [{name}]: top_k(mode 0 -> 1, k = {k}) of {len(ids)} "
+        f"entities, mode 2 marginalized: ids equal to a dense f32 recompute "
+        f"on the {checked} rows whose k-th and (k+1)-th scores differ by "
+        f"more than 1e-5; scores within {worst_score:.3g} of the largest; "
+        f"reconstruct_rows(mode 0, {SERVE_SLICE_IDS} ids) of "
+        f"{tuple(slices.shape)} within {worst_slice:.3g} of dense_reconstruct"
+        f" (tolerance {TOL['kruskal_contract']:g}); top_k, reconstruct_rows, "
+        "update_rows and refresh_tables launched no kernel")
+    if not (worst_score <= TOL["kruskal_contract"]
+            and worst_slice <= TOL["kruskal_contract"]):
+        raise AssertionError(f"serving [{name}]: top-k scores {worst_score}"
+                             f" or slices {worst_slice} off the dense tensor")
+    return {"predict_max_abs_err": err, "predict_rel_err": rel,
+            "bucket_invariant": same, "top_k_rows_checked": checked,
+            "top_k_score_rel_err": worst_score,
+            "slice_rel_err": worst_slice}
+
+
+def _serve_closed_loop(torch, K, name, srv, pool) -> tuple[list, dict]:
+    """The reference's FULL closed-loop traffic on one server; the launch
+    counts of these runs are the phase's main path."""
+    from repro_torch.serve import AdmissionConfig, run_closed_loop
+
+    L = SERVE_LOAD
+    runs = [("predict", q) for q in L["predict_qps"]] + [
+        ("top_k", L["top_k_qps"])]
+    rows = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for i, (query, qps) in enumerate(runs):
+        rep = run_closed_loop(
+            srv, qps=qps, duration_s=L["duration_s"],
+            concurrency=L["concurrency"], max_request=L["max_request"],
+            admission=AdmissionConfig(microbatch=L["microbatch"]),
+            query=query,
+            top_k_args=(0, L["k"]) if query == "top_k" else None,
+            request_pool=pool if query == "predict" else None, seed=i)
+        lat = rep["latency_ms"]
+        admitted = rep["requests"] - rep["shed_queue_full"]
+        log(f"serving [{name}] closed loop, {query} at {qps:,.0f} q/s "
+            f"offered: achieved {rep['achieved_qps']:,.1f} q/s over "
+            f"{rep['duration_s']:.2f} s; latency p50 {lat['p50']:.3f} / p95 "
+            f"{lat['p95']:.3f} / p99 {lat['p99']:.3f} ms; "
+            f"{rep['served_requests']} of {admitted} admitted requests "
+            f"answered, shed {rep['shed_queue_full']} at the queue and "
+            f"{rep['shed_deadline']} at the deadline; {rep['flushes']} "
+            "flushes")
+        if rep["served_requests"] != admitted or rep["shed_deadline"]:
+            raise AssertionError(f"serving [{name}]: {query} at {qps}: an "
+                                 f"admitted request went unanswered: {rep}")
+        rows.append({"query": query, **rep})
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    _counts_are(f"serving [{name}] closed loop", counts, dict(
+        {k: 0 for k in REPLACES},
+        kruskal_contract=max(counts["kruskal_contract"], 1)))
+    return rows, counts
+
+
+def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
+    """The refresh supervisor over the paper's model on phase 3's tensor,
+    with a query thread: patch equals rebuild, a faulted run equals the
+    unfaulted one; update_rows against refresh_tables; staleness."""
+    import threading
+
+    from repro_torch.distributed import get_strategy
+    from repro_torch.runtime.fault import FaultPlan
+    from repro_torch.serve import (RefreshSupervisor, SupervisorConfig,
+                                   TuckerServer)
+
+    R = SERVE_REFRESH
+    test_t = base_res["test"]
+    n_arr = R["rounds"] * R["arrivals"]
+    arr_idx = test_t.indices[-n_arr:].cpu().numpy()
+    arr_val = test_t.values[-n_arr:].cpu().numpy()
+    strategy = get_strategy("local")
+    plan = strategy.prepare(base_res["train"], base_res["cfg"], None, seed=0)
+    dstate = base_res["dstate"]
+    params = strategy.eval_params(plan, dstate)
+    scfg = SupervisorConfig(refresh_steps=R["steps"], window=R["arrivals"],
+                            backoff_base_s=1e-3, backoff_cap_s=5e-3,
+                            degraded_retry_s=5e-3, poll_interval_s=1e-3)
+    probe = pool[:256]
+    want = dict({k: 0 for k in REPLACES},
+                kruskal_grad=R["rounds"] * R["steps"],
+                scatter_accum=3 * R["rounds"] * R["steps"])
+
+    def run(faults: str):
+        srv = TuckerServer(params, backend="cuda")
+        sup = RefreshSupervisor(
+            srv, strategy, plan, dstate, config=scfg,
+            fault_plan=FaultPlan.parse(faults) if faults else None)
+        seen, errors, rounds = [], [], []
+        stop = threading.Event()
+
+        def queries():
+            while not stop.is_set():
+                try:
+                    srv.predict(probe).cpu()
+                    h = sup.health()
+                    seen.append((h["generation"], h["staleness_s"]))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+                    return
+
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        sup.start()
+        qt = threading.Thread(target=queries, daemon=True)
+        qt.start()
+        try:
+            for r in range(R["rounds"]):
+                lo = r * R["arrivals"]
+                sup.submit(arr_idx[lo:lo + R["arrivals"]],
+                           arr_val[lo:lo + R["arrivals"]])
+                if not sup.drain(timeout=300):
+                    raise AssertionError(
+                        f"serving refresh ({faults or 'no faults'}): round "
+                        f"{r} did not publish: {sup.health()}")
+                h = sup.health()
+                rounds.append({"dirty_rows": h["last_dirty"],
+                               "publish": h["last_publish"]["kind"],
+                               "generation": h["generation"]})
+        finally:
+            stop.set()
+            qt.join(timeout=60)
+            sup.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if errors or qt.is_alive():
+            raise AssertionError(f"serving refresh: the query thread failed:"
+                                 f" {errors[:3]}")
+        if counts != dict(want, kruskal_contract=counts["kruskal_contract"]) \
+                or counts["kruskal_contract"] < 1:
+            raise AssertionError(f"serving refresh: launch counts {counts}, "
+                                 f"want {want} and queries")
+        stale = [st for _, st in seen]
+        log(f"serving refresh ({faults or 'no faults'}): {R['rounds']} rounds"
+            f" of {R['arrivals']:,} arrivals, K = {R['steps']} steps at batch"
+            f" {base_res['cfg'].batch_size} each, {wall:.3f} s with "
+            f"{len(seen)} queries beside them; per round dirty rows / "
+            f"publish: " + "; ".join(
+                f"{r['dirty_rows']} {r['publish']}" for r in rounds)
+            + f"; staleness seen by the queries: median "
+            f"{statistics.median(stale):.4f} s, max {max(stale):.4f} s over "
+            f"{len({g for g, _ in seen})} generations; launch counts {counts}")
+        return srv, sup, rounds, seen, counts, wall
+
+    srv, sup, rounds, seen, counts, wall = run("")
+    fresh = TuckerServer(sup.dstate.params, backend="cuda")
+    patched_ok = all(torch.equal(a, b) for a, b in zip(srv._tables,
+                                                       fresh._tables))
+    synced_ok = all(torch.equal(a, b) for a, b in zip(
+        srv.params.factors, sup.dstate.params.factors))
+    log(f"serving refresh: the patched server's f32 tables equal a fresh "
+        f"server's from the refreshed params bitwise: {patched_ok}; the "
+        f"served factors equal the refreshed ones: {synced_ok}")
+    if not (patched_ok and synced_ok):
+        raise AssertionError("serving refresh: patched tables or factors "
+                             "differ from a rebuild")
+    srv2, sup2, rounds2, seen2, counts2, wall2 = run(SERVE_FAULTS)
+    h = sup2.health()
+    same = (all(torch.equal(a, b) for a, b in zip(srv._tables, srv2._tables))
+            and all(torch.equal(a, b) for a, b in zip(
+                sup.dstate.params.factors, sup2.dstate.params.factors))
+            and torch.equal(sup.dstate.rng, sup2.dstate.rng))
+    log(f"serving refresh with faults {SERVE_FAULTS!r}: {h['faults_injected']}"
+        f" injected, {h['retries']} retries, {h['breaker_trips']} breaker "
+        f"trips, {h['recoveries']} recoveries, {h['rounds_ok']} rounds "
+        f"published; tables, "
+        f"factors and generator state equal the unfaulted run's bitwise: "
+        f"{same}")
+    if not (same and h["breaker_trips"] >= 1 and h["recoveries"] >= 1
+            and h["faults_injected"] == 4
+            and h["rounds_ok"] == R["rounds"]):
+        raise AssertionError(f"serving refresh: the faulted run did not "
+                             f"degrade, recover and end on the unfaulted "
+                             f"run's bits: {h}")
+
+    # a patch of one refresh's dirty rows against a rebuild, on run 1's server
+    _, dirty = strategy.refresh_steps(plan, sup.dstate, arr_idx[-R["arrivals"]:],
+                                      arr_val[-R["arrivals"]:], R["steps"])
+    cur = srv.params.factors
+
+    def timed(fn, reps=5) -> float:
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    patch_s = [timed(lambda n=n: srv.update_rows(
+        n, dirty[n], cur[n].index_select(0, torch.from_numpy(dirty[n])
+                                         .long().cuda())))
+               for n in range(len(dirty))]
+    rebuild_s = timed(srv.refresh_tables)
+    log(f"serving refresh: update_rows of one refresh's dirty rows "
+        f"{[len(d) for d in dirty]}: " + " / ".join(
+            f"{t * 1e3:.3f}" for t in patch_s) + " ms per mode, against "
+        f"refresh_tables (all {sum(srv.dims):,} rows) {rebuild_s * 1e3:.3f} ms"
+        " (host clock, closed by a synchronize; medians of 5)")
+    profiles = {}
+    for what, fn in (("update_rows, mode 0", lambda: srv.update_rows(
+            0, dirty[0], cur[0].index_select(
+                0, torch.from_numpy(dirty[0]).long().cuda()))),
+                     ("refresh_tables", srv.refresh_tables)):
+        wall, kernels = _profile_window(torch, fn)
+        busy = sum(v[1] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+        log(f"serving refresh profile [{what}]: {wall * 1e3:.3f} ms wall "
+            f"under the profiler, device busy {busy / 1e3:.3f} ms in "
+            f"{sum(v[0] for v in kernels.values())} device operations; "
+            "largest: " + "; ".join(f"{n[:50]} {c}x {us:.1f} us"
+                                    for n, (c, us) in top))
+        profiles[what] = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+                          "device_ops": sum(v[0] for v in kernels.values())}
+    stale = [st for _, st in seen]
+    rec = {"rounds": rounds, "wall_s": wall, "queries": len(seen),
+           "staleness_median_s": statistics.median(stale),
+           "staleness_max_s": max(stale), "launch_counts": counts,
+           "patch_equals_rebuild": True, "faulted": {
+               "rounds": rounds2, "wall_s": wall2, "health": h,
+               "launch_counts": counts2, "equals_unfaulted": True},
+           "update_rows_s": patch_s, "refresh_tables_s": rebuild_s,
+           "profiles": profiles,
+           "dirty_rows_timed": [len(d) for d in dirty]}
+    main = {k: counts[k] + counts2[k] for k in REPLACES}
+    return rec, main
+
+
+def _serve_times(torch, K, servers, pool) -> list[dict]:
+    """``kruskal_contract`` (pred only) at serving's shapes, by phase 5's
+    method, beside its byte bound, its plain version and torch.einsum."""
+    ref = K.ref
+    kc = K.kruskal_contract.kruskal_contract
+    floor = floor_ms(torch, K.build)
+    out = []
+    for B, R in SERVE_TIME_SHAPES:
+        srv = servers[R]
+        N = srv.order
+        idx = torch.from_numpy(pool[:B]).cuda()
+        a = torch.stack([t.index_select(0, idx[:, n])
+                         for n, t in enumerate(srv._tables)])
+        b = torch.stack(srv._eyes)
+        letters = "ijklmnopq"[:N]
+        expr = (",".join(f"b{c}" for c in letters) + ","
+                + ",".join(f"{c}r" for c in letters) + "->b")
+        xs, ys = list(a), list(b)
+        ms = device_ms(torch, lambda: kc(a, b, False))
+        plain = device_ms(torch, lambda: ref.kruskal_contract_ref(a, b))
+        lib = device_ms(torch, lambda: torch.einsum(expr, *xs, *ys),
+                        iters=30)
+        t_b, by = bound(4 * (N * B * R + N * R * R) + 4 * B,
+                        2 * N * B * R * R + 3 * N * B * R + 2 * B * R)
+        dev = profiled_ms(torch, lambda: kc(a, b, False),
+                          DEVICE_KERNEL["kruskal_contract"])
+        tag = f"serving predict, B = {B}, J = R = {R}"
+        log(f"kruskal_contract [{tag}]: {ms * 1e3:.2f} us/call (plain "
+            f"{plain * 1e3:.2f} us, torch.einsum {lib * 1e3:.2f} us), bound "
+            f"{t_b * 1e3:.3f} us by {by}, launch floor {floor * 1e3:.2f} us;"
+            " profiler device duration " + (
+                f"{dev * 1e3:.2f} us" if dev else "not measured"))
+        out.append({"name": "kruskal_contract", "variant": tag, "ms": ms,
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": t_b,
+                    "bound_by": by, "floor_ms": floor, "device_ms": dev,
+                    "launches_note": "1 per predict bucket chunk"})
+    return out
+
+
+def phase_serving(torch, K, base_res, wide_params
+                  ) -> tuple[dict, list[dict], dict]:
+    """Tucker serving of phase 3's unsorted model and of the rank-64 model
+    of phase 3's wide run: queries, launch counts, the closed loop, the
+    refresh supervisor, kernel times, peak bytes, one profiled second."""
+    from repro_torch.serve import AdmissionConfig, TuckerServer, \
+        run_closed_loop
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = base_res["test"].indices[:SERVE_POOL].cpu().numpy()
+    models = {"paper, J = R = 4": base_res["state"].params,
+              "rank 64": wide_params}
+    rec = {"models": {}}
+    main = {k: 0 for k in REPLACES}
+    servers = {}
+    for name, params in models.items():
+        srv = TuckerServer(params, backend="cuda")
+        plain = TuckerServer(params, backend="torch")
+        servers[srv.core_rank] = srv
+        m = _serve_queries(torch, K, name, srv, plain, params, pool)
+        del plain
+        m["closed_loop"], counts = _serve_closed_loop(torch, K, name, srv,
+                                                      pool)
+        for k, v in counts.items():
+            main[k] += v
+        rec["models"][name] = m
+    rec["refresh"], counts = _serve_refresh(torch, K, base_res, pool)
+    for k, v in counts.items():
+        main[k] += v
+    times = _serve_times(torch, K, servers, pool)
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"serving: peak device bytes {rec['peak_device_bytes']:,} (two "
+        "models' tables, their plain twins and phase 3's tensor resident)")
+
+    L = SERVE_LOAD
+    srv = servers[4]
+    held = {}
+    wall, kernels = _profile_window(torch, lambda: held.update(rep=(
+        run_closed_loop(srv, qps=L["predict_qps"][1], duration_s=1.0,
+                        concurrency=L["concurrency"],
+                        max_request=L["max_request"],
+                        admission=AdmissionConfig(microbatch=L["microbatch"]),
+                        request_pool=pool, seed=9))))
+    flushes = held["rep"]["flushes"]
+    if kernels:
+        busy = sum(v[1] for v in kernels.values())
+        ops = sum(v[0] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+        log(f"serving profile (paper model, predict at "
+            f"{L['predict_qps'][1]:,.0f} q/s offered, 1 s): device busy "
+            f"{busy / 1e3:.2f} ms of {wall * 1e3:.1f} ms wall = "
+            f"{busy / (wall * 1e6):.2%}; {ops} device operations over "
+            f"{flushes} flushes = {ops / max(flushes, 1):.1f} per flush; "
+            "largest: " + "; ".join(f"{n[:40]} {c}x {us / 1e3:.2f} ms"
+                                    for n, (c, us) in top))
+        rec["profile"] = {"measured": True, "wall_s": wall,
+                          "device_busy_ms": busy / 1e3,
+                          "busy_share": busy / (wall * 1e6),
+                          "device_ops": ops, "flushes": flushes,
+                          "ops_per_flush": ops / max(flushes, 1)}
+    else:
+        log("serving profile: the profiler recorded no device time (not "
+            "measured)")
+        rec["profile"] = {"measured": False, "wall_s": wall}
+    return rec, times, main
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -2257,7 +2719,7 @@ def main(argv: list[str] | None = None) -> int:
         for k, v in p["counts"].items():
             counts[k] += v
     report["nnz"] = args.nnz
-    report["wide"] = phase_wide(torch, K, std_train)
+    report["wide"], wide_params = phase_wide(torch, K, std_train)
     base = paths["unsorted"]["result"]
     report["parity"] = phase_parity(torch, ft, base)
     times = phase_times(torch, K, ft, base, counts)
@@ -2292,11 +2754,18 @@ def main(argv: list[str] | None = None) -> int:
     report["driver_baselines_seconds"] = time.perf_counter() - t_new
     log(f"phases 14-15 (driver, baselines): "
         f"{report['driver_baselines_seconds']:.1f}s")
+    t_serve = time.perf_counter()
+    report["serving"], serve_times, serve_counts = phase_serving(
+        torch, K, base, wide_params)
+    times += serve_times
+    report["serving_seconds"] = time.perf_counter() - t_serve
+    log(f"phase 16 (Tucker serving): {report['serving_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
     for part in (report["baselines"]["cutucker"]["counts"],
-                 report["baselines"]["bench_accuracy"]["launch_counts"]):
+                 report["baselines"]["bench_accuracy"]["launch_counts"],
+                 serve_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
@@ -2330,9 +2799,9 @@ def main(argv: list[str] | None = None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(report, indent=1, default=str))
     log(f"launches on the main paths (the three training paths, the "
-        f"driver's nine runs, cuTucker's SGD run and bench_accuracy; the "
-        f"LM serve request and the LM training run for "
-        f"{', '.join(LM_KERNELS)}): {counts}")
+        f"phase 14's nine runs, cuTucker's SGD run, bench_accuracy, and "
+        f"phase 16's closed loops and refresh rounds; the LM serve request "
+        f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -85,7 +85,9 @@ def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
+def from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A CPU tensor of a loaded leaf ``a`` whose manifest dtype is
+    ``dtype`` (a bf16 leaf arrives as its ``uint16`` view)."""
     if dtype == BF16:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
@@ -229,6 +231,6 @@ class CheckpointManager:
                     "state")
         with torch.no_grad():
             for i, (s, t) in enumerate(zip(saved, leaves.values())):
-                t.copy_(_from_host(np.load(d / f"leaf_{i:06d}.npy"),
-                                   s["dtype"]))
+                t.copy_(from_host(np.load(d / f"leaf_{i:06d}.npy"),
+                                  s["dtype"]))
         return like, manifest["step"]

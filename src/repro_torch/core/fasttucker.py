@@ -48,6 +48,11 @@ bf16 storage (``dtype="bfloat16"``): factors and core factors are stored in
 bf16; every dot, residual and gradient is f32, and each update is applied
 in f32 and rounded back to bf16.  The sketched warm start is not ported:
 ``init="sketched"`` raises.
+
+Online refresh (``refresh_step_batch`` on a fed batch, ``refresh_steps``
+drawing from a generator): K factor-phase steps with the core frozen, and
+the per-mode rows they touched, which the serving tables patch
+(``repro_torch.serve``).
 """
 from __future__ import annotations
 
@@ -676,6 +681,66 @@ def core_phase_step(
         state.params, idx, cg, torch.zeros((), dtype=torch.float32), lr_b,
         update_factors=False, update_core=True, backend=cfg.backend)
     return TrainState(params, state.step + 1)
+
+
+# ---------------------------------------------------------------------------
+# online refresh (bounded factor-phase catch-up over recent nonzeros)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def refresh_step_batch(
+    state: TrainState,
+    idx: torch.Tensor,
+    val: torch.Tensor,
+    cfg: FastTuckerConfig,
+    dirty: Sequence[torch.Tensor],
+) -> TrainState:
+    """One factor-phase step on a fed batch, core frozen, and the dirty-row
+    masks: the body of the reference's ``_refresh_step`` without its
+    sampler.  ``dirty[n]`` (a bool tensor of ``I_n`` rows) gets
+    ``idx[:, n]`` set in place."""
+    layout = batch_layout(idx, cfg)
+    lr_a = dynamic_lr(cfg.alpha_a, cfg.beta_a, state.step)
+    fg, _ = factor_phase_gradients(
+        state.params, idx, val, cfg.lambda_a, cfg.lambda_b,
+        backend=cfg.backend)
+    params = _apply_updates(
+        state.params, idx, fg, lr_a, torch.zeros((), dtype=torch.float32),
+        update_factors=True, update_core=False, backend=cfg.backend,
+        layout=layout)
+    for n, m in enumerate(dirty):
+        m[idx[:, n].long()] = True
+    return TrainState(params, state.step + 1)
+
+
+def refresh_steps(
+    state: TrainState,
+    generator: torch.Generator,
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    cfg: FastTuckerConfig,
+    num_steps: int,
+) -> tuple[TrainState, tuple[np.ndarray, ...]]:
+    """K bounded factor-phase SGD steps over a recent-nonzero window.
+
+    Each step draws Ψ from ``generator`` (on the window's device) and runs
+    ``refresh_step_batch``.  The core is frozen, so the serving tables
+    C^(n) = A^(n) B^(n) change exactly in the rows the window sampled; the
+    returned ``dirty[n]`` is the sorted int32 ``np.ndarray`` of mode-``n``
+    row ids touched by any of the K steps, the ids
+    ``TuckerServer.update_rows`` must patch.  Returns ``(state', dirty)``.
+    """
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be ≥ 1, got {num_steps}")
+    dirty = tuple(torch.zeros((f.shape[0],), dtype=torch.bool,
+                              device=f.device)
+                  for f in state.params.factors)
+    for _ in range(num_steps):
+        idx, val = sample_batch_arrays(generator, indices, values,
+                                       cfg.batch_size)
+        state = refresh_step_batch(state, idx, val, cfg, dirty)
+    return state, tuple(torch.nonzero(m).flatten().to(torch.int32).cpu()
+                        .numpy() for m in dirty)
 
 
 def train(

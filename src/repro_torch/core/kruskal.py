@@ -50,9 +50,59 @@ def predict_from_rows(
     return full.sum(dim=-1)
 
 
+def mode_product_rows(
+    rows: torch.Tensor, core_factor: torch.Tensor
+) -> torch.Tensor:
+    """Rows of C^(n) = A^(n) B^(n): ``rows`` (M, J) against B^(n) (J, R)
+    → (M, R), f32.
+
+    The serving tables are built and patched through this one function,
+    and a patched row must equal the rebuilt one bit for bit.  A matmul
+    does not give that: cuBLAS (and MKL on the CPU) choose the algorithm
+    and the split of the J sum by the row count M.  Here every element is
+    the same sequence of f32 operations whatever M is — a product for
+    j = 0, then one multiply and one add per further j, each rounded, in
+    ascending j — on the CPU and on the card alike (two kernels per j,
+    never fused into an FMA).
+    """
+    a, b = rows.float(), core_factor.float()
+    acc = a[:, 0:1] * b[0]
+    for j in range(1, a.shape[1]):
+        acc = acc + a[:, j:j + 1] * b[j]
+    return acc
+
+
 def mode_products(
     factors: Sequence[torch.Tensor], core_factors: Sequence[torch.Tensor]
 ) -> tuple[torch.Tensor, ...]:
-    """C^(n) = A^(n) B^(n) ∈ R^{I_n × R} — all mode dots, precomputed, f32."""
-    return tuple(torch.matmul(a.float(), b.float())
+    """C^(n) = A^(n) B^(n) ∈ R^{I_n × R} — all mode dots, precomputed, f32
+    (``mode_product_rows`` of every row)."""
+    return tuple(mode_product_rows(a, b)
                  for a, b in zip(factors, core_factors))
+
+
+def kruskal_to_core(core_factors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Materialize Ĝ = Σ_r b_r^(1) ∘ … ∘ b_r^(N)  (tests / tiny shapes)."""
+    letters = "abcdefghijklmnop"[:len(core_factors)]
+    expr = ",".join(f"{c}r" for c in letters) + "->" + letters
+    return torch.einsum(expr, *(b.float() for b in core_factors))
+
+
+def dense_reconstruct(
+    factors: Sequence[torch.Tensor], core_factors: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """X̂ = Ĝ ×_1 A^(1) … ×_N A^(N) materialized, f32 (tiny tensors, tests,
+    or slices: pass the rows of one mode in place of its factor).
+
+    The oracle the factored serving path is checked against, routed
+    through the materialized core ``kruskal_to_core`` (not
+    ``mode_products``) so it shares no code with the serving tables.
+    """
+    G = kruskal_to_core(core_factors)                # (J_1, …, J_N)
+    N = len(factors)
+    core_l = "abcdefghijklmnop"[:N]
+    out_l = "ABCDEFGHIJKLMNOP"[:N]
+    expr = (core_l + ","
+            + ",".join(f"{out_l[n]}{core_l[n]}" for n in range(N))
+            + "->" + out_l)
+    return torch.einsum(expr, G, *(f.float() for f in factors))

@@ -16,6 +16,7 @@ Uniform contract (the launcher drives every strategy through this):
     step_fn = strategy.make_step(plan)
     dstate  = step_fn(dstate)                     # advances steps_per_call
     params  = strategy.eval_params(plan, dstate)
+    dstate, dirty = strategy.refresh_steps(plan, dstate, idx, val, K)
     strategy.save(plan, ckpt, dstate) / strategy.restore(plan, ckpt, dstate)
 
 Randomness.  The reference's ``DistState.key`` is a base PRNG key into
@@ -104,10 +105,36 @@ class DistStrategy(abc.ABC):
     # -- online refresh ------------------------------------------------------
 
     def refresh_steps(self, plan, dstate: DistState, indices, values,
-                      num_steps: int):
-        raise NotImplementedError(
-            "refresh_steps comes with Tucker serving, which is not ported "
-            "yet (ROADMAP.md, Queue 1 item 6)")
+                      num_steps: int) -> tuple[DistState, tuple]:
+        """K bounded factor-phase SGD steps over a recent-nonzero window.
+
+        The strategy-uniform face of ``core.fasttucker.refresh_steps``:
+        evaluate to the global layout, catch the factors up on the window
+        (``indices`` (W, N), ``values`` (W,), numpy or tensors; core
+        frozen), and lift the result back into strategy state (the
+        single-device layout is the global one; ``ef`` carries over: the
+        refresh is factor-phase only).
+        The batches are drawn from the generator state ``dstate.rng``
+        carries, and the advanced state goes back into the result, so a
+        refresh run twice from the same ``dstate`` draws the same batches
+        and successive refreshes draw fresh ones.
+
+        Returns ``(dstate', dirty)`` — ``dirty[n]`` the sorted int32 row
+        ids of mode ``n`` touched by the window, sized for
+        ``TuckerServer.update_rows(n, dirty[n], factors[n][dirty[n]])``.
+        """
+        from repro_torch.core.fasttucker import refresh_steps as _refresh
+
+        params = self.eval_params(plan, dstate)
+        dev = params.factors[0].device
+        indices = torch.as_tensor(indices, dtype=torch.int32, device=dev)
+        values = torch.as_tensor(values, dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.set_state(dstate.rng)
+        state, dirty = _refresh(TrainState(params, dstate.step), gen,
+                                indices, values, plan.cfg, num_steps)
+        return DistState(state.params, state.step, gen.get_state(),
+                         dstate.ef), dirty
 
     # -- checkpointing (uniform across strategies) ---------------------------
 

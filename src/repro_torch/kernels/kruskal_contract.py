@@ -46,12 +46,17 @@ def _check(a_rows: torch.Tensor, b_fac: torch.Tensor) -> tuple[int, ...]:
     if b_fac.shape[:2] != (N, J):
         raise ValueError(f"kruskal_contract: b_fac {tuple(b_fac.shape)} does "
                          f"not match a_rows {tuple(a_rows.shape)}")
+    check_widths(N, J, R)
+    return N, B, J, R
+
+
+def check_widths(N: int, J: int, R: int) -> None:
+    """Raise the kernel's ``ValueError`` for a shape it does not take."""
     if not (1 <= N <= MAX_MODES and 1 <= J <= MAX_WIDTH
             and 1 <= R <= MAX_WIDTH):
         raise ValueError(
             f"kruskal_contract: the kernel takes N <= {MAX_MODES} and "
             f"J, R <= {MAX_WIDTH}, got N={N}, J={J}, R={R}")
-    return N, B, J, R
 
 
 def kruskal_contract(

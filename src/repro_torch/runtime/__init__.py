@@ -1,6 +1,7 @@
-"""Runtime: the training supervisor (counterpart of ``repro.runtime``)."""
-from .fault import (FailureInjector, Supervisor, SupervisorConfig,
-                    SupervisorStats, backoff)
+"""Runtime: fault injection and the training supervisor (counterpart of
+``repro.runtime``)."""
+from .fault import (FailureInjector, FaultInjected, FaultPlan, FaultSpec,
+                    Supervisor, SupervisorConfig, SupervisorStats, backoff)
 
-__all__ = ["FailureInjector", "Supervisor", "SupervisorConfig",
-           "SupervisorStats", "backoff"]
+__all__ = ["FailureInjector", "FaultInjected", "FaultPlan", "FaultSpec",
+           "Supervisor", "SupervisorConfig", "SupervisorStats", "backoff"]

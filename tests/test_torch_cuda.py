@@ -969,3 +969,119 @@ def test_compressed_local_step_card_matches_cpu(dev):
         assert ((f_c - f_p).abs() <= lr * scale + slack).all()
     for x, y in zip(got.params.core_factors, want.params.core_factors):
         _close(x.cpu(), y, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Tucker serving on the card
+# ---------------------------------------------------------------------------
+
+NETFLIX_DIMS = (480_189, 17_770, 2_182)
+
+
+def _serve_params(dev, dims, J, R, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    factors = tuple(0.3 * torch.randn((d, J), generator=g, device=dev)
+                    for d in dims)
+    core = tuple(torch.randn((J, R), generator=g, device=dev) / J
+                 for _ in dims)
+    return ft.FastTuckerParams(factors, core)
+
+
+@pytest.mark.parametrize("R", [4, 64])
+def test_update_rows_bitwise_rebuild_at_netflix_shape_on_card(dev, R):
+    """Patches of every mode (a Netflix-sized mode-0 table) land on the
+    f32 tables a fresh server builds from the final factors, bitwise, and
+    launch no kernel of the package."""
+    from repro_torch.serve import TuckerServer
+
+    params = _serve_params(dev, NETFLIX_DIMS, R, R)
+    srv = TuckerServer(params, backend="cuda")
+    rng = np.random.default_rng(R)
+    facs = [f.clone() for f in params.factors]
+    reset_launch_counts()
+    for mode, f in ((0, 50_000), (1, 3_000), (2, 2_182), (0, 7)):
+        ids = np.sort(rng.permutation(NETFLIX_DIMS[mode])[:f]).astype(
+            np.int32)
+        new = torch.randn((f, R), device=dev)
+        facs[mode][torch.from_numpy(ids).long().to(dev)] = new
+        srv.update_rows(mode, ids, new)
+    torch.cuda.synchronize()
+    assert set(launch_counts().values()) == {0}
+    fresh = TuckerServer(ft.FastTuckerParams(tuple(facs),
+                                             params.core_factors),
+                         backend="cuda")
+    for a, b in zip(srv._tables, fresh._tables):
+        assert torch.equal(a, b)
+    for a, b in zip(srv.params.factors, facs):
+        assert torch.equal(a, b)
+    for a, b in zip(srv._colsums, fresh._colsums):
+        _close(a, b, 1e-4)
+
+
+def test_swap_preserves_inflight_generation_on_card(dev):
+    from repro_torch.serve import TuckerServer
+
+    srv = TuckerServer(_serve_params(dev, (4000, 300, 50), 8, 8),
+                       backend="cuda")
+    rng = np.random.default_rng(6)
+    q = np.stack([rng.integers(0, d, 999) for d in srv.dims], 1) \
+        .astype(np.int32)
+    before = srv.predict(q).clone()
+    snapshot = srv._live
+    frozen = [t.clone() for t in snapshot.tables]
+    ids = np.sort(rng.permutation(4000)[:900]).astype(np.int32)
+    srv.update_rows(0, ids, torch.randn((900, 8), device=dev))
+    for t, f in zip(snapshot.tables, frozen):
+        assert torch.equal(t, f)
+    assert srv._live.version == snapshot.version + 1
+    assert not torch.equal(srv._tables[0], frozen[0])
+    assert torch.equal(srv._predict_from(snapshot, q), before)
+
+
+@pytest.mark.parametrize("R", [4, 48, 64])
+def test_serve_predict_cuda_matches_torch_on_card(dev, R):
+    """``predict`` on ``"cuda"``: one ``kruskal_contract`` per bucket chunk
+    and nothing else, within 2e-5 of a ``"torch"`` server, and a request's
+    bits do not depend on its bucket."""
+    from repro_torch.serve import TuckerServer, split_batch
+
+    dims = (20_000, 3_000, 500)
+    params = _serve_params(dev, dims, R, R, seed=R)
+    srv = TuckerServer(params, backend="cuda")
+    plain = TuckerServer(params, backend="torch")
+    rng = np.random.default_rng(1)
+    q = np.stack([rng.integers(0, d, 5000) for d in dims], 1).astype(
+        np.int32)
+    reset_launch_counts()
+    got = srv.predict(q)
+    torch.cuda.synchronize()
+    chunks = len(split_batch(len(q), srv.ladder))
+    assert launch_counts() == dict(
+        {k: 0 for k in launch_counts()}, kruskal_contract=chunks)
+    _close(got, plain.predict(q), 2e-5)
+    assert torch.equal(srv.predict(q[:37]), srv.predict(q[:2048])[:37])
+    s, i = srv.top_k(0, q[:64, 0], 10)
+    s0, i0 = plain.top_k(0, q[:64, 0], 10)
+    _close(s, s0, 2e-5)
+
+
+def test_top_k_ties_ascending_on_card(dev):
+    """Exact ties (integer factors) over a long row come back in ascending
+    id on the card too (the sort is stable)."""
+    from repro_torch.serve import TuckerServer
+
+    rows = 50_000
+    A1 = torch.ones((rows, 2), device=dev)
+    A1[::7] = 2.0                       # every 7th id scores higher
+    A0 = torch.tensor([[1.0, 2.0], [2.0, 1.0]], device=dev)
+    A2 = torch.tensor([[1.0, 1.0], [2.0, 0.0]], device=dev)
+    eye = torch.eye(2, device=dev)
+    srv = TuckerServer(ft.FastTuckerParams((A0, A1, A2), (eye,) * 3),
+                       backend="cuda")
+    scores, items = srv.top_k(0, [0, 1], k=rows // 7 + 100)
+    top = np.arange(0, rows, 7)
+    for row in items.cpu().numpy():
+        np.testing.assert_array_equal(row[:len(top)], top)
+        rest = row[len(top):]
+        np.testing.assert_array_equal(rest, np.setdiff1d(
+            np.arange(rows), top)[:len(rest)])

@@ -98,12 +98,7 @@ def test_register_twice_refused():
         base.register_strategy(local.LocalStrategy())
 
 
-def test_refresh_steps_and_device_axis_not_ported(tiny):
-    tensor, _, _ = tiny
-    st = get_strategy("local")
-    plan = st.prepare(tensor, _cfg(backend="torch"), compress=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        st.refresh_steps(plan, None, None, None, 1)
+def test_device_axis_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         base.compressed_reduce((torch.ones(2, 2),), (torch.zeros(2, 2),),
                                axis="data")
