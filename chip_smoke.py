@@ -22,7 +22,9 @@ Phases (each failure ends the run with a non-zero exit code):
    equal to ``segment_reduce`` of the stable-sorted batch.  A core pass fed
    the emitted mode products must give the joint core gradient exactly.
    Both scatters also write into memory that last held NaN and must match
-   exactly.
+   exactly.  ``segment_reduce``'s walk route at the ALS and CCD shapes
+   (2^22 x 16 over 85 of mode 2's rows and over all of mode 0's; 2^23 x 1
+   over mode 2) must match exactly too.
 3. Three training paths at the paper's size, through
    ``repro_torch.launch.std_train`` on the ``"cuda"`` backend, over one
    planted tensor of the Netflix tensor's published shape (480,189 ×
@@ -151,9 +153,13 @@ Phases (each failure ends the run with a non-zero exit code):
 15. The paper's baselines over the same tensor from one cold init: cuTucker
    SGD (the full core, ``einsum``) for ``--steps`` steps at batch 4096
    (exactly N ``scatter_accum`` launches a step and no other kernel), one
-   ALS epoch and one CCD epoch (no kernel; run twice, and whether the two
-   epochs give the same bits is printed): seconds, held-out RMSE/MAE
-   before and after (must fall) and peak device bytes of each.  Then
+   ALS epoch and one CCD epoch, each twice: the two epochs' bits must be
+   equal (ordered segment sums), and they launch exactly the
+   ``segment_reduce`` calls the code implies and no other kernel (ALS:
+   modes x chunks x (Gram slices + 1); CCD: modes x 2J); seconds,
+   held-out RMSE/MAE before and after (must fall) and peak device bytes
+   of each, and the seconds of the same epochs with ``segment_reduce``'s
+   staged route forced and with ``index_add_`` in place of the fold.  Then
    ``bench_accuracy`` at ``FULL`` through the ``"cuda"`` backend, whose
    validator must pass (the paper's two accuracy claims), and cuTucker on
    ``"cuda"`` against ``"torch"``: 20 fed-batch steps from the same
@@ -184,6 +190,24 @@ Phases (each failure ends the run with a non-zero exit code):
    by phase 5's method beside its byte bound and ``torch.einsum``; peak
    device bytes; one profiled closed-loop second (busy share, device
    operations per flush).
+17. The sketched warm start and the adaptive rank over phase 3's tensor
+   with the reference's sketch defaults (sketch batch = 4096, 2 passes,
+   R_s = 8, 2 core sweeps, 4 refine passes over every training nonzero):
+   the warm start twice and once in 3 shards, bitwise equal, with each
+   stage's seconds, peak bytes and exactly ``num_shards`` ``kruskal_grad``,
+   N ``scatter_accum`` and the ALS refinement's ``segment_reduce``
+   launches; the warm arm (``std_train --warm-start``, ``--steps`` steps)
+   against phase 3's cold unsorted run: the same batches (the generator
+   states equal), both trajectories finite, step 0 and final RMSE beside
+   the cold arm's and the zero predictor's, the steps and seconds to the
+   cold arm's final RMSE; the whole warm start on ``"cuda"`` against
+   ``"torch"`` at ``bench_convergence``'s FULL shape (each leaf within
+   2e-3 of its largest); ``bench_convergence`` FULL with its validator;
+   ``std_train --adaptive-rank --refine als`` (core rank 4 up to 16, an
+   evaluation every 100 steps: each transition and the RMSE after it);
+   the range finder's ``kruskal_grad`` call and an ALS chunk's
+   ``segment_reduce`` by phase 5's method beside their bounds, plain
+   versions and ``zeros`` + ``index_add_``.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -243,6 +267,10 @@ TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     # resumed against uninterrupted losses: the embedding's backward adds
     # with atomics on the card, so not bitwise there
     "lm.resume": 1e-5,
+    # the whole warm start, cuda against torch, each leaf against its
+    # largest entry: ALS's bound against the reference (Gram condition
+    # numbers ~5e3), which the four refine passes' row solves dominate
+    "sketch": 2e-3,
 }
 LM_RANK = 512        # the largest rank tucker_matmul.py designs for
 LM_SERVE = dict(batch=4, prompt_len=2048, gen=32)
@@ -282,6 +310,17 @@ SERVE_FAULTS = "refresh@0:1:2,publish@0"
 SERVE_TIME_SHAPES = ((256, 4), (2048, 4), (256, 64), (2048, 64))
 SERVE_TOP_IDS = 16            # top_k entities checked against dense slices
 SERVE_SLICE_IDS = 4           # reconstruct_rows ids (17,770 x 2,182 each)
+# phase 17: the warm start with the reference's sketch defaults on phase 3's
+# tensor, twice and then in 3 shards; the warm arm's evaluation cadence;
+# cuda against torch at bench_convergence's FULL shape
+# (benchmarks/bench_convergence.py:38-42; Netflix's mode 2 would take the
+# plain segment_reduce ~49,000 passes a call); the adaptive run's rank cap
+# (4 times the paper's rank 4) and cadence
+CONV_SHARDS = (1, 1, 3)
+CONV_WARM_EVAL = 50
+CONV_PARITY = dict(dims=(400, 300, 200), nnz=150_000, rank=8, batch=2048,
+                   sketch_batch=16_384)
+CONV_ADAPTIVE = dict(max_core_rank=16, eval_every=100)
 FLAGS = [
     # (consume c, row_modes, want_core, emit_c) of kruskal_grad
     (False, None, True, False),     # the joint pass
@@ -482,6 +521,28 @@ def phase_kernels_vs_plain(torch, K) -> dict:
                         raise AssertionError(f"segment_reduce {what}: two "
                                              "launches gave other bits")
                 cases += 1
+    # segment_reduce's walk route at the ALS and CCD shapes (a 2^22-entry
+    # chunk of a mode's sorted nonzeros; the whole mode at width 1): runs
+    # of ~49,000 (85 of mode 2's rows in one chunk), ~9 (all of mode 0's
+    # rows) and ~3,800 (width 1 over mode 2): exact, twice the same bits
+    for B, J, rows, lo, hi in ((1 << 22, 16, NETFLIX_DIMS[2], 1000, 1085),
+                               (1 << 22, 16, NETFLIX_DIMS[0], 0,
+                                NETFLIX_DIMS[0]),
+                               (1 << 23, 1, NETFLIX_DIMS[2], -5,
+                                NETFLIX_DIMS[2] + 5)):
+        what = f"walk B={B} J={J} rows={rows} ids in [{lo}, {hi})"
+        g = torch.randn((B, J), generator=gen, device=dev)
+        sidx = torch.sort(torch.randint(lo, hi, (B,), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                          stable=True).values
+        assert K.segment_reduce.plan(rows, J, B).route == "walk"
+        got = sr(g, sidx, rows)
+        record("segment_reduce", got, ref.segment_reduce_ref(g, sidx, rows),
+               what)
+        if not torch.equal(got, sr(g, sidx, rows)):
+            raise AssertionError(f"segment_reduce {what}: two launches gave "
+                                 "other bits")
+        del g, sidx, got
     # the training path's scatters at the three Netflix modes: the unsorted
     # kernel exact, twice the same bits, and equal to the sorted kernel
     # over the stable-sorted batch (what makes the two steps equal)
@@ -2144,6 +2205,7 @@ def phase_baselines(torch, K, base_res, steps: int) -> dict:
     from repro_torch.benchmarks import bench_accuracy
     from repro_torch.core import als, ccd
     from repro_torch.core import cutucker as cu
+    from repro_torch.core.als import ordered_fold
     from repro_torch.core.sampling import sample_batch_arrays
 
     train_t, test_t = base_res["train"], base_res["test"]
@@ -2185,20 +2247,57 @@ def phase_baselines(torch, K, base_res, steps: int) -> dict:
     if counts != want_cu:
         raise AssertionError(f"cuTucker: launch counts {counts}, want "
                              f"{want_cu}")
+    # ordered segment sums: ALS folds each chunk's Gram in slices of at
+    # most FOLD_WIDTH columns plus its right-hand side, CCD 2 sums a column
+    chunks = math.ceil(train_t.nnz / als.DEFAULT_CHUNK)
+    want_sr = {"als": len(dims) * chunks * (math.ceil(J * J / als.FOLD_WIDTH)
+                                            + 1),
+               "ccd": len(dims) * 2 * J}
     for name, mod, cfg_cls in (("als", als, als.ALSConfig),
                                ("ccd", ccd, ccd.CCDConfig)):
         epoch = getattr(mod, f"{name}_epoch")
         cfg = cfg_cls(dims=dims, ranks=(J,) * len(dims))
-        p, dt, counts, peak = measured(lambda: epoch(params0, train_t, cfg))
-        p2, dt2, _, _ = measured(lambda: epoch(params0, train_t, cfg))
+        p, dt, counts, peak = measured(
+            lambda: epoch(params0, train_t, cfg, backend="cuda"))
+        p2, dt2, _, _ = measured(
+            lambda: epoch(params0, train_t, cfg, backend="cuda"))
         repeats = _same_bits(tuple(p.factors), tuple(p2.factors))
         rows[name] = dict(params=p, seconds=dt, counts=counts, peak=peak,
                           rate=f"{dt:.4f} s an epoch ({dt2:.4f} s again; "
                           f"the two epochs' bits equal: {repeats})",
                           repeats_bitwise=repeats, seconds_again=dt2)
-        if any(counts.values()):
-            raise AssertionError(f"{name}: launched kernels {counts}; its "
-                                 "segment sums are index_add_")
+        _counts_are(name, counts, dict({k: 0 for k in REPLACES},
+                                       segment_reduce=want_sr[name]))
+        if not repeats:
+            raise AssertionError(f"{name}: two epochs from the same "
+                                 "parameters differ in their bits")
+    # what the ordered fold costs: the same epochs with segment_reduce's
+    # staged route forced, and with index_add_ (float atomics, no fixed
+    # order: the sums before the fold) in place of the fold
+    def atomic_fold(bk, x, seg, num_rows, out):
+        out.index_add_(0, seg, x)
+
+    for name, mod, cfg_cls in (("als", als, als.ALSConfig),
+                               ("ccd", ccd, ccd.CCDConfig)):
+        epoch = getattr(mod, f"{name}_epoch")
+        cfg = cfg_cls(dims=dims, ranks=(J,) * len(dims))
+        walk_min = K.segment_reduce.WALK_MIN_RUN
+        K.segment_reduce.WALK_MIN_RUN = 1 << 62
+        try:
+            _, staged, _, _ = measured(
+                lambda: epoch(params0, train_t, cfg, backend="cuda"))
+        finally:
+            K.segment_reduce.WALK_MIN_RUN = walk_min
+        als.ordered_fold = ccd.ordered_fold = atomic_fold
+        try:
+            _, atomic, _, _ = measured(
+                lambda: epoch(params0, train_t, cfg, backend="cuda"))
+        finally:
+            als.ordered_fold = ccd.ordered_fold = ordered_fold
+        rows[name].update(seconds_staged=staged, seconds_index_add=atomic)
+        rows[name]["rate"] += (f"; {staged:.4f} s with segment_reduce's "
+                               f"staged route, {atomic:.4f} s with "
+                               "index_add_ in place of the ordered fold")
     for name, row in rows.items():
         r, m = _rmse(torch, row.pop("params"), test_t, cu.predict)
         log(f"baseline {name}: {row['rate']}; held-out rmse {before[0]:.5f} "
@@ -2676,6 +2775,296 @@ def phase_serving(torch, K, base_res, wide_params
 
 
 # ---------------------------------------------------------------------------
+# phase 17
+# ---------------------------------------------------------------------------
+
+def phase_convergence(torch, K, std_train, base_res,
+                      steps: int) -> tuple[dict, list[dict], dict]:
+    """The sketched warm start and the adaptive rank on the card: the warm
+    start's determinism, shard invariance and launches over phase 3's
+    tensor; the warm arm against phase 3's cold unsorted run (the same
+    batches); cuda against torch at bench_convergence's FULL shape;
+    bench_convergence FULL; the adaptive run; the sketch's kruskal_grad
+    and an ALS chunk's segment_reduce timed.  Returns the record, the time
+    rows and the main path's launch counts."""
+    from repro_torch.benchmarks import bench_convergence
+    from repro_torch.core import als, sketch
+    from repro_torch.core import fasttucker as ft
+    from repro_torch.data.synthetic import planted_tensor
+    from repro_torch.kernels.dispatch import _kernel_scalars
+
+    train_t, test_t = base_res["train"], base_res["test"]
+    data = (train_t, test_t)
+    cfg = dataclasses.replace(base_res["cfg"], init="sketched")
+    N, J = cfg.order, cfg.ranks[0]
+    predict = lambda q, i: ft.predict(q, i, "cuda")  # noqa: E731
+    main_counts = {k: 0 for k in REPLACES}
+    out = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            main_counts[k] += v
+
+    # 17.1: the warm start twice, then in 3 shards: bitwise equal
+    chunks = math.ceil(train_t.nnz / als.DEFAULT_CHUNK)
+    als_sr = (cfg.sketch_refine_passes * N * chunks
+              * (math.ceil(J * J / als.FOLD_WIDTH) + 1))
+    leaves, warm_runs = [], []
+    for shards in CONV_SHARDS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        tm = {}
+        t0 = time.perf_counter()
+        p = sketch.sketched_init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg,
+            train_t.indices, train_t.values, num_shards=shards, timings=tm)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"warm start ({shards} shard{'s' if shards > 1 else ''}): "
+            f"{total:.3f}s (" + ", ".join(f"{k} {v:.4f}s"
+                                           for k, v in tm.items())
+            + f"), peak device bytes {peak:,}; launch counts {counts}")
+        _counts_are(f"warm start ({shards} shards)", counts, dict(
+            {k: 0 for k in REPLACES}, kruskal_grad=shards,
+            scatter_accum=N, segment_reduce=als_sr))
+        add(counts)
+        leaves.append(tuple(p.factors) + tuple(p.core_factors))
+        warm_runs.append({"num_shards": shards, "seconds": total,
+                          "stages": tm, "peak_device_bytes": peak,
+                          "launch_counts": counts})
+    if not all(_same_bits(leaves[0], q) for q in leaves[1:]):
+        raise AssertionError("warm start: the three runs differ in their "
+                             "bits")
+    warm_rmse = _rmse(torch, ft.FastTuckerParams(leaves[0][:N],
+                                                 leaves[0][N:]),
+                      test_t, predict)
+    log(f"warm start: the two runs and the 3-shard run bitwise equal; "
+        f"launches: {CONV_SHARDS} kruskal_grad (one a shard), {N} "
+        f"scatter_accum, {als_sr} segment_reduce ({cfg.sketch_refine_passes} "
+        f"refine passes x {N} modes x {chunks} chunks x (Gram + rhs)); "
+        f"held-out rmse {warm_rmse[0]:.5f}, mae {warm_rmse[1]:.5f}")
+    out["warm_start"] = {"runs": warm_runs, "bitwise": True,
+                         "rmse": warm_rmse[0], "mae": warm_rmse[1]}
+    del leaves
+
+    # 17.2: the warm arm against phase 3's cold unsorted run
+    base = ["--dims", ",".join(map(str, NETFLIX_DIMS)), "--rank", "4",
+            "--core-rank", "4", "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seed", "0", "--backend", "cuda", "--device",
+            "cuda"]
+    K.reset_launch_counts()
+    res = std_train.run(std_train.parse_args(
+        base + ["--warm-start", "--eval-every", str(CONV_WARM_EVAL)]), data)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    add(counts)
+    cold, warm = base_res["history"], res["history"]
+    ws = res["warm_start_seconds"]
+    log("warm arm: warm start " + ", ".join(f"{k} {v:.4f}s"
+                                             for k, v in ws.items())
+        + f"; {steps} steps at {res['steps_per_s']:.1f} steps/s; "
+        f"launch counts {counts}")
+    log("warm arm rmse " + " -> ".join(f"{h['rmse']:.5f}@{h['step']}"
+                                       for h in warm))
+    log("cold arm rmse (phase 3, unsorted) " + " -> ".join(
+        f"{h['rmse']:.5f}@{h['step']}" for h in cold))
+    want = dict({k: 0 for k in REPLACES}, kruskal_grad=steps + 1,
+                scatter_accum=N * (steps + 1), segment_reduce=als_sr,
+                kruskal_contract=counts["kruskal_contract"])
+    _counts_are("warm arm", counts, want)
+    if not counts["kruskal_contract"]:
+        raise AssertionError("warm arm: no kruskal_contract launched")
+    if not all(math.isfinite(h["rmse"]) and math.isfinite(h["mae"])
+               for h in cold + warm):
+        raise AssertionError("warm/cold arm: non-finite RMSE/MAE")
+    if not res["dstate"].rng.equal(base_res["dstate"].rng):
+        raise AssertionError("warm arm: its batch generator ended elsewhere "
+                             "than the cold arm's: not the same batches")
+    target = cold[-1]["rmse"]
+    zero_rms = float(test_t.values.double().pow(2).mean().sqrt())
+    hit = next((h for h in warm if h["rmse"] <= target), None)
+    per_step = res["train_seconds"] / steps
+    to_target = (None if hit is None
+                 else ws["total"] + hit["step"] * per_step)
+    log(f"warm arm: step-0 rmse {warm[0]['rmse']:.5f} against the cold "
+        f"arm's {cold[0]['rmse']:.5f}@0 and {target:.5f}@{cold[-1]['step']}"
+        f"; reaches the cold arm's final rmse at step "
+        f"{None if hit is None else hit['step']}, "
+        + (f"{to_target:.3f}s with the warm start (training seconds "
+           "prorated)" if hit else "never")
+        + f", against the cold arm's {base_res['train_seconds']:.3f}s for "
+        f"{steps} steps; final rmse warm {warm[-1]['rmse']:.5f}, cold "
+        f"{target:.5f} (the warm arm "
+        f"{'no worse' if warm[-1]['rmse'] <= target else 'worse'}; the "
+        f"zero predictor {zero_rms:.5f}); both arms drew the same "
+        "batches (generator states equal)")
+    out["warm_arm"] = {
+        "history": warm, "cold_history": cold, "warm_start_seconds": ws,
+        "steps_per_s": res["steps_per_s"],
+        "train_seconds": res["train_seconds"],
+        "cold_train_seconds": base_res["train_seconds"],
+        "steps_to_cold_final": None if hit is None else hit["step"],
+        "seconds_to_cold_final": to_target, "zero_predictor_rmse": zero_rms,
+        "warm_no_worse": warm[-1]["rmse"] <= target,
+        "launch_counts": counts}
+    del res
+
+    # 17.3: cuda against torch at bench_convergence's FULL shape
+    P = CONV_PARITY
+    t = planted_tensor(P["dims"], P["nnz"], rank=P["rank"],
+                       core_rank=P["rank"], noise=0.05, seed=0, device="cuda")
+    tr, te = t.split(0.1)
+    pcfg = ft.FastTuckerConfig(
+        dims=P["dims"], ranks=(P["rank"],) * 3, core_rank=P["rank"],
+        batch_size=P["batch"], backend="cuda",
+        sketch_batch=P["sketch_batch"], init="sketched")
+    draws = sketch.draw_sketch(torch.Generator(device="cuda").manual_seed(0),
+                               pcfg, tr.indices, tr.values)
+    got = sketch.sketched_init_from_draws(draws, pcfg, tr.indices, tr.values)
+    plain = sketch.sketched_init_from_draws(
+        draws, dataclasses.replace(pcfg, backend="torch"), tr.indices,
+        tr.values)
+    errs = [rel_err(g, w) for g, w in zip(
+        got.factors + got.core_factors, plain.factors + plain.core_factors)]
+    worst = max(r for _, r in errs)
+    r_c = _rmse(torch, got, te, predict)
+    r_t = _rmse(torch, plain, te, predict)
+    log(f"warm start cuda vs torch at {P['dims']} ({tr.nnz:,} training "
+        f"nonzeros, J = R = {P['rank']}, R_s = {sketch.sketch_width(pcfg)}):"
+        f" per leaf relative {[f'{r:.3g}' for _, r in errs]}, worst "
+        f"{worst:.3g} (tolerance {TOL['sketch']:g}); held-out rmse "
+        f"{r_c[0]:.6f} / {r_t[0]:.6f}")
+    if not worst <= TOL["sketch"]:
+        raise AssertionError(f"warm start cuda vs torch differs: {worst:.3g}")
+    out["parity"] = {"per_leaf_rel": [r for _, r in errs],
+                     "max_rel": worst, "rmse_cuda": r_c[0],
+                     "rmse_torch": r_t[0]}
+    del t, tr, te, got, plain, draws
+
+    # 17.4: bench_convergence FULL with its validator
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = bench_convergence.run(smoke=False, device="cuda", backend="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    add(counts)
+    for c in doc["configs"]:
+        log(f"bench_convergence {c['name']} on {doc['platform']}: cold "
+            f"{c['cold']['steps_to_target']} steps / "
+            f"{c['cold']['wallclock_s_to_target']:.3f}s (reached "
+            f"{c['cold']['reached']}, final {c['cold']['final_rmse']:.5f}); "
+            f"warm {c['sketched']['steps_to_target']} steps / "
+            f"{c['sketched']['wallclock_s_to_target']:.3f}s (sketch "
+            f"{c['sketched']['init_s']:.3f}s, final "
+            f"{c['sketched']['final_rmse']:.5f}); speedup steps "
+            f"{c['speedup_vs_cold']:.1f}, wall "
+            f"{c['wallclock_speedup_vs_cold']:.3f}")
+        log(f"bench_convergence cold trajectory {c['cold']['trajectory']}")
+    log(f"bench_convergence FULL: {time.perf_counter() - t0:.1f}s, "
+        f"validator passed; launch counts {counts}")
+    out["bench_convergence"] = {"doc": doc, "launch_counts": counts}
+
+    # 17.5: the adaptive rank with ALS refinement after each transition
+    A = CONV_ADAPTIVE
+    K.reset_launch_counts()
+    res = std_train.run(std_train.parse_args(
+        base + ["--adaptive-rank", "--refine", "als", "--max-core-rank",
+                str(A["max_core_rank"]), "--eval-every",
+                str(A["eval_every"])]), data)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    add(counts)
+    hist, ranks = res["history"], res["rank_history"]
+    log("adaptive rmse " + " -> ".join(f"{h['rmse']:.5f}@{h['step']}"
+                                       for h in hist)
+        + f"; {res['steps_per_s']:.1f} steps/s; launch counts {counts}")
+    for tr_ in ranks:
+        after = next((h for h in hist if h["step"] > tr_["step"]), None)
+        log(f"adaptive: rank {tr_['action']} -> {tr_['rank']} at step "
+            f"{tr_['step']}; next rmse "
+            + (f"{after['rmse']:.5f}@{after['step']}" if after else "none"))
+    if not ranks:
+        log("adaptive: no transition in this run")
+    if any(tr_["rank"] > 64 for tr_ in ranks):
+        raise AssertionError(f"adaptive: a rank past the kernels' 64: "
+                             f"{ranks}")
+    if not all(math.isfinite(h["rmse"]) for h in hist):
+        raise AssertionError(f"adaptive: non-finite RMSE: {hist}")
+    _check_path("adaptive", counts, ("kruskal_contract", "kruskal_grad",
+                                     "scatter_accum"), LM_KERNELS)
+    if ranks and not counts["segment_reduce"]:
+        raise AssertionError("adaptive: a transition's ALS refinement "
+                             "launched no segment_reduce")
+    out["adaptive"] = {"history": hist, "rank_history": ranks,
+                       "steps_per_s": res["steps_per_s"],
+                       "launch_counts": counts}
+    del res
+
+    # 17.6: the sketch's kruskal_grad and an ALS chunk's segment_reduce
+    rows_out = []
+    floor = floor_ms(torch, K.build)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    # the range finder's one call: R_s wide, over all its passes' samples
+    Js = sketch.sketch_width(cfg)
+    B = cfg.sketch_passes * cfg.sketch_batch_size
+    a = torch.randn((N, B, Js), generator=gen, device="cuda")
+    eye = torch.eye(Js, device="cuda").expand(N, Js, Js).contiguous()
+    val = torch.randn((B,), generator=gen, device="cuda")
+    mask = torch.ones_like(val)
+    scal = _kernel_scalars(B, None, False, False, 0.0, 0.0, 0.0, val.device)
+    kg = K.kruskal_grad.kruskal_grad
+    call = lambda: kg(a, eye, -val, mask, scal, want_core=False)  # noqa
+    ms = device_ms(torch, call)
+    plain = device_ms(torch, lambda: K.ref.kruskal_grad_ref(
+        a, eye, -val, mask, scal, want_core=False))
+    t_b, by = bound(*grad_cost(N, B, Js, Js, 4, N, False, False, False))
+    dev_ms = profiled_ms(torch, call, DEVICE_KERNEL["kruskal_grad"])
+    rows_out.append(("kruskal_grad", f"sketch range finder (N = {N}, J = R "
+                     f"= {Js}, B = {B}, err_override, no core)", ms, plain,
+                     None, t_b, by, "one a shard per warm start", dev_ms))
+    Bc, W = als.DEFAULT_CHUNK, J * J      # one ALS chunk's Gram rows
+    rows0 = train_t.dims[0]
+    # the first chunk of ALS's stable sort of mode 0
+    ids = torch.sort(train_t.indices[:, 0], stable=True).values[:Bc]
+    g = torch.randn((ids.shape[0], W), generator=gen, device="cuda")
+    sr = K.segment_reduce.segment_reduce
+    ms = device_ms(torch, lambda: sr(g, ids, rows0))
+    plain = device_ms(torch, lambda: K.ref.segment_reduce_ref(g, ids, rows0),
+                      iters=10)
+    long_ids = ids.long()
+    lib = device_ms(torch, lambda: torch.zeros(
+        (rows0, W), device="cuda").index_add_(0, long_ids, g))
+    t_b, by = bound(4 * (ids.shape[0] * (W + 1) + rows0 * W),
+                    ids.shape[0] * W)
+    dev_ms = profiled_ms(torch, lambda: sr(g, ids, rows0),
+                         DEVICE_KERNEL["segment_reduce"])
+    rows_out.append(("segment_reduce", f"ALS chunk ({ids.shape[0]:,} x {W}, "
+                     f"mode 0, {rows0:,} rows)", ms, plain, lib, t_b, by,
+                     "Gram slices + 1 a mode and chunk of an ALS epoch",
+                     dev_ms))
+    times = []
+    for name, tag, ms, plain, lib, t_b, by, per, dev_ms in rows_out:
+        log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call (plain "
+            f"{plain * 1e3:.2f} us"
+            + (f", zeros + index_add_ {lib * 1e3:.2f} us" if lib else "")
+            + f"), bound {t_b * 1e3:.3f} us by {by} ({t_b / ms:.1%} of the "
+            f"event time), launch floor {floor * 1e3:.2f} us; profiler "
+            "device duration "
+            + (f"{dev_ms * 1e3:.2f} us" if dev_ms else "not measured")
+            + f"; {per}")
+        times.append({"name": name, "variant": tag, "ms": ms,
+                      "plain_ms": plain, "library_ms": lib, "bound_ms": t_b,
+                      "bound_by": by, "floor_ms": floor, "device_ms": dev_ms,
+                      "launches_note": per})
+    out["times"] = times
+    out["launch_counts"] = main_counts
+    return out, times, main_counts
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -2760,12 +3149,21 @@ def main(argv: list[str] | None = None) -> int:
     times += serve_times
     report["serving_seconds"] = time.perf_counter() - t_serve
     log(f"phase 16 (Tucker serving): {report['serving_seconds']:.1f}s")
+    t_conv = time.perf_counter()
+    report["convergence"], conv_times, conv_counts = phase_convergence(
+        torch, K, std_train, base, args.steps)
+    times += conv_times
+    report["convergence_seconds"] = time.perf_counter() - t_conv
+    log(f"phase 17 (warm start, adaptive rank): "
+        f"{report['convergence_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
     for part in (report["baselines"]["cutucker"]["counts"],
+                 report["baselines"]["als"]["counts"],
+                 report["baselines"]["ccd"]["counts"],
                  report["baselines"]["bench_accuracy"]["launch_counts"],
-                 serve_counts):
+                 serve_counts, conv_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
@@ -2799,8 +3197,10 @@ def main(argv: list[str] | None = None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(report, indent=1, default=str))
     log(f"launches on the main paths (the three training paths, the "
-        f"phase 14's nine runs, cuTucker's SGD run, bench_accuracy, and "
-        f"phase 16's closed loops and refresh rounds; the LM serve request "
+        f"phase 14's nine runs, cuTucker's SGD run, the ALS and CCD "
+        f"epochs, bench_accuracy, phase 16's closed loops and refresh "
+        f"rounds, and phase 17's warm starts, warm and adaptive runs and "
+        f"bench_convergence; the LM serve request "
         f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,7 +2,11 @@
 
 ``validate_bench_accuracy`` is the port's own copy of the reference's
 ``benchmarks.common.validate_bench_accuracy``: the same schema
-(``bench_accuracy/v1``) and the same claims.
+(``bench_accuracy/v1``) and the same claims.  ``validate_bench_convergence``
+is its copy of ``validate_bench_convergence`` (``bench_convergence/v1``),
+with one difference: coverage asks for a ``local`` config only, on any
+backend.  The reference also asks for a ``strata*`` config on ``xla``; the
+port's strata strategies are not ported yet (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -77,3 +81,125 @@ def validate_bench_accuracy(doc: dict) -> None:
             raise ValueError(
                 f"rank {rank}: factor+core rmse {fc['rmse']} more than "
                 f"10% above the cutucker baseline {cu['rmse']}")
+
+
+# ---------------------------------------------------------------------------
+# bench_convergence/v1
+# ---------------------------------------------------------------------------
+
+BENCH_CONVERGENCE_SCHEMA = "bench_convergence/v1"
+
+# per-arm (cold / sketched) measurement fields
+CONVERGENCE_ARM_FIELDS = {
+    "reached": bool,            # hit target_rmse within horizon_steps
+    "steps_to_target": int,     # first eval step at/below target
+                                # (= horizon_steps when not reached)
+    "wallclock_s_to_target": float,  # init + training wall to that step
+    "init_s": float,            # init cost alone (warm: full sketch)
+    "final_rmse": float,        # RMSE at the horizon
+    "trajectory": list,         # [[step, rmse], ...] at eval cadence
+}
+
+CONVERGENCE_CONFIG_FIELDS = {
+    "name": str,
+    "backend": str,             # kernel backend
+    "strategy": str,            # training strategy name
+    "dims": list,
+    "nnz": int,
+    "rank": int,
+    "core_rank": int,
+    "batch": int,
+    "seed": int,
+    "target_rmse": float,
+    "horizon_steps": int,
+    "eval_every": int,
+    "cold": dict,
+    "sketched": dict,
+    "speedup_vs_cold": float,           # cold steps / max(warm steps, 1)
+    "wallclock_speedup_vs_cold": float,  # cold wall / warm wall to target
+}
+WARM_FINAL_SLACK = 1.05   # warm final RMSE within 5 % of cold's
+
+
+def _validate_convergence_arm(arm, where: str) -> None:
+    for field, typ in CONVERGENCE_ARM_FIELDS.items():
+        if field not in arm:
+            raise ValueError(f"{where} missing {field!r}")
+        if not isinstance(arm[field], typ):
+            raise ValueError(f"{where}.{field} must be {typ.__name__}, "
+                             f"got {type(arm[field]).__name__}")
+    traj = arm["trajectory"]
+    if not traj:
+        raise ValueError(f"{where}.trajectory must be non-empty")
+    for p in traj:
+        if (not isinstance(p, list) or len(p) != 2
+                or not isinstance(p[0], int) or p[1] <= 0):
+            raise ValueError(
+                f"{where}.trajectory entries must be [step, rmse>0] "
+                f"pairs, got {p!r}")
+    if arm["final_rmse"] <= 0 or arm["wallclock_s_to_target"] <= 0:
+        raise ValueError(f"{where}: final_rmse and wallclock must be > 0")
+
+
+def validate_bench_convergence(doc: dict) -> None:
+    """Raise ``ValueError`` unless ``doc`` is a valid BENCH_convergence doc.
+
+    Beyond the format: at least one ``local`` config (any backend); in
+    every config the warm start reaches the target (``sketched.reached``)
+    in strictly fewer steps than cold, with ``speedup_vs_cold > 1``; its
+    final RMSE is within 5 % of cold's; and on full (non-``smoke``)
+    documents it also wins wall-clock, ``wallclock_speedup_vs_cold > 1``
+    with the sketch's own ``init_s`` in its wall.  Cold may fail to reach
+    the target inside the horizon (the decaying-LR plateau); its
+    ``steps_to_target`` is then the horizon and the speedups are lower
+    bounds.
+    """
+    if not isinstance(doc, dict):
+        raise ValueError(f"BENCH_convergence document must be a dict, "
+                         f"got {type(doc).__name__}")
+    if doc.get("schema") != BENCH_CONVERGENCE_SCHEMA:
+        raise ValueError(f"schema must be {BENCH_CONVERGENCE_SCHEMA!r}, "
+                         f"got {doc.get('schema')!r}")
+    smoke = bool(doc.get("smoke", False))
+    configs = doc.get("configs")
+    if not isinstance(configs, list) or not configs:
+        raise ValueError("configs must be a non-empty list")
+    seen = set()
+    for i, c in enumerate(configs):
+        for field, typ in CONVERGENCE_CONFIG_FIELDS.items():
+            if field not in c:
+                raise ValueError(f"configs[{i}] missing {field!r}")
+            if not isinstance(c[field], typ):
+                raise ValueError(
+                    f"configs[{i}].{field} must be {typ.__name__}, "
+                    f"got {type(c[field]).__name__}")
+        _validate_convergence_arm(c["cold"], f"configs[{i}].cold")
+        _validate_convergence_arm(c["sketched"], f"configs[{i}].sketched")
+        warm, cold = c["sketched"], c["cold"]
+        if not warm["reached"]:
+            raise ValueError(
+                f"configs[{i}]: sketched warm start must reach "
+                f"target_rmse {c['target_rmse']} within the horizon "
+                f"(got final {warm['final_rmse']})")
+        if warm["steps_to_target"] >= cold["steps_to_target"]:
+            raise ValueError(
+                f"configs[{i}]: warm steps_to_target "
+                f"{warm['steps_to_target']} must be < cold's "
+                f"{cold['steps_to_target']}")
+        if c["speedup_vs_cold"] <= 1.0:
+            raise ValueError(
+                f"configs[{i}].speedup_vs_cold must be > 1, "
+                f"got {c['speedup_vs_cold']}")
+        if warm["final_rmse"] > cold["final_rmse"] * WARM_FINAL_SLACK:
+            raise ValueError(
+                f"configs[{i}]: warm final_rmse {warm['final_rmse']} "
+                f"worse than cold's {cold['final_rmse']} (>5%): the "
+                f"speedup must not trade accuracy away")
+        if not smoke and c["wallclock_speedup_vs_cold"] <= 1.0:
+            raise ValueError(
+                f"configs[{i}].wallclock_speedup_vs_cold must be > 1 on "
+                f"full runs, got {c['wallclock_speedup_vs_cold']}")
+        seen.add(c["strategy"])
+    if "local" not in seen:
+        raise ValueError(f"configs must cover strategy 'local', got "
+                         f"{sorted(seen)}")

@@ -11,11 +11,13 @@ and r^{(+j)} the residual with coordinate j's contribution added back
 (``1e-12`` guards the division; rows with no observation keep their
 value).  Factor updates only (the paper's §6.3 protocol).
 
-The segment sums are ``index_add_``, as in ``als``: float atomics on the
-card, so an epoch need not repeat its bits there.  The design vectors are
-built ``chunk`` nonzeros at a time, which bounds the contraction's
-intermediates; d, the residual and the gathered rows (nnz × (2J + 1)
-floats) are held whole, as the column sweep reads them J times.
+The nonzeros are taken in the stable sort of the mode's ids, as in
+``als``, and each segment sum is one ordered fold through the registry's
+``segment_reduce`` (1 wide): 2·J calls a mode, and an epoch repeats its
+bits on the card.  The design vectors are built ``chunk`` nonzeros at a
+time, which bounds the contraction's intermediates; d, the residual and
+the gathered rows (nnz × (2J + 1) floats) are held whole, as the column
+sweep reads them J times.
 """
 from __future__ import annotations
 
@@ -23,9 +25,12 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import dispatch
+from .als import mode_order, ordered_fold
 from .cutucker import CuTuckerParams, _contract_except
 from .cutucker import predict  # noqa: F401  — the shared dense-core predict
 from .fasttucker import gather_rows
+from .sampling import SortedBatchOrder
 from .sptensor import SparseTensor
 
 DEFAULT_CHUNK = 1 << 22   # nonzeros per contraction pass
@@ -51,22 +56,27 @@ def ccd_update_mode(
     num_rows: int,
     lambda_a: float,
     chunk: int = DEFAULT_CHUNK,
+    backend: str | None = None,
+    order: SortedBatchOrder | None = None,
 ) -> torch.Tensor:
     """One CCD sweep over all J_n columns of A^(mode)."""
+    bk = dispatch.get_backend(backend)
+    perm, seg = mode_order(indices, mode, order)
     d = torch.cat([
         _contract_except(params.core,
-                         gather_rows(params.factors, indices[s:s + chunk]),
-                         mode)
-        for s in range(0, values.shape[0], chunk)])   # (nnz, J)
-    seg = indices[:, mode]
+                         gather_rows(params.factors, indices.index_select(
+                             0, perm[s:s + chunk])), mode)
+        for s in range(0, values.shape[0], chunk)])   # (nnz, J), sorted
     A = params.factors[mode].clone()
     a_rows = A.index_select(0, seg)                     # (nnz, J)
-    resid = values - torch.sum(a_rows * d, dim=-1)     # (nnz,)
+    resid = (values.index_select(0, perm)
+             - torch.sum(a_rows * d, dim=-1))           # (nnz,)
     seen = torch.bincount(seg, minlength=num_rows) > 0
 
     def segment_sum(x):
-        return torch.zeros(num_rows, dtype=x.dtype,
-                           device=x.device).index_add_(0, seg, x)
+        out = torch.zeros((num_rows, 1), dtype=x.dtype, device=x.device)
+        ordered_fold(bk, x[:, None], seg, num_rows, out)
+        return out[:, 0]
 
     for j in range(d.shape[1]):
         dj = d[:, j]
@@ -87,10 +97,13 @@ def ccd_epoch(
     tensor: SparseTensor,
     cfg: CCDConfig,
     chunk: int = DEFAULT_CHUNK,
+    backend: str | None = None,
+    order: SortedBatchOrder | None = None,
 ) -> CuTuckerParams:
     factors = list(params.factors)
     for n in range(cfg.order):
         p = CuTuckerParams(tuple(factors), params.core)
         factors[n] = ccd_update_mode(p, tensor.indices, tensor.values, n,
-                                     cfg.dims[n], cfg.lambda_a, chunk)
+                                     cfg.dims[n], cfg.lambda_a, chunk,
+                                     backend, order)
     return CuTuckerParams(tuple(factors), params.core)

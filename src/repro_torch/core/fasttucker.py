@@ -46,8 +46,12 @@ one.  The sorted step equals the unsorted one bit for bit on the
 
 bf16 storage (``dtype="bfloat16"``): factors and core factors are stored in
 bf16; every dot, residual and gradient is f32, and each update is applied
-in f32 and rounded back to bf16.  The sketched warm start is not ported:
-``init="sketched"`` raises.
+in f32 and rounded back to bf16.
+
+Sketched warm start (``init="sketched"``): ``init_params`` and
+``init_state`` then take the training nonzeros and run
+``core.sketch.sketched_init_params``; the cold init is unchanged bit for
+bit, and ``init_state`` starts a sketched run at ``warm_step_offset``.
 
 Online refresh (``refresh_step_batch`` on a fed batch, ``refresh_steps``
 drawing from a generator): K factor-phase steps with the core frozen, and
@@ -96,7 +100,16 @@ class FastTuckerConfig:
     sorted_batches: bool = False    # mode-sorted layout + segment_reduce
     dtype: str = "float32"          # parameter STORAGE dtype (+"bfloat16")
     accum_dtype: str = "float32"    # dot / gradient accumulation dtype
-    init: str = "random"            # "sketched" is not ported
+    init: str = "random"            # "random" | "sketched" (core.sketch
+                                    # randomized warm start; needs nonzeros)
+    sketch_passes: int = 2          # sample passes feeding the range finder
+    sketch_oversample: int = 4      # sketch width = max(ranks) + oversample
+    sketch_batch: int = 0           # samples per pass (0 → batch_size)
+    sketch_core_sweeps: int = 2     # Gauss-Seidel LS sweeps for B^(n)
+    sketch_refine_passes: int = 4   # alternating ALS/core-LS polish passes
+    sketch_refine_batch: int = 0    # factor-solve sample cap (0 → all nnz)
+    warm_step_offset: int = 0       # start the decaying LR schedule here
+                                    # (after a sketched init only)
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "backend",
@@ -112,10 +125,13 @@ class FastTuckerConfig:
             raise ValueError(f"accum_dtype must be 'float32' (bf16 storage "
                              f"still accumulates in f32), got "
                              f"{self.accum_dtype!r}")
-        if self.init != "random":
-            raise NotImplementedError(
-                f"FastTuckerConfig(init={self.init!r}) is not ported yet; "
-                "the port runs init='random'")
+        if self.init not in ("random", "sketched"):
+            raise ValueError(
+                f"init must be 'random' or 'sketched', got {self.init!r}")
+        if self.init == "sketched":
+            from .sketch import check_sketch_width
+
+            check_sketch_width(self)
 
     @property
     def order(self) -> int:
@@ -124,6 +140,10 @@ class FastTuckerConfig:
     @property
     def param_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+    @property
+    def sketch_batch_size(self) -> int:
+        return self.sketch_batch or self.batch_size
 
 
 def init_scale(cfg: FastTuckerConfig) -> float:
@@ -140,6 +160,8 @@ def init_params(
     generator: torch.Generator,
     cfg: FastTuckerConfig,
     device: str | torch.device | None = None,
+    indices: torch.Tensor | None = None,
+    values: torch.Tensor | None = None,
 ) -> FastTuckerParams:
     """Cold init: every entry ~ U(0, 2s), drawn from ``generator``.
 
@@ -147,7 +169,19 @@ def init_params(
     entries ~ U(0, s) its magnitude is ≈ R (s²J)^N, hence ``init_scale``.
     The draw is f32 whatever the storage dtype (the same random stream),
     then rounded to it.  The generator must live on ``device``.
+
+    With ``cfg.init == "sketched"`` the warm start (``core.sketch``) runs
+    instead, on the nonzeros' device: ``indices``/``values`` are then
+    required.  The cold init ignores them.
     """
+    if cfg.init == "sketched":
+        if indices is None or values is None:
+            raise ValueError(
+                "init='sketched' needs the training nonzeros: pass "
+                "indices/values to init_params/init_state")
+        from .sketch import sketched_init_params
+
+        return sketched_init_params(generator, cfg, indices, values)
     device = resolve_device(device)
     scale = init_scale(cfg)
 
@@ -451,9 +485,14 @@ def init_state(
     generator: torch.Generator,
     cfg: FastTuckerConfig,
     device: str | torch.device | None = None,
+    indices: torch.Tensor | None = None,
+    values: torch.Tensor | None = None,
 ) -> TrainState:
-    """Fresh ``TrainState`` at step 0 (cold init)."""
-    return TrainState(init_params(generator, cfg, device), 0)
+    """Fresh ``TrainState``.  A sketched warm start begins the decaying
+    LR schedule at ``cfg.warm_step_offset``; the cold init at step 0."""
+    step = cfg.warm_step_offset if cfg.init == "sketched" else 0
+    return TrainState(init_params(generator, cfg, device, indices, values),
+                      step)
 
 
 def _sgd_update(p: torch.Tensor, lr: torch.Tensor,
@@ -754,12 +793,14 @@ def train(
 ) -> tuple[TrainState, list[dict]]:
     """Simple single-device training loop on the tensor's device.
 
-    ``generator`` (on the same device) draws the cold init, then every
-    batch.  ``update_core=False`` trains the factors alone.
+    ``generator`` (on the same device) draws the init (cold, or the
+    sketched warm start over ``tensor``), then every batch.
+    ``update_core=False`` trains the factors alone.
     """
     from .metrics import rmse_mae
 
-    state = init_state(generator, cfg, tensor.device)
+    state = init_state(generator, cfg, tensor.device, tensor.indices,
+                       tensor.values)
     history: list[dict] = []
     for step in range(num_steps):
         state = sgd_step(state, generator, tensor.indices, tensor.values, cfg,

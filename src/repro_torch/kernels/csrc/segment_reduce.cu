@@ -42,6 +42,18 @@
 // of the Netflix shape: 480,189 × 4 floats).  At the smaller modes a call
 // moves a few tens of kB and the launch and the searches' latency set its
 // time; one launch (no separate zero fill) is what the design buys there.
+//
+// The walk route (segment_reduce_kernel_walk) serves calls whose runs are
+// long (plan(): B at least WALK_MIN_RUN × rows, as in the ALS and CCD sums
+// over a whole tensor: runs of ~49,000 at the Netflix shape's mode 2).  The
+// staged route folds such a run 256 positions a stage with one group of
+// lanes while the block's other groups wait, run after run.  Here every
+// group of W lanes owns one output row: it finds the row's run [start, end)
+// with two (W + 1)-ary searches over the sorted ids (a ballot over the
+// group's lanes; W = 1 is a binary search), folds the run from global
+// memory in sorted order from 0.f with __fadd_rn, 8 positions' loads issued
+// before their adds, and writes the row once.  The same adds in the same
+// order as the staged route and the plain version: the same bits.
 #include <cstdint>
 
 #include "common.cuh"
@@ -148,6 +160,73 @@ __global__ void __launch_bounds__(256) segment_reduce_kernel(
   }
   for (int i = head + threadIdx.x; i < total; i += blockDim.x)
     dst[i] = tile[i];
+}
+
+// First position in [a, B) whose id is >= t, by the W lanes of a group
+// (lanes sharing `mask`): each round the lanes probe the W cut points that
+// split [a, b) into W + 1 parts, and a ballot counts the ids below t; the
+// tested ids are sorted, so those are the first `count` cuts.  Every lane
+// of the group keeps the same bounds.
+__device__ __forceinline__ long long group_lower_bound(
+    const int* __restrict__ idx, long long a, long long B, long long t,
+    int sub, int W, unsigned mask) {
+  long long b = B;
+  // invariant: ids before a are < t, ids from b on are >= t
+  while (a < b) {
+    const long long len = b - a;
+    const long long q = a + (sub + 1) * len / (W + 1);
+    const int count = __popc(__ballot_sync(mask, idx[q] < t) & mask);
+    if (count == 0) {
+      b = a + len / (W + 1);
+    } else {
+      const long long next_a = a + count * len / (W + 1) + 1;
+      if (count < W) b = a + (count + 1) * len / (W + 1);
+      a = next_a;
+    }
+  }
+  return a;
+}
+
+__global__ void __launch_bounds__(256) segment_reduce_kernel_walk(
+    const float* __restrict__ g, const int* __restrict__ idx,
+    float* __restrict__ out, long long B, int J, long long rows, int W) {
+  const int lane = threadIdx.x & 31;
+  const int sub = threadIdx.x & (W - 1);
+  const unsigned mask =
+      W == 32 ? 0xffffffffu : ((1u << W) - 1u) << (lane & ~(W - 1));
+  const long long r = static_cast<long long>(blockIdx.x) * (blockDim.x / W) +
+                      threadIdx.x / W;
+  if (r >= rows) return;  // a whole group leaves together
+  const long long start = group_lower_bound(idx, 0, B, r, sub, W, mask);
+  const long long end = group_lower_bound(idx, start, B, r + 1, sub, W, mask);
+  for (int j = sub; j < J; j += W) {
+    float acc = 0.f;
+    long long p = start;
+    for (; p + 8 <= end; p += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = __ldg(g + (p + u) * J + j);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, v[u]);
+    }
+    for (; p < end; ++p) acc = __fadd_rn(acc, __ldg(g + p * J + j));
+    out[r * J + j] = acc;
+  }
+}
+
+extern "C" int segment_walk_f32(
+    const float* g, const int* idx, float* out, long long B, int J,
+    long long rows, long long blocks, void* stream) {
+  if (B < 1 || J < 1 || J > REPRO_MAX_WIDTH || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int W = group_width(J, J);
+  const long long groups = 256 / W;
+  if (blocks != (rows + groups - 1) / groups || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  segment_reduce_kernel_walk<<<static_cast<unsigned>(blocks), 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      g, idx, out, B, J, rows, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int segment_reduce_f32(

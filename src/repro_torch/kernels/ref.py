@@ -115,27 +115,38 @@ def segment_reduce_ref(
 
     An ordered fold: every row gets ((0 + g_0) + g_1) + … over its run, in
     sorted position order, on any device — what ``jax.ops.segment_sum``
-    computes, and bitwise equal to it.  ``index_add_`` alone would not do:
-    on CUDA it adds the duplicates of a row in no fixed order.  So the
-    k-th element of every run is added in pass k, where the rows of one
-    pass are distinct.  The number of passes (the longest run) is read on
-    the host.
+    computes, and bitwise equal to it.  On the CPU one ``index_add_`` is
+    that fold: it adds the source rows one position at a time, in
+    ascending position.  On CUDA it would add the duplicates of a row in no
+    fixed order, so there the k-th element of every run is added in pass
+    k, where the rows of one pass are distinct; the number of passes (the
+    longest run) is read on the host.
     """
-    B = idx.shape[0]
     out = torch.zeros((num_rows + 1, grads.shape[1]), dtype=grads.dtype,
                       device=grads.device)
+    keep = (idx >= 0) & (idx < num_rows)
+    target = torch.where(keep, idx.long(), num_rows)  # spare row: dropped
+    if grads.device.type == "cpu":
+        return out.index_add_(0, target, grads)[:num_rows]
+    return fold_in_passes(out, grads, idx, target)[:num_rows]
+
+
+def fold_in_passes(out: torch.Tensor, grads: torch.Tensor, idx: torch.Tensor,
+                   target: torch.Tensor) -> torch.Tensor:
+    """``segment_reduce_ref``'s fold on CUDA: ``out`` += grads at
+    ``target``, the k-th entry of every run of equal sorted ``idx`` added
+    in pass k (one ``index_add_`` over distinct rows a pass)."""
+    B = idx.shape[0]
     pos = torch.arange(B, device=idx.device)
     head = torch.ones((B,), dtype=torch.bool, device=idx.device)
     head[1:] = idx[1:] != idx[:-1]
     run_start = torch.cummax(torch.where(head, pos, 0), 0).values
     offset = pos - run_start                    # place inside its run
-    keep = (idx >= 0) & (idx < num_rows)
-    target = torch.where(keep, idx.long(), num_rows)  # spare row: dropped
     order = torch.sort(offset, stable=True).indices
     counts = torch.bincount(offset).tolist()
     for sel in torch.split(order, counts):
         out.index_add_(0, target[sel], grads[sel])
-    return out[:num_rows]
+    return out
 
 
 def tucker_matmul_ref(

@@ -12,6 +12,13 @@ the reference's ``jax.ops.segment_sum`` of the unsorted batch, on every
 run.  Ids outside ``[0, num_rows)`` are dropped.  The ids must be sorted
 ascending (``layout.sorted_rows[n]``), which the wrapper does not check:
 that would cost a host round trip.
+
+``plan`` picks one of two routes.  The staged route (above) serves the
+training batches.  Calls whose runs are long on average (B at least
+``WALK_MIN_RUN`` × rows: the ALS and CCD sums over a whole tensor) take
+the walk route, one group of lanes per output row folding its run from
+global memory, so the rows' runs fold side by side rather than one after
+another in a block; the same bits.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ TARGET_BLOCKS = 256   # row ranges a call aims for, so small modes fill the
                       # card too
 TILE_FLOATS = 4096    # a block's rows in shared memory (16 kB)
 STAGE_FLOATS = 8192   # staged sorted ids and gradient rows (32 kB)
+WALK_MIN_RUN = 4      # mean entries a row from which a call walks the runs
+THREADS = 256         # a block's threads, on both routes
 
 
 class Plan(NamedTuple):
@@ -36,15 +45,30 @@ class Plan(NamedTuple):
     blocks: int
     chunk: int           # sorted positions staged in shared memory at once
     smem_bytes: int
+    route: str = "staged"  # "staged" | "walk" (one lane group a row)
 
 
-def plan(num_rows: int, J: int) -> Plan:
-    """Row ranges and staging for ``num_rows`` output rows of width J.
+def group_width(J: int) -> int:
+    """Lanes a row takes: the next power of two from J, at most 32
+    (``group_width`` in csrc/common.cuh)."""
+    w = 1
+    while w < J and w < 32:
+        w <<= 1
+    return w
+
+
+def plan(num_rows: int, J: int, B: int = 0) -> Plan:
+    """Route, row ranges and staging for ``num_rows`` output rows of
+    width J over ``B`` sorted ids.  On the staged route
     ``rows_per_block`` is a multiple of 4, so each range starts on a
-    16-byte boundary of an aligned output for any J."""
+    16-byte boundary of an aligned output for any J; on the walk route
+    each group of ``group_width(J)`` lanes owns one row."""
     if num_rows < 1 or not 1 <= J <= MAX_WIDTH:
         raise ValueError(f"segment_reduce: the kernel takes num_rows >= 1 "
                          f"and J <= {MAX_WIDTH}, got {num_rows} and {J}")
+    if B >= WALK_MIN_RUN * num_rows:
+        groups = THREADS // group_width(J)
+        return Plan(groups, -(-num_rows // groups), 0, 0, "walk")
     per = -(-num_rows // TARGET_BLOCKS)
     rows_per_block = min(-(-per // 4) * 4, TILE_FLOATS // J // 4 * 4)
     chunk = 1 << (STAGE_FLOATS // (J + 1)).bit_length() - 1
@@ -81,20 +105,31 @@ def segment_reduce(
         return segment_reduce_ref(grads, idx, num_rows)
     _check(grads, idx, num_rows)
     B, J = grads.shape
-    pl = plan(num_rows, J)
+    pl = plan(num_rows, J, B)
     out = torch.empty((num_rows, J), dtype=torch.float32,
                       device=grads.device)
-    fn = build.function(
-        "segment_reduce", "segment_reduce_f32",
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_longlong,
-                                 ctypes.c_void_p])
     with torch.cuda.device(grads.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check("segment_reduce", fn(
-            grads.data_ptr(), idx.data_ptr(), out.data_ptr(), B, J,
-            num_rows, pl.rows_per_block, pl.chunk, pl.blocks, stream))
+        if pl.route == "walk":
+            fn = build.function(
+                "segment_reduce", "segment_walk_f32",
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_longlong,
+                                         ctypes.c_longlong,
+                                         ctypes.c_void_p])
+            code = fn(grads.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
+                      J, num_rows, pl.blocks, stream)
+        else:
+            fn = build.function(
+                "segment_reduce", "segment_reduce_f32",
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_void_p])
+            code = fn(grads.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
+                      J, num_rows, pl.rows_per_block, pl.chunk, pl.blocks,
+                      stream)
+        build.check("segment_reduce", code)
     segment_reduce.launches += 1
     return out
 

@@ -19,14 +19,29 @@ step, the sampling generator's state and the EF residuals) at every
 evaluation through ``checkpoint.manager.CheckpointManager``; ``--resume``
 restores its latest committed step and continues, drawing the same
 batches the uninterrupted run draws, so a resumed run ends on its bits.
-The reference's ``--mode`` alias, ``--donate``, the sketched warm start,
-the adaptive rank and the out-of-core store are not ported: argparse
+
+``--warm-start`` replaces the cold init with the sketched warm start
+(``core.sketch``; ``--sketch-*`` and ``--warm-step-offset`` are its
+knobs), drawn from a generator of its own seeded from ``--seed``: the
+batch generator still draws the cold init first, so a warm run and a cold
+run of one seed draw the same batches.  The record's
+``warm_start_seconds`` has each stage's seconds.  ``--adaptive-rank``
+runs the plateau rank controller (``core.adaptive``): at a transition
+the core factors are padded (from the warm start's generator) or
+truncated, ``--refine als|ccd`` polishes the factors over 65,536 sampled
+nonzeros, and the strategy is prepared again at the new rank and carries
+on from the same step and batch stream; ``rank_history`` records each
+transition.  On ``"cuda"`` a sketch width (max J + oversample) or a
+``--max-core-rank`` above 64 is refused at the start, as is
+``--adaptive-rank`` with ``--ckpt-dir``.  The reference's ``--mode``
+alias, ``--donate`` and the out-of-core store are not ported: argparse
 refuses their flags.
 
     PYTHONPATH=src python -m repro_torch.launch.std_train \\
         --dims 1000,800,600 --nnz 200000 --steps 300 --batch 4096 \\
         --sorted-batches --phase-split [--dtype bfloat16] [--compress] \\
-        [--ckpt-dir DIR [--resume]]
+        [--ckpt-dir DIR [--resume]] [--warm-start] \\
+        [--adaptive-rank --max-core-rank 16 --refine als]
 
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
 cpu --backend torch`` runs the plain path on the CPU.
@@ -34,6 +49,7 @@ cpu --backend torch`` runs the plain path on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
 from functools import partial
@@ -42,15 +58,21 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager, flatten
 from repro_torch.core import fasttucker as ft
+from repro_torch.core.adaptive import (RankController, refine_factors,
+                                       resize_core_rank)
 from repro_torch.core.metrics import rmse_mae
+from repro_torch.core.sampling import sample_batch_arrays
+from repro_torch.core.sketch import sketched_init_params
 from repro_torch.core.sptensor import SparseTensor
 from repro_torch.data.synthetic import planted_tensor
 from repro_torch.device import resolve_device
 from repro_torch.distributed import available_strategies, get_strategy
 from repro_torch.distributed.base import checkpoint_tree
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.kruskal_grad import MAX_WIDTH
 
 log = logging.getLogger("repro_torch.std")
+REFINE_SAMPLES = 65_536   # nonzeros a post-transition refinement reads
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -98,6 +120,36 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="restore the latest checkpoint in --ckpt-dir (the "
                          "dir must belong to a run with the same config and "
                          "strategy)")
+    ap.add_argument("--warm-start", action="store_true",
+                    help="sketched randomized warm start (core.sketch) "
+                         "instead of the cold uniform init")
+    ap.add_argument("--sketch-passes", type=int, default=2,
+                    help="sample passes feeding the range finder")
+    ap.add_argument("--sketch-oversample", type=int, default=4,
+                    help="sketch width = rank + oversample")
+    ap.add_argument("--sketch-batch", type=int, default=0,
+                    help="sketch samples per pass (0 → --batch)")
+    ap.add_argument("--sketch-refine-passes", type=int, default=4,
+                    help="alternating ALS/core-LS polish passes")
+    ap.add_argument("--warm-step-offset", type=int, default=0,
+                    help="start the decaying LR schedule at this step "
+                         "after a warm start (0 = cold schedule)")
+    ap.add_argument("--adaptive-rank", action="store_true",
+                    help="grow/shrink the Kruskal core rank on "
+                         "validation-RMSE plateaus (core.adaptive)")
+    ap.add_argument("--max-core-rank", type=int, default=0,
+                    help="adaptive-rank growth cap (0 → 4x --core-rank)")
+    ap.add_argument("--plateau-tol", type=float, default=0.01,
+                    help="relative RMSE improvement below this counts "
+                         "as a plateau observation")
+    ap.add_argument("--plateau-patience", type=int, default=2,
+                    help="consecutive plateau observations before a "
+                         "rank transition")
+    ap.add_argument("--refine", default="", choices=["", "als", "ccd"],
+                    help="polish factors with exact baseline epochs "
+                         "after each rank transition")
+    ap.add_argument("--refine-passes", type=int, default=1,
+                    help="epochs per post-transition refinement")
     return ap.parse_args(argv)
 
 
@@ -126,14 +178,37 @@ def run(
         dims=dims, ranks=(args.rank,) * len(dims), core_rank=args.core_rank,
         batch_size=args.batch, backend=backend,
         phase_split=args.phase_split, sorted_batches=args.sorted_batches,
-        dtype=args.dtype, accum_dtype=args.accum_dtype)
+        dtype=args.dtype, accum_dtype=args.accum_dtype,
+        init="sketched" if args.warm_start else "random",
+        sketch_passes=args.sketch_passes,
+        sketch_oversample=args.sketch_oversample,
+        sketch_batch=args.sketch_batch,
+        sketch_refine_passes=args.sketch_refine_passes,
+        warm_step_offset=args.warm_step_offset)
+    controller = None
+    if args.adaptive_rank:
+        if args.ckpt_dir:
+            raise SystemExit(
+                "--adaptive-rank changes the config mid-run; checkpoints "
+                "assume one config per run — drop --ckpt-dir")
+        max_rank = args.max_core_rank or 4 * args.core_rank
+        if backend == "cuda" and max_rank > MAX_WIDTH:
+            raise SystemExit(
+                f"--max-core-rank {max_rank} is above {MAX_WIDTH}, the "
+                "widest core rank the 'cuda' kernels take; lower it (the "
+                "default is 4x --core-rank)")
+        controller = RankController(args.core_rank, max_rank,
+                                    tol=args.plateau_tol,
+                                    patience=args.plateau_patience)
     log.info("strategy %s (available: %s), device %s, kernel backend %s, "
              "dims %s, nnz %d, J=%d, R=%d, batch %d, phase_split %s, "
-             "sorted_batches %s, dtype %s, accum_dtype %s, compress %s",
+             "sorted_batches %s, dtype %s, accum_dtype %s, compress %s, "
+             "init %s, adaptive rank %s",
              strategy.name, "/".join(available_strategies()), device,
              backend, dims, args.nnz, args.rank, args.core_rank, args.batch,
              cfg.phase_split, cfg.sorted_batches, cfg.dtype, cfg.accum_dtype,
-             args.compress)
+             args.compress, cfg.init,
+             f"up to {controller.max_rank}" if controller else "off")
 
     t0 = time.perf_counter()
     if data is None:
@@ -154,12 +229,31 @@ def run(
 
     plan = strategy.prepare(train_t, cfg, None, compress=args.compress,
                             seed=args.seed)
-    # one generator draws the cold init, then every batch
+    # one generator draws the cold init, then every batch; a warm start
+    # still draws the cold init from it, so both arms draw the same batches
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    dstate = strategy.init(plan, ft.init_state(gen, cfg, device), gen)
+    state0 = ft.init_state(
+        gen, dataclasses.replace(cfg, init="random"), device)
+    # the warm start's and the rank transitions' own stream
+    init_gen = torch.Generator(device=device).manual_seed(args.seed)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    resuming = bool(ckpt and args.resume and ckpt.latest_step() is not None)
+    warm_s = None
+    if args.warm_start and not resuming:
+        warm_s = {}
+        t_w = time.perf_counter()
+        state0 = ft.TrainState(
+            sketched_init_params(init_gen, cfg, train_t.indices,
+                                 train_t.values, timings=warm_s),
+            cfg.warm_step_offset)
+        warm_s["total"] = time.perf_counter() - t_w
+        log.info("sketched warm start in %.2fs (%s; LR schedule from step "
+                 "%d)", warm_s["total"], ", ".join(
+                     f"{k} {v:.3f}s" for k, v in warm_s.items()
+                     if k != "total"), state0.step)
+    dstate = strategy.init(plan, state0, gen)
     resumed_from = None
-    if ckpt and args.resume and ckpt.latest_step() is not None:
+    if resuming:
         dstate = strategy.restore(plan, ckpt, dstate)
         resumed_from = dstate.step
         log.info("resumed from step %d", dstate.step)
@@ -174,13 +268,14 @@ def run(
         params = strategy.eval_params(plan, dstate)
         r, m = rmse_mae(params, test_t, predict_fn)
         rec = {"step": dstate.step, "rmse": float(r), "mae": float(m)}
-        log.info("step %d rmse %.4f mae %.4f", rec["step"], rec["rmse"],
-                 rec["mae"])
+        log.info("step %d rmse %.4f mae %.4f (core rank %d)", rec["step"],
+                 rec["rmse"], rec["mae"], cfg.core_rank)
         return rec
 
     step_fn = strategy.make_step(plan)
     nnz_step = strategy.nnz_per_step(plan)
     history = [evaluate()]
+    rank_history = []
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     start = last = dstate.step
@@ -208,6 +303,31 @@ def run(
                 leaves = flatten(checkpoint_tree(dstate)).values()
                 ckpt_bytes = sum(t.numel() * t.element_size()
                                  for t in leaves)
+            decision = (controller.observe(history[-1]["rmse"])
+                        if controller else None)
+            if decision is not None and i < args.steps:
+                params, cfg = resize_core_rank(
+                    strategy.eval_params(plan, dstate), cfg,
+                    decision.new_rank, init_gen)
+                if args.refine:
+                    ridx, rval = sample_batch_arrays(
+                        init_gen, train_t.indices, train_t.values,
+                        min(train_t.nnz, REFINE_SAMPLES))
+                    params = refine_factors(
+                        params, cfg, SparseTensor(ridx, rval, dims),
+                        method=args.refine, passes=args.refine_passes)
+                log.info("rank %s -> %d at step %d (%s)", decision.action,
+                         decision.new_rank, i, decision.reason)
+                rank_history.append({"step": i, "action": decision.action,
+                                     "rank": decision.new_rank})
+                plan = strategy.prepare(train_t, cfg, None,
+                                        compress=args.compress,
+                                        seed=args.seed)
+                # go on with the same batch stream from the same step
+                gen.set_state(dstate.rng)
+                dstate = strategy.init(plan, ft.TrainState(params, i), gen)
+                step_fn = strategy.make_step(plan)
+                nnz_step = strategy.nnz_per_step(plan)
             t_int = time.perf_counter()
     steps_done = dstate.step - start
     steps_per_s = steps_done / train_s if train_s > 0 else float("nan")
@@ -232,6 +352,9 @@ def run(
         "resumed_from": resumed_from,
         "ckpt_seconds": ckpt_s,
         "ckpt_bytes": ckpt_bytes,
+        "init": cfg.init,
+        "warm_start_seconds": warm_s,
+        "rank_history": rank_history,
         "cfg": cfg,
         "state": ft.TrainState(strategy.eval_params(plan, dstate),
                                dstate.step),

@@ -1085,3 +1085,65 @@ def test_top_k_ties_ascending_on_card(dev):
         rest = row[len(top):]
         np.testing.assert_array_equal(rest, np.setdiff1d(
             np.arange(rows), top)[:len(rest)])
+
+
+def test_warm_start_deterministic_and_shard_invariant_on_card(dev):
+    """The sketched warm start repeats its bits and does not depend on how
+    its per-sample work is sharded; it launches one kruskal_grad a shard,
+    N scatter_accum and the ALS refine's segment_reduce."""
+    from repro_torch.core import sketch
+    from repro_torch.data.synthetic import planted_tensor
+
+    dims = (300, 200, 100)
+    t = planted_tensor(dims, 60_000, rank=4, core_rank=4, seed=0,
+                       device=dev)
+    cfg = ft.FastTuckerConfig(dims=dims, ranks=(4,) * 3, core_rank=4,
+                              batch_size=4096, backend="cuda",
+                              init="sketched")
+
+    def warm(shards):
+        return sketch.sketched_init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, t.indices,
+            t.values, num_shards=shards)
+
+    reset_launch_counts()
+    base = warm(1)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["kruskal_grad"] == 1 and counts["scatter_accum"] == 3
+    assert counts["segment_reduce"] == cfg.sketch_refine_passes * 3 * 2
+    for shards in (1, 3, 7):
+        other = warm(shards)
+        for a, b in zip(base.factors + base.core_factors,
+                        other.factors + other.core_factors):
+            assert torch.equal(a, b), shards
+
+
+def test_als_ccd_epochs_repeat_their_bits_on_card(dev):
+    """The ordered segment sums (segment_reduce, no atomics): an ALS and a
+    CCD epoch from the same parameters give the same bits twice, and
+    launch (Gram slices + 1) a mode and chunk, and 2·J a mode."""
+    from repro_torch.core import als, ccd
+    from repro_torch.core import cutucker as cu
+    from repro_torch.data.synthetic import planted_tensor
+
+    dims = (500, 300, 60)
+    t = planted_tensor(dims, 200_000, rank=4, core_rank=4, seed=1,
+                       device=dev)
+    for J in (4, 12):
+        ccfg = cu.CuTuckerConfig(dims=dims, ranks=(J,) * 3)
+        p = cu.init_params(torch.Generator(device=dev).manual_seed(0), ccfg,
+                           dev)
+        for mod, cfg_cls, want in (
+                (als, als.ALSConfig,
+                 3 * 3 * (-(-J * J // als.FOLD_WIDTH) + 1)),
+                (ccd, ccd.CCDConfig, 3 * 2 * J)):
+            epoch = getattr(mod, f"{mod.__name__.rsplit('.', 1)[1]}_epoch")
+            cfg = cfg_cls(dims=dims, ranks=(J,) * 3)
+            reset_launch_counts()
+            a = epoch(p, t, cfg, chunk=70_000, backend="cuda")
+            torch.cuda.synchronize()
+            assert launch_counts()["segment_reduce"] == want
+            b = epoch(p, t, cfg, chunk=70_000, backend="cuda")
+            for x, y in zip(a.factors, b.factors):
+                assert torch.equal(x, y)

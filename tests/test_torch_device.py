@@ -129,14 +129,12 @@ def test_wrappers_refuse_non_cuda_devices_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("option", [
-    {"init": "sketched"}, {"accum_dtype": "bfloat16"}, {"dtype": "float16"},
+    {"init": "bogus"}, {"accum_dtype": "bfloat16"}, {"dtype": "float16"},
     {"update_order": "gauss_southwell"},
-    {"init": "sketched", "sorted_batches": True}])
+    {"init": "bogus", "sorted_batches": True}])
 def test_config_raises_on_options_not_ported(option):
-    """Only the sketched start is still to port; the reference itself
-    refuses the other values."""
-    exc = NotImplementedError if "init" in option else ValueError
-    with pytest.raises(exc, match=next(iter(option))):
+    """Values the reference itself refuses raise ValueError, as there."""
+    with pytest.raises(ValueError, match=next(iter(option))):
         ft.FastTuckerConfig(dims=(5, 4, 3), ranks=(2, 2, 2), core_rank=2,
                             **option)
 

@@ -237,3 +237,56 @@ def test_flash_bwd_plan_workspace_at_the_training_shape():
 def test_flash_bwd_plan_refuses_head_sizes_the_kernel_lacks(D):
     with pytest.raises(ValueError, match="D in"):
         flash_attention_bwd.plan(1, 64, 64, 2, 2, D)
+
+
+def test_segment_plan_routes_long_runs_to_the_walk():
+    """The training batches (B = 4096 at the Netflix modes) stay on the
+    staged route; the ALS chunk (2^22 × J²) and CCD's whole-mode sums (89 M
+    × 1) walk, one lane group a row."""
+    for rows in (480_189, 17_770, 2_182):
+        assert segment_reduce.plan(rows, 4, 4096).route == "staged"
+        assert segment_reduce.plan(rows, 4, 4096) == segment_reduce.plan(
+            rows, 4)
+    for rows, J, B in ((480_189, 16, 1 << 22), (2_182, 16, 1 << 22),
+                       (2_182, 1, 89_164_901), (64, 64, 4096)):
+        pl = segment_reduce.plan(rows, J, B)
+        W = segment_reduce.group_width(J)
+        assert pl.route == "walk" and pl.rows_per_block == 256 // W
+        assert pl.blocks == -(-rows // pl.rows_per_block)
+        assert pl.smem_bytes == 0
+    assert [segment_reduce.group_width(J) for J in (1, 3, 4, 16, 33, 64)] \
+        == [1, 4, 4, 16, 32, 32]
+
+
+def _group_lower_bound(ids, a, t, W):
+    """csrc/segment_reduce.cu::group_lower_bound, lane by lane."""
+    b = len(ids)
+    while a < b:
+        n = b - a
+        count = sum(ids[a + (sub + 1) * n // (W + 1)] < t
+                    for sub in range(W))
+        if count == 0:
+            b = a + n // (W + 1)
+        else:
+            next_a = a + count * n // (W + 1) + 1
+            if count < W:
+                b = a + (count + 1) * n // (W + 1)
+            a = next_a
+    return a
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 16, 32])
+def test_walk_search_finds_each_rows_run(W):
+    """The walk route's (W + 1)-ary search, transcribed: for every row of
+    sorted ids with long runs, gaps and ids outside [0, rows) it finds the
+    first position of the row and of the next one."""
+    import bisect
+
+    rng = np.random.default_rng(W)
+    for n, hi in ((1, 3), (7, 4), (1000, 20), (5000, 3000)):
+        ids = np.sort(rng.integers(-2, hi, n)).tolist()
+        for r in range(hi):
+            start = _group_lower_bound(ids, 0, r, W)
+            assert start == bisect.bisect_left(ids, r)
+            assert _group_lower_bound(ids, start, r + 1, W) == \
+                bisect.bisect_left(ids, r + 1)

@@ -148,3 +148,26 @@ def test_plain_versions_are_the_wrappers_cpu_path():
     got = kruskal_grad.kruskal_grad(*t)
     want = ref.kruskal_grad_ref(*t)
     assert all(torch.equal(x, y) for x, y in zip(got[:4], want[:4]))
+
+
+@pytest.mark.parametrize("B,J,rows", [(4099, 16, 7), (20_000, 1, 50),
+                                      (3000, 64, 2000)])
+def test_segment_reduce_ref_cpu_fold_equals_the_passes(B, J, rows):
+    """The plain ordered fold: on the CPU one index_add_, on CUDA one pass
+    per place in a run (``fold_in_passes``); both add each run in sorted
+    position order, so they give the same bits, and those of a sequential
+    f32 fold."""
+    rng = np.random.default_rng(B + J)
+    g = torch.tensor(rng.normal(0, 1e3, (B, J)).astype(np.float32))
+    idx = torch.sort(torch.tensor(
+        rng.integers(-3, rows + 3, B).astype(np.int32)), stable=True).values
+    got = ref.segment_reduce_ref(g, idx, rows)
+    keep = (idx >= 0) & (idx < rows)
+    passes = ref.fold_in_passes(torch.zeros((rows + 1, J)), g, idx,
+                                torch.where(keep, idx.long(), rows))[:rows]
+    assert torch.equal(got, passes)
+    seq = np.zeros((rows, J), np.float32)
+    for p, r in enumerate(idx.tolist()):
+        if 0 <= r < rows:
+            seq[r] = seq[r] + g[p].numpy()
+    np.testing.assert_array_equal(got.numpy(), seq)

@@ -404,7 +404,7 @@ def test_std_train_compress_converges():
 
 
 @pytest.mark.parametrize("flag", ["--mode=local", "--donate=on",
-                                  "--warm-start", "--adaptive-rank",
+                                  "--prefetch-depth=2", "--spill-dir=x",
                                   "--out-of-core"])
 def test_std_train_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
