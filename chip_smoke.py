@@ -2,12 +2,12 @@
 """Drive the PyTorch/CUDA port of FastTucker on one CUDA card and check it.
 
     python3 chip_smoke.py [--steps 600] [--nnz 99072112] [--lm-layers 40]
-                          [--report PATH]
+                          [--report PATH] [--bench-out build/bench]
 
 Phases (each failure ends the run with a non-zero exit code):
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch and
-   nvcc versions, and the parallel ``nvcc`` build of the seven kernel
+   nvcc versions, and the parallel ``nvcc`` build of the eight kernel
    sources in ``src/repro_torch/kernels/csrc`` (with ptxas' register
    report).
 2. Each kernel against its plain PyTorch version on the card, over
@@ -168,8 +168,9 @@ Phases (each failure ends the run with a non-zero exit code):
    (J = R = 4) and of the rank-64 model of phase 3's wide run, no new
    training: ``predict`` on ``"cuda"`` against a ``"torch"`` server
    (2e-5 of the largest), a request's bits alone and inside a full 2048
-   bucket, exactly one ``kruskal_contract`` per bucket chunk and no kernel
-   from ``top_k``, ``reconstruct_rows``, ``update_rows`` or
+   bucket, exactly one ``kruskal_contract`` per bucket chunk, no kernel
+   from ``top_k`` or ``reconstruct_rows``, one ``patch_table_rows`` from
+   ``update_rows`` and one ``mode_product_rows`` a mode from
    ``refresh_tables``; ``top_k(mode 0 -> 1, k = 10)`` against a dense f32
    recompute (ids equal where the k-th and (k+1)-th scores differ by more
    than 1e-5) and ``reconstruct_rows`` of four 17,770 x 2,182 slices
@@ -180,12 +181,15 @@ Phases (each failure ends the run with a non-zero exit code):
    answered.  Then a ``RefreshSupervisor`` over the paper's model with
    ``LocalStrategy`` on phase 3's tensor: 4 rounds of 65,536 held-out
    arrivals, K = 4 steps at batch 4096 each, beside a query thread;
-   exactly K ``kruskal_grad`` and 3K ``scatter_accum`` a round; the
+   exactly K ``kruskal_grad`` and 3K ``scatter_accum`` a round, and one
+   ``patch_table_rows`` a patched mode (one ``mode_product_rows`` a mode
+   in a rebuild round); the
    patched tables bitwise a fresh server's from the refreshed params; a
    second run under ``FaultPlan.parse("refresh@0:1:2,publish@0")``
    degrades, recovers and ends on the first run's tables, factors and
    generator state bitwise; ``update_rows`` against ``refresh_tables``
-   seconds, dirty rows per round and the staleness the queries saw.
+   seconds and, over 20 profiled calls, each one's host and device time
+   by operation; dirty rows per round and the staleness the queries saw.
    ``kruskal_contract`` (pred only) at B in {256, 2048}, J = R in {4, 64}
    by phase 5's method beside its byte bound and ``torch.einsum``; peak
    device bytes; one profiled closed-loop second (busy share, device
@@ -208,6 +212,36 @@ Phases (each failure ends the run with a non-zero exit code):
    the range finder's ``kruskal_grad`` call and an ALS chunk's
    ``segment_reduce`` by phase 5's method beside their bounds, plain
    versions and ``zeros`` + ``index_add_``.
+18. The port's benchmarks (``repro_torch.benchmarks``) at FULL on
+   ``"cuda"``.  First the serving tables' kernels against their plain
+   versions: ``mode_product_rows`` bitwise at M ∈ {1, 600, 60,000} and
+   J = R ∈ {4, 64} and at every table the main paths build
+   (``MPR_SHAPES``), in f32 and bf16; ``patch_table_rows`` at 1, 600 and
+   6,000 dirty rows of 60,000, at ``bench_refresh``'s fractions and at a
+   phase-16 refresh round's modes (``PATCH_SHAPES``): table and mirror
+   bitwise the plain patch and the patched table bitwise a rebuild, the
+   colsum within 1e-5; the largest absolute errors measured go on the
+   kernels line; their times by phase 5's method beside bounds, plain
+   versions and ``torch.matmul``; ``update_rows`` (1 % and 10 % of mode
+   0) and ``refresh_tables`` at ``bench_refresh``'s FULL shape (rank 64),
+   each operation's host and device time a call, on ``"cuda"`` and on
+   the plain path (``"torch"`` on the card: the operations the server ran
+   before the kernels), and ``bench_refresh`` FULL on that plain path,
+   recorded beside the kernels' run and not validated.  Then, each with
+   its launch counts: Fig. 5
+   (``bench_param_sweep``) and Fig. 7a (``bench_order_scaling``), each
+   point's wall time and growth factor and its device time a step from a
+   short profile; Table 13 (``bench_sota_time.run``) and the step sweep
+   (``run_step_sweep``, ``validate_bench_step``); ``bench_serve``
+   (``validate_bench_serve``); ``bench_refresh --supervised`` at rank 64,
+   whose validator holds the patch to beating the rebuild at every dirty
+   fraction ≤ 10 %; ``bench_lm_step``; the fusion compare
+   (``bench_kernel_blocks``: ``batch_gradients`` exactly one
+   ``kruskal_grad`` launch); the examples ``decompose_ratings`` (stopped
+   at 400 steps, resumed to 800: bitwise an uninterrupted run) and
+   ``serve_batched``.  The three documents go to ``--bench-out``
+   (``BENCH_torch_step.json``, ``BENCH_torch_serve.json``,
+   ``BENCH_torch_refresh.json``).
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -223,6 +257,7 @@ import dataclasses
 import json
 import math
 import statistics
+import shutil
 import subprocess
 import sys
 import time
@@ -297,7 +332,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
     # no Pallas kernel: the reference's jnp custom-VJP backward
     "flash_attention_bwd": "src/repro/models/flash.py:103",
+    # no Pallas kernel: the reference's jnp mode products of the serving
+    # tables and its jitted row patch
+    "mode_product_rows": "src/repro/core/kruskal.py:81",
+    "patch_table_rows": "src/repro/serve/engine.py:369",
 }
+# the CUDA source of each wrapper where it is not <name>.cu
+SOURCE = {"patch_table_rows": "mode_product_rows"}
 LM_KERNELS = ("tucker_matmul", "flash_attention", "flash_attention_bwd")
 # phase 16: the reference's FULL closed-loop traffic
 # (benchmarks/bench_serve.py:44-47)
@@ -310,6 +351,29 @@ SERVE_FAULTS = "refresh@0:1:2,publish@0"
 SERVE_TIME_SHAPES = ((256, 4), (2048, 4), (256, 64), (2048, 64))
 SERVE_TOP_IDS = 16            # top_k entities checked against dense slices
 SERVE_SLICE_IDS = 4           # reconstruct_rows ids (17,770 x 2,182 each)
+# phase 18: the table kernels' checks, as (rows, J = R): the ISSUE's grid,
+# then every table the main paths build: the Netflix modes at J = R = 4
+# and 64 (phases 3 and 16 serve them), bench_refresh FULL's modes at 64
+# (src/repro_torch/benchmarks/bench_refresh.py), bench_serve FULL's and
+# serve_batched's at 8
+MPR_ROWS = (1, 600, 60_000)
+MPR_WIDTHS = (4, 64)
+MPR_SHAPES = (tuple((M, J) for J in MPR_WIDTHS for M in MPR_ROWS)
+              + tuple((M, J) for J in (4, 64) for M in NETFLIX_DIMS)
+              + ((40_000, 64), (20_000, 64))
+              + tuple((M, 8) for M in (2_000, 1_200, 150, 400, 250, 30)))
+# patches as (table rows, J = R, dirty rows): 1, 600 and 6,000 of 60,000
+# at J = R = 4 and 64; bench_refresh FULL's fractions of mode 0 at 64; a
+# refresh round's mode 0 in phase 16 (14,294 dirty rows), and its modes 1
+# and 2 at J = R = 4
+PATCH_SHAPES = (tuple((60_000, J, K) for J in MPR_WIDTHS
+                      for K in (1, 600, 6_000))
+                + tuple((60_000, 64, K) for K in (1_200, 3_000, 15_000))
+                + ((NETFLIX_DIMS[0], 4, 14_294), (NETFLIX_DIMS[1], 4, 9_000),
+                   (NETFLIX_DIMS[2], 4, 2_000)))
+REFRESH_SHAPE = (60_000, 64)
+# the decompose example's default steps
+EXAMPLE_STEPS = 800
 # phase 17: the warm start with the reference's sketch defaults on phase 3's
 # tensor, twice and then in 3 shards; the warm arm's evaluation cadence;
 # cuda against torch at bench_convergence's FULL shape
@@ -888,6 +952,8 @@ DEVICE_KERNEL = {
     "scatter_accum": "scatter_accum_kernel",
     "segment_reduce": "segment_reduce_kernel",
     "kruskal_contract": "contract_",
+    "mode_product_rows": "mode_product_rows_kernel",
+    "patch_table_rows": "patch_rows_kernel",
 }
 
 
@@ -1383,6 +1449,50 @@ def _profile_window(torch, fn) -> tuple[float, dict]:
             kernels[ev.name][0] += 1
             kernels[ev.name][1] += ev.time_range.elapsed_us()
     return wall, kernels
+
+
+def op_profile(torch, fn, calls: int = 20) -> dict:
+    """``calls`` calls of ``fn`` under the profiler, each closed by a
+    synchronize: per call, the wall time, the host's self time of each
+    host operation (runtime calls such as ``cudaMemcpyAsync`` and
+    ``cudaLaunchKernel`` included; the profiler's one-time buffer request
+    left out) and the device time and count of each device operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    host: dict = {}
+    dev: dict = {}
+    for ev in prof.events():
+        if "CUDA" in str(ev.device_type):
+            d = dev.setdefault(ev.name, [0, 0.0])
+            d[0] += 1
+            d[1] += ev.time_range.elapsed_us()
+        elif ev.name != "Activity Buffer Request":
+            host[ev.name] = host.get(ev.name, 0.0) + ev.self_cpu_time_total
+    return {"wall_ms": wall / calls * 1e3,
+            "host_us": {k: v / calls for k, v in sorted(
+                host.items(), key=lambda kv: -kv[1])[:8]},
+            "device_us": sum(v[1] for v in dev.values()) / calls,
+            "device_ops": sum(v[0] for v in dev.values()) / calls,
+            "device": {k: [c / calls, us / calls] for k, (c, us) in sorted(
+                dev.items(), key=lambda kv: -kv[1][1])[:6]}}
+
+
+def log_op_profile(what: str, prof: dict) -> None:
+    log(f"{what}: {prof['wall_ms']:.3f} ms a call under the profiler; "
+        f"device {prof['device_us']:.1f} us in {prof['device_ops']:.1f} "
+        "operations (" + "; ".join(f"{n[:48]} {c:g}x {us:.1f} us"
+                                   for n, (c, us) in prof["device"].items())
+        + "); host self time a call: " + ", ".join(
+            f"{n[:32]} {us:.1f} us" for n, us in prof["host_us"].items()))
 
 
 def phase_lm_profile(torch, serve, cfg, params, steps: int = 3) -> dict:
@@ -2405,7 +2515,8 @@ def _serve_queries(torch, K, name, srv, plain, params, pool) -> dict:
     srv.refresh_tables()
     torch.cuda.synchronize()
     _counts_are(f"serving [{name}] top_k, reconstruct_rows, update_rows, "
-                "refresh_tables", K.launch_counts(), zero)
+                "refresh_tables", K.launch_counts(),
+                dict(zero, patch_table_rows=1, mode_product_rows=srv.order))
     ids_t = torch.from_numpy(ids).long().cuda()
     checked = 0
     worst_score = worst_slice = 0.0
@@ -2438,8 +2549,9 @@ def _serve_queries(torch, K, name, srv, plain, params, pool) -> dict:
         f"more than 1e-5; scores within {worst_score:.3g} of the largest; "
         f"reconstruct_rows(mode 0, {SERVE_SLICE_IDS} ids) of "
         f"{tuple(slices.shape)} within {worst_slice:.3g} of dense_reconstruct"
-        f" (tolerance {TOL['kruskal_contract']:g}); top_k, reconstruct_rows, "
-        "update_rows and refresh_tables launched no kernel")
+        f" (tolerance {TOL['kruskal_contract']:g}); top_k and "
+        "reconstruct_rows launched no kernel, update_rows one "
+        "patch_table_rows, refresh_tables one mode_product_rows a mode")
     if not (worst_score <= TOL["kruskal_contract"]
             and worst_slice <= TOL["kruskal_contract"]):
         raise AssertionError(f"serving [{name}]: top-k scores {worst_score}"
@@ -2566,7 +2678,15 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
         if errors or qt.is_alive():
             raise AssertionError(f"serving refresh: the query thread failed:"
                                  f" {errors[:3]}")
-        if counts != dict(want, kruskal_contract=counts["kruskal_contract"]) \
+        # a patch round: one patch_table_rows a mode with dirty rows; a
+        # rebuild round: one mode_product_rows a mode
+        tables = dict(
+            patch_table_rows=sum(sum(1 for d in r["dirty_rows"] if d)
+                                 for r in rounds if r["publish"] == "patch"),
+            mode_product_rows=sum(len(r["dirty_rows"]) for r in rounds
+                                  if r["publish"] == "rebuild"))
+        if counts != dict(want, kruskal_contract=counts["kruskal_contract"],
+                          **tables) \
                 or counts["kruskal_contract"] < 1:
             raise AssertionError(f"serving refresh: launch counts {counts}, "
                                  f"want {want} and queries")
@@ -2638,21 +2758,13 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
             f"{t * 1e3:.3f}" for t in patch_s) + " ms per mode, against "
         f"refresh_tables (all {sum(srv.dims):,} rows) {rebuild_s * 1e3:.3f} ms"
         " (host clock, closed by a synchronize; medians of 5)")
+    rows0 = cur[0].index_select(0, torch.from_numpy(dirty[0]).long().cuda())
     profiles = {}
-    for what, fn in (("update_rows, mode 0", lambda: srv.update_rows(
-            0, dirty[0], cur[0].index_select(
-                0, torch.from_numpy(dirty[0]).long().cuda()))),
+    for what, fn in (("update_rows, mode 0",
+                      lambda: srv.update_rows(0, dirty[0], rows0)),
                      ("refresh_tables", srv.refresh_tables)):
-        wall, kernels = _profile_window(torch, fn)
-        busy = sum(v[1] for v in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
-        log(f"serving refresh profile [{what}]: {wall * 1e3:.3f} ms wall "
-            f"under the profiler, device busy {busy / 1e3:.3f} ms in "
-            f"{sum(v[0] for v in kernels.values())} device operations; "
-            "largest: " + "; ".join(f"{n[:50]} {c}x {us:.1f} us"
-                                    for n, (c, us) in top))
-        profiles[what] = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
-                          "device_ops": sum(v[0] for v in kernels.values())}
+        profiles[what] = op_profile(torch, fn)
+        log_op_profile(f"serving refresh profile [{what}]", profiles[what])
     stale = [st for _, st in seen]
     rec = {"rounds": rounds, "wall_s": wall, "queries": len(seen),
            "staleness_median_s": statistics.median(stale),
@@ -3065,6 +3177,346 @@ def phase_convergence(torch, K, std_train, base_res,
 
 
 # ---------------------------------------------------------------------------
+# phase 18
+# ---------------------------------------------------------------------------
+
+def _rows(lines: list[str]) -> dict[str, tuple[float, str]]:
+    """A benchmark's CSV rows as {name: (us, derived)} (a name may hold a
+    comma, a parsed derived column does not)."""
+    out = {}
+    for ln in lines:
+        name, us, derived = ln.rsplit(",", 2)
+        out[name] = (float(us), derived)
+    return out
+
+
+def _device_per_call(torch, fn, calls: int = 10) -> tuple:
+    """(device-busy µs, device operations) a call of ``fn`` under the
+    profiler, as phase 6 reads a step; (None, None) where it recorded no
+    device time."""
+    fn()
+    _, kernels = _profile_window(torch, lambda: [fn() for _ in range(calls)])
+    if not kernels:
+        return None, None
+    return (sum(v[1] for v in kernels.values()) / calls,
+            sum(v[0] for v in kernels.values()) / calls)
+
+
+def _table_kernels(torch, K) -> tuple[dict, list[dict]]:
+    """The serving tables' kernels against their plain versions (bitwise
+    rows, a patched row equal to the same row rebuilt), then their times
+    beside bounds, plain versions and torch.matmul."""
+    import numpy as np
+
+    mpr = K.mode_product_rows.mode_product_rows
+    ptr = K.mode_product_rows.patch_table_rows
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs = {"mode_product_rows": 0.0, "patch_table_rows": 0.0}
+
+    def abs_err(got, want) -> float:
+        return float((got.float() - want.float()).abs().max())
+
+    cores = {}
+    for M, JR in MPR_SHAPES:
+        if JR not in cores:
+            cores[JR] = torch.randn((JR, JR), generator=gen, device="cuda")
+        rows = torch.randn((M, JR), generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = rows.to(dt), cores[JR].to(dt)
+            got, want = mpr(a, b), K.ref.mode_product_rows_ref(a, b)
+            err = abs_err(got, want)
+            errs["mode_product_rows"] = max(errs["mode_product_rows"], err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"mode_product_rows differs from its "
+                                     f"plain version at M = {M}, J = R = "
+                                     f"{JR}, {dt}: max abs error {err:.3g}")
+    for I, JR, K_ in PATCH_SHAPES:
+        core = cores[JR]
+        mirror = torch.randn((I, JR), generator=gen, device="cuda")
+        table = mpr(mirror, core)
+        colsum = table.sum(0)
+        ids = np.sort(np.random.default_rng(K_).permutation(I)[:K_]
+                      ).astype(np.int32)
+        new = torch.randn((K_, JR), generator=gen, device="cuda")
+        m_k, m_p = mirror.clone(), mirror.clone()
+        t_k, c_k = ptr(table, colsum, m_k, core, ids, new)
+        t_p, c_p = K.ref.patch_table_rows_ref(table, colsum, m_p, core, ids,
+                                              new)
+        rebuilt = mpr(m_k, core)
+        _, rel = rel_err(c_k, c_p)
+        err = max(abs_err(t_k, t_p), abs_err(c_k, c_p))
+        errs["patch_table_rows"] = max(errs["patch_table_rows"], err)
+        if not (torch.equal(t_k, t_p) and torch.equal(m_k, m_p)
+                and torch.equal(t_k, rebuilt) and rel <= 1e-5):
+            raise AssertionError(
+                f"patch_table_rows at K = {K_} of {I:,}, J = R = {JR}: "
+                f"table {torch.equal(t_k, t_p)}, mirror "
+                f"{torch.equal(m_k, m_p)}, rebuilt "
+                f"{torch.equal(t_k, rebuilt)}, colsum {rel:.3g}")
+    log(f"mode_product_rows: bitwise its plain version at (M, J = R) in "
+        f"{list(MPR_SHAPES)} (f32 and bf16); patch_table_rows at (rows, "
+        f"J = R, dirty rows) in {list(PATCH_SHAPES)}: table and mirror "
+        f"bitwise the plain patch and the patched table bitwise a rebuild "
+        f"from the patched factor; colsum within 1e-5 relative, largest "
+        f"absolute error {errs['patch_table_rows']:.3g}")
+
+    floor = floor_ms(torch, K.build)
+    times = []
+    I, JR = REFRESH_SHAPE
+    core = torch.randn((JR, JR), generator=gen, device="cuda")
+    for M, J in ((I, JR), (NETFLIX_DIMS[0], 4)):
+        a = torch.randn((M, J), generator=gen, device="cuda")
+        b = core[:J, :J].contiguous()
+        ms = device_ms(torch, lambda: mpr(a, b))
+        plain = device_ms(torch, lambda: K.ref.mode_product_rows_ref(a, b),
+                          iters=20)
+        lib = device_ms(torch, lambda: torch.matmul(a, b))
+        t_b, by = bound(4 * (M * J + J * J + M * J), 2 * M * J * J)
+        dev = profiled_ms(torch, lambda: mpr(a, b),
+                          DEVICE_KERNEL["mode_product_rows"])
+        times.append(("mode_product_rows", f"table build, M = {M:,}, J = R "
+                      f"= {J}", ms, plain, lib, t_b, by, dev))
+    mirror = torch.randn((I, JR), generator=gen, device="cuda")
+    table = mpr(mirror, core)
+    colsum = table.sum(0)
+    Kd = I // 10
+    ids = np.sort(np.random.default_rng(0).permutation(I)[:Kd]).astype(
+        np.int32)
+    new = torch.randn((Kd, JR), generator=gen, device="cuda")
+    call = lambda: ptr(table, colsum, mirror, core, ids, new)  # noqa: E731
+    ms = device_ms(torch, call)
+    plain = device_ms(torch, lambda: K.ref.patch_table_rows_ref(
+        table, colsum, mirror, core, ids, new), iters=20)
+    t_b, by = bound(4 * (2 * I * JR + 3 * Kd * JR + Kd * JR + JR * JR
+                         + Kd + 2 * JR), 4 * Kd * JR * JR)
+    dev = profiled_ms(torch, call, DEVICE_KERNEL["patch_table_rows"])
+    times.append(("patch_table_rows", f"row patch, {Kd:,} of {I:,} rows, "
+                  f"J = R = {JR} (the table copy included)", ms, plain, None,
+                  t_b, by, dev))
+    out = []
+    for name, tag, ms, plain, lib, t_b, by, dev in times:
+        log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call (plain "
+            f"{plain * 1e3:.2f} us"
+            + (f", torch.matmul {lib * 1e3:.2f} us" if lib else
+               ", no single PyTorch call")
+            + f"), bound {t_b * 1e3:.3f} us by {by} ({t_b / ms:.1%} of the "
+            f"event time), launch floor {floor * 1e3:.2f} us; profiler "
+            "device duration "
+            + (f"{dev * 1e3:.2f} us" if dev else "not measured"))
+        out.append({"name": name, "variant": tag, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": t_b, "bound_by": by,
+                    "floor_ms": floor, "device_ms": dev})
+    return errs, out
+
+
+def _refresh_ops(torch, backend: str) -> dict:
+    """``update_rows`` of mode 0's dirty rows (1 % and 10 %) and
+    ``refresh_tables`` at ``bench_refresh``'s FULL shape (rank 64) on
+    ``backend``, each operation's host and device time a call."""
+    import numpy as np
+
+    from repro_torch.benchmarks.bench_refresh import FULL
+    from repro_torch.core.fasttucker import FastTuckerParams
+    from repro_torch.serve import TuckerServer
+
+    dims, J = FULL["dims"], FULL["rank"]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    srv = TuckerServer(FastTuckerParams(
+        tuple(torch.randn((d, J), generator=gen, device="cuda")
+              for d in dims),
+        tuple(torch.randn((J, J), generator=gen, device="cuda")
+              for _ in dims)), backend=backend)
+    rng = np.random.default_rng(22)
+    out = {}
+    for frac in (0.01, 0.10):
+        k = int(dims[0] * frac)
+        ids = np.sort(rng.permutation(dims[0])[:k]).astype(np.int32)
+        rows = torch.randn((k, J), generator=gen, device="cuda")
+        what = f"update_rows, {k:,} of {dims[0]:,} rows, rank {J}"
+        out[what] = op_profile(torch, lambda: srv.update_rows(0, ids, rows))
+        log_op_profile(f"refresh operations on {backend} [{what}]",
+                       out[what])
+    what = f"refresh_tables, {sum(dims):,} rows, rank {J}"
+    out[what] = op_profile(torch, srv.refresh_tables)
+    log_op_profile(f"refresh operations on {backend} [{what}]", out[what])
+    return out
+
+
+def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
+                                                        dict]:
+    """The port's benchmarks at FULL on "cuda", each through its validator
+    where it has one, with each one's launches; the serving tables'
+    kernels checked and timed first.  Returns the record, the kernel time
+    rows, the main path's launch counts and the kernels' errors."""
+    from repro_torch.benchmarks import (bench_kernel_blocks, bench_lm_step,
+                                        bench_order_scaling,
+                                        bench_param_sweep, bench_refresh,
+                                        bench_serve, bench_sota_time)
+    from repro_torch.benchmarks.common import (validate_bench_serve,
+                                               validate_bench_step)
+    from repro_torch.examples import decompose_ratings, serve_batched
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    errs, times = _table_kernels(torch, K)
+    rec = {"tables_times": times,
+           "refresh_ops": {b: _refresh_ops(torch, b)
+                           for b in ("cuda", "torch")}}
+    # bench_refresh FULL on the plain path, off the counts: what the
+    # contract reads without the table kernels
+    plain = bench_refresh.run(smoke=False, device="cuda", backend="torch")
+    log("bench_refresh FULL (rank 64) on the plain path (torch): " + "; "
+        .join(f"{r['dirty_fraction']:g}: patch {r['patch_ms']:.4f} ms, "
+              f"rebuild {r['rebuild_ms']:.4f} ms, x{r['speedup']:.2f}"
+              for r in plain["rows"]))
+    rec["bench_refresh_plain"] = plain
+    main_counts = {k: 0 for k in REPLACES}
+    secs = {}
+
+    def drive(name, fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for k, v in counts.items():
+            main_counts[k] += v
+        log(f"{name}: {secs[name]:.1f}s; launch counts "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        return res, counts
+
+    # 18.1 Fig. 5 and Fig. 7a: the wall rows, then each point's device time
+    for fig, bench, tag in (("fig5", bench_param_sweep, "vs_prev"),
+                            ("fig7a", bench_order_scaling,
+                             "vs_prev_order")):
+        lines, counts = drive(fig, lambda b=bench: b.run(device="cuda",
+                                                         backend="cuda"))
+        _check_path(fig, counts, ("kruskal_grad", "scatter_accum"),
+                    LM_KERNELS)
+        # the rows come in the points' order (a name may repeat: Fig. 5's
+        # J = R = 8 point closes one sweep and opens the other)
+        pts = bench.points(device="cuda", backend="cuda")
+        dev, prev = [], {}
+        for (sweep, name, fn), ln in zip(pts, lines):
+            _, us, wall_growth = ln.rsplit(",", 2)
+            busy, ops = _device_per_call(torch, fn)
+            growth = (busy / prev[sweep] if busy and prev.get(sweep)
+                      else None)
+            dev.append({"sweep": sweep, "name": name, "device_us": busy,
+                        "device_ops": ops, "device_growth": growth,
+                        "wall_us": float(us), "wall_growth": wall_growth})
+            prev[sweep] = busy
+            log(f"{name} ({sweep} sweep): wall {float(us):.1f} us/step "
+                f"({wall_growth or 'first'}); device "
+                + (f"{busy:.1f} us/step in {ops:.1f} operations"
+                   + (f" (x{growth:.2f} vs prev)" if growth else "")
+                   if busy else "not measured"))
+        rec[fig] = {"rows": dev, "launch_counts": counts}
+
+    # 18.2 Table 13 and the step sweep (bench_step/v3)
+    lines, counts = drive("table13", lambda: bench_sota_time.run(
+        device="cuda", backend="cuda"))
+    t13 = _rows(lines)
+    rec["table13"] = {"rows": {k: {"us": v[0], "derived": v[1]}
+                               for k, v in t13.items()},
+                      "launch_counts": counts}
+    for J in bench_sota_time.TABLE13_J:
+        log(f"table13 J = {J}: cuTucker / FastTucker "
+            f"{t13[f'table13/cuTucker_J{J}'][1]} (paper at J = 4: 3.62x)")
+    doc, counts = drive("step_sweep", lambda: bench_sota_time.run_step_sweep(
+        smoke=False, out_path=str(out_dir / "BENCH_torch_step.json"),
+        device="cuda"))
+    validate_bench_step(doc)
+    log(f"step sweep: validate_bench_step passed; derived {doc['derived']}")
+    rec["step_sweep"] = {"doc": doc, "launch_counts": counts}
+
+    # 18.3 serving (bench_serve/v1) and the refresh contract
+    doc, counts = drive("bench_serve", lambda: bench_serve.run(
+        smoke=False, out_path=str(out_dir / "BENCH_torch_serve.json"),
+        device="cuda", backend="cuda"))
+    validate_bench_serve(doc)
+    thr = doc["throughput"]
+    log(f"bench_serve: validate_bench_serve passed; per-query "
+        f"{thr['per_query_qps']:,.1f} q/s, bucketed "
+        f"{thr['bucketed_qps']:,.1f} q/s, speedup {thr['speedup']:.1f}; "
+        f"{thr['sweep_compiles']} bucket lengths launched (ladder bound "
+        f"{thr['ladder_bound']}); closed loop "
+        f"{doc['closed_loop']['rows'][0]['achieved_qps']:,.1f} q/s at "
+        f"{doc['closed_loop']['rows'][0]['offered_qps']:,.0f} offered")
+    rec["bench_serve"] = {"doc": doc, "launch_counts": counts}
+    doc, counts = drive("bench_refresh", lambda: bench_refresh.run(
+        smoke=False, supervised=True,
+        out_path=str(out_dir / "BENCH_torch_refresh.json"), device="cuda",
+        backend="cuda"))
+    bench_refresh.validate(doc)
+    if not counts["patch_table_rows"] or not counts["mode_product_rows"]:
+        raise AssertionError(f"bench_refresh: the table kernels did not "
+                             f"launch: {counts}")
+    log("bench_refresh FULL (rank 64): validate passed (the patch beats the "
+        "rebuild at every dirty fraction <= 10 %); " + "; ".join(
+            f"{r['dirty_fraction']:g}: patch {r['patch_ms']:.4f} ms, rebuild "
+            f"{r['rebuild_ms']:.4f} ms, x{r['speedup']:.2f}"
+            for r in doc["rows"])
+        + f"; supervised {doc['supervised']}")
+    rec["bench_refresh"] = {"doc": doc, "launch_counts": counts}
+
+    # 18.4 the LM step and the fusion compare
+    lines, counts = drive("lm_step", lambda: bench_lm_step.run(
+        device="cuda", backend="cuda"))
+    rec["lm_step"] = {"rows": _rows(lines), "launch_counts": counts}
+    lines, counts = drive("fusion", lambda: bench_kernel_blocks.run(
+        device="cuda"))
+    fusion = _rows(lines)
+    bg = bench_kernel_blocks.batch_gradients_launches(torch.device("cuda"))
+    if bg != dict({k: 0 for k in bg}, kruskal_grad=1):
+        raise AssertionError(f"batch_gradients on cuda: launches {bg}, want "
+                             "exactly one kruskal_grad")
+    log(f"fusion: unfused {fusion['fusion/unfused_contract+torch_grads'][0]}"
+        f" us, fused {fusion['fusion/fused_kruskal_grad'][0]} us "
+        f"({fusion['fusion/fused_kruskal_grad'][1]}); batch_gradients on "
+        "cuda: exactly one kruskal_grad launch and nothing else")
+    rec["fusion"] = {"rows": fusion, "launch_counts": counts,
+                     "batch_gradients_launches": bg}
+
+    # 18.5 the examples at their default sizes; the decompose example
+    # stopped at half its steps and resumed equals an uninterrupted run
+    half = str(EXAMPLE_STEPS // 2)
+    ck1, ck2 = out_dir / "example_ckpt_a", out_dir / "example_ckpt_b"
+    for d in (ck1, ck2):
+        shutil.rmtree(d, ignore_errors=True)
+    _, c1 = drive("decompose_ratings (stopped)", lambda: decompose_ratings
+                  .main(["--steps", half, "--ckpt-dir", str(ck1)]))
+    res, c2 = drive("decompose_ratings (resumed)", lambda: decompose_ratings
+                    .main(["--ckpt-dir", str(ck1)]))
+    whole, c3 = drive("decompose_ratings (whole)", lambda: decompose_ratings
+                      .main(["--ckpt-dir", str(ck2)]))
+    if res["start"] != int(half) or not _same_bits(_params(res),
+                                                   _params(whole)):
+        raise AssertionError(f"decompose_ratings: resumed at "
+                             f"{res['start']}, or its final parameters "
+                             "differ from the uninterrupted run's")
+    log(f"decompose_ratings: resumed from step {res['start']}, final "
+        f"parameters bitwise the uninterrupted run's; FastTucker rmse "
+        f"{whole['fasttucker_rmse']:.4f}, cuTucker "
+        f"{whole['cutucker_rmse']:.4f}")
+    sb, c4 = drive("serve_batched", lambda: serve_batched.main([]))
+    for d in (ck1, ck2):
+        shutil.rmtree(d, ignore_errors=True)
+    rec["examples"] = {
+        "decompose_ratings": {
+            "history": whole["history"], "resumed_at": res["start"],
+            "fasttucker_rmse": whole["fasttucker_rmse"],
+            "cutucker_rmse": whole["cutucker_rmse"],
+            "launch_counts": [c1, c2, c3]},
+        "serve_batched": {"rmse": sb["rmse"], "zero_rmse": sb["zero_rmse"],
+                          "launch_counts": c4}}
+    rec["seconds"] = secs
+    rec["launch_counts"] = main_counts
+    return rec, times, main_counts, errs
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -3077,6 +3529,9 @@ def main(argv: list[str] | None = None) -> int:
                          "printed)")
     ap.add_argument("--report", default="",
                     help="also write the full record as JSON to this path")
+    ap.add_argument("--bench-out", default="build/bench",
+                    help="directory (under the checkout unless absolute) "
+                         "for phase 18's BENCH_torch_*.json documents")
     args = ap.parse_args(argv)
 
     import torch
@@ -3156,6 +3611,13 @@ def main(argv: list[str] | None = None) -> int:
     report["convergence_seconds"] = time.perf_counter() - t_conv
     log(f"phase 17 (warm start, adaptive rank): "
         f"{report['convergence_seconds']:.1f}s")
+    t_bench = time.perf_counter()
+    (report["benchmarks"], bench_times, bench_counts,
+     table_errs) = phase_benchmarks(torch, K, ROOT / args.bench_out)
+    times += bench_times
+    report["benchmarks_seconds"] = time.perf_counter() - t_bench
+    log(f"phase 18 (the port's benchmarks): "
+        f"{report['benchmarks_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -3163,7 +3625,7 @@ def main(argv: list[str] | None = None) -> int:
                  report["baselines"]["als"]["counts"],
                  report["baselines"]["ccd"]["counts"],
                  report["baselines"]["bench_accuracy"]["launch_counts"],
-                 serve_counts, conv_counts):
+                 serve_counts, conv_counts, bench_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
@@ -3179,13 +3641,15 @@ def main(argv: list[str] | None = None) -> int:
         "tucker_matmul": lm_errs["tucker_matmul"]["max_abs_err"],
         "flash_attention": lm_errs["flash_attention"]["max_abs_err"],
         "flash_attention_bwd": report["flash_bwd"]["max_abs_err"],
+        **table_errs,
     }
     kernels = []
     for name in sorted(REPLACES):
         t = next(t for t in times if t["name"] == name)  # the path's main
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{SOURCE.get(name, name)}.cu",
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3199,8 +3663,9 @@ def main(argv: list[str] | None = None) -> int:
     log(f"launches on the main paths (the three training paths, the "
         f"phase 14's nine runs, cuTucker's SGD run, the ALS and CCD "
         f"epochs, bench_accuracy, phase 16's closed loops and refresh "
-        f"rounds, and phase 17's warm starts, warm and adaptive runs and "
-        f"bench_convergence; the LM serve request "
+        f"rounds, phase 17's warm starts, warm and adaptive runs and "
+        f"bench_convergence, and phase 18's benchmarks and examples; the LM "
+        f"serve request "
         f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,65 @@
+"""LM side: train-step wall time of every ported architecture, reduced config.
+
+Counterpart of ``benchmarks/bench_lm_step.py`` for the names in
+``configs.PORTED_ARCHS`` (the others wait for ROADMAP Queue 1 item 9): one
+``loss → grad → AdamW`` step (``launch.steps.make_train_step``) at batch 4
+× 64 tokens, one warm-up call and the median of three.  Not a paper table:
+it shows that each ported architecture runs a whole training step, and
+gives a relative cost.  At 64 tokens attention takes the dense block
+(Sq·Sk ≤ 1024², the reference's branch rule), and the reduced configs have
+no Tucker FFN, so the step launches none of the package's kernels; the
+flash kernels come in above 1024 tokens (``chip_smoke.py`` phases 11–13).
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_lm_step \\
+        [--device cpu] [--backend torch]
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
+
+from .common import row, time_call
+
+B, SEQ = 4, 64
+
+
+def run(device: str | torch.device | None = None,
+        backend: str | None = None) -> list[str]:
+    from repro_torch.configs import PORTED_ARCHS, get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+
+    device = resolve_device(device)
+    backend = dispatch.resolve_backend_name(backend)
+    out = []
+    for arch in PORTED_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        state = S.init_train_state(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        step = S.make_train_step(cfg, adamw.AdamWConfig(), backend)
+        g = torch.Generator(device=device).manual_seed(1)
+        batch = {name: torch.randint(0, cfg.vocab_size, (B, SEQ),
+                                     generator=g, device=device)
+                 for name in ("tokens", "labels")}
+        us = time_call(lambda: step(state, batch), warmup=1, iters=3)
+        out.append(row(f"lm_step/{arch}", us, f"reduced_cfg_B{B}_S{SEQ}"))
+    return out
+
+
+def main(argv: list[str] | None = None) -> list[str]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA card)")
+    ap.add_argument("--backend", default=None,
+                    help="kernel backend: cuda | torch (default: "
+                         "$REPRO_TORCH_KERNEL_BACKEND or cuda)")
+    args = ap.parse_args(argv)
+    return run(args.device, args.backend)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,260 @@
-"""Schema contracts of the port's benchmark documents.
+"""Schema contracts and timing helpers of the port's benchmark documents.
 
-``validate_bench_accuracy`` is the port's own copy of the reference's
-``benchmarks.common.validate_bench_accuracy``: the same schema
-(``bench_accuracy/v1``) and the same claims.  ``validate_bench_convergence``
-is its copy of ``validate_bench_convergence`` (``bench_convergence/v1``),
-with one difference: coverage asks for a ``local`` config only, on any
-backend.  The reference also asks for a ``strata*`` config on ``xla``; the
-port's strata strategies are not ported yet (ROADMAP Queue 1 item 4).
+``validate_bench_step`` (``bench_step/v3``, with its legacy v2 and the
+optional ``ingest`` section) and ``validate_bench_serve``
+(``bench_serve/v1``) are the port's own copies of the reference's
+``benchmarks.common`` validators, word for word: the same schemas and the
+same claims.  ``validate_bench_serve`` keeps the ``devices > 1`` clauses
+(``collectives`` and ``crossover`` required there); a single-device
+document never reaches them.  ``validate_bench_accuracy`` is its copy of
+``validate_bench_accuracy`` (``bench_accuracy/v1``).
+``validate_bench_convergence`` is its copy of
+``validate_bench_convergence`` (``bench_convergence/v1``), with one
+difference: coverage asks for a ``local`` config only, on any backend.
+The reference also asks for a ``strata*`` config on ``xla``; the port's
+strata strategies are not ported yet (ROADMAP Queue 1 item 4).
+
+``time_call`` and ``row`` are the reference's timing and CSV helpers, a
+``torch.cuda.synchronize()`` closing each timed call where the reference
+blocks on its results.
 """
 from __future__ import annotations
+
+import time
+
+import torch
+
+BENCH_STEP_SCHEMA = "bench_step/v3"
+BENCH_STEP_SCHEMA_V2 = "bench_step/v2"
+
+# every result row must carry exactly these fields
+BENCH_STEP_ROW_FIELDS = {
+    "backend": str,        # kernel backend name (kernels.dispatch)
+    "dtype": str,          # parameter storage dtype
+    "update_order": str,   # jacobi | gauss_seidel
+    "mode": str,           # joint | phase_split | two_phase |
+                           # two_phase_cached | sorted | onehot_scatter
+    "us_per_step": float,  # median wall time per full training step
+}
+
+# v2: every non-joint row additionally carries its speedup against the
+# joint row of the same (backend, dtype, update_order) — >1 means the
+# mode is FASTER than joint.  This is the per-pair field that makes
+# regressions like xla/f32 phase_split-slower-than-joint visible in the
+# document itself instead of requiring a reader to divide rows.
+BENCH_STEP_SPEEDUP_FIELD = "speedup_vs_joint"
+
+# v3: an optional top-level "ingest" section records the out-of-core
+# ingestion sweep (benchmarks/bench_ingest.py): per-nnz rows measuring
+# the store+prefetch pipeline against the resident-bucket path.
+INGEST_ROW_FIELDS = {
+    "nnz": int,                        # source tensor nonzeros
+    "store": str,                      # "memory" | "spill"
+    "prefetch_depth": int,             # strata issued ahead of use
+    "us_per_step_stream": float,       # steady-state prefetched step
+    "us_per_step_sync": float,         # depth-0: load on the hot path
+    "us_per_stratum_load": float,      # pure load+device_put of a chunk
+    "transfer_hidden_fraction": float,  # (sync − stream) / load, in [0,1]
+}
+# optional per-row fields (None/absent when the resident path can't run
+# at that nnz — the memory-bounded regime the store exists for):
+#   us_per_step_resident : float   resident-bucket step time
+#   stream_vs_resident   : float   stream/resident ratio (1.0 = parity)
+#   epoch_s, epoch_steps, nnz_per_s : full-epoch streaming stats
+
+
+def _validate_ingest(ingest) -> None:
+    if not isinstance(ingest, dict):
+        raise ValueError("ingest section must be a dict")
+    rows = ingest.get("rows")
+    if not isinstance(rows, list) or not rows:
+        raise ValueError("ingest.rows must be a non-empty list")
+    for i, r in enumerate(rows):
+        for field, typ in INGEST_ROW_FIELDS.items():
+            if field not in r:
+                raise ValueError(f"ingest.rows[{i}] missing {field!r}")
+            if not isinstance(r[field], typ):
+                raise ValueError(
+                    f"ingest.rows[{i}].{field} must be {typ.__name__}, "
+                    f"got {type(r[field]).__name__}")
+        if not 0.0 <= r["transfer_hidden_fraction"] <= 1.0:
+            raise ValueError(
+                f"ingest.rows[{i}].transfer_hidden_fraction must be in "
+                f"[0, 1], got {r['transfer_hidden_fraction']}")
+        for field in ("us_per_step_stream", "us_per_step_sync",
+                      "us_per_stratum_load"):
+            if r[field] <= 0:
+                raise ValueError(f"ingest.rows[{i}].{field} must be > 0")
+
+
+def validate_bench_step(doc: dict) -> None:
+    """Raise ``ValueError`` unless ``doc`` is a valid BENCH_step document.
+
+    The contract CI's bench-smoke step (and tests) hold the emitted JSON
+    to, so the recorded perf trajectory stays machine-readable across PRs.
+    Schema ``bench_step/v3`` adds the optional top-level ``ingest``
+    section (out-of-core ingestion sweep); ``bench_step/v2`` documents —
+    the same result rows, no ingest section — stay readable.
+    """
+    if not isinstance(doc, dict):
+        raise ValueError(f"BENCH_step document must be a dict, "
+                         f"got {type(doc).__name__}")
+    schema = doc.get("schema")
+    if schema not in (BENCH_STEP_SCHEMA, BENCH_STEP_SCHEMA_V2):
+        raise ValueError(f"schema must be {BENCH_STEP_SCHEMA!r} "
+                         f"(or legacy {BENCH_STEP_SCHEMA_V2!r}), "
+                         f"got {schema!r}")
+    if schema == BENCH_STEP_SCHEMA_V2 and "ingest" in doc:
+        raise ValueError("ingest section requires schema bench_step/v3")
+    if "ingest" in doc:
+        _validate_ingest(doc["ingest"])
+    for key in ("config", "results"):
+        if key not in doc:
+            raise ValueError(f"missing top-level key {key!r}")
+    cfg = doc["config"]
+    for key in ("dims", "nnz", "rank", "core_rank", "batch"):
+        if key not in cfg:
+            raise ValueError(f"config missing {key!r}")
+    results = doc["results"]
+    if not isinstance(results, list) or not results:
+        raise ValueError("results must be a non-empty list")
+    for i, row_ in enumerate(results):
+        for field, typ in BENCH_STEP_ROW_FIELDS.items():
+            if field not in row_:
+                raise ValueError(f"results[{i}] missing {field!r}")
+            if not isinstance(row_[field], typ):
+                raise ValueError(
+                    f"results[{i}].{field} must be {typ.__name__}, "
+                    f"got {type(row_[field]).__name__}")
+        if row_["us_per_step"] <= 0:
+            raise ValueError(f"results[{i}].us_per_step must be > 0")
+        if row_["mode"] != "joint":
+            spd = row_.get(BENCH_STEP_SPEEDUP_FIELD)
+            if not isinstance(spd, float) or spd <= 0:
+                raise ValueError(
+                    f"results[{i}] (mode {row_['mode']!r}) must carry "
+                    f"{BENCH_STEP_SPEEDUP_FIELD!r} as a positive float")
+
+
+# ---------------------------------------------------------------------------
+# bench_serve/v1 (benchmarks/bench_serve.py, the port's bench_serve.py): the
+# serving-path contract
+# ---------------------------------------------------------------------------
+
+BENCH_SERVE_SCHEMA = "bench_serve/v1"
+
+# closed_loop.rows: one row per (shard_mode, query, offered rate) point
+# measured by the closed-loop harness (serve.frontend.run_closed_loop)
+SERVE_CLOSED_LOOP_ROW_FIELDS = {
+    "shard_mode": str,       # none | row | batch | gspmd (baseline top_k)
+    "query": str,            # predict | top_k
+    "offered_qps": float,    # target offered rate
+    "achieved_qps": float,   # served queries / wall
+    "p50_ms": float,         # end-to-end request latency percentiles
+    "p99_ms": float,
+    "served_requests": int,
+    "shed": int,             # queue-full + deadline rejections
+}
+
+# collectives: the sharded-top_k win at M > 1 devices (not ported yet:
+# ROADMAP Queue 1 item 4) —
+# per-bucket collective operand bytes of the shard-local merge program vs
+# the GSPMD-compiled unsharded program on the same row-sharded tables.
+SERVE_COLLECTIVE_FIELDS = {
+    "devices": int,
+    "bucket": int,                   # request bucket the programs serve
+    "k": int,
+    "sharded_operand_bytes": int,    # shard-local merge path
+    "gspmd_operand_bytes": int,      # GSPMD baseline (O(rows) payload)
+    "reduction": float,              # gspmd / sharded — must be > 1
+}
+
+
+def validate_bench_serve(doc: dict) -> None:
+    """Raise ``ValueError`` unless ``doc`` is a valid BENCH_serve document.
+
+    Schema ``bench_serve/v1``: ``config`` (+ device count), ``throughput``
+    (bucketed vs per-query + bounded compiles), ``closed_loop.rows``
+    (typed latency/QPS points) and — whenever ``config.devices > 1`` —
+    ``collectives`` proving the shard-local top-k merge moves fewer
+    collective bytes than the GSPMD baseline (``reduction > 1`` is part
+    of the contract, so CI enforces the win, not just the format).
+    ``crossover`` (row- vs batch-sharded capacity) is required at
+    multi-device too.
+    """
+    if not isinstance(doc, dict):
+        raise ValueError(f"BENCH_serve document must be a dict, "
+                         f"got {type(doc).__name__}")
+    if doc.get("schema") != BENCH_SERVE_SCHEMA:
+        raise ValueError(f"schema must be {BENCH_SERVE_SCHEMA!r}, "
+                         f"got {doc.get('schema')!r}")
+    for key in ("config", "throughput", "closed_loop"):
+        if key not in doc:
+            raise ValueError(f"missing top-level key {key!r}")
+    cfg = doc["config"]
+    for key in ("dims", "rank", "core_rank", "backend", "devices",
+                "microbatch"):
+        if key not in cfg:
+            raise ValueError(f"config missing {key!r}")
+    thr = doc["throughput"]
+    for key in ("per_query_qps", "bucketed_qps", "speedup",
+                "sweep_compiles", "ladder_bound"):
+        if key not in thr:
+            raise ValueError(f"throughput missing {key!r}")
+    if thr["speedup"] <= 0 or thr["bucketed_qps"] <= 0:
+        raise ValueError("throughput speedup/bucketed_qps must be > 0")
+    if thr["sweep_compiles"] > thr["ladder_bound"]:
+        raise ValueError(
+            f"unbounded compiles: {thr['sweep_compiles']} exceeds the "
+            f"ladder bound {thr['ladder_bound']}")
+    rows = doc["closed_loop"].get("rows")
+    if not isinstance(rows, list) or not rows:
+        raise ValueError("closed_loop.rows must be a non-empty list")
+    for i, r in enumerate(rows):
+        for field, typ in SERVE_CLOSED_LOOP_ROW_FIELDS.items():
+            if field not in r:
+                raise ValueError(f"closed_loop.rows[{i}] missing {field!r}")
+            if not isinstance(r[field], typ):
+                raise ValueError(
+                    f"closed_loop.rows[{i}].{field} must be "
+                    f"{typ.__name__}, got {type(r[field]).__name__}")
+        if r["p50_ms"] > r["p99_ms"]:
+            raise ValueError(
+                f"closed_loop.rows[{i}]: p50 {r['p50_ms']} > p99 "
+                f"{r['p99_ms']} — percentiles must be monotone")
+    multi = int(cfg["devices"]) > 1
+    if multi and "collectives" not in doc:
+        raise ValueError("collectives section is required at devices > 1")
+    if "collectives" in doc:
+        col = doc["collectives"]
+        for field, typ in SERVE_COLLECTIVE_FIELDS.items():
+            if field not in col:
+                raise ValueError(f"collectives missing {field!r}")
+            if not isinstance(col[field], typ):
+                raise ValueError(
+                    f"collectives.{field} must be {typ.__name__}, "
+                    f"got {type(col[field]).__name__}")
+        if col["sharded_operand_bytes"] <= 0 or col["gspmd_operand_bytes"] <= 0:
+            raise ValueError("collective byte counts must be > 0")
+        if col["reduction"] <= 1.0:
+            raise ValueError(
+                f"collectives.reduction must be > 1 (the shard-local "
+                f"merge must beat GSPMD), got {col['reduction']}")
+    if multi and "crossover" not in doc:
+        raise ValueError("crossover section is required at devices > 1")
+    if "crossover" in doc:
+        x = doc["crossover"]
+        for key in ("row_max_qps", "batch_max_qps", "batch_vs_row"):
+            if key not in x:
+                raise ValueError(f"crossover missing {key!r}")
+            if not isinstance(x[key], float) or x[key] <= 0:
+                raise ValueError(f"crossover.{key} must be a positive "
+                                 f"float, got {x[key]!r}")
+
+
+# ---------------------------------------------------------------------------
+# bench_accuracy/v1
+# ---------------------------------------------------------------------------
 
 BENCH_ACCURACY_SCHEMA = "bench_accuracy/v1"
 
@@ -203,3 +449,34 @@ def validate_bench_convergence(doc: dict) -> None:
     if "local" not in seen:
         raise ValueError(f"configs must cover strategy 'local', got "
                          f"{sorted(seen)}")
+
+
+# ---------------------------------------------------------------------------
+# timing and CSV rows
+# ---------------------------------------------------------------------------
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def time_call(fn, *args, warmup: int = 2, iters: int = 5, **kw) -> float:
+    """Median wall time per call in microseconds (each call closed by a
+    ``torch.cuda.synchronize()``)."""
+    for _ in range(warmup):
+        fn(*args, **kw)
+        _sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        _sync()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2] * 1e6
+
+
+def row(name: str, us: float, derived: str = "") -> str:
+    line = f"{name},{us:.1f},{derived}"
+    print(line, flush=True)
+    return line

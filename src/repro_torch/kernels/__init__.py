@@ -13,6 +13,8 @@ Layout (counterparts of ``repro.kernels``):
     flash_attention.py   online-softmax attention forward (the LM's prefill
                          and training forward, with the rows' log-sum-exp)
     flash_attention_bwd.py  its recompute backward (LM training)
+    mode_product_rows.py the serving tables' rows C = A B, built and
+                         patched with the same bits whatever the row count
     ref.py               plain PyTorch versions of every kernel (oracles)
     build.py             nvcc build (sm_90a) + ctypes loading of csrc/*.cu
     csrc/                the CUDA C++ sources
@@ -23,14 +25,16 @@ its CUDA kernel; ``launch_counts`` reads them all and
 ``reset_launch_counts`` sets them to 0.
 """
 from . import (dispatch, flash_attention, flash_attention_bwd,
-               kruskal_contract, kruskal_grad, ref, scatter_accum,
-               segment_reduce, tucker_matmul)
+               kruskal_contract, kruskal_grad, mode_product_rows, ref,
+               scatter_accum, segment_reduce, tucker_matmul)
 from .dispatch import get_backend
 
 KERNELS = (kruskal_contract.kruskal_contract, kruskal_grad.kruskal_grad,
            scatter_accum.scatter_accum, segment_reduce.segment_reduce,
            tucker_matmul.tucker_matmul, flash_attention.flash_attention,
-           flash_attention_bwd.flash_attention_bwd)
+           flash_attention_bwd.flash_attention_bwd,
+           mode_product_rows.mode_product_rows,
+           mode_product_rows.patch_table_rows)
 
 
 def launch_counts() -> dict[str, int]:

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("kruskal_contract", "kruskal_grad", "scatter_accum",
            "segment_reduce", "tucker_matmul", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "mode_product_rows")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")

@@ -5,7 +5,8 @@
     ``"cuda"``   the hand-written CUDA kernels (``kruskal_contract``,
                  ``kruskal_grad``, ``scatter_accum``, ``segment_reduce``,
                  ``tucker_matmul``, ``flash_attention``,
-                 ``flash_attention_bwd``); the default.  On CPU
+                 ``flash_attention_bwd``, ``mode_product_rows``,
+                 ``patch_table_rows``); the default.  On CPU
                  tensors each kernel wrapper computes its plain version,
                  so this backend is testable on the CPU the way the
                  reference's ``"pallas_interpret"`` is; on CUDA tensors it
@@ -14,6 +15,9 @@
 Resolution order for ``get_backend(name)``:
 
     explicit ``name`` argument  >  ``$REPRO_TORCH_KERNEL_BACKEND``  >  ``"cuda"``
+
+``register_backend`` adds another (a benchmark's variant); an existing name
+is refused.
 
 Both backends speak the tuple-of-modes layout (per-mode ``(B, J_n)``
 gathered rows and ``(J_n, R)`` Kruskal factors with possibly distinct
@@ -29,7 +33,10 @@ matmul on both), and the LM's ``tucker_matmul`` (Tucker-2 factorized
 linear), ``flash_attention`` (softmax attention of the model's
 (B, S, H, D) layout with grouped KV heads, ``q_offset`` and ``kv_len``;
 ``return_lse`` also gives the rows' log-sum-exps) and
-``flash_attention_bwd`` (its gradients, recomputed from that lse).
+``flash_attention_bwd`` (its gradients, recomputed from that lse); and
+the serving tables' ``mode_product_rows`` (C = A B, the same bits for a
+row whatever the row count) and ``patch_table_rows`` (the row patch of
+``TuckerServer.update_rows``).
 Rows and factors may be stored in bf16; every dot, residual and gradient is f32, the only accumulation dtype the reference's
 config takes.
 """
@@ -189,6 +196,17 @@ class TorchBackend:
         from .ref import segment_reduce_ref
 
         return segment_reduce_ref(grads, idx, num_rows)
+
+    def mode_product_rows(self, rows: torch.Tensor,
+                          core: torch.Tensor) -> torch.Tensor:
+        from .ref import mode_product_rows_ref
+
+        return mode_product_rows_ref(rows, core)
+
+    def patch_table_rows(self, table, colsum, mirror, core, ids, rows):
+        from .ref import patch_table_rows_ref
+
+        return patch_table_rows_ref(table, colsum, mirror, core, ids, rows)
 
     def tucker_matmul(self, x, u1, g, u2) -> torch.Tensor:
         from .ref import tucker_matmul_ref
@@ -359,6 +377,18 @@ class CudaBackend:
         return sr(grads.contiguous(), idx.to(torch.int32).contiguous(),
                   num_rows)
 
+    def mode_product_rows(self, rows: torch.Tensor,
+                          core: torch.Tensor) -> torch.Tensor:
+        from .mode_product_rows import mode_product_rows as mpr
+
+        return mpr(rows.contiguous(), core.contiguous())
+
+    def patch_table_rows(self, table, colsum, mirror, core, ids, rows):
+        from .mode_product_rows import patch_table_rows as ptr
+
+        return ptr(table, colsum, mirror, core.contiguous(), ids,
+                   rows.contiguous())
+
     def tucker_matmul(self, x, u1, g, u2) -> torch.Tensor:
         from .tucker_matmul import tucker_matmul as tm
 
@@ -388,6 +418,14 @@ class CudaBackend:
 
 _REGISTRY: dict[str, object] = {
     b.name: b for b in (TorchBackend(), CudaBackend())}
+
+
+def register_backend(backend) -> None:
+    """Register ``backend`` (any object with the op methods + ``name``)
+    under a name not yet taken."""
+    if backend.name in _REGISTRY:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _REGISTRY[backend.name] = backend
 
 
 def available_backends() -> tuple[str, ...]:
@@ -468,6 +506,7 @@ __all__ = [
     "KruskalGrads",
     "TorchBackend",
     "CudaBackend",
+    "register_backend",
     "available_backends",
     "resolve_backend_name",
     "get_backend",

@@ -18,7 +18,10 @@ import math
 
 import torch
 
+import numpy as np
+
 from repro_torch.core.kruskal import exclusive_products
+from repro_torch.core.kruskal import mode_product_rows as mode_product_rows_ref
 
 # layout of the (5,) scalar vector of kruskal_grad; PRED_COEF generalizes
 # the residual to err = (pred_coef·pred − val)·mask — 1 for training, 0 for
@@ -147,6 +150,31 @@ def fold_in_passes(out: torch.Tensor, grads: torch.Tensor, idx: torch.Tensor,
     for sel in torch.split(order, counts):
         out.index_add_(0, target[sel], grads[sel])
     return out
+
+
+def patch_table_rows_ref(
+    table: torch.Tensor,    # (I, R) the live table, never written
+    colsum: torch.Tensor,   # (R,) f32 its column sums, never written
+    mirror: torch.Tensor,   # (I, J) factor rows: the dirty ones rewritten
+    core: torch.Tensor,     # (J, R) the mode's Kruskal core factor
+    ids: np.ndarray,        # (K,) int32 unique row ids, on the host
+    rows: torch.Tensor,     # (K, J) the new factor rows, mirror's dtype
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The serving table's row patch: (new table, new colsum).
+
+    The dirty rows of C = A B recomputed by ``mode_product_rows_ref`` (so
+    a patched row is bitwise the rebuilt one) into a copy of ``table``,
+    the colsum moved by the sum of new − old over the dirty rows, and the
+    new rows written into ``mirror`` in place.
+    """
+    idx = torch.tensor(ids, dtype=torch.int64, device=mirror.device)
+    old32 = mode_product_rows_ref(mirror.index_select(0, idx), core)
+    new32 = mode_product_rows_ref(rows, core)
+    colsum = colsum + (new32 - old32).sum(0)
+    table = table.clone()
+    table.index_copy_(0, idx, new32.to(table.dtype))
+    mirror.index_copy_(0, idx, rows)
+    return table, colsum
 
 
 def tucker_matmul_ref(

@@ -32,11 +32,14 @@ and ``update_rows`` / ``refresh_tables`` build the next generation in
 fresh tensors (a patch clones the table and writes the clone), so a query
 in flight finishes on the generation it started with.
 
-The tables are built and patched by ``core.kruskal.mode_product_rows``,
-whose per-element arithmetic does not depend on the row count, so a
-patched table equals a rebuilt one bit for bit on the CPU and on the
-card.  The reference pads a patch to a power of two to bound its jit
-cache; the port has none and patches the dirty rows as they are.
+The tables are built by the backend's ``mode_product_rows`` and patched
+by its ``patch_table_rows`` (on ``"cuda"`` the kernels of
+``kernels/mode_product_rows.py``: one launch a mode for a build, one C call
+for a patch; on ``"torch"`` the plain ``core.kruskal.mode_product_rows``).
+Their per-element arithmetic does not depend on the row count, so a
+patched table equals a rebuilt one bit for bit on the CPU and on the card.
+The reference pads a patch to a power of two to bound its jit cache; the
+port has none and patches the dirty rows as they are.
 
 Not ported: sharded serving (``mesh=``, ``shard_mode``, ``expected_qps``,
 ``policy``) waits for the multi-device strategies (ROADMAP.md, Queue 1
@@ -54,7 +57,6 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager, from_host
 from repro_torch.core.fasttucker import DTYPES, FastTuckerParams
 from repro_torch.core.fasttucker import predict as ft_predict
-from repro_torch.core.kruskal import mode_product_rows, mode_products
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.kruskal_contract import check_widths
@@ -366,16 +368,17 @@ class TuckerServer:
         """Patch the serving tables for changed factor rows of one mode.
 
         Recomputes ONLY the dirty rows of C^(mode) = A^(mode) B^(mode)
-        through ``mode_product_rows`` (f32, rounded once to
+        through the backend's ``patch_table_rows`` (f32, rounded once to
         ``table_dtype``), so the patched table is bitwise what a full
         rebuild from the updated params stores; updates the f32 column
-        sums incrementally (subtract the old rows, add the new); and
+        sums incrementally (add the new rows, subtract the old); and
         publishes a new generation with one ``_live`` swap.  The patch
-        writes into a clone of the table, never into the live one.
+        writes into a copy of the table, never into the live one.
 
-        ``ids`` are unique row ids of ``mode`` (duplicates raise) and
-        ``factor_rows`` the matching ``(len(ids), J_mode)`` rows of the
-        updated A^(mode) (numpy or a tensor).  Returns the new
+        ``ids`` are unique row ids of ``mode`` (duplicates raise), on the
+        host, and ``factor_rows`` the matching ``(len(ids), J_mode)`` rows
+        of the updated A^(mode) (numpy or a tensor; a tensor already on
+        the server's device is not copied).  Returns the new
         ``table_version`` (unchanged if ``ids`` is empty).
         """
         mode = self._check_mode(mode)
@@ -384,15 +387,10 @@ class TuckerServer:
             return self.table_version
         live = self._live
         with torch.no_grad():
-            idx = self._ids(ids)
-            mirror = self._factors[mode]
-            core = self._core[mode]
-            old32 = mode_product_rows(mirror.index_select(0, idx), core)
-            new32 = mode_product_rows(rows, core)
-            colsum = live.colsums[mode] + (new32 - old32).sum(0)
-            table = live.tables[mode].clone()
-            table.index_copy_(0, idx, new32.to(table.dtype))
-            mirror.index_copy_(0, idx, rows)
+            table, colsum = dispatch.get_backend(
+                self.backend).patch_table_rows(
+                    live.tables[mode], live.colsums[mode],
+                    self._factors[mode], self._core[mode], ids, rows)
         self._params_stale = True
         tables = list(live.tables)
         tables[mode] = table
@@ -427,8 +425,10 @@ class TuckerServer:
     def _build(self, params: FastTuckerParams, version: int) -> _TableSet:
         """A generation computed from scratch: f32 tables, their f32
         column sums, the tables stored in ``table_dtype``."""
+        be = dispatch.get_backend(self.backend)
         with torch.no_grad():
-            tables32 = mode_products(params.factors, params.core_factors)
+            tables32 = tuple(be.mode_product_rows(a, b) for a, b in zip(
+                params.factors, params.core_factors))
             colsums = tuple(t.sum(dim=0) for t in tables32)
             tables = tuple(t.to(self.table_dtype) for t in tables32)
         return _TableSet(version, tables, colsums)
@@ -467,9 +467,12 @@ class TuckerServer:
         ids = self._check_ids(ids, mode, grow_hint=True)
         # duplicates by a sort: numpy 2.3's np.unique hashes integers,
         # which took most of an update_rows call for a refresh's dirty
-        # rows on the GPU machine's host (as data/synthetic.py notes)
-        s = np.sort(ids)
-        dups = int(np.count_nonzero(s[1:] == s[:-1]))
+        # rows on the GPU machine's host (as data/synthetic.py notes);
+        # strictly ascending ids (what a refresh yields) need no sort
+        dups = 0
+        if not (ids[1:] > ids[:-1]).all():
+            s = np.sort(ids)
+            dups = int(np.count_nonzero(s[1:] == s[:-1]))
         if dups:
             raise ValueError(f"{what} ids must be unique, got {dups} "
                              "duplicates")

@@ -21,7 +21,8 @@ import torch
 from repro_torch.core import fasttucker as ft
 from repro_torch.kernels import (dispatch, flash_attention,
                                  flash_attention_bwd, kruskal_contract,
-                                 kruskal_grad, launch_counts, ref,
+                                 kruskal_grad, launch_counts,
+                                 mode_product_rows, ref,
                                  reset_launch_counts, scatter_accum,
                                  segment_reduce, tucker_matmul)
 
@@ -75,7 +76,9 @@ def test_kernels_match_plain_on_card(dev, N, J, R, B):
     assert launch_counts() == {"kruskal_contract": 1, "kruskal_grad": 1,
                                "scatter_accum": 1, "segment_reduce": 1,
                                "tucker_matmul": 0, "flash_attention": 0,
-                               "flash_attention_bwd": 0}
+                               "flash_attention_bwd": 0,
+                               "mode_product_rows": 0,
+                               "patch_table_rows": 0}
 
 
 FLAGS = [
@@ -991,7 +994,7 @@ def _serve_params(dev, dims, J, R, seed=0):
 def test_update_rows_bitwise_rebuild_at_netflix_shape_on_card(dev, R):
     """Patches of every mode (a Netflix-sized mode-0 table) land on the
     f32 tables a fresh server builds from the final factors, bitwise, and
-    launch no kernel of the package."""
+    launch one ``patch_table_rows`` a call and no other kernel."""
     from repro_torch.serve import TuckerServer
 
     params = _serve_params(dev, NETFLIX_DIMS, R, R)
@@ -1006,7 +1009,8 @@ def test_update_rows_bitwise_rebuild_at_netflix_shape_on_card(dev, R):
         facs[mode][torch.from_numpy(ids).long().to(dev)] = new
         srv.update_rows(mode, ids, new)
     torch.cuda.synchronize()
-    assert set(launch_counts().values()) == {0}
+    assert launch_counts() == dict({k: 0 for k in launch_counts()},
+                                   patch_table_rows=4)
     fresh = TuckerServer(ft.FastTuckerParams(tuple(facs),
                                              params.core_factors),
                          backend="cuda")
@@ -1147,3 +1151,84 @@ def test_als_ccd_epochs_repeat_their_bits_on_card(dev):
             b = epoch(p, t, cfg, chunk=70_000, backend="cuda")
             for x, y in zip(a.factors, b.factors):
                 assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("JR", [4, 8, 48, 64])
+@pytest.mark.parametrize("M", [1, 7, 600, 4099, 60_000, 480_189])
+def test_mode_product_rows_bitwise_plain_on_card(dev, JR, M):
+    """The table kernel gives the plain version's bits at every row count,
+    one launch a call, in f32 and bf16 storage."""
+    g = torch.Generator(device=dev).manual_seed(M + JR)
+    for dt in (torch.float32, torch.bfloat16):
+        rows = torch.randn((M, JR), generator=g, device=dev).to(dt)
+        core = torch.randn((JR, JR), generator=g, device=dev).to(dt)
+        reset_launch_counts()
+        got = mode_product_rows.mode_product_rows(rows, core)
+        torch.cuda.synchronize()
+        assert launch_counts() == dict({k: 0 for k in launch_counts()},
+                                       mode_product_rows=1)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, ref.mode_product_rows_ref(rows, core))
+        # a row's bits do not depend on the rows around it
+        assert torch.equal(got[-1:], mode_product_rows.mode_product_rows(
+            rows[-1:], core))
+
+
+@pytest.mark.parametrize("JR", [4, 48, 64])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_patch_table_rows_matches_plain_on_card(dev, JR, table_dtype):
+    """The patch kernel: the new table and mirror bitwise the plain
+    patch's, the live table untouched, the colsum within 1e-5 of the
+    plain one and the same bits when repeated."""
+    I, K = 20_000, 3_001
+    g = torch.Generator(device=dev).manual_seed(JR)
+    mirror = torch.randn((I, JR), generator=g, device=dev)
+    core = torch.randn((JR, JR), generator=g, device=dev)
+    table = mode_product_rows.mode_product_rows(mirror, core).to(table_dtype)
+    colsum = mode_product_rows.mode_product_rows(mirror, core).sum(0)
+    ids = np.random.default_rng(JR).permutation(I)[:K].astype(np.int32)
+    rows = torch.randn((K, JR), generator=g, device=dev)
+    frozen = table.clone()
+    outs = []
+    for _ in range(2):
+        m = mirror.clone()
+        reset_launch_counts()
+        outs.append(mode_product_rows.patch_table_rows(
+            table, colsum, m, core, ids, rows) + (m,))
+        torch.cuda.synchronize()
+        assert launch_counts() == dict({k: 0 for k in launch_counts()},
+                                       patch_table_rows=1)
+    m = mirror.clone()
+    want_t, want_c = ref.patch_table_rows_ref(table, colsum, m, core, ids,
+                                              rows)
+    assert torch.equal(table, frozen)
+    for got_t, got_c, got_m in outs:
+        assert torch.equal(got_t, want_t)
+        assert torch.equal(got_m, m)
+        _close(got_c, want_c, 1e-5)
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("I, JR, K", [(480_189, 4, 14_294), (17_770, 4, 9_000),
+                                      (2_000, 8, 700), (60_000, 64, 15_000)])
+def test_patch_table_rows_bitwise_rebuild_at_path_shapes_on_card(dev, I, JR,
+                                                                   K):
+    """At the serving paths' shapes (a refresh round's Netflix modes at
+    J = R = 4, bench_serve's at 8, bench_refresh's 25 % at 64) the
+    patched table is bitwise the plain patch's and a rebuild's."""
+    g = torch.Generator(device=dev).manual_seed(I + K)
+    mirror = torch.randn((I, JR), generator=g, device=dev)
+    core = torch.randn((JR, JR), generator=g, device=dev)
+    table = mode_product_rows.mode_product_rows(mirror, core)
+    colsum = table.sum(0)
+    ids = np.sort(np.random.default_rng(K).permutation(I)[:K]).astype(
+        np.int32)
+    rows = torch.randn((K, JR), generator=g, device=dev)
+    m_k, m_p = mirror.clone(), mirror.clone()
+    got_t, got_c = mode_product_rows.patch_table_rows(table, colsum, m_k,
+                                                      core, ids, rows)
+    want_t, want_c = ref.patch_table_rows_ref(table, colsum, m_p, core, ids,
+                                              rows)
+    assert torch.equal(got_t, want_t) and torch.equal(m_k, m_p)
+    assert torch.equal(got_t, mode_product_rows.mode_product_rows(m_k, core))
+    _close(got_c, want_c, 1e-5)

@@ -50,7 +50,9 @@ def _no_launches():
     assert launch_counts() == {"kruskal_contract": 0, "kruskal_grad": 0,
                                "scatter_accum": 0, "segment_reduce": 0,
                                "tucker_matmul": 0, "flash_attention": 0,
-                               "flash_attention_bwd": 0}
+                               "flash_attention_bwd": 0,
+                               "mode_product_rows": 0,
+                               "patch_table_rows": 0}
 
 
 @pytest.mark.parametrize("N,B,J,R", [(3, 173, 4, 4), (4, 300, 8, 5),
