@@ -188,8 +188,12 @@ Phases (each failure ends the run with a non-zero exit code):
    second run under ``FaultPlan.parse("refresh@0:1:2,publish@0")``
    degrades, recovers and ends on the first run's tables, factors and
    generator state bitwise; ``update_rows`` against ``refresh_tables``
-   seconds and, over 20 profiled calls, each one's host and device time
-   by operation; dirty rows per round and the staleness the queries saw.
+   seconds (the new rows gathered before the clock starts, and again with
+   each call's gather in the window, as the refresh supervisor pays it;
+   mode 0's patch alone, median of 7 in turns with the rebuild, must beat
+   the rebuild) and, over 20 profiled calls, each one's host and device time by operation; one
+   ``update_rows`` call's host time split by stage (``patch_host_split``);
+   dirty rows per round and the staleness the queries saw.
    ``kruskal_contract`` (pred only) at B in {256, 2048}, J = R in {4, 64}
    by phase 5's method beside its byte bound and ``torch.einsum``; peak
    device bytes; one profiled closed-loop second (busy share, device
@@ -215,19 +219,26 @@ Phases (each failure ends the run with a non-zero exit code):
 18. The port's benchmarks (``repro_torch.benchmarks``) at FULL on
    ``"cuda"``.  First the serving tables' kernels against their plain
    versions: ``mode_product_rows`` bitwise at M ∈ {1, 600, 60,000} and
-   J = R ∈ {4, 64} and at every table the main paths build
+   J = R ∈ {4, 64}, at every table the main paths build and on both
+   sides of each route's tile edge at J = R ∈ {1, 3, 5, 8, 9, 33, 63, 64}
    (``MPR_SHAPES``), in f32 and bf16; ``patch_table_rows`` at 1, 600 and
-   6,000 dirty rows of 60,000, at ``bench_refresh``'s fractions and at a
-   phase-16 refresh round's modes (``PATCH_SHAPES``): table and mirror
-   bitwise the plain patch and the patched table bitwise a rebuild, the
-   colsum within 1e-5; the largest absolute errors measured go on the
-   kernels line; their times by phase 5's method beside bounds, plain
-   versions and ``torch.matmul``; ``update_rows`` (1 % and 10 % of mode
-   0) and ``refresh_tables`` at ``bench_refresh``'s FULL shape (rank 64),
+   6,000 dirty rows of 60,000, at ``bench_refresh``'s fractions, at a
+   phase-16 refresh round's modes and at the patch tiles' edges
+   (``PATCH_SHAPES``): table and mirror bitwise the plain patch and the
+   patched table bitwise a rebuild, the colsum within 1e-5; the largest
+   absolute errors measured go on the kernels line; their times by phase
+   5's method, and again with the inputs rotated over sets past the 50 MB
+   L2 (``cold``: what a refresh's rebuild sees), beside plain versions, ``torch.matmul`` and bounds that
+   count (2J − 1)·M·R separate f32 instructions at half the FMA rate
+   (33.5 T/s: no FMA, so a patched row is bitwise a rebuilt one), the
+   FMA-rate figure logged beside; ``update_rows`` (1 % and 10 % of mode
+   0, each with its host split by stage) and ``refresh_tables`` at
+   ``bench_refresh``'s FULL shape (rank 64),
    each operation's host and device time a call, on ``"cuda"`` and on
    the plain path (``"torch"`` on the card: the operations the server ran
    before the kernels), and ``bench_refresh`` FULL on that plain path,
-   recorded beside the kernels' run and not validated.  Then, each with
+   recorded beside the kernels' run with its validator's verdict (logged,
+   not a failure: the contract is the kernels' path).  Then, each with
    its launch counts: Fig. 5
    (``bench_param_sweep``) and Fig. 7a (``bench_order_scaling``), each
    point's wall time and growth factor and its device time a step from a
@@ -247,13 +258,18 @@ It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
 took it, beside each kernel), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
-record there as JSON.  It imports nothing of JAX.
+record there as JSON.  ``--refresh-host`` runs only the patch's host
+split, the refresh contract at J = R = 4 and ``bench_refresh`` FULL on
+both paths (``refresh_host``), for comparing two trees in one call (copy
+this script to each tree's root and run it there in turns).  It imports
+nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -266,8 +282,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+# separate f32 multiplies and adds (no FMA): one instruction an operation,
+# half the FMA rate
+F32_NO_FMA_PER_S = F32_FLOPS_PER_S / 2
 TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 on the tensor cores
 COLD_SETS = 5               # factor sets rotated at decode (5 x 47 MB > L2)
+L2_BYTES = 50 * 2**20       # H100 SXM's L2
 NETFLIX_DIMS = (480_189, 17_770, 2_182)
 NETFLIX_NNZ = 99_072_112
 TRAIN_BATCH = 4096
@@ -371,6 +391,16 @@ PATCH_SHAPES = (tuple((60_000, J, K) for J in MPR_WIDTHS
                 + tuple((60_000, 64, K) for K in (1_200, 3_000, 15_000))
                 + ((NETFLIX_DIMS[0], 4, 14_294), (NETFLIX_DIMS[1], 4, 9_000),
                    (NETFLIX_DIMS[2], 4, 2_000)))
+# the redesigned routes' tile edges (mode_product_rows.plan: a narrow build
+# tile is 256 rows, a wide one 128; a narrow patch tile 128 rows, a wide
+# one 32) at the card tests' widths
+EDGE_WIDTHS = (1, 3, 5, 8, 9, 33, 63, 64)
+MPR_SHAPES += tuple((tile + d, JR) for JR in EDGE_WIDTHS
+                    for tile in ((256,) if JR <= 8 else (128,))
+                    for d in (-1, 0, 1))
+PATCH_SHAPES += tuple((60_000, JR, tile + d) for JR in EDGE_WIDTHS
+                      for tile in ((128,) if JR <= 8 else (32,))
+                      for d in (-1, 0, 1))
 REFRESH_SHAPE = (60_000, 64)
 # the decompose example's default steps
 EXAMPLE_STEPS = 800
@@ -984,6 +1014,28 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_no_fma(bytes_moved: float, instructions: float
+                 ) -> tuple[float, str]:
+    """The bound of f32 work that may not fuse a multiply and an add:
+    ``instructions`` separate multiplies and adds at half the FMA rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = instructions / F32_NO_FMA_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cold_sets(set_bytes: int) -> int:
+    """How many sets of ``set_bytes`` each, rotated call by call, span four
+    times the L2, so that no call finds its inputs there."""
+    return max(2, -(-4 * L2_BYTES // set_bytes))
+
+
+def mpr_route(K, M: int, J: int, R: int) -> str:
+    """The table build's route and grid at (M, J, R), from its plan."""
+    pl = K.mode_product_rows.plan(M, J, R)
+    return (f"{pl.route} route, {pl.tiles:,} tiles of {pl.rows_per_tile} "
+            f"rows, {pl.blocks} blocks")
 
 
 def tc_bound(bytes_moved: float,
@@ -2748,23 +2800,50 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
             out.append(time.perf_counter() - t0)
         return statistics.median(out)
 
-    patch_s = [timed(lambda n=n: srv.update_rows(
+    # the new rows gathered first: the time of update_rows alone, as
+    # bench_refresh times it; then with each call's gather (an int64 copy
+    # of the ids and an index_select) in the window too, as phase 16 used
+    # to time it and as the refresh supervisor pays it on every patch
+    rows_of = [cur[n].index_select(0, torch.from_numpy(dirty[n]).long()
+                                   .cuda()) for n in range(len(dirty))]
+    patch_s = [timed(lambda n=n: srv.update_rows(n, dirty[n], rows_of[n]))
+               for n in range(len(dirty))]
+    gathered_s = [timed(lambda n=n: srv.update_rows(
         n, dirty[n], cur[n].index_select(0, torch.from_numpy(dirty[n])
                                          .long().cuda())))
-               for n in range(len(dirty))]
-    rebuild_s = timed(srv.refresh_tables)
+                  for n in range(len(dirty))]
+    # mode 0's patch and the rebuild in turns, so both see the same host
+    # (7 turns: a host stall in one call moves a median of 7 less)
+    turns = [(timed(lambda: srv.update_rows(0, dirty[0], rows_of[0]), 1),
+              timed(srv.refresh_tables, 1)) for _ in range(7)]
+    patch_s[0] = statistics.median(p for p, _ in turns)
+    rebuild_s = statistics.median(r for _, r in turns)
     log(f"serving refresh: update_rows of one refresh's dirty rows "
         f"{[len(d) for d in dirty]}: " + " / ".join(
-            f"{t * 1e3:.3f}" for t in patch_s) + " ms per mode, against "
+            f"{t * 1e3:.3f}" for t in patch_s) + " ms per mode (with each "
+        "call's gather of the rows: " + " / ".join(
+            f"{t * 1e3:.3f}" for t in gathered_s) + " ms), against "
         f"refresh_tables (all {sum(srv.dims):,} rows) {rebuild_s * 1e3:.3f} ms"
-        " (host clock, closed by a synchronize; medians of 5)")
-    rows0 = cur[0].index_select(0, torch.from_numpy(dirty[0]).long().cuda())
+        " (host clock, closed by a synchronize; medians of 5, mode 0's and "
+        "the rebuild's of 7 taken in turns): the patch of mode 0 "
+        + ("beats" if patch_s[0] < rebuild_s else "does not beat")
+        + " the rebuild; with the gather (the supervisor's cost too) it "
+        + ("beats" if gathered_s[0] < rebuild_s else "does not beat") + " it")
+    if not patch_s[0] < rebuild_s:
+        raise AssertionError(
+            f"serving refresh: update_rows of mode 0's {len(dirty[0]):,} "
+            f"dirty rows ({patch_s[0] * 1e3:.3f} ms) does not beat "
+            f"refresh_tables ({rebuild_s * 1e3:.3f} ms)")
+    rows0 = rows_of[0]
     profiles = {}
     for what, fn in (("update_rows, mode 0",
                       lambda: srv.update_rows(0, dirty[0], rows0)),
                      ("refresh_tables", srv.refresh_tables)):
         profiles[what] = op_profile(torch, fn)
         log_op_profile(f"serving refresh profile [{what}]", profiles[what])
+    split = patch_host_split(torch, srv, 0, dirty[0], rows0)
+    log_host_split(f"phase 16, J = R = {srv.core_rank}, mode 0, "
+                   f"{len(dirty[0]):,} of {srv.dims[0]:,} rows", split)
     stale = [st for _, st in seen]
     rec = {"rounds": rounds, "wall_s": wall, "queries": len(seen),
            "staleness_median_s": statistics.median(stale),
@@ -2772,11 +2851,184 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
            "patch_equals_rebuild": True, "faulted": {
                "rounds": rounds2, "wall_s": wall2, "health": h,
                "launch_counts": counts2, "equals_unfaulted": True},
-           "update_rows_s": patch_s, "refresh_tables_s": rebuild_s,
-           "profiles": profiles,
+           "update_rows_s": patch_s, "update_rows_gathered_s": gathered_s,
+           "refresh_tables_s": rebuild_s,
+           "patch_beats_rebuild": patch_s[0] < rebuild_s,
+           "gathered_patch_beats_rebuild": gathered_s[0] < rebuild_s,
+           "profiles": profiles, "update_rows_host_split_us": split,
            "dirty_rows_timed": [len(d) for d in dirty]}
     main = {k: counts[k] + counts2[k] for k in REPLACES}
     return rec, main
+
+
+def patch_host_split(torch, srv, mode: int, ids, rows, reps: int = 50
+                     ) -> dict:
+    """Host time of one ``srv.update_rows(mode, ids, rows)`` split by
+    stage, µs.  Medians of ``reps`` calls on the host clock, the device idle
+    before each: the whole call, its ``_check_rows``, the backend lookup,
+    the kernel wrapper; alone, what the wrapper's candidate stages cost
+    (numpy's ``ascontiguousarray`` of the ids, four device allocations of
+    the patch's sizes, a ``torch.cuda.device`` context, an empty kernel
+    through the same ctypes path); then, under the profiler (20 wrapper
+    calls), the host self time a call of each runtime call and allocation
+    (``cudaMemcpyAsync`` with its count a call)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build, dispatch
+
+    def med(fn) -> float:
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return statistics.median(out) * 1e6
+
+    ids_c, rows_c = srv._check_rows(mode, ids, rows, "update_rows")
+    be = dispatch.get_backend(srv.backend)
+    live = srv._live
+    args = (live.tables[mode], live.colsums[mode], srv._factors[mode],
+            srv._core[mode], ids_c, rows_c)
+    dev, R, K_ = srv.device, srv.core_rank, len(ids_c)
+    noop = build.function("segment_reduce", "repro_noop", [ctypes.c_void_p])
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    def allocations():
+        torch.empty((K_,), dtype=torch.int32, device=dev)
+        torch.empty_like(args[0])
+        torch.empty_like(args[1])
+        torch.empty((512, R), dtype=torch.float32, device=dev)
+
+    split = {
+        "update_rows": med(lambda: srv.update_rows(mode, ids, rows)),
+        "_check_rows": med(lambda: srv._check_rows(mode, ids, rows,
+                                                   "update_rows")),
+        "dispatch": med(lambda: dispatch.get_backend(
+            srv.backend).patch_table_rows),
+        "patch_table_rows": med(lambda: be.patch_table_rows(*args)),
+        "alone: ascontiguousarray": med(
+            lambda: np.ascontiguousarray(ids_c, dtype=np.int32)),
+        "alone: four allocations": med(allocations),
+        "alone: device context": med(context),
+        "alone: empty kernel through ctypes": med(
+            lambda: noop(torch.cuda.current_stream().cuda_stream)),
+    }
+    calls = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            be.patch_table_rows(*args)
+            torch.cuda.synchronize()
+    host, counts = {}, {}
+    for ev in prof.events():
+        if "CUDA" in str(ev.device_type) or ev.name in (
+                "Activity Buffer Request", "cudaDeviceSynchronize"):
+            continue
+        host[ev.name] = host.get(ev.name, 0.0) + ev.self_cpu_time_total
+        counts[ev.name] = counts.get(ev.name, 0) + 1
+    for name, us in sorted(host.items(), key=lambda kv: -kv[1])[:8]:
+        split[f"profiled: {name} ({counts[name] / calls:g} a call)"] = \
+            us / calls
+    return split
+
+
+def refresh_host(torch) -> dict:
+    """``--refresh-host``: the patch's host cost and the refresh contract
+    alone, through the entry points a tree has had since the serving
+    tables' kernels came (so that two trees compare in one call).  At
+    phase 16's shape (the Netflix dims at J = R = 4, random factors, 14,294
+    of mode 0's rows): one ``update_rows`` call's host split, and mode 0's
+    patch against ``refresh_tables`` in turns, with and without the rows'
+    gather in the window (medians of 5, 7 times); at ``bench_refresh``'s
+    FULL shape: the host split at 1 % and 10 % (``_refresh_ops``), the
+    patch of 6,000 of 60,000 rows by phase 5's method, and
+    ``bench_refresh`` FULL on "cuda" and on the plain path, each with its
+    validator's verdict."""
+    import numpy as np
+
+    from repro_torch.benchmarks import bench_refresh
+    from repro_torch.core.fasttucker import FastTuckerParams
+    from repro_torch.kernels.mode_product_rows import (mode_product_rows,
+                                                       patch_table_rows)
+    from repro_torch.serve import TuckerServer
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    srv = TuckerServer(FastTuckerParams(
+        tuple(torch.randn((d, 4), generator=gen, device="cuda")
+              for d in NETFLIX_DIMS),
+        tuple(torch.randn((4, 4), generator=gen, device="cuda")
+              for _ in NETFLIX_DIMS)), backend="cuda")
+    ids = np.sort(np.random.default_rng(16).permutation(NETFLIX_DIMS[0])
+                  [:14_294]).astype(np.int32)
+    cur = torch.randn((NETFLIX_DIMS[0], 4), generator=gen, device="cuda")
+    rows = cur.index_select(0, torch.from_numpy(ids).long().cuda())
+
+    def timed(fn, reps=5) -> float:
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    turns = []
+    for _ in range(7):
+        turns.append({
+            "update_rows_ms": timed(lambda: srv.update_rows(0, ids, rows))
+            * 1e3,
+            "gathered_ms": timed(lambda: srv.update_rows(
+                0, ids, cur.index_select(0, torch.from_numpy(ids).long()
+                                         .cuda()))) * 1e3,
+            "refresh_tables_ms": timed(srv.refresh_tables) * 1e3})
+    rec = {"phase16_turns": turns,
+           "phase16_host_split_us": patch_host_split(torch, srv, 0, ids,
+                                                     rows),
+           "bench_refresh_ops": _refresh_ops(torch, "cuda")}
+    log_host_split("phase 16 shape, mode 0", rec["phase16_host_split_us"])
+    log("phase 16 shape, mode 0 against refresh_tables, ms (alone, "
+        "gathered, rebuild): " + "; ".join(
+            f"{t['update_rows_ms']:.4f} {t['gathered_ms']:.4f} "
+            f"{t['refresh_tables_ms']:.4f}" for t in turns))
+    I, JR = REFRESH_SHAPE
+    mirror = torch.randn((I, JR), generator=gen, device="cuda")
+    core = torch.randn((JR, JR), generator=gen, device="cuda")
+    table = mode_product_rows(mirror, core)
+    colsum = table.sum(0)
+    pids = np.sort(np.random.default_rng(0).permutation(I)[:I // 10]
+                   ).astype(np.int32)
+    new = torch.randn((I // 10, JR), generator=gen, device="cuda")
+    rec["patch_ms"] = device_ms(torch, lambda: patch_table_rows(
+        table, colsum, mirror, core, pids, new))
+    log(f"patch_table_rows, {I // 10:,} of {I:,} rows, J = R = {JR}: "
+        f"{rec['patch_ms'] * 1e3:.2f} us/call")
+    for backend in ("cuda", "torch"):
+        doc = bench_refresh.measure(smoke=False, device="cuda",
+                                    backend=backend)
+        try:
+            bench_refresh.validate(doc)
+            verdict = "held"
+        except ValueError as e:
+            verdict = str(e)
+        rec[f"bench_refresh_{backend}"] = {"rows": doc["rows"],
+                                           "contract": verdict}
+        log(f"bench_refresh FULL on {backend}: " + "; ".join(
+            f"{r['dirty_fraction']:g}: patch {r['patch_ms']:.4f} ms, "
+            f"rebuild {r['rebuild_ms']:.4f} ms, x{r['speedup']:.2f}"
+            for r in doc["rows"]) + f"; contract: {verdict}")
+    return rec
+
+
+def log_host_split(what: str, split: dict) -> None:
+    log(f"update_rows host split [{what}], us a call: " + "; ".join(
+        f"{k} {v:.1f}" for k, v in split.items()))
 
 
 def _serve_times(torch, K, servers, pool) -> list[dict]:
@@ -3268,14 +3520,24 @@ def _table_kernels(torch, K) -> tuple[dict, list[dict]]:
         a = torch.randn((M, J), generator=gen, device="cuda")
         b = core[:J, :J].contiguous()
         ms = device_ms(torch, lambda: mpr(a, b))
+        # the same call with its rows rotated over sets past the L2 (each
+        # set's rows read and its table written): what a rebuild sees
+        sets = itertools.cycle([a] + [
+            torch.randn((M, J), generator=gen, device="cuda")
+            for _ in range(cold_sets(4 * (M * J + M * J)) - 1)])
+        cold = device_ms(torch, lambda: mpr(next(sets), b))
         plain = device_ms(torch, lambda: K.ref.mode_product_rows_ref(a, b),
                           iters=20)
         lib = device_ms(torch, lambda: torch.matmul(a, b))
-        t_b, by = bound(4 * (M * J + J * J + M * J), 2 * M * J * J)
+        # no FMA: (2J - 1)·M·R separate instructions at half the FMA rate
+        t_b, by = bound_no_fma(4 * (M * J + J * J + M * J),
+                               (2 * J - 1) * M * J)
+        fma = 2 * M * J * J / F32_FLOPS_PER_S * 1e3
         dev = profiled_ms(torch, lambda: mpr(a, b),
                           DEVICE_KERNEL["mode_product_rows"])
         times.append(("mode_product_rows", f"table build, M = {M:,}, J = R "
-                      f"= {J}", ms, plain, lib, t_b, by, dev))
+                      f"= {J}, {mpr_route(K, M, J, J)}", ms, cold, plain, lib,
+                      t_b, by, dev, fma))
     mirror = torch.randn((I, JR), generator=gen, device="cuda")
     table = mpr(mirror, core)
     colsum = table.sum(0)
@@ -3285,27 +3547,52 @@ def _table_kernels(torch, K) -> tuple[dict, list[dict]]:
     new = torch.randn((Kd, JR), generator=gen, device="cuda")
     call = lambda: ptr(table, colsum, mirror, core, ids, new)  # noqa: E731
     ms = device_ms(torch, call)
+    psets = [(table, colsum, mirror, new)]
+    for _ in range(cold_sets(4 * (3 * I * JR + Kd * JR)) - 1):
+        m = torch.randn((I, JR), generator=gen, device="cuda")
+        t = mpr(m, core)
+        psets.append((t, t.sum(0), m, torch.randn(
+            (Kd, JR), generator=gen, device="cuda")))
+    psets = itertools.cycle(psets)
+
+    def cold_call():
+        t, c, m, n = next(psets)
+        return ptr(t, c, m, core, ids, n)
+    cold = device_ms(torch, cold_call)
     plain = device_ms(torch, lambda: K.ref.patch_table_rows_ref(
         table, colsum, mirror, core, ids, new), iters=20)
-    t_b, by = bound(4 * (2 * I * JR + 3 * Kd * JR + Kd * JR + JR * JR
-                         + Kd + 2 * JR), 4 * Kd * JR * JR)
+    # bytes: the clean rows read and every row of the new table written
+    # (the dirty rows' products land in it), the old and new factor rows
+    # read and the new ones written, B, the ids, the bit map of the dirty
+    # rows and both colsums
+    t_b, by = bound_no_fma(
+        4 * (2 * I * JR - Kd * JR + 3 * Kd * JR + JR * JR + Kd + 2 * JR
+             + -(-I // 32)),
+        2 * (2 * JR - 1) * Kd * JR + 2 * Kd * JR)
+    fma = (4 * Kd * JR * JR + 2 * Kd * JR) / F32_FLOPS_PER_S * 1e3
     dev = profiled_ms(torch, call, DEVICE_KERNEL["patch_table_rows"])
     times.append(("patch_table_rows", f"row patch, {Kd:,} of {I:,} rows, "
-                  f"J = R = {JR} (the table copy included)", ms, plain, None,
-                  t_b, by, dev))
+                  f"J = R = {JR} (the table copy included)", ms, cold, plain,
+                  None, t_b, by, dev, fma))
     out = []
-    for name, tag, ms, plain, lib, t_b, by, dev in times:
-        log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call (plain "
+    for name, tag, ms, cold, plain, lib, t_b, by, dev, fma in times:
+        log(f"{name} [{tag}]: {ms * 1e3:.2f} us/call, cold {cold * 1e3:.2f} "
+            f"us (inputs rotated past the L2; the bound is {t_b / cold:.1%} "
+            "of it) (plain "
             f"{plain * 1e3:.2f} us"
             + (f", torch.matmul {lib * 1e3:.2f} us" if lib else
                ", no single PyTorch call")
-            + f"), bound {t_b * 1e3:.3f} us by {by} ({t_b / ms:.1%} of the "
-            f"event time), launch floor {floor * 1e3:.2f} us; profiler "
-            "device duration "
-            + (f"{dev * 1e3:.2f} us" if dev else "not measured"))
-        out.append({"name": name, "variant": tag, "ms": ms, "plain_ms": plain,
+            + f"), bound {t_b * 1e3:.3f} us by {by} without FMA "
+            f"({t_b / ms:.1%} of the event time; at the FMA rate "
+            f"{fma * 1e3:.3f} us), launch floor {floor * 1e3:.2f} us; "
+            "profiler device duration "
+            + (f"{dev * 1e3:.2f} us (the bound is {t_b / dev:.1%} of it)" if dev
+               else "not measured"))
+        out.append({"name": name, "variant": tag, "ms": ms, "cold_ms": cold,
+                    "plain_ms": plain,
                     "library_ms": lib, "bound_ms": t_b, "bound_by": by,
-                    "floor_ms": floor, "device_ms": dev})
+                    "fma_rate_ops_ms": fma, "floor_ms": floor,
+                    "device_ms": dev})
     return errs, out
 
 
@@ -3336,6 +3623,10 @@ def _refresh_ops(torch, backend: str) -> dict:
         out[what] = op_profile(torch, lambda: srv.update_rows(0, ids, rows))
         log_op_profile(f"refresh operations on {backend} [{what}]",
                        out[what])
+        if backend == "cuda":
+            out[f"{what}, host split"] = split = patch_host_split(
+                torch, srv, 0, ids, rows)
+            log_host_split(f"bench_refresh FULL, {what}", split)
     what = f"refresh_tables, {sum(dims):,} rows, rank {J}"
     out[what] = op_profile(torch, srv.refresh_tables)
     log_op_profile(f"refresh operations on {backend} [{what}]", out[what])
@@ -3362,12 +3653,20 @@ def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
            "refresh_ops": {b: _refresh_ops(torch, b)
                            for b in ("cuda", "torch")}}
     # bench_refresh FULL on the plain path, off the counts: what the
-    # contract reads without the table kernels
-    plain = bench_refresh.run(smoke=False, device="cuda", backend="torch")
+    # contract reads without the table kernels, with its validator's
+    # verdict recorded (a miss is logged, not a failure: the contract is
+    # the kernels' path, validated below)
+    plain = bench_refresh.measure(smoke=False, device="cuda",
+                                  backend="torch")
+    try:
+        bench_refresh.validate(plain)
+        plain["contract"] = "held"
+    except ValueError as e:
+        plain["contract"] = str(e)
     log("bench_refresh FULL (rank 64) on the plain path (torch): " + "; "
         .join(f"{r['dirty_fraction']:g}: patch {r['patch_ms']:.4f} ms, "
               f"rebuild {r['rebuild_ms']:.4f} ms, x{r['speedup']:.2f}"
-              for r in plain["rows"]))
+              for r in plain["rows"]) + f"; contract: {plain['contract']}")
     rec["bench_refresh_plain"] = plain
     main_counts = {k: 0 for k in REPLACES}
     secs = {}
@@ -3529,6 +3828,9 @@ def main(argv: list[str] | None = None) -> int:
                          "printed)")
     ap.add_argument("--report", default="",
                     help="also write the full record as JSON to this path")
+    ap.add_argument("--refresh-host", action="store_true",
+                    help="run only the patch's host split and the refresh "
+                         "contract (refresh_host), print them as JSON")
     ap.add_argument("--bench-out", default="build/bench",
                     help="directory (under the checkout unless absolute) "
                          "for phase 18's BENCH_torch_*.json documents")
@@ -3541,6 +3843,9 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if args.refresh_host:
+        print(json.dumps(refresh_host(torch), default=str), flush=True)
+        return 0
     import repro_torch.kernels as K
     from repro_torch.core import fasttucker as ft
     from repro_torch.configs import get_config

@@ -444,12 +444,17 @@ class TuckerServer:
             raise ValueError(f"mode {mode} outside 0..{self.order - 1}")
         return mode
 
-    def _check_ids(self, ids, mode: int, *, grow_hint: bool = False
-                   ) -> np.ndarray:
+    def _check_ids(self, ids, mode: int, *, grow_hint: bool = False,
+                   ascending: bool = False) -> np.ndarray:
+        """``ascending``: the caller found the ids strictly ascending, so
+        the first and last are the extremes (no pass for min and max)."""
         ids = np.atleast_1d(np.asarray(ids, np.int32))
         if ids.ndim != 1:
             raise ValueError(f"ids must be 1-D, got shape {ids.shape}")
-        if ids.size and (ids.min() < 0 or ids.max() >= self.dims[mode]):
+        if not ids.size:
+            return ids
+        lo, hi = (ids[0], ids[-1]) if ascending else (ids.min(), ids.max())
+        if lo < 0 or hi >= self.dims[mode]:
             bad = ids[(ids < 0) | (ids >= self.dims[mode])]
             msg = (f"ids out of range for mode {mode}: id {int(bad[0])} "
                    f"vs built dim I={self.dims[mode]}")
@@ -464,13 +469,16 @@ class TuckerServer:
     def _check_rows(self, mode: int, ids, factor_rows, what: str
                     ) -> tuple[np.ndarray, torch.Tensor]:
         """Checked (ids, rows in the factor's dtype on the device)."""
-        ids = self._check_ids(ids, mode, grow_hint=True)
+        ids = np.atleast_1d(np.asarray(ids, np.int32))
         # duplicates by a sort: numpy 2.3's np.unique hashes integers,
         # which took most of an update_rows call for a refresh's dirty
         # rows on the GPU machine's host (as data/synthetic.py notes);
-        # strictly ascending ids (what a refresh yields) need no sort
+        # strictly ascending ids (what a refresh yields) need no sort, and
+        # their range is their ends
+        ascending = ids.ndim == 1 and bool((ids[1:] > ids[:-1]).all())
+        ids = self._check_ids(ids, mode, grow_hint=True, ascending=ascending)
         dups = 0
-        if not (ids[1:] > ids[:-1]).all():
+        if not ascending:
             s = np.sort(ids)
             dups = int(np.count_nonzero(s[1:] == s[:-1]))
         if dups:

@@ -641,17 +641,17 @@ def test_patch_table_rows_plain_path_against_the_reference_patch():
                                  (1, 64), (64, 1)])
 @pytest.mark.parametrize("patch", [False, True])
 def test_mode_product_rows_plan_fits(J, R, patch):
-    """Every tile's outputs fit four a thread, its shared memory stays in
-    the default 48 kB, and the tiles cover the rows."""
+    """Every tile plan covers the rows, keeps its blocks under its route's
+    cap, and fits a block's shared memory (a patch's without an opt-in)."""
     for M in (1, 7, 600, 60_000, 480_189):
         p = mpr.plan(M, J, R, patch=patch)
-        assert p.rows_per_tile * R <= mpr.TILE_OUT
-        assert p.tiles * p.rows_per_tile >= M > (p.tiles - 1) * \
-            p.rows_per_tile
-        assert 1 <= p.blocks <= min(p.tiles, mpr.MAX_BLOCKS)
-        floats = J * R + p.rows_per_tile * (J + 1) * (2 if patch else 1) \
-            + (p.rows_per_tile * R if patch else 0)
-        assert 4 * floats <= 48 * 1024
+        per = p.rows_per_block or p.rows_per_tile
+        covered = p.blocks * per if p.rows_per_block else p.tiles * per
+        assert covered >= M > covered - per
+        cap = (mpr.MAX_BLOCKS if patch else mpr.NARROW_BLOCKS
+               if p.route == "narrow" else mpr.BUILD_BLOCKS)
+        assert 1 <= p.blocks <= min(p.tiles, cap)
+        assert p.smem <= (mpr.SMEM_DEFAULT if patch else mpr.SMEM_MAX)
     with pytest.raises(ValueError, match="J, R <= 64"):
         mpr.plan(10, 65, 4)
 

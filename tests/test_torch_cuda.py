@@ -1232,3 +1232,53 @@ def test_patch_table_rows_bitwise_rebuild_at_path_shapes_on_card(dev, I, JR,
     assert torch.equal(got_t, want_t) and torch.equal(m_k, m_p)
     assert torch.equal(got_t, mode_product_rows.mode_product_rows(m_k, core))
     _close(got_c, want_c, 1e-5)
+
+
+TABLE_WIDTHS = [(w, w) for w in (1, 3, 5, 8, 9, 33, 63, 64)] + [
+    (64, 1), (1, 64), (9, 4), (4, 33)]
+
+
+@pytest.mark.parametrize("J,R", TABLE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_kernels_bitwise_at_route_edges_on_card(dev, J, R, dtype):
+    """On both sides of each route's tile edge, rows, core and table in
+    ``dtype``: the build bitwise its plain version (also from a row slice,
+    whose base may lose its 16-byte alignment); the patch's table and
+    mirror bitwise the plain patch's and its table bitwise a rebuild from
+    the patched mirror; its colsum within 1e-5 of the plain one and the
+    same bits on a second call."""
+    g = torch.Generator(device=dev).manual_seed(J * 100 + R)
+    rng = np.random.default_rng(J * 100 + R)
+    mpr = mode_product_rows
+    core = torch.randn((J, R), generator=g, device=dev).to(dtype)
+    tile = mpr.plan(1, J, R).rows_per_tile
+    for M in (tile - 1, tile, tile + 1, 3 * tile + 5):
+        if M < 1:
+            continue
+        rows = torch.randn((M, J), generator=g, device=dev).to(dtype)
+        got = mpr.mode_product_rows(rows, core)
+        assert torch.equal(got, ref.mode_product_rows_ref(rows, core))
+        if M > 1:
+            assert torch.equal(got[1:], mpr.mode_product_rows(rows[1:], core))
+    I = 8_000
+    mirror = torch.randn((I, J), generator=g, device=dev).to(dtype)
+    table32 = mpr.mode_product_rows(mirror, core)
+    table, colsum = table32.to(dtype), table32.sum(0)
+    tile = mpr.plan(1, J, R, patch=True).rows_per_tile
+    for K in (tile - 1, tile, tile + 1, 40 * tile + 3):
+        ids = rng.permutation(I)[:K].astype(np.int32)
+        new = torch.randn((K, J), generator=g, device=dev).to(dtype)
+        outs = []
+        for _ in range(2):
+            m = mirror.clone()
+            outs.append(mpr.patch_table_rows(table, colsum, m, core, ids,
+                                             new) + (m,))
+        m_p = mirror.clone()
+        want_t, want_c = ref.patch_table_rows_ref(table, colsum, m_p, core,
+                                                  ids, new)
+        for got_t, got_c, got_m in outs:
+            assert torch.equal(got_t, want_t) and torch.equal(got_m, m_p)
+            _close(got_c, want_c, 1e-5)
+        assert torch.equal(outs[0][1], outs[1][1])
+        assert torch.equal(outs[0][0], mpr.mode_product_rows(
+            outs[0][2], core).to(dtype))

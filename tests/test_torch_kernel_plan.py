@@ -6,7 +6,9 @@ cross-block reduction's chunk; ``segment_reduce.plan`` and
 pure functions of the shapes, so the bits of a result do not depend on
 the phase flags or on the card.  ``flash_attention_bwd.plan`` lays out
 the flash backward's three launches (Di, dK/dV, dQ), which its C entry
-refuses unless they are the build's.
+refuses unless they are the build's.  ``mode_product_rows.plan`` picks the
+serving tables' route (narrow or wide) and tiles the build and the row
+patch, whose block count fixes the colsum's order.
 """
 import inspect
 import itertools
@@ -15,7 +17,8 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import (flash_attention_bwd, kruskal_grad,
-                                 scatter_accum, segment_reduce)
+                                 mode_product_rows, scatter_accum,
+                                 segment_reduce)
 
 GRAD_SHAPES = list(itertools.product(
     (1, 3, 4, 10),                      # N
@@ -290,3 +293,125 @@ def test_walk_search_finds_each_rows_run(W):
             assert start == bisect.bisect_left(ids, r)
             assert _group_lower_bound(ids, start, r + 1, W) == \
                 bisect.bisect_left(ids, r + 1)
+
+
+# ---------------------------------------------------------------------------
+# mode_product_rows: the serving tables' build and row patch
+# ---------------------------------------------------------------------------
+
+TABLE_WIDTHS = (1, 3, 4, 5, 8, 9, 33, 63, 64)
+TABLE_ROWS = (4_099, 60_000, 480_189)
+
+
+def _table_edges(J, R, patch):
+    """1, the route's tile − 1, tile, tile + 1, then the serving sizes."""
+    tile = mode_product_rows.plan(1, J, R, patch=patch).rows_per_tile
+    return sorted({1, max(1, tile - 1), tile, tile + 1, *TABLE_ROWS})
+
+
+def test_table_plan_reads_the_shapes_only():
+    """The plan takes the shapes and the storage width, nothing of a device;
+    the route follows J and R alone."""
+    mpr = mode_product_rows
+    assert list(inspect.signature(mpr.plan).parameters) == [
+        "M", "J", "R", "patch", "itemsize", "table_rows"]
+    assert mpr.plan(60_000, 64, 64) == mpr.plan(60_000, 64, 64)
+    assert mpr.plan(480_189, 4, 4).route == "narrow"
+    assert mpr.plan(2_000, 8, 8, patch=True).route == "narrow"
+    for J, R in ((9, 4), (4, 9), (64, 64), (64, 1), (1, 64)):
+        assert mpr.plan(100, J, R).route == "wide"
+    # the wide build keeps two blocks an SM (80 kB at J = R = 64, f32) and
+    # gives every block the same rows: 259 blocks of 232 at 60,000
+    pl = mpr.plan(60_000, 64, 64)
+    assert (pl.rows_per_tile, pl.blocks, pl.rows_per_block, pl.smem) == (
+        128, 259, 232, 81_920)
+    with pytest.raises(ValueError, match="J, R <= 64"):
+        mpr.plan(10, 4, 65)
+    with pytest.raises(ValueError, match="M >= 1"):
+        mpr.plan(0, 4, 4)
+
+
+@pytest.mark.parametrize("patch", [False, True])
+@pytest.mark.parametrize("JR", TABLE_WIDTHS)
+def test_table_plan_covers_every_row_once(JR, patch):
+    """The kernels' walk reaches every (row, column) once: a wide build's
+    block b takes rows [b·n, (b + 1)·n) (n a multiple of 8, so its tiles
+    start 16-byte aligned) in tiles of 128; a patch's or a narrow build's
+    block b takes tiles b, b + blocks, ...; a wide tile's 16 row groups
+    take TM rows each and its column groups four columns each; a narrow
+    thread takes one row."""
+    mpr = mode_product_rows
+    for M in _table_edges(JR, JR, patch):
+        pl = mpr.plan(M, JR, JR, patch=patch)
+        if pl.rows_per_block:
+            n = pl.rows_per_block
+            assert n % 8 == 0 and (pl.blocks - 1) * n < M <= pl.blocks * n
+            hits = np.zeros(M, np.int64)
+            tiles = 0
+            for b in range(pl.blocks):
+                hits[b * n:(b + 1) * n] += 1
+                tiles += -(-(min(M, (b + 1) * n) - b * n) // pl.rows_per_tile)
+            assert (hits == 1).all() and tiles == pl.tiles
+        else:
+            tiles = np.zeros(pl.tiles, np.int64)
+            for b in range(pl.blocks):
+                tiles[b::pl.blocks] += 1
+            assert (tiles == 1).all()
+            assert pl.tiles * pl.rows_per_tile >= M > (pl.tiles - 1) * \
+                pl.rows_per_tile
+        if pl.route == "narrow":
+            assert pl.threads == pl.rows_per_tile   # a row a thread
+            continue
+        cg = -(-JR // 4)
+        tm = pl.rows_per_tile // mpr.ROW_GROUPS
+        assert cg * mpr.ROW_GROUPS <= pl.threads
+        cover = np.zeros((pl.rows_per_tile, 4 * cg), np.int64)
+        for t in range(cg * mpr.ROW_GROUPS):
+            rg, c = divmod(t, cg)
+            cover[rg * tm:(rg + 1) * tm, 4 * c:4 * c + 4] += 1
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_table_plan_fits_shared_memory_at_every_width(itemsize):
+    """Every J, R <= 64: a wide build fits two blocks an SM (the opt-in
+    limit halved), a patch the default 48 kB (no opt-in), narrow plans a
+    few hundred bytes; the patch's workspace holds the ids, the counter,
+    the bit map of 60,000 rows and the partials, each part 16-byte
+    aligned."""
+    mpr = mode_product_rows
+    for J, R in itertools.product(range(1, 65), repeat=2):
+        build = mpr.plan(60_000, J, R, itemsize=itemsize)
+        assert build.smem <= mpr.SMEM_MAX // 2
+        patch = mpr.plan(6_000, J, R, patch=True, itemsize=itemsize,
+                         table_rows=60_000)
+        assert patch.smem <= mpr.SMEM_DEFAULT
+        if build.route == "wide":
+            S = -(-R // 4) * 4
+            assert build.smem == 4 * J * S + 2 * itemsize * 128 * J
+        ids, bits = (6_000 + 4) & ~3, (1_875 + 3) & ~3
+        assert ids >= 6_001 and ids % 4 == 0 and bits % 4 == 0
+        assert 32 * bits >= 60_000
+        assert patch.workspace == ids + bits + patch.blocks * R
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 127, 128, 129, 600, 6_000,
+                               14_294, 16_384, 16_385, 60_000])
+def test_table_patch_blocks_are_a_function_of_k_alone(K):
+    """The colsum folds each thread's rows, a block's threads, then the
+    blocks in order: fixed tiles (32 rows on the wide route, 128 on the
+    narrow one) and a constant cap make the block count, and so the
+    order, the same at every width and storage of a route; nothing of a
+    device enters it."""
+    mpr = mode_product_rows
+    for route, rows in (("wide", mpr.PATCH_ROWS),
+                        ("narrow", mpr.PATCH_NARROW)):
+        want = min(-(-K // rows), mpr.MAX_BLOCKS)
+        for J, R in itertools.product(TABLE_WIDTHS, repeat=2):
+            for itemsize in (4, 2):
+                pl = mpr.plan(K, J, R, patch=True, itemsize=itemsize)
+                if pl.route == route:
+                    assert (pl.rows_per_tile, pl.blocks) == (rows, want)
+                    # the last block's segments: each adds at most 32·4
+                    # partials, in 32-wide rounds
+                    assert -(-pl.blocks // (pl.threads // R)) <= 128
