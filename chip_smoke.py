@@ -189,9 +189,14 @@ Phases (each failure ends the run with a non-zero exit code):
    degrades, recovers and ends on the first run's tables, factors and
    generator state bitwise; ``update_rows`` against ``refresh_tables``
    seconds (the new rows gathered before the clock starts, and again with
-   each call's gather in the window, as the refresh supervisor pays it;
-   mode 0's patch alone, median of 7 in turns with the rebuild, must beat
-   the rebuild) and, over 20 profiled calls, each one's host and device time by operation; one
+   each call's gather in the window as the refresh supervisor pays it: an
+   ``index_select`` by the refresh's ids on the device, no host-to-device
+   copy; mode 0's patch, alone and gathered, medians of 7 in turns with
+   the rebuild, must each beat the rebuild; in the same turns the
+   supervisor's whole publish of a patch round, every mode gathered and
+   patched between its drift check's colsum reads, is recorded beside the
+   rebuild, not asserted) and, over 20 profiled calls,
+   each one's host and device time by operation; one
    ``update_rows`` call's host time split by stage (``patch_host_split``);
    dirty rows per round and the staleness the queries saw.
    ``kruskal_contract`` (pred only) at B in {256, 2048}, J = R in {4, 64}
@@ -253,6 +258,35 @@ Phases (each failure ends the run with a non-zero exit code):
    ``serve_batched``.  The three documents go to ``--bench-out``
    (``BENCH_torch_step.json``, ``BENCH_torch_serve.json``,
    ``BENCH_torch_refresh.json``).
+19. Online training and the data layer over phase 3's tensor, through
+   ``repro_torch.launch.online_train.run``: ``--steps`` warm-up steps at
+   batch 4096, then 4 rounds of 65,536 arrivals (``--stream-fraction
+   0.00294`` of the training nonzeros; window one round), K = 4 refresh
+   steps a round.  Run A spills its ``NonzeroStore`` under ``build/``
+   (``--spill-dir --verify``): the patched f32 tables bitwise a fresh
+   server's, the spilled store reopened equal to ``NonzeroStore.build`` in
+   memory of the warm set and every arrival, array for array, and each
+   round's launches exactly K ``kruskal_grad``, 3K ``scatter_accum`` and
+   one ``patch_table_rows`` a patched mode (one ``mode_product_rows`` a
+   mode in a rebuild round); per round the ingest, transfer, refresh and
+   publish seconds, dirty rows, store bytes and held-out RMSE, and each
+   run's publish seconds split by kind (patch rounds, rebuild rounds).
+   Run B keeps
+   its store in memory under ``--inject-faults
+   refresh@0:1:2,publish@0,ingest@1 --expect-breaker --verify``: it
+   degrades, recovers and ends on run A's tables, factors and generator
+   state bitwise, with run A's store arrays.  Then ``StratumPrefetcher``
+   over an in-memory ``NonzeroStore.build(train, 4)`` (16 strata; its L,
+   sized by the counting pass on the card, must be the one the host
+   digits' bucket fills give, and the mask's fills those fills), one
+   epoch at depth 0 and at depth 2 and once under
+   ``FaultPlan.parse("transfer@3")`` (absorbed by one retry): every block
+   bitwise the store's chunk, at most depth + 1 sets of pinned staging
+   buffers allocated over the walk,
+   seconds a block and H2D GB/s.  Every phase's disk writes are reckoned
+   (the LM checkpoint, phase 14's checkpoints, the store and its
+   appends, ...) and their total is printed and must stay under the
+   machine's 45 GiB.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -415,6 +449,20 @@ CONV_WARM_EVAL = 50
 CONV_PARITY = dict(dims=(400, 300, 200), nnz=150_000, rank=8, batch=2048,
                    sketch_batch=16_384)
 CONV_ADAPTIVE = dict(max_core_rank=16, eval_every=100)
+# phase 19: online training over phase 3's tensor (the reference's
+# launch/online_train.py): 0.00294 of the training nonzeros (262,144)
+# arrive in 4 rounds of 65,536, phase 16's refresh traffic; window = one
+# round.  Run B repeats it in memory under these faults.  The prefetcher
+# walks an in-memory store of M = 4 (16 strata) at each depth.
+ONLINE = dict(rounds=4, refresh_steps=4, stream_fraction=0.00294)
+ONLINE_FAULTS = "refresh@0:1:2,publish@0,ingest@1"
+PREFETCH_WORKERS = 4
+PREFETCH_DEPTHS = (0, 2)
+PREFETCH_FAULT = "transfer@3"
+STORE_ENTRY_BYTES = 17       # 12 of indices, 4 of value, 1 of mask
+# the GPU machine stops a call past this many bytes written to its disk
+DISK_LIMIT = 45 * 2**30
+WRITTEN: dict[str, int] = {}  # reckoned disk bytes, by phase
 FLAGS = [
     # (consume c, row_modes, want_core, emit_c) of kruskal_grad
     (False, None, True, False),     # the joint pass
@@ -454,6 +502,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def tree_bytes(path: Path) -> int:
+    """Bytes of the files under ``path`` (0 where there is none)."""
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def note_written(phase: str, nbytes: int) -> None:
+    """Add ``nbytes`` written to the disk to ``phase``'s reckoning."""
+    WRITTEN[phase] = WRITTEN.get(phase, 0) + int(nbytes)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -488,6 +549,7 @@ def phase_environment(torch, build) -> dict:
     t0 = time.perf_counter()
     secs = build.build()
     wall = time.perf_counter() - t0
+    note_written("1 (kernel build)", tree_bytes(build.BUILD_DIR))
     log(f"kernel build (one nvcc per source, in parallel): {wall:.1f}s wall; "
         + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
     ptxas = {}
@@ -2097,6 +2159,7 @@ def phase_lm_train(torch, K, train, cfg) -> dict:
     out["resume"] = {"restored_step": at, "restore_seconds": restore_s,
                      "losses": got, "want": wantl, "max_rel_diff": worst}
     del fresh
+    note_written("12 (LM checkpoint)", tree_bytes(ckpt_dir))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
@@ -2281,6 +2344,7 @@ def phase_driver(torch, K, std_train, base_res, steps: int) -> dict:
             runs[name], run_counts[name] = res, counts
             if name in ("uninterrupted", "interrupted"):
                 committed[name] = CheckpointManager(flags[1]).all_steps()
+        note_written("14 (std_train checkpoints)", tree_bytes(tmp))
     want = {"uninterrupted": sorted({*range(third, steps + 1, third),
                                      steps}),
             "interrupted": [third, 2 * third]}
@@ -2661,6 +2725,8 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
     unfaulted one; update_rows against refresh_tables; staleness."""
     import threading
 
+    import numpy as np
+
     from repro_torch.distributed import get_strategy
     from repro_torch.runtime.fault import FaultPlan
     from repro_torch.serve import (RefreshSupervisor, SupervisorConfig,
@@ -2785,9 +2851,12 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
                              f"degrade, recover and end on the unfaulted "
                              f"run's bits: {h}")
 
-    # a patch of one refresh's dirty rows against a rebuild, on run 1's server
-    _, dirty = strategy.refresh_steps(plan, sup.dstate, arr_idx[-R["arrivals"]:],
-                                      arr_val[-R["arrivals"]:], R["steps"])
+    # a patch of one refresh's dirty rows against a rebuild, on run 1's
+    # server; the refresh's ids on the device are what the supervisor
+    # gathers the new rows with
+    _, dirty, dirty_dev = strategy.refresh_steps(
+        plan, sup.dstate, arr_idx[-R["arrivals"]:], arr_val[-R["arrivals"]:],
+        R["steps"])
     cur = srv.params.factors
 
     def timed(fn, reps=5) -> float:
@@ -2801,39 +2870,68 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
         return statistics.median(out)
 
     # the new rows gathered first: the time of update_rows alone, as
-    # bench_refresh times it; then with each call's gather (an int64 copy
-    # of the ids and an index_select) in the window too, as phase 16 used
-    # to time it and as the refresh supervisor pays it on every patch
-    rows_of = [cur[n].index_select(0, torch.from_numpy(dirty[n]).long()
-                                   .cuda()) for n in range(len(dirty))]
-    patch_s = [timed(lambda n=n: srv.update_rows(n, dirty[n], rows_of[n]))
+    # bench_refresh times it; then with each call's gather in the window
+    # too, as the refresh supervisor pays it on every patch (an
+    # index_select by the refresh's device ids: no host-to-device copy of
+    # the ids, no sync)
+    rows_of = [cur[n].index_select(0, dirty_dev[n])
                for n in range(len(dirty))]
-    gathered_s = [timed(lambda n=n: srv.update_rows(
-        n, dirty[n], cur[n].index_select(0, torch.from_numpy(dirty[n])
-                                         .long().cuda())))
-                  for n in range(len(dirty))]
-    # mode 0's patch and the rebuild in turns, so both see the same host
-    # (7 turns: a host stall in one call moves a median of 7 less)
-    turns = [(timed(lambda: srv.update_rows(0, dirty[0], rows_of[0]), 1),
-              timed(srv.refresh_tables, 1)) for _ in range(7)]
-    patch_s[0] = statistics.median(p for p, _ in turns)
-    rebuild_s = statistics.median(r for _, r in turns)
+
+    def alone(n):
+        return lambda: srv.update_rows(n, dirty[n], rows_of[n])
+
+    def gathered(n):
+        return lambda: srv.update_rows(
+            n, dirty[n], cur[n].index_select(0, dirty_dev[n]))
+
+    def round_publish():
+        # the supervisor's whole publish of a patch round: every mode's
+        # gather and patch, each between the two colsum reads of its drift
+        # check
+        for n in range(len(dirty)):
+            if len(dirty[n]):
+                before = srv._colsums[n].float().cpu().numpy()
+                gathered(n)()
+                after = srv._colsums[n].float().cpu().numpy()
+                float(np.abs(after - before).sum())
+                float(np.abs(after).sum())
+
+    patch_s = [timed(alone(n)) for n in range(len(dirty))]
+    gathered_s = [timed(gathered(n)) for n in range(len(dirty))]
+    # mode 0's patch, alone and gathered, the round's whole publish and the
+    # rebuild in turns, so all see the same host (7 turns: a host stall in
+    # one call moves a median of 7 less)
+    turns = [(timed(alone(0), 1), timed(gathered(0), 1),
+              timed(round_publish, 1), timed(srv.refresh_tables, 1))
+             for _ in range(7)]
+    patch_s[0] = statistics.median(t[0] for t in turns)
+    gathered_s[0] = statistics.median(t[1] for t in turns)
+    round_s = statistics.median(t[2] for t in turns)
+    rebuild_s = statistics.median(t[3] for t in turns)
     log(f"serving refresh: update_rows of one refresh's dirty rows "
         f"{[len(d) for d in dirty]}: " + " / ".join(
             f"{t * 1e3:.3f}" for t in patch_s) + " ms per mode (with each "
-        "call's gather of the rows: " + " / ".join(
-            f"{t * 1e3:.3f}" for t in gathered_s) + " ms), against "
+        "call's gather of the rows by the refresh's device ids: "
+        + " / ".join(f"{t * 1e3:.3f}" for t in gathered_s) + " ms), against "
         f"refresh_tables (all {sum(srv.dims):,} rows) {rebuild_s * 1e3:.3f} ms"
         " (host clock, closed by a synchronize; medians of 5, mode 0's and "
         "the rebuild's of 7 taken in turns): the patch of mode 0 "
         + ("beats" if patch_s[0] < rebuild_s else "does not beat")
-        + " the rebuild; with the gather (the supervisor's cost too) it "
-        + ("beats" if gathered_s[0] < rebuild_s else "does not beat") + " it")
-    if not patch_s[0] < rebuild_s:
-        raise AssertionError(
-            f"serving refresh: update_rows of mode 0's {len(dirty[0]):,} "
-            f"dirty rows ({patch_s[0] * 1e3:.3f} ms) does not beat "
-            f"refresh_tables ({rebuild_s * 1e3:.3f} ms)")
+        + " the rebuild; with the gather (the supervisor's cost) it "
+        + ("beats" if gathered_s[0] < rebuild_s else "does not beat") + " it"
+        + f"; the supervisor's whole patch publish (every mode gathered and "
+        f"patched, the drift check's colsum reads) {round_s * 1e3:.3f} ms "
+        + ("beats" if round_s < rebuild_s else "does not beat")
+        + " it (recorded, not asserted)"
+        + "; turns (alone, gathered, round, rebuild) ms: " + "; ".join(
+            " ".join(f"{x * 1e3:.4f}" for x in t) for t in turns))
+    for what, t in (("alone", patch_s[0]), ("with the supervisor's gather",
+                                            gathered_s[0])):
+        if not t < rebuild_s:
+            raise AssertionError(
+                f"serving refresh: update_rows of mode 0's "
+                f"{len(dirty[0]):,} dirty rows, {what} ({t * 1e3:.3f} ms), "
+                f"does not beat refresh_tables ({rebuild_s * 1e3:.3f} ms)")
     rows0 = rows_of[0]
     profiles = {}
     for what, fn in (("update_rows, mode 0",
@@ -2852,9 +2950,11 @@ def _serve_refresh(torch, K, base_res, pool) -> tuple[dict, dict]:
                "rounds": rounds2, "wall_s": wall2, "health": h,
                "launch_counts": counts2, "equals_unfaulted": True},
            "update_rows_s": patch_s, "update_rows_gathered_s": gathered_s,
-           "refresh_tables_s": rebuild_s,
+           "round_publish_s": round_s,
+           "refresh_tables_s": rebuild_s, "turns_s": turns,
            "patch_beats_rebuild": patch_s[0] < rebuild_s,
            "gathered_patch_beats_rebuild": gathered_s[0] < rebuild_s,
+           "round_publish_beats_rebuild": round_s < rebuild_s,
            "profiles": profiles, "update_rows_host_split_us": split,
            "dirty_rows_timed": [len(d) for d in dirty]}
     main = {k: counts[k] + counts2[k] for k in REPLACES}
@@ -2967,7 +3067,8 @@ def refresh_host(torch) -> dict:
     ids = np.sort(np.random.default_rng(16).permutation(NETFLIX_DIMS[0])
                   [:14_294]).astype(np.int32)
     cur = torch.randn((NETFLIX_DIMS[0], 4), generator=gen, device="cuda")
-    rows = cur.index_select(0, torch.from_numpy(ids).long().cuda())
+    ids_dev = torch.from_numpy(ids).long().cuda()
+    rows = cur.index_select(0, ids_dev)
 
     def timed(fn, reps=5) -> float:
         out = []
@@ -2985,8 +3086,7 @@ def refresh_host(torch) -> dict:
             "update_rows_ms": timed(lambda: srv.update_rows(0, ids, rows))
             * 1e3,
             "gathered_ms": timed(lambda: srv.update_rows(
-                0, ids, cur.index_select(0, torch.from_numpy(ids).long()
-                                         .cuda()))) * 1e3,
+                0, ids, cur.index_select(0, ids_dev))) * 1e3,
             "refresh_tables_ms": timed(srv.refresh_tables) * 1e3})
     rec = {"phase16_turns": turns,
            "phase16_host_split_us": patch_host_split(torch, srv, 0, ids,
@@ -3801,6 +3901,7 @@ def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
         f"{whole['cutucker_rmse']:.4f}")
     sb, c4 = drive("serve_batched", lambda: serve_batched.main([]))
     for d in (ck1, ck2):
+        note_written("18 (example checkpoints)", tree_bytes(d))
         shutil.rmtree(d, ignore_errors=True)
     rec["examples"] = {
         "decompose_ratings": {
@@ -3813,6 +3914,274 @@ def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
     rec["seconds"] = secs
     rec["launch_counts"] = main_counts
     return rec, times, main_counts, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 19
+# ---------------------------------------------------------------------------
+
+def _online_round_launches(refresh_steps: int, r: dict) -> dict:
+    """What one supervised round must launch: K ``kruskal_grad`` and 3K
+    ``scatter_accum``, then one ``patch_table_rows`` a patched mode or one
+    ``mode_product_rows`` a mode in a rebuild, and nothing else."""
+    want = dict({k: 0 for k in REPLACES}, kruskal_grad=refresh_steps,
+                scatter_accum=3 * refresh_steps)
+    if r["publish"] == "patch":
+        want["patch_table_rows"] = sum(1 for d in r["dirty"] if d)
+    else:
+        want["mode_product_rows"] = len(r["dirty"])
+    return want
+
+
+def _publish_by_kind(rounds) -> dict:
+    """Each round's publish seconds, under its publish kind."""
+    out: dict = {}
+    for r in rounds:
+        out.setdefault(r["publish"], []).append(r["stage_seconds"]["publish"])
+    return out
+
+
+def _online_run(torch, K, online_train, name, flags, data) -> tuple:
+    """One ``online_train.run`` over ``data``, its launch counts read just
+    after it, each round's launches held to ``_online_round_launches``."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = online_train.run(online_train.parse_args(flags), data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    w = res["warmup"]
+    log(f"online [{name}]: warm-up {w['steps']} steps in {w['seconds']:.3f}"
+        f" s (rmse {w['rmse']:.6f}), store of {res['n_warm']:,} nonzeros "
+        f"({res['store_build_bytes']:,} bytes) built in "
+        f"{res['store_build_seconds']:.3f} s, {len(res['rounds'])} rounds "
+        f"of {res['n_stream'] // len(res['rounds']):,} arrivals (window "
+        f"{res['window']:,}), {wall:.3f} s in all")
+    for r in res["rounds"]:
+        st = r["stage_seconds"]
+        log(f"online [{name}] round {r['round']}: +{r['arrivals']:,} "
+            f"arrivals, store {r['store_nnz']:,} nonzeros / "
+            f"{r['store_bytes']:,} bytes; ingest {st['ingest']:.4f} s, "
+            f"transfer {st['transfer']:.4f} s, refresh {st['refresh']:.4f} "
+            f"s, publish {st['publish']:.4f} s ({r['publish']}, generation "
+            f"{r['generation']}, state {r['state']}); dirty rows "
+            f"{r['dirty']}; probe |x̂| {r['probe_abs_mean']:.5f}; held-out "
+            f"rmse {r['rmse']:.7f} mae {r['mae']:.7f}; {r['round_ms']:.1f} "
+            f"ms; launches {r['launches']}")
+        _counts_are(f"online [{name}] round {r['round']}", r["launches"],
+                    _online_round_launches(ONLINE["refresh_steps"], r))
+        if not (math.isfinite(r["rmse"]) and math.isfinite(
+                r["probe_abs_mean"])):
+            raise AssertionError(f"online [{name}]: non-finite round {r}")
+    by_kind = _publish_by_kind(res["rounds"])
+    log(f"online [{name}]: publish seconds by kind: " + "; ".join(
+        f"{k} {len(v)} rounds, median {statistics.median(v) * 1e3:.3f} ms ("
+        + ", ".join(f"{x * 1e3:.3f}" for x in v) + ")"
+        for k, v in by_kind.items()))
+    health = {k: res["health"][k] for k in (
+        "state", "rounds_ok", "retries", "breaker_trips", "recoveries",
+        "faults_injected", "rebuilds")}
+    log(f"online [{name}]: launch counts {counts}; health {health}; verify "
+        f"{res['verify']}")
+    _check_path(f"online [{name}]", counts,
+                ("kruskal_contract", "kruskal_grad", "scatter_accum",
+                 "mode_product_rows"), ("segment_reduce",) + LM_KERNELS)
+    if not (res["verify"] and res["verify"]["exact"]):
+        raise AssertionError(f"online [{name}]: verify {res['verify']}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            res["server"].params.factors, res["params"].factors)):
+        raise AssertionError(f"online [{name}]: the served factors differ "
+                             "from the refreshed ones")
+    return res, counts, wall
+
+
+def _store_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.meta == b.meta and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("indices", "values", "mask"))
+
+
+def _prefetch_walks(torch, store) -> dict:
+    """One epoch of ``store``'s strata through ``StratumPrefetcher`` onto
+    the card at each of ``PREFETCH_DEPTHS`` and once more under
+    ``PREFETCH_FAULT``: every block bitwise the store's chunk, seconds a
+    block and H2D GB/s (the blocks' bytes over the walk's wall time, each
+    take followed by nothing: the walk alone), the sets of pinned staging
+    buffers allocated over the walk."""
+    import numpy as np
+
+    from repro_torch.data import StratumPrefetcher
+    from repro_torch.runtime.fault import FaultPlan
+
+    S = store.num_strata
+    fields = ("indices", "values", "mask")
+    out = {}
+    runs = [(f"depth {d}", d, None) for d in PREFETCH_DEPTHS]
+    runs.append((f"depth 2 under {PREFETCH_FAULT}", 2, PREFETCH_FAULT))
+    for name, depth, fault in runs:
+        plan = FaultPlan.parse(fault) if fault else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf = StratumPrefetcher(store.stratum, lambda p: (p + 1) % S,
+                               depth=depth, device="cuda", fault_plan=plan,
+                               retry_base_s=1e-3, retry_cap_s=1e-2)
+        try:
+            blocks = [pf.take(p, timeout=300) for p in range(S)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            slots = pf._placer.pinned_sets
+        finally:
+            pf.close()
+        same = all(np.array_equal(b[i].cpu().numpy(),
+                                  getattr(store, fields[i])[p])
+                   for p, b in enumerate(blocks) for i in range(3))
+        del blocks
+        gbps = store.nbytes / wall / 1e9
+        rec = {"seconds": wall, "seconds_per_block": wall / S,
+               "h2d_gb_per_s": gbps, "bitwise": same, "pinned_sets": slots,
+               "retried": pf.retried,
+               "faults_fired": plan.fired if plan else 0}
+        log(f"prefetch [{name}]: {S} blocks of {store.stratum_nbytes:,} "
+            f"bytes in {wall:.4f} s = {wall / S * 1e3:.3f} ms a block, "
+            f"{gbps:.3f} GB/s host to device; {slots} sets of pinned "
+            f"staging buffers allocated (at most depth + 1 = {depth + 1}); "
+            f"{pf.retried} retries, "
+            f"{rec['faults_fired']} faults fired; every block bitwise the "
+            f"store's chunk: {same}")
+        if not (same and slots <= depth + 1):
+            raise AssertionError(f"prefetch [{name}]: {rec}")
+        if fault and not (rec["faults_fired"] == 1 and pf.retried == 1):
+            raise AssertionError(f"prefetch [{name}]: the fault was not "
+                                 f"absorbed by one retry: {rec}")
+        out[name] = rec
+    return out
+
+
+def phase_online(torch, K, online_train, base_res, steps: int
+                 ) -> tuple[dict, dict]:
+    """Online training over phase 3's tensor through ``online_train.run``
+    (run A spilled, run B in memory under faults), the stores against an
+    in-memory rebuild, and the stratum prefetcher onto the card."""
+    import numpy as np
+
+    from repro_torch.data import NonzeroStore
+
+    data = (base_res["train"], base_res["test"])
+    spill = ROOT / "build" / "online_store"   # git-ignored
+    shutil.rmtree(spill, ignore_errors=True)
+    flags = ["--strategy", "local", "--dims", ",".join(map(str, NETFLIX_DIMS)),
+             "--rank", "4", "--core-rank", "4", "--batch", str(TRAIN_BATCH),
+             "--warmup-steps", str(steps), "--rounds", str(ONLINE["rounds"]),
+             "--refresh-steps", str(ONLINE["refresh_steps"]),
+             "--stream-fraction", str(ONLINE["stream_fraction"]),
+             "--seed", "0", "--backend", "cuda", "--device", "cuda",
+             "--verify"]
+    main = {k: 0 for k in REPLACES}
+    rec = {}
+
+    a, counts_a, wall_a = _online_run(
+        torch, K, online_train, "A, spilled", flags + ["--spill-dir",
+                                                       str(spill)], data)
+    # reckoned writes: the built store, then each round's append (a grown
+    # store is written whole through .tmp; else only its entries)
+    written = a["store_build_bytes"]
+    prev = written
+    for r in a["rounds"]:
+        written += (r["store_bytes"] if r["store_bytes"] != prev
+                    else r["arrivals"] * STORE_ENTRY_BYTES)
+        prev = r["store_bytes"]
+    note_written("19 (online store)", written)
+    t0 = time.perf_counter()
+    rebuilt = NonzeroStore.build(data[0], 1)
+    rebuild_s = time.perf_counter() - t0
+    reopened = NonzeroStore.open(str(spill))
+    same_store = _store_equal(reopened, rebuilt)
+    log(f"online [A]: the spilled store reopened ({reopened.nnz:,} "
+        f"nonzeros, {reopened.nbytes:,} bytes) equals NonzeroStore.build in "
+        f"memory of the warm set and every arrival ({rebuild_s:.3f} s) array "
+        f"for array: {same_store}; reckoned disk writes {written:,} bytes")
+    if not same_store:
+        raise AssertionError("online [A]: the spilled store differs from an "
+                             "in-memory rebuild")
+    del reopened
+
+    b, counts_b, wall_b = _online_run(
+        torch, K, online_train, "B, in memory, faults",
+        flags + ["--inject-faults", ONLINE_FAULTS, "--expect-breaker"], data)
+    h = b["health"]
+    same = (all(torch.equal(x, y) for x, y in zip(a["server"]._tables,
+                                                  b["server"]._tables))
+            and all(torch.equal(x, y) for x, y in zip(
+                a["dstate"].params.factors, b["dstate"].params.factors))
+            and torch.equal(a["dstate"].rng, b["dstate"].rng))
+    same_b = _store_equal(b["store"], rebuilt) and not b["store"].spilled
+    log(f"online [B]: faults {ONLINE_FAULTS!r}: {h['faults_injected']} "
+        f"fired, {h['retries']} retries, {h['breaker_trips']} breaker trips,"
+        f" {h['recoveries']} recoveries, {h['rounds_ok']} rounds published;"
+        f" tables, factors and generator state bitwise run A's: {same}; its "
+        f"in-memory store equals run A's arrays: {same_b}")
+    if not (same and same_b and h["breaker_trips"] >= 1
+            and h["recoveries"] >= 1 and h["faults_injected"] == 5
+            and h["rounds_ok"] == ONLINE["rounds"]):
+        raise AssertionError(f"online [B]: did not degrade, recover and end "
+                             f"on run A's bits: {h}")
+    del rebuilt
+    for k in REPLACES:
+        main[k] += counts_a[k] + counts_b[k]
+    for name, r, c, w in (("A", a, counts_a, wall_a),
+                          ("B", b, counts_b, wall_b)):
+        rec[name] = {"wall_s": w, "warmup": r["warmup"],
+                     "rounds": r["rounds"], "launch_counts": c,
+                     "publish_s_by_kind": _publish_by_kind(r["rounds"]),
+                     "store_build_seconds": r["store_build_seconds"],
+                     "store_build_bytes": r["store_build_bytes"],
+                     "verify": r["verify"],
+                     "health": {k: v for k, v in r["health"].items()
+                                if k != "staleness_s"}}
+    rec["A"].update(disk_bytes_reckoned=written,
+                    store_equals_rebuild=True, rebuild_seconds=rebuild_s)
+    rec["B"]["equals_run_a"] = True
+    both = _publish_by_kind(a["rounds"] + b["rounds"])
+    rec["publish_ms_median_by_kind"] = {
+        k: statistics.median(v) * 1e3 for k, v in both.items()}
+    log("online [A + B]: publish median by kind: " + "; ".join(
+        f"{k} {statistics.median(v) * 1e3:.3f} ms over {len(v)} rounds"
+        for k, v in both.items()))
+    del a, b
+    shutil.rmtree(spill, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    store = NonzeroStore.build(data[0], PREFETCH_WORKERS)
+    build_s = time.perf_counter() - t0
+    # L was sized by the counting pass on the card; the host digits of the
+    # scatter pass (BlockPartition.assign, the reference's) filled the
+    # buckets, and the mask is read back: all three must agree
+    fill = store.fill()
+    pad = store.meta["pad_multiple"]
+    host_L = -(-int(fill.max()) // pad) * pad
+    mask_fill = store.mask.reshape(store.num_strata * PREFETCH_WORKERS,
+                                   -1).sum(axis=1)
+    sized = (host_L == store.chunk_len and int(fill.sum()) == store.nnz
+             and np.array_equal(mask_fill, fill))
+    log(f"prefetch: NonzeroStore.build of the training set at M = "
+        f"{PREFETCH_WORKERS} in memory from the tensor on the card: "
+        f"{store.num_strata} strata of {store.stratum_nbytes:,} bytes (L = "
+        f"{store.chunk_len:,}) in {build_s:.3f} s; L from the host digits' "
+        f"bucket fills {host_L:,}, fills sum {int(fill.sum()):,} of "
+        f"{store.nnz:,}, mask fills equal: {sized}")
+    if not sized:
+        raise AssertionError("prefetch: the store's L differs from the host "
+                             "path's bucket counts")
+    rec["prefetch"] = _prefetch_walks(torch, store)
+    rec["prefetch_store"] = {"workers": PREFETCH_WORKERS,
+                             "strata": store.num_strata,
+                             "stratum_bytes": store.stratum_nbytes,
+                             "chunk_len": store.chunk_len,
+                             "chunk_len_host_counts": host_L}
+    return rec, main
 
 
 # ---------------------------------------------------------------------------
@@ -3850,7 +4219,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core import fasttucker as ft
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.launch import serve, std_train, train
+    from repro_torch.launch import online_train, serve, std_train, train
 
     t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
@@ -3923,6 +4292,13 @@ def main(argv: list[str] | None = None) -> int:
     report["benchmarks_seconds"] = time.perf_counter() - t_bench
     log(f"phase 18 (the port's benchmarks): "
         f"{report['benchmarks_seconds']:.1f}s")
+    note_written("18 (benchmark documents)", tree_bytes(ROOT / args.bench_out))
+    t_online = time.perf_counter()
+    report["online"], online_counts = phase_online(torch, K, online_train,
+                                                   base, args.steps)
+    report["online_seconds"] = time.perf_counter() - t_online
+    log(f"phase 19 (online training, the data layer): "
+        f"{report['online_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -3930,10 +4306,19 @@ def main(argv: list[str] | None = None) -> int:
                  report["baselines"]["als"]["counts"],
                  report["baselines"]["ccd"]["counts"],
                  report["baselines"]["bench_accuracy"]["launch_counts"],
-                 serve_counts, conv_counts, bench_counts):
+                 serve_counts, conv_counts, bench_counts, online_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
+    total_written = sum(WRITTEN.values())
+    report["disk_writes"] = {"reckoned_by_phase": dict(WRITTEN),
+                             "reckoned_total": total_written}
+    log(f"disk writes of the run: reckoned {total_written:,} bytes = "
+        f"{total_written / 2**30:.2f} GiB (limit {DISK_LIMIT / 2**30:.0f} "
+        "GiB): " + ", ".join(f"phase {k} {v:,}" for k, v in WRITTEN.items()))
+    if not total_written < DISK_LIMIT:
+        raise AssertionError(f"the run wrote {total_written:,} bytes, past "
+                             f"the machine's {DISK_LIMIT:,}")
 
     errs = report["kernels_vs_plain"]
     lm_errs = report["lm_kernels_vs_plain"]
@@ -3969,7 +4354,8 @@ def main(argv: list[str] | None = None) -> int:
         f"phase 14's nine runs, cuTucker's SGD run, the ALS and CCD "
         f"epochs, bench_accuracy, phase 16's closed loops and refresh "
         f"rounds, phase 17's warm starts, warm and adaptive runs and "
-        f"bench_convergence, and phase 18's benchmarks and examples; the LM "
+        f"bench_convergence, phase 18's benchmarks and examples, and phase "
+        f"19's two online runs; the LM "
         f"serve request "
         f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")

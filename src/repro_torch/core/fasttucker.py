@@ -759,7 +759,7 @@ def refresh_steps(
     values: torch.Tensor,
     cfg: FastTuckerConfig,
     num_steps: int,
-) -> tuple[TrainState, tuple[np.ndarray, ...]]:
+) -> tuple[TrainState, tuple[np.ndarray, ...], tuple[torch.Tensor, ...]]:
     """K bounded factor-phase SGD steps over a recent-nonzero window.
 
     Each step draws Ψ from ``generator`` (on the window's device) and runs
@@ -767,7 +767,9 @@ def refresh_steps(
     C^(n) = A^(n) B^(n) change exactly in the rows the window sampled; the
     returned ``dirty[n]`` is the sorted int32 ``np.ndarray`` of mode-``n``
     row ids touched by any of the K steps, the ids
-    ``TuckerServer.update_rows`` must patch.  Returns ``(state', dirty)``.
+    ``TuckerServer.update_rows`` must patch.  Returns
+    ``(state', dirty, dirty_dev)``, ``dirty_dev[n]`` the same ids as an
+    int64 tensor on the device, ready for an ``index_select``.
     """
     if num_steps < 1:
         raise ValueError(f"num_steps must be ≥ 1, got {num_steps}")
@@ -778,8 +780,9 @@ def refresh_steps(
         idx, val = sample_batch_arrays(generator, indices, values,
                                        cfg.batch_size)
         state = refresh_step_batch(state, idx, val, cfg, dirty)
-    return state, tuple(torch.nonzero(m).flatten().to(torch.int32).cpu()
-                        .numpy() for m in dirty)
+    dev_ids = tuple(torch.nonzero(m).flatten() for m in dirty)
+    host = tuple(d.to(torch.int32).cpu().numpy() for d in dev_ids)
+    return state, host, dev_ids
 
 
 def train(

@@ -16,7 +16,8 @@ Uniform contract (the launcher drives every strategy through this):
     step_fn = strategy.make_step(plan)
     dstate  = step_fn(dstate)                     # advances steps_per_call
     params  = strategy.eval_params(plan, dstate)
-    dstate, dirty = strategy.refresh_steps(plan, dstate, idx, val, K)
+    dstate, dirty, dirty_dev = strategy.refresh_steps(plan, dstate, idx,
+                                                      val, K)
     strategy.save(plan, ckpt, dstate) / strategy.restore(plan, ckpt, dstate)
 
 Randomness.  The reference's ``DistState.key`` is a base PRNG key into
@@ -105,7 +106,7 @@ class DistStrategy(abc.ABC):
     # -- online refresh ------------------------------------------------------
 
     def refresh_steps(self, plan, dstate: DistState, indices, values,
-                      num_steps: int) -> tuple[DistState, tuple]:
+                      num_steps: int) -> tuple[DistState, tuple, tuple]:
         """K bounded factor-phase SGD steps over a recent-nonzero window.
 
         The strategy-uniform face of ``core.fasttucker.refresh_steps``:
@@ -119,9 +120,10 @@ class DistStrategy(abc.ABC):
         refresh run twice from the same ``dstate`` draws the same batches
         and successive refreshes draw fresh ones.
 
-        Returns ``(dstate', dirty)`` — ``dirty[n]`` the sorted int32 row
-        ids of mode ``n`` touched by the window, sized for
-        ``TuckerServer.update_rows(n, dirty[n], factors[n][dirty[n]])``.
+        Returns ``(dstate', dirty, dirty_dev)`` — ``dirty[n]`` the sorted
+        int32 row ids of mode ``n`` touched by the window, sized for
+        ``TuckerServer.update_rows(n, dirty[n], factors[n][dirty[n]])``,
+        and ``dirty_dev[n]`` the same ids as an int64 tensor on the device.
         """
         from repro_torch.core.fasttucker import refresh_steps as _refresh
 
@@ -131,10 +133,11 @@ class DistStrategy(abc.ABC):
         values = torch.as_tensor(values, dtype=torch.float32, device=dev)
         gen = torch.Generator(device=dev)
         gen.set_state(dstate.rng)
-        state, dirty = _refresh(TrainState(params, dstate.step), gen,
-                                indices, values, plan.cfg, num_steps)
-        return DistState(state.params, state.step, gen.get_state(),
-                         dstate.ef), dirty
+        state, dirty, dirty_dev = _refresh(TrainState(params, dstate.step),
+                                           gen, indices, values, plan.cfg,
+                                           num_steps)
+        return (DistState(state.params, state.step, gen.get_state(),
+                          dstate.ef), dirty, dirty_dev)
 
     # -- checkpointing (uniform across strategies) ---------------------------
 

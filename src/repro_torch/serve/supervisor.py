@@ -12,7 +12,8 @@ The failure contract
 Each round runs as a pipeline of four stages, every one fronted by a
 ``FaultPlan`` check site so tests can fail it deterministically:
 
-    ingest    (``"ingest"``)    extend the recent-nonzero window
+    ingest    (``"ingest"``)    fold arrivals into the ``NonzeroStore``,
+                                extend the recent-nonzero window
     transfer  (``"transfer"``)  host→device copy of the window
     refresh   (``"refresh"``)   K factor-phase SGD steps → dirty rows
     publish   (``"publish"``)   delta-patch (or drift-escalated rebuild)
@@ -41,10 +42,13 @@ of the incremental colsum error; when either crosses its
 rebuild, resetting the tracker.  The decision is recorded on
 ``health()["last_publish"]``.
 
-The reference's ``store=`` argument (the ingest fold into a
-``NonzeroStore``) waits for the port of the data layer (ROADMAP.md, Queue
-1 item 5); without it the ingest stage advances the window alone, as the
-reference's ``store=None`` path does.
+With ``store=`` (a ``data.pipeline.NonzeroStore``) the ingest stage folds
+each round's arrivals in by ``self.store = self.store.append(...)`` after
+its fault check, so a retried ingest never appends twice; ``store=None``
+advances the window alone.  The refresh keeps each mode's dirty ids on the
+device beside the host copy, so the publish gathers the new factor rows
+with no host-to-device copy and no sync.  ``health()["stage_seconds"]``
+has the last published round's seconds in each stage.
 """
 from __future__ import annotations
 
@@ -140,14 +144,15 @@ class _Round:
     """One submitted arrival batch + its pipeline resume point."""
 
     __slots__ = ("idx", "val", "stage", "win_idx", "win_val",
-                 "dstate", "dirty", "params")
+                 "dstate", "dirty", "dirty_dev", "params", "seconds")
 
     def __init__(self, idx: np.ndarray, val: np.ndarray):
         self.idx = idx
         self.val = val
         self.stage = 0
         self.win_idx = self.win_val = None
-        self.dstate = self.dirty = self.params = None
+        self.dstate = self.dirty = self.dirty_dev = self.params = None
+        self.seconds: dict[str, float] = {}
 
 
 class RefreshSupervisor:
@@ -162,6 +167,8 @@ class RefreshSupervisor:
         The training strategy, its prepared plan, and the current
         training state (``strategy.refresh_steps`` drives the catch-up
         and carries the sampling generator's state forward).
+    store : NonzeroStore | None
+        Ingest target for arrivals (``None`` skips the store fold).
     config : SupervisorConfig
     fault_plan : FaultPlan | None
         Deterministic failure injection at the four stage sites.
@@ -169,7 +176,7 @@ class RefreshSupervisor:
         Seed (indices, values) for the recent-nonzero window.
     """
 
-    def __init__(self, server, strategy, plan, dstate, *,
+    def __init__(self, server, strategy, plan, dstate, *, store=None,
                  config: SupervisorConfig | None = None,
                  fault_plan: FaultPlan | None = None,
                  history=None):
@@ -177,6 +184,7 @@ class RefreshSupervisor:
         self.strategy = strategy
         self.plan = plan
         self.dstate = dstate
+        self.store = store
         self.config = config or SupervisorConfig()
         self.fault_plan = fault_plan
         self.drift = DriftTracker(server.dims, self.config)
@@ -199,6 +207,7 @@ class RefreshSupervisor:
         self._last_publish_t = time.monotonic()
         self._last_publish = {"kind": "none", "reason": "no round yet"}
         self._last_dirty: list[int] = [0] * server.order
+        self._stage_seconds: dict[str, float] = {}
         self._rounds_ok = 0
         self._retries = 0
         self._breaker_trips = 0
@@ -280,6 +289,7 @@ class RefreshSupervisor:
                 "rebuilds": self._rebuilds,
                 "last_publish": dict(self._last_publish),
                 "last_dirty": list(self._last_dirty),
+                "stage_seconds": dict(self._stage_seconds),
                 "drift": {
                     "patched_rows": list(self.drift.patched_rows),
                     "patched_fraction": self.drift.patched_fraction,
@@ -355,8 +365,13 @@ class RefreshSupervisor:
         checks its fault site FIRST, so an injected fault never leaves a
         stage half-applied."""
         while rnd.stage < len(_STAGES):
-            getattr(self, f"_stage_{_STAGES[rnd.stage]}")(rnd)
+            name = _STAGES[rnd.stage]
+            t0 = time.perf_counter()
+            getattr(self, f"_stage_{name}")(rnd)
+            rnd.seconds[name] = time.perf_counter() - t0
             rnd.stage += 1
+        with self._lock:
+            self._stage_seconds = dict(rnd.seconds)
 
     def _check(self, site: str) -> None:
         if self.fault_plan is not None:
@@ -364,6 +379,8 @@ class RefreshSupervisor:
 
     def _stage_ingest(self, rnd: _Round) -> None:
         self._check("ingest")
+        if self.store is not None and len(rnd.val):
+            self.store = self.store.append(rnd.idx, rnd.val)
         # trailing-window history: identical to concatenating every batch
         # ever seen and windowing, but bounded host memory
         w = self.config.window
@@ -384,10 +401,10 @@ class RefreshSupervisor:
         # functional: nothing is committed until the call returns, and the
         # generator state comes from self.dstate, so a retry after an
         # injected fault runs the K steps exactly once on the same draws
-        dstate, dirty = self.strategy.refresh_steps(
+        dstate, dirty, dirty_dev = self.strategy.refresh_steps(
             self.plan, self.dstate, rnd.win_idx, rnd.win_val,
             self.config.refresh_steps)
-        rnd.dstate, rnd.dirty = dstate, dirty
+        rnd.dstate, rnd.dirty, rnd.dirty_dev = dstate, dirty, dirty_dev
         rnd.params = self.strategy.eval_params(self.plan, dstate)
 
     def _stage_publish(self, rnd: _Round) -> None:
@@ -397,9 +414,8 @@ class RefreshSupervisor:
         reason = self.drift.should_rebuild(counts)
 
         def rows(n, ids):
-            f = rnd.params.factors[n]
-            return f.index_select(0, torch.tensor(ids, dtype=torch.int64,
-                                                  device=f.device))
+            # the refresh's own device ids: no host-to-device copy, no sync
+            return rnd.params.factors[n].index_select(0, rnd.dirty_dev[n])
 
         if reason is not None:
             # escalation: rows reach the model without a wasted patch,

@@ -1282,3 +1282,80 @@ def test_table_kernels_bitwise_at_route_edges_on_card(dev, J, R, dtype):
         assert torch.equal(outs[0][1], outs[1][1])
         assert torch.equal(outs[0][0], mpr.mode_product_rows(
             outs[0][2], core).to(dtype))
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4])
+@pytest.mark.parametrize("dims", [(40, 30, 20), (13, 11, 9, 7)])
+def test_store_from_card_tensor_equals_host_build_on_card(dev, dims, M):
+    """A store built from a tensor on the card (its counting pass runs
+    there) equals the store built from the same host triple, meta and
+    arrays; the host build is the reference's (tests/test_torch_data.py)."""
+    from repro_torch.core.sptensor import SparseTensor
+    from repro_torch.data import NonzeroStore
+
+    rng = np.random.default_rng(10 * M + len(dims))
+    idx = np.stack([rng.integers(0, d, 3000) for d in dims],
+                   1).astype(np.int32)
+    val = rng.normal(size=3000).astype(np.float32)
+    card = NonzeroStore.build(
+        SparseTensor.from_numpy(idx, val, dims, device=dev), M,
+        chunk_nnz=101)
+    host = NonzeroStore.build((idx, val, dims), M, chunk_nnz=101)
+    assert card.meta == host.meta
+    for f in ("indices", "values", "mask"):
+        np.testing.assert_array_equal(getattr(card, f), getattr(host, f))
+    np.testing.assert_array_equal(card.fill(), host.fill())
+
+
+@pytest.mark.parametrize("depth", [0, 1, 3])
+def test_prefetcher_pinned_staging_on_card(dev, depth):
+    """The default placement: every block bitwise the store's chunk on the
+    card, through at most depth + 1 reused pinned buffers, also after a
+    jump and across the epoch boundary."""
+    from repro_torch.data import NonzeroStore, StratumPrefetcher
+
+    rng = np.random.default_rng(depth)
+    dims = (40, 30, 20)
+    idx = np.stack([rng.integers(0, d, 5000) for d in dims], 1)
+    store = NonzeroStore.build(
+        (idx.astype(np.int32), rng.normal(size=5000).astype(np.float32),
+         dims), 4)
+    S = store.num_strata
+    pf = StratumPrefetcher(store.stratum, lambda p: (p + 1) % S,
+                           depth=depth, device=dev)
+    try:
+        for p in list(range(S)) + [0, 7, 8]:
+            blocks = pf.take(p, timeout=60)
+            for t, f in zip(blocks, ("indices", "values", "mask")):
+                assert t.device.type == "cuda"
+                assert torch.equal(t.cpu(), torch.from_numpy(
+                    np.ascontiguousarray(getattr(store, f)[p])))
+            # equal-shaped strata: no slot's buffers are ever pinned again
+            assert pf._placer.pinned_sets <= depth + 1
+            assert all(s[0][0].is_pinned() for s in pf._placer._slots
+                       if s is not None)
+    finally:
+        pf.close()
+
+
+def test_online_train_launches_on_card(dev, tmp_path):
+    """online_train on the card: each round exactly K kruskal_grad, 3K
+    scatter_accum and one patch_table_rows a patched mode (one
+    mode_product_rows a mode in a rebuild), the tables bitwise a rebuild."""
+    from repro_torch.launch import online_train
+
+    K = 2
+    rec = online_train.main([
+        "--dims", "60,50,40", "--nnz", "8000", "--warmup-steps", "10",
+        "--rounds", "3", "--refresh-steps", str(K), "--batch", "256",
+        "--rank", "4", "--core-rank", "4", "--device", "cuda", "--backend",
+        "cuda", "--spill-dir", str(tmp_path / "s"), "--verify"])
+    assert rec["verify"]["exact"]
+    for r in rec["rounds"]:
+        want = {k: 0 for k in r["launches"]}
+        want.update(kruskal_grad=K, scatter_accum=3 * K)
+        if r["publish"] == "patch":
+            want["patch_table_rows"] = sum(1 for d in r["dirty"] if d)
+        else:
+            want["mode_product_rows"] = len(r["dirty"])
+        assert r["launches"] == want, r

@@ -552,8 +552,8 @@ def test_refresh_steps_dirty_rows_cover_changes():
     gen = torch.Generator().manual_seed(0)
     state = ft.init_state(gen, cfg, "cpu")
     before = [f.clone() for f in state.params.factors]
-    state2, dirty = ft.refresh_steps(state, gen, t.indices, t.values, cfg,
-                                     num_steps=5)
+    state2, dirty, _ = ft.refresh_steps(state, gen, t.indices, t.values,
+                                        cfg, num_steps=5)
     assert state2.step == state.step + 5
     assert len(dirty) == 3
     for n in range(3):
@@ -590,7 +590,7 @@ def test_strategy_refresh_steps_local():
         ds = step(ds)
     before = [f.clone() for f in st.eval_params(plan, ds).factors]
     win_i, win_v = t.indices.numpy()[-200:], t.values.numpy()[-200:]
-    ds2, dirty = st.refresh_steps(plan, ds, win_i, win_v, num_steps=4)
+    ds2, dirty, _ = st.refresh_steps(plan, ds, win_i, win_v, num_steps=4)
     assert ds2.step == ds.step + 4
     assert not torch.equal(ds2.rng, ds.rng)
     params = st.eval_params(plan, ds2)
@@ -599,7 +599,7 @@ def test_strategy_refresh_steps_local():
                              .numpy())[0]
         assert np.isin(changed, dirty[n]).all()
     # the same draws from the same state: the same bits
-    ds3, dirty3 = st.refresh_steps(plan, ds, win_i, win_v, num_steps=4)
+    ds3, dirty3, _ = st.refresh_steps(plan, ds, win_i, win_v, num_steps=4)
     for a, b in zip(ds2.params.factors, ds3.params.factors):
         assert torch.equal(a, b)
     assert torch.equal(ds2.rng, ds3.rng)
@@ -608,7 +608,7 @@ def test_strategy_refresh_steps_local():
     # ... which are the core refresh's, from a generator at dstate.rng
     g = torch.Generator()
     g.set_state(ds.rng)
-    want, _ = ft.refresh_steps(ft.TrainState(ds.params, ds.step), g,
+    want, _, _ = ft.refresh_steps(ft.TrainState(ds.params, ds.step), g,
                                torch.from_numpy(win_i),
                                torch.from_numpy(win_v), cfg, 4)
     for a, b in zip(ds2.params.factors, want.params.factors):
