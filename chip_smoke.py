@@ -287,6 +287,33 @@ Phases (each failure ends the run with a non-zero exit code):
    (the LM checkpoint, phase 14's checkpoints, the store and its
    appends, ...) and their total is printed and must stay under the
    machine's 45 GiB.
+20. The multi-device strategies over phase 3's tensor on
+   ``STRAT_WORKERS`` = 4 workers sharing the card
+   (``make_host_mesh``, ``$REPRO_FORCE_HOST_DEVICES`` = 4), each run
+   ``std_train.run`` for ``--steps`` steps at batch 4096 a worker, an
+   evaluation every third of the run: ``--strategy sync``, ``strata``
+   (checkpointed), ``strata_overlap``, ``strata --sorted-batches``,
+   ``strata --out-of-core --spill-dir build/... --prefetch-depth 2``,
+   ``sync --compress``, ``strata --compress``, and a strata run stopped
+   after its second checkpoint then resumed with ``--resume``.  Each run:
+   held-out RMSE/MAE before and after (must fall), steps/s and nonzeros/s
+   (4 x 4096 a step), bytes rotated a step, peak device bytes, the plan's
+   (layout build's) and the store's seconds, and its launches held
+   exactly to 4 ``kruskal_grad`` and 12 ``scatter_accum`` (12
+   ``segment_reduce`` sorted) a step and one ``kruskal_contract`` an
+   evaluation chunk.  The overlapped, sorted, out-of-core and resumed
+   runs must equal the plain strata run bitwise (every worker's shards,
+   core replicas and generator state); the compressed runs' residuals
+   finite and not all zero.  Then 20 fed-pick steps of sync, strata and
+   strata_overlap on ``"cuda"`` against ``"torch"`` (phase 4's 1e-4); four
+   steps of each (one ``strata_overlap`` chunk) under ``torch.profiler``:
+   wall time a step, the device's busy share, device operations a step,
+   and the side-stream copies' time beside a compute-stream kernel
+   (reported, not asserted);
+   and ``online_train --strategy strata`` at M = 4 (``--steps`` warm-up
+   steps, 2 rounds of 65,536 arrivals, the store in memory, ``--verify``:
+   the tables bitwise a fresh server's, each round's launches as phase
+   19's).
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -460,6 +487,12 @@ PREFETCH_WORKERS = 4
 PREFETCH_DEPTHS = (0, 2)
 PREFETCH_FAULT = "transfer@3"
 STORE_ENTRY_BYTES = 17       # 12 of indices, 4 of value, 1 of mask
+# phase 20: the multi-device strategies on 4 workers sharing the card over
+# phase 3's tensor; the parity steps; online training with strata, 2 rounds
+# of 65,536 arrivals (0.00147 of the 89,164,901 training nonzeros)
+STRAT_WORKERS = 4
+STRAT_PARITY_STEPS = 20
+STRAT_ONLINE = dict(rounds=2, stream_fraction=0.00147)
 # the GPU machine stops a call past this many bytes written to its disk
 DISK_LIMIT = 45 * 2**30
 WRITTEN: dict[str, int] = {}  # reckoned disk bytes, by phase
@@ -4185,6 +4218,320 @@ def phase_online(torch, K, online_train, base_res, steps: int
 
 
 # ---------------------------------------------------------------------------
+# phase 20
+# ---------------------------------------------------------------------------
+
+def _leaves(tree) -> list:
+    """The tensors of a (nested tuple) state, in order; a DistState's
+    step is compared with them as a 0-dim tensor."""
+    if hasattr(tree, "shape"):
+        return [tree]
+    if isinstance(tree, int):
+        import torch
+
+        return [torch.tensor(tree)]
+    out = []
+    for t in tree:
+        out += _leaves(t)
+    return out
+
+
+def _strategy_launches(M: int, steps: int, evals: int, eval_chunks: int,
+                       sorted_batches: bool) -> dict:
+    """What a run of a mesh strategy must launch: M ``kruskal_grad`` and
+    M·N of its scatter a step, one ``kruskal_contract`` an evaluation
+    chunk, nothing else."""
+    scatter = "segment_reduce" if sorted_batches else "scatter_accum"
+    return dict({k: 0 for k in REPLACES}, kruskal_grad=M * steps,
+                kruskal_contract=evals * eval_chunks,
+                **{scatter: M * 3 * steps})
+
+
+def _strategy_parity(torch, ft, data) -> dict:
+    """``STRAT_PARITY_STEPS`` fed-pick steps of sync, strata and
+    strata_overlap at M workers, ``"cuda"`` against ``"torch"`` from the
+    same state and picks: every leaf within phase 4's 1e-4 relative."""
+    from repro_torch.distributed import get_strategy
+    from repro_torch.distributed.overlap import OverlapPlan
+    from repro_torch.launch.mesh import make_host_mesh
+
+    train = data[0]
+    M = STRAT_WORKERS
+    mesh = make_host_mesh(num_workers=M, device="cuda")
+    cfg = ft.FastTuckerConfig(dims=NETFLIX_DIMS, ranks=(4,) * 3,
+                              core_rank=4, batch_size=TRAIN_BATCH,
+                              backend="cuda")
+    tcfg = dataclasses.replace(cfg, backend="torch")
+    out = {}
+    t0 = time.perf_counter()
+    strata_plan = get_strategy("strata").prepare(train, cfg, mesh, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"strategies parity: strata layout built in {build_s:.3f} s")
+    plans = {
+        "sync": get_strategy("sync").prepare(train, cfg, mesh),
+        "strata": strata_plan,
+        "strata_overlap": OverlapPlan(**{
+            f.name: getattr(strata_plan, f.name)
+            for f in dataclasses.fields(strata_plan)}, chunk=4)}
+    for name, plan in plans.items():
+        st = get_strategy(name)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ds = st.init(plan, ft.init_state(gen, cfg, "cuda"), gen)
+        tplan = dataclasses.replace(plan, cfg=tcfg)
+        ts = ds
+        high = (plan.val_shards[0].shape[0] if name == "sync"
+                else plan.layout.chunk_len)
+        pg = torch.Generator(device="cuda").manual_seed(1)
+
+        def draw():
+            return [torch.randint(0, high, (TRAIN_BATCH,), generator=pg,
+                                  device="cuda") for _ in range(M)]
+
+        while ds.step < STRAT_PARITY_STEPS:
+            picks = ([draw() for _ in range(plan.chunk)]
+                     if name == "strata_overlap" else draw())
+            ds = st.step_batch(plan, ds, picks)
+            ts = st.step_batch(tplan, ts, picks)
+        torch.cuda.synchronize()
+        got, want = st.eval_params(plan, ds), st.eval_params(tplan, ts)
+        worst = max(rel_err(a, b)[1] for a, b in zip(
+            got.factors + got.core_factors, want.factors + want.core_factors))
+        log(f"strategies parity [{name}]: {ds.step} fed-pick steps at M = "
+            f"{M}, cuda against torch: largest leaf error {worst:.3e} of "
+            "its largest entry (bound 1e-4)")
+        if not worst <= 1e-4:
+            raise AssertionError(f"strategies parity [{name}]: {worst}")
+        out[name] = worst
+    profiles = {name: _strategy_profile(torch, ft, name, plan)
+                for name, plan in plans.items()}
+    del plans, strata_plan
+    torch.cuda.empty_cache()
+    return {"max_rel_err": out, "layout_seconds": build_s,
+            "profiles": profiles}
+
+
+def _strategy_profile(torch, ft, name: str, plan) -> dict:
+    """Four steps of ``name`` (one ``strata_overlap`` chunk) under
+    ``torch.profiler`` after four unprofiled ones: the wall time a step,
+    the device's busy share (the union of its kernels' and copies'
+    intervals over the window's host wall time; the rest is host time),
+    device operations a step, and the side-stream copies' time beside a
+    compute-stream kernel (reported, not asserted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import get_strategy
+
+    st = get_strategy(name)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ds = st.init(plan, ft.init_state(gen, plan.cfg, "cuda"), gen)
+    step = st.make_step(plan)
+    while ds.step < 4:
+        ds = step(ds)
+    torch.cuda.synchronize()
+    trace = ROOT / "build" / f"{name}_steps_trace.json"   # git-ignored
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while ds.step < 8:
+            ds = step(ds)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    note_written("20 (profiler traces)", trace.stat().st_size)
+    trace.unlink()
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
+                                                    "gpu_memset")]
+    compute = {e["args"].get("stream") for e in kern}
+    side = [e for e in copies if e["args"].get("stream") not in compute]
+
+    def span(e):
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+
+    busy_spans = sorted(span(e) for e in kern)
+    union, end = 0.0, -1.0
+    for a, b in sorted(span(e) for e in kern + copies):
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    hidden = 0.0
+    for e in side:
+        a, b = span(e)
+        hidden += sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy_spans)
+    side_us = sum(float(e.get("dur", 0.0)) for e in side)
+    rec = {"steps": 4, "wall_us_per_step": wall_us / 4,
+           "device_busy_share": union / wall_us,
+           "device_ops_per_step": (len(kern) + len(copies)) / 4,
+           "kernels": len(kern), "copies": len(copies),
+           "side_stream_copies": len(side), "side_copy_us": side_us,
+           "side_copy_us_beside_compute": hidden,
+           "streams": sorted({str(e["args"].get("stream"))
+                              for e in kern + copies})}
+    log(f"strategies profile [{name}]: 4 steps, {wall_us / 4:.1f} us a "
+        f"step on the host clock under the profiler, device busy "
+        f"{union / 4:.1f} us a step ({union / wall_us:.1%}; the rest is "
+        f"host time), {rec['device_ops_per_step']:.1f} device operations a "
+        f"step ({len(kern)} kernels, {len(copies)} copies and fills); "
+        f"{len(side)} copies on a side stream ({side_us:.1f} us), "
+        f"{hidden:.1f} us of them beside a compute-stream kernel; streams "
+        f"{rec['streams']} (reported, not asserted)")
+    return rec
+
+
+def phase_strategies(torch, K, ft, std_train, online_train, base_res,
+                     steps: int) -> tuple[dict, dict]:
+    """The multi-device strategies at the Netflix size on
+    ``STRAT_WORKERS`` workers sharing the card, through ``std_train.run``
+    and ``online_train.run`` over phase 3's tensor."""
+    import os
+
+    from repro_torch.launch.mesh import FORCE_ENV_VAR
+
+    data = (base_res["train"], base_res["test"])
+    M = STRAT_WORKERS
+    chunks = math.ceil(data[1].nnz / EVAL_CHUNK)
+    third = max(steps // 3, 1)
+    root = ROOT / "build" / "strategies"   # git-ignored
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    whole, cut, spill = (str(root / "whole"), str(root / "cut"),
+                         str(root / "spill"))
+    base = ["--dims", ",".join(map(str, NETFLIX_DIMS)), "--rank", "4",
+            "--core-rank", "4", "--batch", str(TRAIN_BATCH), "--eval-every",
+            str(third), "--seed", "0", "--backend", "cuda", "--device",
+            "cuda"]
+    order = [
+        ("sync", ["--strategy", "sync"], steps),
+        ("strata", ["--strategy", "strata", "--ckpt-dir", whole], steps),
+        ("strata_overlap", ["--strategy", "strata_overlap"], steps),
+        ("strata sorted", ["--strategy", "strata", "--sorted-batches"],
+         steps),
+        ("strata out-of-core", ["--strategy", "strata", "--out-of-core",
+                                "--spill-dir", spill, "--prefetch-depth",
+                                "2"], steps),
+        ("sync compressed", ["--strategy", "sync", "--compress"], steps),
+        ("strata compressed", ["--strategy", "strata", "--compress"], steps),
+        ("strata interrupted", ["--strategy", "strata", "--ckpt-dir", cut],
+         2 * third),
+        ("strata resumed", ["--strategy", "strata", "--ckpt-dir", cut,
+                            "--resume"], steps),
+    ]
+    old_env = os.environ.get(FORCE_ENV_VAR)
+    os.environ[FORCE_ENV_VAR] = str(M)
+    runs, rec, main = {}, {"runs": {}}, {k: 0 for k in REPLACES}
+    try:
+        for name, flags, n in order:
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = std_train.run(
+                std_train.parse_args(base + ["--steps", str(n)] + flags),
+                data)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+            hist = res["history"]
+            done = hist[-1]["step"] - hist[0]["step"]
+            want = _strategy_launches(M, done, len(hist), chunks,
+                                      "--sorted-batches" in flags)
+            log(f"strategies [{name}] ({' '.join(flags)}): {res['workers']} "
+                f"workers, plan {res['prepare_seconds']:.3f} s"
+                + (f", store {res['store_seconds']:.3f} s "
+                   f"({res['store_bytes']:,} bytes)"
+                   if res["store_seconds"] is not None else "")
+                + f"; {done} steps at {res['steps_per_s']:.2f} steps/s = "
+                f"{res['nnz_per_s']:.4g} nnz/s ({M} x {TRAIN_BATCH} a "
+                f"step); {res['rotated_bytes_per_step']:,.0f} bytes rotated "
+                f"a step; peak device bytes {res['peak_device_bytes']:,}; "
+                f"{wall:.1f} s in all; rmse/mae " + " -> ".join(
+                    f"{h['rmse']:.7f}/{h['mae']:.7f}@{h['step']}"
+                    for h in hist))
+            log(f"strategies [{name}]: launch counts {counts}, a step "
+                f"{ {k: v / done for k, v in counts.items() if v} }")
+            _counts_are(f"strategies [{name}]", counts, want)
+            if not all(math.isfinite(h["rmse"]) and math.isfinite(h["mae"])
+                       for h in hist):
+                raise AssertionError(f"strategies [{name}]: non-finite "
+                                     f"RMSE/MAE {hist}")
+            if not hist[-1]["rmse"] < hist[0]["rmse"]:
+                raise AssertionError(f"strategies [{name}]: RMSE did not "
+                                     f"fall {hist}")
+            if res["workers"] != M:
+                raise AssertionError(f"strategies [{name}]: "
+                                     f"{res['workers']} workers, want {M}")
+            runs[name] = res
+            rec["runs"][name] = {k: res[k] for k in (
+                "history", "steps_per_s", "nnz_per_s", "peak_device_bytes",
+                "train_seconds", "prepare_seconds", "store_seconds",
+                "store_bytes", "rotated_bytes_per_step", "resumed_from",
+                "ckpt_bytes", "ckpt_seconds")}
+            rec["runs"][name].update(launch_counts=counts, wall_s=wall)
+            if name != "strata interrupted":
+                for k in REPLACES:
+                    main[k] += counts[k]
+        note_written("20 (strategies: store and checkpoints)",
+                     tree_bytes(root))
+        ref = runs["strata"]["dstate"]
+        for name in ("strata_overlap", "strata sorted", "strata out-of-core",
+                     "strata resumed"):
+            same = _same_bits(_leaves(runs[name]["dstate"]), _leaves(ref))
+            log(f"strategies: [{name}] bitwise [strata] (every worker's "
+                f"shards, core replicas and generator state): {same}")
+            if not same:
+                raise AssertionError(f"strategies: [{name}] differs from "
+                                     "[strata]")
+        if runs["strata resumed"]["resumed_from"] != 2 * third:
+            raise AssertionError("strategies: resumed from "
+                                 f"{runs['strata resumed']['resumed_from']}")
+        for name in ("sync compressed", "strata compressed"):
+            ef = _leaves(runs[name]["dstate"].ef)
+            ok = bool(ef) and all(bool(torch.isfinite(e).all())
+                                  and float(e.abs().max()) > 0 for e in ef)
+            log(f"strategies [{name}]: {len(ef)} error-feedback residual "
+                f"tensors, finite and not all zero: {ok}")
+            if not ok:
+                raise AssertionError(f"strategies [{name}]: residuals")
+        del runs, ref
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        rec["parity"] = _strategy_parity(torch, ft, data)
+        t0 = time.perf_counter()
+        res, counts, wall = _online_run(
+            torch, K, online_train, f"strata, M = {M}, in memory",
+            ["--strategy", "strata", "--dims",
+             ",".join(map(str, NETFLIX_DIMS)), "--rank", "4", "--core-rank",
+             "4", "--batch", str(TRAIN_BATCH), "--warmup-steps", str(steps),
+             "--rounds", str(STRAT_ONLINE["rounds"]), "--refresh-steps",
+             str(ONLINE["refresh_steps"]), "--stream-fraction",
+             str(STRAT_ONLINE["stream_fraction"]), "--seed", "0",
+             "--backend", "cuda", "--device", "cuda", "--verify"], data)
+        log(f"strategies online: {res['workers']} workers, warm-up plan "
+            f"{res['warmup']['prepare_seconds']:.3f} s, store at M = "
+            f"{res['store'].num_workers}; the patched tables bitwise a fresh "
+            f"server's: {res['verify']['exact']}")
+        if res["workers"] != M or res["store"].num_workers != M:
+            raise AssertionError(f"strategies online: {res['workers']} "
+                                 "workers")
+        for k in REPLACES:
+            main[k] += counts[k]
+        rec["online"] = {"wall_s": wall, "warmup": res["warmup"],
+                         "rounds": res["rounds"], "launch_counts": counts,
+                         "store_build_seconds": res["store_build_seconds"],
+                         "store_build_bytes": res["store_build_bytes"],
+                         "verify": res["verify"]}
+        del res
+    finally:
+        if old_env is None:
+            os.environ.pop(FORCE_ENV_VAR, None)
+        else:
+            os.environ[FORCE_ENV_VAR] = old_env
+        shutil.rmtree(root, ignore_errors=True)
+    return rec, main
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -4299,6 +4646,16 @@ def main(argv: list[str] | None = None) -> int:
     report["online_seconds"] = time.perf_counter() - t_online
     log(f"phase 19 (online training, the data layer): "
         f"{report['online_seconds']:.1f}s")
+    t_strat = time.perf_counter()
+    report["strategies"], strat_counts = phase_strategies(
+        torch, K, ft, std_train, online_train, base, args.steps)
+    report["strategies_seconds"] = time.perf_counter() - t_strat
+    report["strategies"]["seconds"] = report["strategies_seconds"]
+    report["strategies"]["disk_bytes"] = sum(
+        v for k, v in WRITTEN.items() if k.startswith("20 "))
+    log(f"phase 20 (the multi-device strategies, {STRAT_WORKERS} workers): "
+        f"{report['strategies_seconds']:.1f}s, disk writes "
+        f"{report['strategies']['disk_bytes']:,} bytes")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -4306,7 +4663,8 @@ def main(argv: list[str] | None = None) -> int:
                  report["baselines"]["als"]["counts"],
                  report["baselines"]["ccd"]["counts"],
                  report["baselines"]["bench_accuracy"]["launch_counts"],
-                 serve_counts, conv_counts, bench_counts, online_counts):
+                 serve_counts, conv_counts, bench_counts, online_counts,
+                 strat_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
@@ -4354,8 +4712,9 @@ def main(argv: list[str] | None = None) -> int:
         f"phase 14's nine runs, cuTucker's SGD run, the ALS and CCD "
         f"epochs, bench_accuracy, phase 16's closed loops and refresh "
         f"rounds, phase 17's warm starts, warm and adaptive runs and "
-        f"bench_convergence, phase 18's benchmarks and examples, and phase "
-        f"19's two online runs; the LM "
+        f"bench_convergence, phase 18's benchmarks and examples, phase "
+        f"19's two online runs, and phase 20's strategy runs and online "
+        f"strata run; the LM "
         f"serve request "
         f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")

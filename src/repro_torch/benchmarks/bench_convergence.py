@@ -5,8 +5,8 @@ Counterpart of ``benchmarks/bench_convergence.py``, in process on one
 device: the same schema (``bench_convergence/v1``, checked by the port's
 own ``benchmarks.common.validate_bench_convergence``) and the reference's
 ``planted_local`` configurations in ``FULL`` and ``SMOKE`` (its
-``planted_strata`` ones wait for the port's strata strategy, ROADMAP
-Queue 1 item 4); each config's ``backend`` is the run's.
+``planted_strata`` ones wait for ROADMAP Queue 1 item 4 (b)); each
+config's ``backend`` is the run's.
 
 Both arms share one config, one strategy plan and one step function; the
 warm arm's parameters come from ``sketched_init_params`` (what

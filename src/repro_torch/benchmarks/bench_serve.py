@@ -18,7 +18,7 @@ points, with the reference's schema (``bench_serve/v1``) and validator
     ladder bucket served once before it.
 
 ``collectives`` and ``crossover`` are measured across devices and wait for
-the multi-device strategies (ROADMAP Queue 1 item 4); the validator asks
+sharded serving (ROADMAP Queue 1 item 4 (b)); the validator asks
 for them only at ``devices > 1``.  The model is a random init (seed 0),
 as in the reference; the queries are nonzeros of ``ratings_tensor``.
 

@@ -12,7 +12,8 @@ document never reaches them.  ``validate_bench_accuracy`` is its copy of
 ``validate_bench_convergence`` (``bench_convergence/v1``), with one
 difference: coverage asks for a ``local`` config only, on any backend.
 The reference also asks for a ``strata*`` config on ``xla``; the port's
-strata strategies are not ported yet (ROADMAP Queue 1 item 4).
+``bench_convergence`` does not run its strata configs yet (ROADMAP Queue 1
+item 4 (b)).
 
 ``time_call`` and ``row`` are the reference's timing and CSV helpers, a
 ``torch.cuda.synchronize()`` closing each timed call where the reference

@@ -7,8 +7,8 @@ Counterpart of ``benchmarks/run.py`` for the names ported so far:
 
 prints ``name,us_per_call,derived`` CSV rows; ``--device`` reaches every
 entry point.  ``fig7bc`` (``bench_multidev``) and ``ingest``
-(``bench_ingest``) measure the multi-device strategies, which are not
-ported yet: asking for either exits non-zero before anything runs.
+(``bench_ingest``) are the multi-device benchmarks, not ported yet: asking
+for either exits non-zero before anything runs.
 """
 from __future__ import annotations
 
@@ -51,8 +51,8 @@ def main(argv: list[str] | None = None) -> None:
     waiting = [n for n in names if n in NOT_PORTED]
     if waiting:
         what = ", ".join(f"{n} ({NOT_PORTED[n]})" for n in waiting)
-        sys.exit(f"not ported yet: {what} — they measure the multi-device "
-                 "strategies, which wait for ROADMAP.md Queue 1 item 4")
+        sys.exit(f"not ported yet: {what} — the multi-device benchmarks "
+                 "wait for ROADMAP.md Queue 1 item 4 (b)")
     unknown = [n for n in names if n not in MODULES]
     if unknown:
         ap.error(f"unknown benchmark(s) {unknown}; known: {list(MODULES)}")

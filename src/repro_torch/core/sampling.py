@@ -16,11 +16,18 @@ of it.  Both run on the batch's device with no host round trip.
 Stability is load-bearing: it keeps the duplicates of a row in batch
 order, which makes the sorted segment sum bitwise equal to the unsorted
 one in f32.
+
+The stratified schedule (§5.3): ``latin_hypercube_schedule`` is one
+``torch.randperm`` of the S = M^(N-1) strata (the reference's permutation
+comes from threefry, so the two differ; the parity tests feed the
+reference's), and ``stratum_digits`` gives the reference's base-M digits
+bit for bit, on numpy arrays or tensors.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -128,3 +135,39 @@ def epoch_permutation_batches(
     pad = num_batches * batch_size - nnz
     perm = torch.cat([perm, perm[:pad]])
     return perm.reshape(num_batches, batch_size)
+
+
+def stratum_digits(strata, num_workers: int, order: int):
+    """Base-M digits of stratum ids → (S, N) mode shifts.
+
+    Mode 0 is the anchor (digit 0: its factor shards never rotate); mode
+    n ∈ 1..N-1 gets ``(s // M^(n-1)) % M``, matching
+    ``BlockPartition.strata`` / ``assign``.  A numpy array (or a list) in
+    gives a numpy array of its integer dtype, a tensor a tensor.
+    """
+    if isinstance(strata, torch.Tensor):
+        cols, rem = [torch.zeros_like(strata)], strata
+        for _ in range(1, order):
+            cols.append(rem % num_workers)
+            rem = rem // num_workers
+        return torch.stack(cols, dim=1)
+    strata = np.asarray(strata)
+    cols, rem = [np.zeros_like(strata)], strata
+    for _ in range(1, order):
+        cols.append(rem % num_workers)
+        rem = rem // num_workers
+    return np.stack(cols, axis=1)
+
+
+def latin_hypercube_schedule(generator: torch.Generator, num_workers: int,
+                             order: int) -> torch.Tensor:
+    """One epoch of the stratified schedule: a random permutation of all
+    ``S = M^(N-1)`` strata (each an M-block generalized diagonal), drawn
+    from ``generator`` on its device, int64.
+
+    Visiting every stratum once an epoch touches each of the M^N blocks
+    exactly once, a Latin-hypercube cover of the block grid.  Digits via
+    ``stratum_digits``.
+    """
+    return torch.randperm(num_workers ** (order - 1), generator=generator,
+                          device=generator.device)

@@ -9,15 +9,18 @@ plus the dense mode sizes ``dims = (I_1, ..., I_N)``.  Both tensors live on
 one device.  ``split`` draws the same numpy permutation as the reference,
 so the train/test split is identical for the same data and seed.
 
-Also the paper's Section 5.3 workload partition, host numpy as in the
-reference: each mode is cut into ``M`` ranges, giving ``M**N`` blocks; a
-*stratum* is a set of M blocks whose per-mode block digits are pairwise
-distinct, so the M workers of a stratum touch disjoint factor-row ranges.
-``BlockPartition`` gives the reference's digits, strata and assignment bit
-for bit, and ``partition_for_workers`` its padded ``(S, M, L, ·)`` buckets
-(the layout ``data.pipeline.NonzeroStore`` stores).  The Latin-hypercube
-``epoch_schedule`` draws from the reference's threefry stream and waits for
-the multi-device strategies (ROADMAP.md, Queue 1 item 4).
+Also the paper's Section 5.3 workload partition: each mode is cut into
+``M`` ranges, giving ``M**N`` blocks; a *stratum* is a set of M blocks
+whose per-mode block digits are pairwise distinct, so the M workers of a
+stratum touch disjoint factor-row ranges.  ``BlockPartition`` (host numpy,
+as in the reference) gives the reference's digits, strata and assignment
+bit for bit, and ``partition_for_workers`` its padded ``(S, M, L, ·)``
+buckets (the layout ``data.pipeline.NonzeroStore`` stores), computed with
+integer torch operations and a stable sort on the tensor's own device: on
+the card the Netflix tensor's 89 M nonzeros take no host sort.  The
+Latin-hypercube ``epoch_schedule`` is a ``torch.randperm`` of the strata
+(``sampling.latin_hypercube_schedule``), in the reference's digit
+convention but from PyTorch's random stream, not its threefry one.
 """
 from __future__ import annotations
 
@@ -163,13 +166,21 @@ class BlockPartition:
             out[:, :, n] = (m[None, :] + digit[:, None]) % M
         return out
 
-    def epoch_schedule(self, seed_or_key) -> np.ndarray:
-        """The reference draws the Latin-hypercube epoch cover from its
-        threefry stream (``sampling.latin_hypercube_schedule``); it comes
-        with the multi-device strategies."""
-        raise NotImplementedError(
-            "BlockPartition.epoch_schedule (the Latin-hypercube schedule) "
-            "is not ported yet (ROADMAP.md, Queue 1 item 4)")
+    def epoch_schedule(self, seed_or_generator) -> np.ndarray:
+        """Pre-sampled Latin-hypercube epoch cover: (S,) int64 stratum ids,
+        every stratum once.
+
+        Host numpy, because the strategies pick each stratum's rotations on
+        the host.  Takes an int seed (a CPU generator seeded with it, so
+        the schedule is the same on every device) or a ``torch.Generator``;
+        digits via ``sampling.stratum_digits``.
+        """
+        from .sampling import latin_hypercube_schedule
+
+        gen = (torch.Generator().manual_seed(seed_or_generator)
+               if isinstance(seed_or_generator, int) else seed_or_generator)
+        return latin_hypercube_schedule(gen, self.num_workers,
+                                        self.order).cpu().numpy()
 
     def assign(self, indices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Map nonzeros to (stratum, worker), both int64: the inverse of
@@ -219,28 +230,40 @@ def partition_for_workers(tensor: SparseTensor, num_workers: int,
     longest bucket rounded up to ``pad_multiple``; entries keep their order
     of appearance within a bucket, and padding points at row 0 of each
     mode with value 0 and mask False (a no-op update).
+
+    The digits are ``BlockPartition``'s (a ``searchsorted`` into the same
+    boundaries), the entry order a stable sort of the bucket keys, every
+    step exact integer arithmetic: the buckets are the reference's host
+    computation bit for bit, on whatever device the tensor is.
     """
     part = BlockPartition(tensor.dims, num_workers)
-    idx = tensor.indices.cpu().numpy()
-    val = tensor.values.cpu().numpy()
-    stratum, worker = part.assign(idx)
     M, N = num_workers, tensor.order
     S = M ** (N - 1)
-    key = stratum * M + worker
-    counts = np.bincount(key, minlength=S * M)
+    dev, nnz = tensor.device, tensor.nnz
+    idx = tensor.indices
+    key = None
+    for n in range(N):
+        bounds = torch.from_numpy(part.mode_boundaries(n)[1:-1]).to(dev)
+        digit = torch.searchsorted(bounds, idx[:, n].long(), right=True)
+        if n == 0:
+            worker = key = digit
+        else:  # stratum digit s_n = (digit_n − digit_0) mod M, base M
+            key = key + ((digit - worker) % M) * M ** n
+    counts = torch.bincount(key, minlength=S * M)
     L = max(1, int(counts.max()))
     L = ((L + pad_multiple - 1) // pad_multiple) * pad_multiple
-    out_idx = np.zeros((S * M, L, N), dtype=np.int32)
-    out_val = np.zeros((S * M, L), dtype=np.float32)
-    out_mask = np.zeros((S * M, L), dtype=bool)
-    order, bucket, pos = bucket_positions(key, np.zeros(S * M, np.int64))
-    out_idx[bucket, pos] = idx[order]
-    out_val[bucket, pos] = val[order]
-    out_mask[bucket, pos] = True
-    dev = tensor.device
+    ksort, order = torch.sort(key, stable=True)
+    first = torch.searchsorted(ksort, torch.arange(S * M, device=dev))
+    slot = ksort * L + (torch.arange(nnz, device=dev) - first[ksort])
+    out_idx = torch.zeros((S * M * L, N), dtype=torch.int32, device=dev)
+    out_val = torch.zeros((S * M * L,), dtype=torch.float32, device=dev)
+    out_mask = torch.zeros((S * M * L,), dtype=torch.bool, device=dev)
+    out_idx[slot] = idx.index_select(0, order)
+    out_val[slot] = tensor.values.index_select(0, order)
+    out_mask[slot] = True
     return {
-        "indices": torch.from_numpy(out_idx.reshape(S, M, L, N)).to(dev),
-        "values": torch.from_numpy(out_val.reshape(S, M, L)).to(dev),
-        "mask": torch.from_numpy(out_mask.reshape(S, M, L)).to(dev),
+        "indices": out_idx.reshape(S, M, L, N),
+        "values": out_val.reshape(S, M, L),
+        "mask": out_mask.reshape(S, M, L),
         "partition": part,
     }

@@ -603,7 +603,9 @@ class StratumPrefetcher:
     synchronously.  The default ``place_fn`` stages through ``depth + 1``
     reused pinned buffers and a side CUDA stream on ``device`` (the
     current card when None), or copies with ``.to(device)`` where
-    ``device`` names the CPU.
+    ``device`` names the CPU.  A ``place_fn`` may return an object with a
+    ``ready()`` (called by ``take``) and have a ``release()`` (called by
+    ``close``), as the default's do.
 
     ``take(pos)`` enforces in-order consumption; a jump (a resume) re-seeds
     the walk (``reset``).  A transient load/place failure retries in place
@@ -705,7 +707,9 @@ class StratumPrefetcher:
 
     @staticmethod
     def _ready(blocks):
-        return blocks.ready() if isinstance(blocks, _InFlight) else blocks
+        # an _InFlight, or a placement of its own with the same ``ready``
+        ready = getattr(blocks, "ready", None)
+        return ready() if ready is not None else blocks
 
     def take(self, pos: int, timeout: float | None = None):
         """Device blocks for schedule position ``pos`` (in-order walk).
@@ -760,8 +764,9 @@ class StratumPrefetcher:
     def close(self) -> None:
         """Stop the worker and drop the pinned buffers; idempotent."""
         self._halt()
-        if self._placer is not None:
-            self._placer.release()
+        release = getattr(self._place, "release", None)
+        if release is not None:
+            release()
 
     def __del__(self):  # best-effort; the thread is a daemon anyway
         try:

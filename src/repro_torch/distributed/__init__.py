@@ -1,11 +1,16 @@
 """Distributed layer: the strategy registry (counterpart of
 ``repro.distributed``).
 
-``get_strategy("local")`` returns a ``DistStrategy`` — the uniform
-prepare/init/step/eval_params/save/restore interface the launcher drives.
-The reference's ``"sync"``, ``"strata"`` and ``"strata_overlap"`` raise
-``NotImplementedError`` until they are ported (ROADMAP.md, Queue 1 item
-4).  See ``base`` for the contract.
+``get_strategy("local" | "sync" | "strata" | "strata_overlap")`` returns a
+``DistStrategy`` — the uniform prepare/init/step/eval_params/save/restore
+interface the launchers drive.  ``local`` runs on one device; the other
+three run on an in-process worker mesh (``launch.mesh.make_host_mesh``),
+one worker a shard, with ``collectives`` doing the rotations and sums as
+explicit copies.  See ``base`` for the contract, ``strata``/``overlap``
+for the paper's Fig.-2 scheme and its variant with the rotations issued
+ahead of use.  The reference's sharding rules and mesh context for the LM
+(``sharding.py``, ``context.py``) come with sharded LM training (ROADMAP.md,
+Queue 1 item 4 (b)).
 """
 from .base import (
     DistState,
@@ -14,10 +19,17 @@ from .base import (
     compressed_reduce,
     get_strategy,
     register_strategy,
+    resolve_strategy_name,
 )
 from .local import LocalPlan, LocalStrategy
+from .overlap import StrataOverlapStrategy
+from .strata import StrataStrategy
+from .sync import SyncStrategy
 
 register_strategy(LocalStrategy())
+register_strategy(SyncStrategy())
+register_strategy(StrataStrategy())
+register_strategy(StrataOverlapStrategy())
 
 __all__ = [
     "DistState",
@@ -26,6 +38,10 @@ __all__ = [
     "compressed_reduce",
     "get_strategy",
     "register_strategy",
+    "resolve_strategy_name",
     "LocalPlan",
     "LocalStrategy",
+    "SyncStrategy",
+    "StrataStrategy",
+    "StrataOverlapStrategy",
 ]

@@ -1,0 +1,134 @@
+"""Collectives over an in-process worker mesh, as explicit copies.
+
+The port's stand-in for the two ``jax.lax`` collectives the multi-device
+strategies use (``launch.mesh`` says why the mesh is in-process):
+
+``rotate`` (``ppermute``)
+    worker m receives the shard worker (m + shift) mod M holds, copied into
+    a new buffer on m's device.  It copies even when both workers are on
+    one device, so the bytes really move and the stream ordering is the one
+    a multi-card mesh runs; between cards it is a peer copy.  A shift of 0
+    mod M moves nothing, as the reference skips that ``ppermute``.
+``psum``
+    the sum of every worker's part in fixed worker order, 0 … M−1, on
+    worker 0's device, copied back to every other worker: the same bits
+    whatever the placement, and no float atomics.
+
+``SideStreams`` issues a rotation's copies on one side CUDA stream per
+device (``strata_overlap``): each copy waits on an event of the compute
+stream recorded after its source was written and its destination
+allocated, records its own event, and the consumer's compute stream waits
+on that (``Pending.wait``).  The source is marked as used by the side
+stream, so the allocator does not hand its memory to a compute kernel
+before the copy has read it.  On the CPU the copies are synchronous.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def copy_to(src: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A new tensor on ``device`` holding ``src`` (always a copy)."""
+    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
+
+
+def shard_bytes(shards: Sequence[torch.Tensor], shift: int) -> int:
+    """Bytes ``rotate(shards, shift)`` moves."""
+    if shift % len(shards) == 0:
+        return 0
+    return sum(t.numel() * t.element_size() for t in shards)
+
+
+def rotate(shards: Sequence[torch.Tensor], shift: int,
+           mesh) -> list[torch.Tensor]:
+    """``ppermute`` by ``shift``: worker m gets a copy of worker
+    (m + shift) mod M's shard, on its own device.  Shifts compose
+    additively: from shift d to d' is a rotation by (d' − d) mod M."""
+    M = len(shards)
+    if shift % M == 0:
+        return list(shards)
+    return [copy_to(shards[(m + shift) % M], mesh.devices[m])
+            for m in range(M)]
+
+
+def psum(parts: Sequence[tuple[torch.Tensor, ...]],
+         mesh) -> list[tuple[torch.Tensor, ...]]:
+    """``parts[m]`` a tuple of tensors on worker m's device → the leafwise
+    sum, added in worker order on worker 0's device, one copy a worker.
+    With one worker its part comes back unchanged."""
+    M = len(parts)
+    if M == 1:
+        return [tuple(parts[0])]
+    dev0 = mesh.devices[0]
+    sums = []
+    for leaf in zip(*parts):
+        acc = leaf[0]
+        for t in leaf[1:]:
+            acc = acc + t.to(dev0)
+        sums.append(acc)
+    return [tuple(sums)] + [tuple(copy_to(s, mesh.devices[m]) for s in sums)
+                            for m in range(1, M)]
+
+
+class Pending:
+    """A rotation's destination shards and the events of their copies."""
+
+    __slots__ = ("tensors", "events")
+
+    def __init__(self, tensors: list[torch.Tensor], events: list):
+        self.tensors, self.events = tensors, events
+
+    def wait(self) -> list[torch.Tensor]:
+        """The shards, once each consumer's current stream waits on its
+        copy."""
+        for t, ev in zip(self.tensors, self.events):
+            if ev is not None:
+                torch.cuda.current_stream(t.device).wait_event(ev)
+        return self.tensors
+
+
+class SideStreams:
+    """One side CUDA stream per device for rotation copies, made on first
+    use.  Kernels stay on the compute (current) streams: the side streams
+    carry copies only."""
+
+    def __init__(self):
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
+
+    def _stream(self, device: torch.device) -> "torch.cuda.Stream":
+        s = self._streams.get(device)
+        if s is None:
+            s = self._streams[device] = torch.cuda.Stream(device=device)
+        return s
+
+    def rotate(self, shards: Sequence[torch.Tensor], shift: int,
+               mesh) -> Pending:
+        """``rotate`` issued on the side streams; ``Pending.wait`` before
+        the shards are read."""
+        M = len(shards)
+        if shift % M == 0:
+            return Pending(list(shards), [None] * M)
+        if mesh.devices[0].type != "cuda":
+            return Pending(rotate(shards, shift, mesh), [None] * M)
+        out, events = [], []
+        for m in range(M):
+            src, dev = shards[(m + shift) % M], mesh.devices[m]
+            s_src, s_dst = self._stream(src.device), self._stream(dev)
+            with torch.cuda.device(dev):
+                dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+            # the source's writer and the destination's last reader are
+            # on the compute streams, queued before these events
+            for d, s in {src.device: s_src, dev: s_dst}.items():
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                s.wait_event(ev)
+            with torch.cuda.stream(s_src), torch.cuda.stream(s_dst):
+                dst.copy_(src)
+            done = torch.cuda.Event()
+            done.record(s_dst)
+            src.record_stream(s_src)
+            out.append(dst)
+            events.append(done)
+        return Pending(out, events)

@@ -43,7 +43,7 @@ def _compressed_step(plan: LocalPlan, dstate: DistState, idx: torch.Tensor,
     grads = ft.step_gradients(dstate.params, idx, val, cfg)
     dense = ft.scatter_row_grads(dstate.params.factors, idx, grads.row_grads,
                                  backend=cfg.backend, layout=layout)
-    dense, ef = compressed_reduce(dense, dstate.ef, axis=None)
+    dense, ef = compressed_reduce(dense, dstate.ef)
     lr_a = ft.dynamic_lr(cfg.alpha_a, cfg.beta_a, dstate.step)
     lr_b = ft.dynamic_lr(cfg.alpha_b, cfg.beta_b, dstate.step)
     factors = tuple(ft._sgd_update(f, lr_a, g)

@@ -1,8 +1,11 @@
 """Online training on one device: supervised ingest → refresh →
 publish rounds behind a live ``TuckerServer``.
 
-Counterpart of ``repro.launch.online_train`` with ``--strategy local``.
-After an offline warm-up the round runs on the background thread of
+Counterpart of ``repro.launch.online_train``.  The warm-up and the
+refresh run under ``--strategy`` (``local``, or ``sync``, ``strata`` and
+``strata_overlap`` on ``launch.mesh.make_host_mesh()``'s workers, with the
+ingest store built at the mesh's worker count, as the reference builds
+it).  After the offline warm-up the round runs on the background thread of
 ``serve.supervisor.RefreshSupervisor``:
 
     1. **Ingest** — the round's arrivals fold into a ``NonzeroStore``
@@ -31,14 +34,15 @@ ingest, transfer, refresh, publish) through the supervisor;
 refreshed parameters (bitwise for f32 tables, banded for bf16).
 
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
-cpu`` runs on the CPU.  ``--strategy`` other than ``local`` and
-``--serve-shard-mode row|batch`` wait for the multi-device strategies
-(ROADMAP.md, Queue 1 item 4) and are refused before any data is made.
+cpu`` runs on the CPU (``REPRO_FORCE_HOST_DEVICES=4`` gives the mesh
+strategies four workers there).  ``--serve-shard-mode row|batch`` waits
+for sharded serving (ROADMAP.md, Queue 1 item 4 (b)) and is refused before
+any data is made.
 
     PYTHONPATH=src python -m repro_torch.launch.online_train \\
         --dims 16,12,10 --nnz 400 --warmup-steps 4 --rounds 2 \\
         --refresh-steps 2 --batch 64 --rank 2 --core-rank 2 --window 128 \\
-        --spill-dir /tmp/spill --verify --device cpu
+        --spill-dir /tmp/spill --verify --device cpu [--strategy strata]
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from repro_torch.data.synthetic import planted_tensor
 from repro_torch.device import resolve_device
 from repro_torch.distributed import get_strategy
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.runtime.fault import FaultPlan
 from repro_torch.serve import RefreshSupervisor, SupervisorConfig, TuckerServer
 
@@ -71,8 +76,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--strategy", default="local",
                     help="training strategy for warm-up and refresh: local "
-                         "(sync, strata and strata_overlap are not ported "
-                         "yet)")
+                         "| sync | strata | strata_overlap")
     ap.add_argument("--dims", default="200,160,120")
     ap.add_argument("--nnz", type=int, default=20_000,
                     help="total planted nonzeros; --stream-fraction of "
@@ -99,8 +103,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve-shard-mode", default="none",
                     choices=["none", "row", "batch"],
-                    help="serving-table layout; row and batch need the "
-                         "multi-device strategies (not ported yet)")
+                    help="serving-table layout; row and batch need "
+                         "sharded serving (not ported yet)")
     ap.add_argument("--table-dtype", default=None,
                     choices=[None, "float32", "bfloat16"])
     ap.add_argument("--spill-dir", default="",
@@ -144,7 +148,8 @@ def run(
     if args.serve_shard_mode in ("row", "batch"):
         raise NotImplementedError(
             f"--serve-shard-mode {args.serve_shard_mode} needs sharded "
-            "serving, which is not ported yet (ROADMAP.md, Queue 1 item 4)")
+            "serving, which is not ported yet (ROADMAP.md, Queue 1 item 4 "
+            "(b))")
     strategy = get_strategy(args.strategy)
     device = resolve_device(args.device)
     backend = dispatch.resolve_backend_name(args.backend)
@@ -180,22 +185,31 @@ def run(
     per_round = max(1, n_stream // max(args.rounds, 1))
     window = args.window or per_round
 
-    plan = strategy.prepare(warm_t, cfg, None, seed=args.seed)
+    mesh = make_host_mesh(device=device) if strategy.needs_mesh else None
+    t0 = time.perf_counter()
+    plan = strategy.prepare(warm_t, cfg, mesh, seed=args.seed)
+    _sync(device)
+    prepare_s = time.perf_counter() - t0
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dstate = strategy.init(plan, ft.init_state(gen, cfg, device), gen)
 
-    # the ingest store mirrors the warm-up set; each round appends to it
+    # the ingest store mirrors the warm-up set at the mesh's worker count
+    # (the strata layout of a later out-of-core retrain); each round
+    # appends to it
     t0 = time.perf_counter()
-    store = NonzeroStore.build(warm_t, 1, spill_dir=args.spill_dir or None)
+    store = NonzeroStore.build(warm_t, mesh.size if mesh is not None else 1,
+                               spill_dir=args.spill_dir or None)
     store_s = time.perf_counter() - t0
     store_bytes = store.nbytes
     log.info("store: %d nonzeros, %d bytes, %s, built in %.2fs", store.nnz,
              store.nbytes, f"spilled to {store.path}" if store.spilled
              else "in memory", store_s)
 
-    log.info("warmup: %d steps of %s on %d resident nnz (%d held back to "
-             "stream), device %s, backend %s", args.warmup_steps,
-             strategy.name, n_warm, n_stream, device, backend)
+    log.info("warmup: %d steps of %s (%d workers, plan in %.2fs) on %d "
+             "resident nnz (%d held back to stream), device %s, backend %s",
+             args.warmup_steps, strategy.name,
+             mesh.size if mesh is not None else 1, prepare_s, n_warm,
+             n_stream, device, backend)
     step_fn = strategy.make_step(plan)
     t0 = time.perf_counter()
     while dstate.step < args.warmup_steps:
@@ -208,7 +222,7 @@ def run(
     log.info("warmup done at step %d in %.2fs: rmse %.4f mae %.4f",
              dstate.step, warm_s, r, m)
     warmup = {"steps": dstate.step, "seconds": warm_s, "rmse": float(r),
-              "mae": float(m)}
+              "mae": float(m), "prepare_seconds": prepare_s}
 
     server = TuckerServer(params, backend=backend,
                           table_dtype=args.table_dtype)
@@ -309,6 +323,7 @@ def run(
         "store_build_bytes": store_bytes,
         "seconds": time.perf_counter() - t_start, "n_warm": n_warm,
         "n_stream": n_stream, "window": window, "device": str(device),
+        "workers": mesh.size if mesh is not None else 1,
         "backend": backend, "strategy": strategy.name, "cfg": cfg,
         "server": server, "dstate": sup.dstate, "store": sup.store,
         "params": params, "train": train_t, "test": test_t,

@@ -22,8 +22,8 @@ latency percentiles.
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
 cpu`` runs on the CPU (the ``"cuda"`` backend's wrappers then take their
 plain paths).  The reference's ``--sharded``, ``--shard-mode`` and
-``--expected-qps`` wait for the multi-device strategies (ROADMAP.md,
-Queue 1 item 4).
+``--expected-qps`` wait for sharded serving (ROADMAP.md, Queue 1 item 4
+(b)).
 """
 from __future__ import annotations
 

@@ -1,24 +1,42 @@
-"""STD (sparse Tucker) training driver on one device — the paper's workload.
+"""STD (sparse Tucker) training driver — the paper's workload.
 
 Counterpart of ``repro.launch.std_train``: a planted tensor
 (``data.synthetic.planted_tensor``, 10 % held out), cold init, and one
 strategy-agnostic loop that drives a ``DistStrategy`` from the port's
-registry (``repro_torch.distributed``; ``--strategy local``, the only one
-ported, is the default).
+registry (``repro_torch.distributed``):
+
+    ``local``           one device (the default)
+    ``sync``            data-parallel minibatch, summed gradients
+    ``strata``          the paper's Fig.-2 stratified rotation (LHC schedule)
+    ``strata_overlap``  strata in chunks, the rotations issued ahead of use
+
+The mesh strategies run on ``launch.mesh.make_host_mesh()``: M workers,
+``$REPRO_FORCE_HOST_DEVICES`` of them or one a visible card, placed
+round-robin over the cards (on one card they share it).  ``--strategy``
+defaults to ``$REPRO_DIST_STRATEGY``, then ``local``; ``--mode`` is its
+deprecated alias.
 Held-out RMSE/MAE through ``predict`` before training, every
 ``--eval-every`` steps and at the end.  It logs steps/s and nnz/s over the
 training intervals (evals and checkpoints excluded, each interval closed
-by a device synchronize) and the peak device bytes
-(``torch.cuda.max_memory_allocated``).
+by a device synchronize), the bytes the rotations moved a step, and the
+peak device bytes (``torch.cuda.max_memory_allocated``).
 
 The step flags are the reference's: ``--phase-split``,
 ``--sorted-batches``, ``--dtype`` and ``--accum-dtype`` (``update_order``
 stays config-only, as there); ``--compress`` runs the int8 error-feedback
-gradient round trip.  ``--ckpt-dir`` saves the strategy state (parameters,
-step, the sampling generator's state and the EF residuals) at every
-evaluation through ``checkpoint.manager.CheckpointManager``; ``--resume``
-restores its latest committed step and continues, drawing the same
-batches the uninterrupted run draws, so a resumed run ends on its bits.
+gradient round trip under every strategy.  ``--ckpt-dir`` saves the
+strategy state (parameters in the reference's global layout, step, the
+sampling generators' states and the EF residuals) at every evaluation
+through ``checkpoint.manager.CheckpointManager``; ``--resume`` restores its
+latest committed step and continues, drawing the same batches the
+uninterrupted run draws, so a resumed run ends on its bits.
+
+``--out-of-core`` (strata flavors) feeds the schedule from a
+``data.pipeline.NonzeroStore`` built at the mesh's worker count
+(``--spill-dir`` memory-maps its chunks to disk) through the
+``StratumPrefetcher``, which places each stratum's block on the workers'
+devices ``--prefetch-depth`` strata ahead of use: the trajectory is the
+resident run's bit for bit.
 
 ``--warm-start`` replaces the cold init with the sketched warm start
 (``core.sketch``; ``--sketch-*`` and ``--warm-step-offset`` are its
@@ -30,21 +48,24 @@ runs the plateau rank controller (``core.adaptive``): at a transition
 the core factors are padded (from the warm start's generator) or
 truncated, ``--refine als|ccd`` polishes the factors over 65,536 sampled
 nonzeros, and the strategy is prepared again at the new rank and carries
-on from the same step and batch stream; ``rank_history`` records each
+on from the same step and batch streams; ``rank_history`` records each
 transition.  On ``"cuda"`` a sketch width (max J + oversample) or a
 ``--max-core-rank`` above 64 is refused at the start, as is
-``--adaptive-rank`` with ``--ckpt-dir``.  The reference's ``--mode``
-alias, ``--donate`` and the out-of-core store are not ported: argparse
-refuses their flags.
+``--adaptive-rank`` with ``--ckpt-dir`` or ``--out-of-core``.  The
+reference's ``--donate`` has no PyTorch meaning: argparse refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.std_train \\
         --dims 1000,800,600 --nnz 200000 --steps 300 --batch 4096 \\
+        [--strategy sync|strata|strata_overlap [--out-of-core \\
+        --spill-dir DIR --prefetch-depth 2]] \\
         --sorted-batches --phase-split [--dtype bfloat16] [--compress] \\
         [--ckpt-dir DIR [--resume]] [--warm-start] \\
         [--adaptive-rank --max-core-rank 16 --refine als]
 
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
-cpu --backend torch`` runs the plain path on the CPU.
+cpu --backend torch`` runs the plain path on the CPU
+(``REPRO_FORCE_HOST_DEVICES=4`` gives the mesh strategies four workers
+there).
 """
 from __future__ import annotations
 
@@ -64,12 +85,13 @@ from repro_torch.core.metrics import rmse_mae
 from repro_torch.core.sampling import sample_batch_arrays
 from repro_torch.core.sketch import sketched_init_params
 from repro_torch.core.sptensor import SparseTensor
+from repro_torch.data.pipeline import NonzeroStore
 from repro_torch.data.synthetic import planted_tensor
 from repro_torch.device import resolve_device
 from repro_torch.distributed import available_strategies, get_strategy
-from repro_torch.distributed.base import checkpoint_tree
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.kruskal_grad import MAX_WIDTH
+from repro_torch.launch.mesh import make_host_mesh
 
 log = logging.getLogger("repro_torch.std")
 REFINE_SAMPLES = 65_536   # nonzeros a post-transition refinement reads
@@ -77,9 +99,13 @@ REFINE_SAMPLES = 65_536   # nonzeros a post-transition refinement reads
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--strategy", default="local",
-                    help="training strategy: local (sync, strata and "
-                         "strata_overlap are not ported yet)")
+    ap.add_argument("--strategy", default=None,
+                    help="training strategy: local | sync | strata | "
+                         "strata_overlap (default: $REPRO_DIST_STRATEGY or "
+                         "local)")
+    ap.add_argument("--mode", default=None,
+                    choices=["local", "sync", "strata"],
+                    help="DEPRECATED: alias for --strategy")
     ap.add_argument("--dims", default="1000,800,600")
     ap.add_argument("--nnz", type=int, default=200_000)
     ap.add_argument("--rank", type=int, default=8,
@@ -114,6 +140,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="dot / gradient accumulation dtype; only float32, "
                          "kept so that the reference's command lines run "
                          "unchanged")
+    ap.add_argument("--out-of-core", action="store_true",
+                    help="feed the strata strategies from a NonzeroStore "
+                         "through the stratum prefetcher instead of resident "
+                         "buckets (the same trajectory)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="strata placed on the devices ahead of use "
+                         "(0 = a synchronous load a step)")
+    ap.add_argument("--spill-dir", default="",
+                    help="spill the nonzero store to memory-mapped .npy "
+                         "chunks in this directory (default: in memory)")
     ap.add_argument("--ckpt-dir", default="",
                     help="save the strategy state here at every evaluation")
     ap.add_argument("--resume", action="store_true",
@@ -170,8 +206,9 @@ def run(
     """
     device = resolve_device(args.device)
     backend = dispatch.resolve_backend_name(args.backend)
-    # fail fast on strategy typos and unported strategies, before the data
-    strategy = get_strategy(args.strategy)
+    # fail fast on strategy typos, before the data (--mode maps through
+    # with a DeprecationWarning)
+    strategy = get_strategy(args.strategy, mode=args.mode)
     dims = tuple(int(x) for x in args.dims.split(","))
     # fail fast on bad options, before the data is made
     cfg = ft.FastTuckerConfig(
@@ -185,8 +222,18 @@ def run(
         sketch_batch=args.sketch_batch,
         sketch_refine_passes=args.sketch_refine_passes,
         warm_step_offset=args.warm_step_offset)
+    if args.out_of_core and strategy.name not in ("strata", "strata_overlap"):
+        raise SystemExit(
+            "--out-of-core streams per-stratum chunks and therefore "
+            f"requires a strata strategy (got {strategy.name!r}); run with "
+            "--strategy strata or strata_overlap")
     controller = None
     if args.adaptive_rank:
+        if args.out_of_core:
+            raise SystemExit(
+                "--adaptive-rank rebuilds the strategy plan at each rank "
+                "transition, which the out-of-core prefetcher does not "
+                "support; drop --out-of-core")
         if args.ckpt_dir:
             raise SystemExit(
                 "--adaptive-rank changes the config mid-run; checkpoints "
@@ -227,8 +274,30 @@ def run(
     log.info("data: %d train / %d test nonzeros in %.1fs", train_t.nnz,
              test_t.nnz, data_s)
 
-    plan = strategy.prepare(train_t, cfg, None, compress=args.compress,
-                            seed=args.seed)
+    mesh = make_host_mesh(device=device) if strategy.needs_mesh else None
+    store, store_s, prepare_kw = None, None, {}
+    if args.out_of_core:
+        t_st = time.perf_counter()
+        store = NonzeroStore.build(train_t, mesh.size,
+                                   spill_dir=args.spill_dir or None)
+        store_s = time.perf_counter() - t_st
+        log.info("out-of-core store: %d strata x %d workers x chunk %d "
+                 "(%.1f MiB total, %.2f MiB/stratum, %s) in %.2fs, prefetch "
+                 "depth %d", store.num_strata, store.num_workers,
+                 store.chunk_len, store.nbytes / 2**20,
+                 store.stratum_nbytes / 2**20,
+                 f"spilled to {store.path}" if store.spilled
+                 else "in memory", store_s, args.prefetch_depth)
+        prepare_kw = {"store": store, "prefetch_depth": args.prefetch_depth}
+    if mesh is not None:
+        log.info("mesh: %d workers on %s", mesh.size,
+                 ", ".join(str(d) for d in mesh.devices))
+    t_prep = time.perf_counter()
+    plan = strategy.prepare(train_t, cfg, mesh, compress=args.compress,
+                            seed=args.seed, **prepare_kw)
+    _sync(device)
+    prepare_s = time.perf_counter() - t_prep
+    log.info("%s plan prepared in %.2fs", strategy.name, prepare_s)
     # one generator draws the cold init, then every batch; a warm start
     # still draws the cold init from it, so both arms draw the same batches
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -281,60 +350,76 @@ def run(
     start = last = dstate.step
     train_s = ckpt_s = 0.0
     ckpt_bytes = None
+    rotated = 0
     t_int = time.perf_counter()
-    while dstate.step < args.steps:
-        dstate = step_fn(dstate)
-        i = dstate.step
-        # crossing an --eval-every boundary (a strategy may advance more
-        # than one step a call)
-        if i // args.eval_every > last // args.eval_every or i >= args.steps:
-            _sync(device)
-            dt = time.perf_counter() - t_int
-            train_s += dt
-            sps = (i - last) / dt
-            log.info("throughput: %.1f steps/s, %.4g nnz/s", sps,
-                     sps * nnz_step)
-            history.append(evaluate())
-            last = i
-            if ckpt:
-                t_ck = time.perf_counter()
-                strategy.save(plan, ckpt, dstate)
-                ckpt_s += time.perf_counter() - t_ck
-                leaves = flatten(checkpoint_tree(dstate)).values()
-                ckpt_bytes = sum(t.numel() * t.element_size()
-                                 for t in leaves)
-            decision = (controller.observe(history[-1]["rmse"])
-                        if controller else None)
-            if decision is not None and i < args.steps:
-                params, cfg = resize_core_rank(
-                    strategy.eval_params(plan, dstate), cfg,
-                    decision.new_rank, init_gen)
-                if args.refine:
-                    ridx, rval = sample_batch_arrays(
-                        init_gen, train_t.indices, train_t.values,
-                        min(train_t.nnz, REFINE_SAMPLES))
-                    params = refine_factors(
-                        params, cfg, SparseTensor(ridx, rval, dims),
-                        method=args.refine, passes=args.refine_passes)
-                log.info("rank %s -> %d at step %d (%s)", decision.action,
-                         decision.new_rank, i, decision.reason)
-                rank_history.append({"step": i, "action": decision.action,
-                                     "rank": decision.new_rank})
-                plan = strategy.prepare(train_t, cfg, None,
-                                        compress=args.compress,
-                                        seed=args.seed)
-                # go on with the same batch stream from the same step
-                gen.set_state(dstate.rng)
-                dstate = strategy.init(plan, ft.TrainState(params, i), gen)
-                step_fn = strategy.make_step(plan)
-                nnz_step = strategy.nnz_per_step(plan)
-            t_int = time.perf_counter()
+    try:
+        while dstate.step < args.steps:
+            dstate = step_fn(dstate)
+            i = dstate.step
+            # crossing an --eval-every boundary (a strategy may advance
+            # more than one step a call)
+            if (i // args.eval_every > last // args.eval_every
+                    or i >= args.steps):
+                _sync(device)
+                dt = time.perf_counter() - t_int
+                train_s += dt
+                sps = (i - last) / dt
+                log.info("throughput: %.1f steps/s, %.4g nnz/s", sps,
+                         sps * nnz_step)
+                history.append(evaluate())
+                last = i
+                traffic = getattr(step_fn, "traffic", None)
+                if traffic is not None:
+                    rotated += traffic.rotated_bytes
+                    traffic.rotated_bytes = 0
+                if ckpt:
+                    t_ck = time.perf_counter()
+                    strategy.save(plan, ckpt, dstate)
+                    ckpt_s += time.perf_counter() - t_ck
+                    leaves = flatten(strategy.checkpoint_tree(plan,
+                                                              dstate)).values()
+                    ckpt_bytes = sum(t.numel() * t.element_size()
+                                     for t in leaves)
+                decision = (controller.observe(history[-1]["rmse"])
+                            if controller else None)
+                if decision is not None and i < args.steps:
+                    params, cfg = resize_core_rank(
+                        strategy.eval_params(plan, dstate), cfg,
+                        decision.new_rank, init_gen)
+                    if args.refine:
+                        ridx, rval = sample_batch_arrays(
+                            init_gen, train_t.indices, train_t.values,
+                            min(train_t.nnz, REFINE_SAMPLES))
+                        params = refine_factors(
+                            params, cfg, SparseTensor(ridx, rval, dims),
+                            method=args.refine, passes=args.refine_passes)
+                    log.info("rank %s -> %d at step %d (%s)",
+                             decision.action, decision.new_rank, i,
+                             decision.reason)
+                    rank_history.append({"step": i,
+                                         "action": decision.action,
+                                         "rank": decision.new_rank})
+                    plan = strategy.prepare(train_t, cfg, mesh,
+                                            compress=args.compress,
+                                            seed=args.seed)
+                    # go on with the same batch streams from the same step
+                    dstate = strategy.init(plan, ft.TrainState(params, i),
+                                           gen)._replace(rng=dstate.rng)
+                    step_fn = strategy.make_step(plan)
+                    nnz_step = strategy.nnz_per_step(plan)
+                t_int = time.perf_counter()
+    finally:
+        fetch = getattr(step_fn, "prefetcher", None)
+        if fetch is not None:
+            fetch.close()
     steps_done = dstate.step - start
     steps_per_s = steps_done / train_s if train_s > 0 else float("nan")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
-    log.info("done: %d steps, %.1f steps/s, %.4g nnz/s, peak device bytes "
-             "%s", steps_done, steps_per_s, steps_per_s * nnz_step,
+    rotated_per_step = rotated / steps_done if steps_done else 0.0
+    log.info("done: %d steps, %.1f steps/s, %.4g nnz/s, %.0f bytes rotated "
+             "a step, peak device bytes %s", steps_done, steps_per_s,
+             steps_per_s * nnz_step, rotated_per_step,
              "not measured (cpu)" if peak is None else f"{peak:,}")
     if ckpt:
         log.info("checkpoints: %s bytes each, %.3fs in all", ckpt_bytes,
@@ -349,6 +434,11 @@ def run(
         "device": str(device),
         "backend": backend,
         "strategy": strategy.name,
+        "workers": mesh.size if mesh is not None else 1,
+        "prepare_seconds": prepare_s,
+        "store_seconds": store_s,
+        "store_bytes": store.nbytes if store is not None else None,
+        "rotated_bytes_per_step": rotated_per_step,
         "resumed_from": resumed_from,
         "ckpt_seconds": ckpt_s,
         "ckpt_bytes": ckpt_bytes,

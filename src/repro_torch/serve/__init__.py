@@ -22,8 +22,7 @@ Layout:
                     the closed-loop load harness
 
 Entry point: ``repro_torch.launch.serve_tucker``.  Sharded serving and the
-reference's ``policy`` module wait for the multi-device strategies
-(ROADMAP.md, Queue 1 item 4).
+reference's ``policy`` module wait for ROADMAP.md, Queue 1 item 4 (b).
 """
 from .bucketing import bucket_for, bucket_ladder, split_batch
 from .engine import TuckerServer, load_params_from_checkpoint

@@ -42,8 +42,8 @@ The reference pads a patch to a power of two to bound its jit cache; the
 port has none and patches the dirty rows as they are.
 
 Not ported: sharded serving (``mesh=``, ``shard_mode``, ``expected_qps``,
-``policy``) waits for the multi-device strategies (ROADMAP.md, Queue 1
-item 4); ``mesh=`` raises ``NotImplementedError``.  ``donate=`` and
+``policy``) waits for ROADMAP.md, Queue 1 item 4 (b); ``mesh=`` raises
+``NotImplementedError``.  ``donate=`` and
 ``predict_cache_size`` have no PyTorch meaning.
 """
 from __future__ import annotations
@@ -211,7 +211,7 @@ class TuckerServer:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh=) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 4)")
+                "Queue 1 item 4 (b))")
         self.backend = dispatch.resolve_backend_name(backend)
         dispatch.get_backend(self.backend)        # fail fast on typos
         N = len(params.factors)

@@ -184,6 +184,8 @@ class RefreshSupervisor:
         self.strategy = strategy
         self.plan = plan
         self.dstate = dstate
+        # where the refresh runs: the global layout's device
+        self._device = strategy.eval_params(plan, dstate).factors[0].device
         self.store = store
         self.config = config or SupervisorConfig()
         self.fault_plan = fault_plan
@@ -392,7 +394,7 @@ class RefreshSupervisor:
     def _stage_transfer(self, rnd: _Round) -> None:
         self._check("transfer")
         # synchronous copies: the host window may be rebuilt next round
-        dev = self.dstate.params.factors[0].device
+        dev = self._device
         rnd.win_idx = torch.tensor(rnd.win_idx, device=dev)
         rnd.win_val = torch.tensor(rnd.win_val, device=dev)
 

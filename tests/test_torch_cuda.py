@@ -1359,3 +1359,93 @@ def test_online_train_launches_on_card(dev, tmp_path):
         else:
             want["mode_product_rows"] = len(r["dirty"])
         assert r["launches"] == want, r
+
+
+# ---------------------------------------------------------------------------
+# the multi-device strategies, four workers on one card
+# ---------------------------------------------------------------------------
+
+def _strata_setup(dev, name, sorted_batches=False, backend="cuda", M=4,
+                  dims=(600, 480, 360), nnz=200_000, batch=1024):
+    from repro_torch.data.synthetic import planted_tensor
+    from repro_torch.distributed import get_strategy
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t = planted_tensor(dims, nnz, rank=4, core_rank=4, seed=3, device=dev)
+    cfg = ft.FastTuckerConfig(dims=dims, ranks=(4,) * 3, core_rank=4,
+                              batch_size=batch, backend=backend,
+                              sorted_batches=sorted_batches)
+    mesh = make_host_mesh(num_workers=M, device=dev)
+    st = get_strategy(name)
+    plan = st.prepare(t, cfg, mesh, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return st, plan, st.init(plan, ft.init_state(gen, cfg, dev), gen), cfg
+
+
+@pytest.mark.parametrize("name", ["sync", "strata"])
+def test_mesh_strategy_cuda_matches_torch_on_card(dev, name):
+    """Four workers on the card, 20 fed-pick steps on "cuda" against
+    "torch" from the same state: within 1e-4 of each leaf's largest (the
+    bound of the single-device parity); exactly M kruskal_grad and M·N
+    scatter_accum launches a step, nothing else."""
+    import dataclasses
+
+    st, plan, ds, cfg = _strata_setup(dev, name)
+    tplan = dataclasses.replace(plan, cfg=dataclasses.replace(
+        cfg, backend="torch"))
+    ts = ds
+    M = plan.mesh.size
+    high = (plan.layout.chunk_len if name == "strata"
+            else plan.val_shards[0].shape[0])
+    g = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(20):
+        picks = [torch.randint(0, high, (cfg.batch_size,), generator=g,
+                               device=dev) for _ in range(M)]
+        reset_launch_counts()
+        ds = st.step_batch(plan, ds, picks)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["kruskal_grad"] == M and counts["scatter_accum"] == 3 * M
+        assert sum(counts.values()) == 4 * M
+        ts = st.step_batch(tplan, ts, picks)
+    got, want = st.eval_params(plan, ds), st.eval_params(tplan, ts)
+    for a, b in zip(got.factors + got.core_factors,
+                    want.factors + want.core_factors):
+        _close(a, b, 1e-4)
+
+
+def test_overlap_and_sorted_equal_strata_on_card(dev):
+    """strata_overlap (side-stream rotations) and sorted strata end on
+    plain strata's bits on the card: factors, core and generator states."""
+    runs = {}
+    for name, srt in (("strata", False), ("strata_overlap", False),
+                      ("strata", True)):
+        st, plan, ds, _ = _strata_setup(dev, name, sorted_batches=srt)
+        step = st.make_step(plan)
+        while ds.step < 32:
+            ds = step(ds)
+        torch.cuda.synchronize()
+        runs[(name, srt)] = st._globalize(plan, ds)
+    base = runs[("strata", False)]
+    for key, other in runs.items():
+        leaves = zip(base.params.factors + base.params.core_factors
+                     + (base.rng,),
+                     other.params.factors + other.params.core_factors
+                     + (other.rng,))
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in leaves), key
+
+
+def test_strata_negative_local_ids_on_card(dev):
+    """Dims that leave padding in every bucket at M = 4: the localized
+    padding (down to −3 rows_per_block) gathers with the clamped ids and
+    the scatter drops it — no device assert, finite parameters."""
+    st, plan, ds, _ = _strata_setup(dev, "strata", dims=(601, 479, 333),
+                                    nnz=50_000, batch=512)
+    wb = plan.worker_buckets
+    assert all((~w[2]).any() for w in wb)   # every worker has padding
+    step = st.make_step(plan)
+    while ds.step < 2 * len(plan.schedule):
+        ds = step(ds)
+    torch.cuda.synchronize()
+    p = st.eval_params(plan, ds)
+    assert all(torch.isfinite(f).all() for f in p.factors + p.core_factors)

@@ -113,8 +113,21 @@ def test_block_partition_matches_reference(M, N):
     for a, b in zip(ours.assign(idx), ref.assign(idx)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ours.epoch_schedule(0)
+    # the epoch schedule follows the reference's digit convention: a cover
+    # of every stratum once, whose digits give each worker the blocks
+    # strata() lists (tests/test_strategies.py:90-110); the permutation
+    # comes from PyTorch's stream, the reference's from threefry
+    from repro.core.sampling import stratum_digits as j_digits
+    from repro_torch.core.sampling import stratum_digits
+
+    sched = ours.epoch_schedule(0)
+    assert sched.dtype == np.int64
+    assert sorted(sched.tolist()) == list(range(M ** (N - 1)))
+    assert np.array_equal(sched, ours.epoch_schedule(0))
+    digits = stratum_digits(sched, M, N)
+    np.testing.assert_array_equal(digits, np.asarray(j_digits(sched, M, N)))
+    blocks = (np.arange(M)[None, :, None] + digits[:, None, :]) % M
+    np.testing.assert_array_equal(blocks, ours.strata()[sched])
 
 
 @pytest.mark.parametrize("dims,M,pad", [((18, 15, 12), 1, 8),

@@ -223,7 +223,6 @@ def test_online_train_data_reuse(port_spill):
 @pytest.mark.parametrize("flags,exc,match", [
     (["--serve-shard-mode", "row"], NotImplementedError, "Queue 1 item 4"),
     (["--serve-shard-mode", "batch"], NotImplementedError, "Queue 1 item 4"),
-    (["--strategy", "strata"], NotImplementedError, "Queue 1 item 4"),
     (["--strategy", "bogus"], KeyError, "unknown distributed strategy"),
 ])
 def test_online_train_refusals_before_data(monkeypatch, flags, exc, match):
@@ -233,3 +232,15 @@ def test_online_train_refusals_before_data(monkeypatch, flags, exc, match):
     monkeypatch.setattr(online_train, "planted_tensor", no_data)
     with pytest.raises(exc, match=match):
         online_train.main([*FLAGS, "--device", "cpu", *flags])
+
+
+def test_online_train_strata_runs(monkeypatch):
+    """``--strategy strata``, once refused, runs on two workers: the store
+    is built at the mesh's worker count, the refresh re-pads, and the
+    patched tables equal a fresh server's (``--verify``)."""
+    monkeypatch.setenv("REPRO_FORCE_HOST_DEVICES", "2")
+    rec = online_train.main([*FLAGS, "--device", "cpu", "--backend", "torch",
+                             "--strategy", "strata", "--verify"])
+    assert rec["strategy"] == "strata" and rec["workers"] == 2
+    assert rec["store"].num_workers == 2
+    assert rec["verify"]["exact"] and len(rec["rounds"]) == 2

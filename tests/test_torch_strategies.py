@@ -1,9 +1,10 @@
 """The port's strategy layer, int8 error feedback and ``std_train``'s
 checkpoints, against the live JAX reference on the CPU.
 
-* The registry: ``local`` registered and the default; ``KeyError`` for a
-  name nobody knows, ``NotImplementedError`` (naming ROADMAP.md) for the
-  reference's unported strategies.
+* The registry: all four of the reference's strategies registered with
+  their classes, ``local`` the default; ``KeyError`` for a name nobody
+  knows; ``compressed_reduce`` over a mesh sums each worker's quantized
+  part.
 * ``compress_ef``/``decompress`` bitwise equal to ``repro.optim.compression``
   in f32 (the same operations in the same order; both round half to even);
   ``compression_ratio`` equal.
@@ -21,7 +22,9 @@ checkpoints, against the live JAX reference on the CPU.
   the uninterrupted run's bits; an uninterrupted run draws exactly the
   batches of one generator stepping ``sgd_step`` (what the driver drew
   before the strategy layer); the stale-checkpoint warning; the
-  reference's flags that are not ported refused.
+  reference's ``--mode``, ``--prefetch-depth``, ``--spill-dir`` and
+  ``--out-of-core`` accepted, ``--donate`` refused; ``--strategy strata``
+  runs.
 """
 import logging
 
@@ -74,7 +77,10 @@ def _cfg(**kw):
 # ---------------------------------------------------------------------------
 
 def test_registry_has_local_only():
-    assert available_strategies() == ("local",)
+    """``local`` is the default and the one strategy without a mesh; the
+    reference's other three are registered beside it."""
+    assert available_strategies() == ("local", "strata", "strata_overlap",
+                                      "sync")
     st = get_strategy("local")
     assert st.name == "local" and not st.needs_mesh
     assert isinstance(st, local.LocalStrategy)
@@ -88,9 +94,15 @@ def test_unknown_strategy_lists_available():
 
 @pytest.mark.parametrize("name", ["sync", "strata", "strata_overlap"])
 def test_unported_strategies_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, Queue 1 item 4"):
-        get_strategy(name)
+    """The reference's multi-device strategies, once refused, are each
+    registered with its class and need a mesh."""
+    from repro_torch.distributed import (StrataOverlapStrategy,
+                                         StrataStrategy, SyncStrategy)
+
+    cls = {"sync": SyncStrategy, "strata": StrataStrategy,
+           "strata_overlap": StrataOverlapStrategy}[name]
+    st = get_strategy(name)
+    assert type(st) is cls and st.name == name and st.needs_mesh
 
 
 def test_register_twice_refused():
@@ -99,9 +111,23 @@ def test_register_twice_refused():
 
 
 def test_device_axis_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        base.compressed_reduce((torch.ones(2, 2),), (torch.zeros(2, 2),),
-                               axis="data")
+    """``compressed_reduce`` over a mesh: each worker quantizes its own part
+    against its own residuals; the dequantized parts are summed in worker
+    order, every worker gets the sum."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(num_workers=3, device="cpu")
+    rng = np.random.default_rng(3)
+    dense = [(torch.tensor(rng.normal(size=(5, 2)), dtype=torch.float32),)
+             for _ in range(3)]
+    ef = [(torch.tensor(rng.normal(size=(5, 2)) * 1e-2,
+                        dtype=torch.float32),) for _ in range(3)]
+    summed, new_ef = base.compressed_reduce(dense, ef, mesh)
+    parts = [base.compressed_reduce(d, e) for d, e in zip(dense, ef)]
+    want = (parts[0][0][0] + parts[1][0][0]) + parts[2][0][0]
+    for m in range(3):
+        assert torch.equal(summed[m][0], want)
+        assert torch.equal(new_ef[m][0], parts[m][1][0])
 
 
 def test_compress_refused_under_gauss_seidel(tiny):
@@ -406,13 +432,43 @@ def test_std_train_compress_converges():
 @pytest.mark.parametrize("flag", ["--mode=local", "--donate=on",
                                   "--prefetch-depth=2", "--spill-dir=x",
                                   "--out-of-core"])
-def test_std_train_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        std_train.main(BASE + ["--steps", "4", flag])
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_std_train_refuses_unported_flags(flag, capsys, tmp_path):
+    """``--donate`` has no PyTorch meaning and stays refused; the
+    reference's other flags run (``--out-of-core`` under a strata
+    strategy, ``--spill-dir`` pointing at a fresh directory)."""
+    if flag == "--donate=on":
+        with pytest.raises(SystemExit) as exc:
+            std_train.main(BASE + ["--steps", "4", flag])
+        assert exc.value.code == 2
+        assert "unrecognized arguments" in capsys.readouterr().err
+        return
+    extra = {"--spill-dir=x": ["--strategy", "strata", "--out-of-core",
+                               f"--spill-dir={tmp_path / 'x'}"],
+             "--out-of-core": ["--strategy", "strata", flag],
+             "--prefetch-depth=2": ["--strategy", "strata", "--out-of-core",
+                                    flag],
+             "--mode=local": [flag]}[flag]
+    with pytest.warns(DeprecationWarning) if flag == "--mode=local" \
+            else _no_warning():
+        res = std_train.main(BASE + ["--backend", "torch", "--steps", "4"]
+                             + extra)
+    assert res["history"][-1]["step"] == 4
+    assert res["strategy"] == ("local" if flag == "--mode=local"
+                               else "strata")
 
 
-def test_std_train_refuses_unported_strategy():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        std_train.main(BASE + ["--steps", "4", "--strategy", "strata"])
+def _no_warning():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def test_std_train_refuses_unported_strategy(monkeypatch):
+    """``--strategy strata`` runs (on one worker: no REPRO_FORCE_HOST_DEVICES
+    here), and its RMSE falls."""
+    monkeypatch.delenv("REPRO_FORCE_HOST_DEVICES", raising=False)
+    res = std_train.main(BASE + ["--backend", "torch", "--steps", "8",
+                                 "--strategy", "strata"])
+    rmse = [h["rmse"] for h in res["history"]]
+    assert res["strategy"] == "strata" and res["workers"] == 1
+    assert rmse[-1] < rmse[0], rmse
