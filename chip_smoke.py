@@ -248,16 +248,16 @@ Phases (each failure ends the run with a non-zero exit code):
    (``bench_param_sweep``) and Fig. 7a (``bench_order_scaling``), each
    point's wall time and growth factor and its device time a step from a
    short profile; Table 13 (``bench_sota_time.run``) and the step sweep
-   (``run_step_sweep``, ``validate_bench_step``); ``bench_serve``
-   (``validate_bench_serve``); ``bench_refresh --supervised`` at rank 64,
+   (``run_step_sweep``, ``validate_bench_step``); ``bench_refresh
+   --supervised`` at rank 64,
    whose validator holds the patch to beating the rebuild at every dirty
    fraction ≤ 10 %; ``bench_lm_step``; the fusion compare
    (``bench_kernel_blocks``: ``batch_gradients`` exactly one
    ``kruskal_grad`` launch); the examples ``decompose_ratings`` (stopped
    at 400 steps, resumed to 800: bitwise an uninterrupted run) and
-   ``serve_batched``.  The three documents go to ``--bench-out``
-   (``BENCH_torch_step.json``, ``BENCH_torch_serve.json``,
-   ``BENCH_torch_refresh.json``).
+   ``serve_batched``.  Their documents go to ``--bench-out``
+   (``BENCH_torch_step.json``, ``BENCH_torch_refresh.json``; phase 21
+   adds ``BENCH_torch_serve.json``).
 19. Online training and the data layer over phase 3's tensor, through
    ``repro_torch.launch.online_train.run``: ``--steps`` warm-up steps at
    batch 4096, then 4 rounds of 65,536 arrivals (``--stream-fraction
@@ -314,6 +314,32 @@ Phases (each failure ends the run with a non-zero exit code):
    steps, 2 rounds of 65,536 arrivals, the store in memory, ``--verify``:
    the tables bitwise a fresh server's, each round's launches as phase
    19's).
+21. Sharded Tucker serving on ``SHARD_WORKERS`` = 4 workers sharing the
+   card (``make_host_mesh(num_workers=4)``): for phase 16's two models
+   (the paper's J = R = 4 and the rank-64 one) a row-sharded and a
+   batch-sharded server against the unsharded ``"cuda"`` server and the
+   ``"torch"`` one: ``predict`` of 65,536 tuples bitwise the unsharded
+   server's (2e-5 of the plain one), exactly one ``kruskal_contract`` a
+   bucket chunk (row) or four (batch), the bytes its row-owner gather
+   copied equal to the count of rows off worker 0 (batch: none);
+   ``top_k`` (mode 0 -> 1, and mode 1 -> 0 whose last block ends in
+   padding rows) and ``reconstruct_rows`` within 2e-5, ids equal where
+   the k-th and (k+1)-th scores differ by more than 1e-5, no launch.  A
+   ``RefreshSupervisor`` over a row-sharded server of the paper's model:
+   4 patch rounds and a rebuild round of 65,536 arrivals, each round
+   exactly K ``kruskal_grad``, 3K ``scatter_accum`` and one
+   ``patch_table_rows`` a worker holding a mode's dirty rows (12
+   ``mode_product_rows`` in the rebuild); the joined tables bitwise a
+   fresh unsharded server's, colsums within 1e-5; then the sharded
+   ``update_rows`` of the last round's mode-0 rows against the sharded
+   rebuild (medians of 7 in turns, recorded).  ``auto``: batch at 16,000
+   q/s declared, row with no rate, row for the rank-64 tables under a 64
+   MiB ceiling.  ``serve_tucker --sharded --shard-mode row`` and
+   ``online_train --strategy strata --serve-shard-mode row`` at phase
+   20's online settings (``--verify``: every worker's block bitwise a
+   fresh sharded server's).  ``bench_serve`` FULL at devices 4
+   (``validate_bench_serve``: the collectives' reduction > 1, the
+   crossover) into ``--bench-out``.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -494,6 +520,9 @@ STRAT_WORKERS = 4
 STRAT_PARITY_STEPS = 20
 STRAT_ONLINE = dict(rounds=2, stream_fraction=0.00147)
 # the GPU machine stops a call past this many bytes written to its disk
+SHARD_WORKERS = 4            # phase 21's serving workers, sharing the card
+SHARD_QUERIES = 65_536       # predict tuples checked a layout
+SHARD_TIME_ROUNDS = 7        # update_rows / refresh_tables turns
 DISK_LIMIT = 45 * 2**30
 WRITTEN: dict[str, int] = {}  # reckoned disk bytes, by phase
 FLAGS = [
@@ -3775,9 +3804,8 @@ def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
     from repro_torch.benchmarks import (bench_kernel_blocks, bench_lm_step,
                                         bench_order_scaling,
                                         bench_param_sweep, bench_refresh,
-                                        bench_serve, bench_sota_time)
-    from repro_torch.benchmarks.common import (validate_bench_serve,
-                                               validate_bench_step)
+                                        bench_sota_time)
+    from repro_torch.benchmarks.common import validate_bench_step
     from repro_torch.examples import decompose_ratings, serve_batched
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -3863,20 +3891,7 @@ def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
     log(f"step sweep: validate_bench_step passed; derived {doc['derived']}")
     rec["step_sweep"] = {"doc": doc, "launch_counts": counts}
 
-    # 18.3 serving (bench_serve/v1) and the refresh contract
-    doc, counts = drive("bench_serve", lambda: bench_serve.run(
-        smoke=False, out_path=str(out_dir / "BENCH_torch_serve.json"),
-        device="cuda", backend="cuda"))
-    validate_bench_serve(doc)
-    thr = doc["throughput"]
-    log(f"bench_serve: validate_bench_serve passed; per-query "
-        f"{thr['per_query_qps']:,.1f} q/s, bucketed "
-        f"{thr['bucketed_qps']:,.1f} q/s, speedup {thr['speedup']:.1f}; "
-        f"{thr['sweep_compiles']} bucket lengths launched (ladder bound "
-        f"{thr['ladder_bound']}); closed loop "
-        f"{doc['closed_loop']['rows'][0]['achieved_qps']:,.1f} q/s at "
-        f"{doc['closed_loop']['rows'][0]['offered_qps']:,.0f} offered")
-    rec["bench_serve"] = {"doc": doc, "launch_counts": counts}
+    # 18.3 the refresh contract (bench_serve runs at devices 4 in phase 21)
     doc, counts = drive("bench_refresh", lambda: bench_refresh.run(
         smoke=False, supervised=True,
         out_path=str(out_dir / "BENCH_torch_refresh.json"), device="cuda",
@@ -3953,16 +3968,35 @@ def phase_benchmarks(torch, K, out_dir: Path) -> tuple[dict, list, dict,
 # phase 19
 # ---------------------------------------------------------------------------
 
-def _online_round_launches(refresh_steps: int, r: dict) -> dict:
+def _online_round_launches(refresh_steps: int, r: dict, srv=None) -> dict:
     """What one supervised round must launch: K ``kruskal_grad`` and 3K
     ``scatter_accum``, then one ``patch_table_rows`` a patched mode or one
-    ``mode_product_rows`` a mode in a rebuild, and nothing else."""
+    ``mode_product_rows`` a mode in a rebuild, and nothing else.  A
+    sharded server ``srv`` patches on each worker holding a mode's dirty
+    rows (row mode: between one and min(dirty, M) a dirty mode, read from
+    the round) or on every replica (batch), and rebuilds on every worker
+    holding rows."""
     want = dict({k: 0 for k in REPLACES}, kruskal_grad=refresh_steps,
                 scatter_accum=3 * refresh_steps)
+    dirty = [d for d in r["dirty"] if d]
+    if srv is None or srv.mesh is None:
+        if r["publish"] == "patch":
+            want["patch_table_rows"] = len(dirty)
+        else:
+            want["mode_product_rows"] = len(r["dirty"])
+        return want
+    M = len(srv._workers.devices)
     if r["publish"] == "patch":
-        want["patch_table_rows"] = sum(1 for d in r["dirty"] if d)
+        got = r["launches"]["patch_table_rows"]
+        if srv.shard_mode == "batch":
+            want["patch_table_rows"] = M * len(dirty)
+        elif len(dirty) <= got <= sum(min(d, M) for d in dirty):
+            want["patch_table_rows"] = got
+        else:
+            want["patch_table_rows"] = len(dirty)      # reported as wrong
     else:
-        want["mode_product_rows"] = len(r["dirty"])
+        want["mode_product_rows"] = sum(hi > lo for s in srv._spans
+                                        for lo, hi in s)
     return want
 
 
@@ -4003,7 +4037,8 @@ def _online_run(torch, K, online_train, name, flags, data) -> tuple:
             f"rmse {r['rmse']:.7f} mae {r['mae']:.7f}; {r['round_ms']:.1f} "
             f"ms; launches {r['launches']}")
         _counts_are(f"online [{name}] round {r['round']}", r["launches"],
-                    _online_round_launches(ONLINE["refresh_steps"], r))
+                    _online_round_launches(ONLINE["refresh_steps"], r,
+                                           res["server"]))
         if not (math.isfinite(r["rmse"]) and math.isfinite(
                 r["probe_abs_mean"])):
             raise AssertionError(f"online [{name}]: non-finite round {r}")
@@ -4532,6 +4567,412 @@ def phase_strategies(torch, K, ft, std_train, online_train, base_res,
 
 
 # ---------------------------------------------------------------------------
+# phase 21
+# ---------------------------------------------------------------------------
+
+def _top_k_vs(s, i, ref_s, ref_i, k) -> tuple[int, float]:
+    """``top_k`` (k columns) against a reference's top k + 1: scores within
+    the kernel tolerance of each row's largest, ids equal on the rows whose
+    k-th and (k+1)-th reference scores differ by more than 1e-5 of it.
+    Returns (rows whose ids were checked, worst score error)."""
+    checked, worst = 0, 0.0
+    for b in range(len(ref_s)):
+        scale = max(ref_s[b].abs().max().item(), 1e-30)
+        worst = max(worst, (s[b] - ref_s[b, :k]).abs().max().item() / scale)
+        if (ref_s[b, k - 1] - ref_s[b, k]).item() / scale > 1e-5:
+            checked += 1
+            if i[b].tolist() != ref_i[b, :k].tolist():
+                raise AssertionError(f"sharded top_k ids {i[b].tolist()} "
+                                     f"differ from {ref_i[b, :k].tolist()}")
+    return checked, worst
+
+
+def _gather_bytes(srv, q) -> int:
+    """What row-mode ``predict`` of ``q`` must copy between workers: each
+    bucket chunk's (index-0 padded) rows of every mode that live off
+    worker 0, R table entries each."""
+    import numpy as np
+
+    from repro_torch.serve import split_batch
+
+    R, item = srv.core_rank, srv._live.tables[0][0].element_size()
+    total = 0
+    for start, bucket in split_batch(len(q), srv.ladder):
+        chunk = np.zeros((bucket, q.shape[1]), np.int64)
+        part = q[start:start + bucket]
+        chunk[:len(part)] = part
+        for n, b in enumerate(srv._block_rows):
+            total += int(np.count_nonzero(chunk[:, n] // b)) * R * item
+    return total
+
+
+def _shard_queries(torch, K, name, params, pool, mesh) -> dict:
+    """One model's row and batch servers against the unsharded ``"cuda"``
+    server and the plain ``"torch"`` one: predict bits, launches, bytes;
+    top_k (mode 0 -> 1, and mode 1 -> 0, whose last block is padded) and
+    reconstruct_rows within tolerance, launching nothing."""
+    from repro_torch.serve import TuckerServer, split_batch
+
+    zero = {k: 0 for k in REPLACES}
+    M = mesh.size
+    k = SERVE_LOAD["k"]
+    q = pool[:SHARD_QUERIES]
+    ids = {0: pool[:SERVE_TOP_IDS, 0].copy(), 1: pool[:SERVE_TOP_IDS, 1]
+           .copy()}
+    refs = {}
+    for what, srv in (("cuda", TuckerServer(params, backend="cuda")),
+                      ("torch", TuckerServer(params, backend="torch"))):
+        refs[what] = {
+            "predict": srv.predict(q),
+            "top_k": {m: srv.top_k(m, ids[m], k + 1, target_mode=1 - m)
+                      for m in (0, 1)},
+            "slices": srv.reconstruct_rows(0, ids[0][:SERVE_SLICE_IDS])}
+        del srv
+    rec = {}
+    for mode in ("row", "batch"):
+        srv = TuckerServer(params, backend="cuda", mesh=mesh,
+                           shard_mode=mode)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        got = srv.predict(q)
+        torch.cuda.synchronize()
+        chunks = len(split_batch(len(q), srv.ladder))
+        per = 1 if mode == "row" else M
+        _counts_are(f"sharded serving [{name}, {mode}] predict", K
+                    .launch_counts(), dict(zero, kruskal_contract=chunks * per))
+        same = bool(torch.equal(got, refs["cuda"]["predict"]))
+        _, rel = rel_err(got, refs["torch"]["predict"])
+        moved = srv.traffic["predict"]
+        want_moved = _gather_bytes(srv, q) if mode == "row" else 0
+        if not (same and rel <= TOL["kruskal_contract"]
+                and moved == want_moved):
+            raise AssertionError(
+                f"sharded serving [{name}, {mode}]: predict bitwise the "
+                f"unsharded cuda server {same}, {rel:.3g} off torch, "
+                f"{moved} bytes moved (want {want_moved})")
+        K.reset_launch_counts()
+        srv.traffic.clear()
+        tops = {m: srv.top_k(m, ids[m], k, target_mode=1 - m)
+                for m in (0, 1)}
+        slices = srv.reconstruct_rows(0, ids[0][:SERVE_SLICE_IDS])
+        torch.cuda.synchronize()
+        _counts_are(f"sharded serving [{name}, {mode}] top_k, "
+                    "reconstruct_rows", K.launch_counts(), zero)
+        checks = {}
+        for what in ("cuda", "torch"):
+            for m in (0, 1):
+                s, i = tops[m]
+                checks[f"top_k {m}->{1 - m} vs {what}"] = _top_k_vs(
+                    s, i, *refs[what]["top_k"][m], k)
+            checks[f"slices vs {what}"] = rel_err(slices,
+                                                  refs[what]["slices"])[1]
+        bad = [c for c, v in checks.items()
+               if (v[1] if isinstance(v, tuple) else v)
+               > TOL["kruskal_contract"]]
+        if bad or tuple(slices.shape) != tuple(
+                refs["cuda"]["slices"].shape):
+            raise AssertionError(f"sharded serving [{name}, {mode}]: "
+                                 f"{bad} off: {checks}")
+        log(f"sharded serving [{name}, {mode}, M = {M}]: predict of "
+            f"{len(q):,} tuples in {chunks} chunks, {chunks * per} "
+            f"kruskal_contract launches, bitwise the unsharded cuda server: "
+            f"{same}; {rel:.3g} of the largest off the torch server; "
+            f"{moved:,} bytes copied between workers ({moved / len(q):.1f} "
+            f"a query); top_k (k = {k}, {len(ids[0])} entities) and "
+            f"reconstruct_rows launched nothing and copied "
+            f"{dict(srv.traffic)} bytes; " + "; ".join(
+                f"{c}: ids checked on {v[0]} rows, scores within {v[1]:.3g}"
+                if isinstance(v, tuple) else f"{c} within {v:.3g}"
+                for c, v in checks.items()))
+        rec[mode] = {"predict_bitwise": same, "predict_rel_err_torch": rel,
+                     "predict_bytes": moved,
+                     "predict_bytes_per_query": moved / len(q),
+                     "chunks": chunks, "checks": {
+                         c: list(v) if isinstance(v, tuple) else v
+                         for c, v in checks.items()},
+                     "query_bytes": dict(srv.traffic)}
+        del srv
+    return rec
+
+
+def _shard_refresh(torch, K, base_res, pool, mesh) -> tuple[dict, dict]:
+    """``RefreshSupervisor`` over a row-sharded server of the paper's
+    model: 4 patch rounds and a rebuild round of 65,536 arrivals, exact
+    launches a round, the tables bitwise a fresh unsharded server's; then
+    a sharded ``update_rows`` against a sharded ``refresh_tables``."""
+    import numpy as np
+
+    from repro_torch.distributed import get_strategy
+    from repro_torch.serve import (RefreshSupervisor, SupervisorConfig,
+                                   TuckerServer)
+
+    R = SERVE_REFRESH
+    rounds_n = R["rounds"] + 1
+    test_t = base_res["test"]
+    n_arr = rounds_n * R["arrivals"]
+    arr_idx = test_t.indices[-n_arr:].cpu().numpy()
+    arr_val = test_t.values[-n_arr:].cpu().numpy()
+    strategy = get_strategy("local")
+    plan = strategy.prepare(base_res["train"], base_res["cfg"], None, seed=0)
+    dstate = base_res["dstate"]
+    srv = TuckerServer(strategy.eval_params(plan, dstate), backend="cuda",
+                       mesh=mesh, shard_mode="row")
+    spans = sum(hi > lo for s in srv._spans for lo, hi in s)
+    owners: list[int] = []
+    last_ids: dict[int, np.ndarray] = {}
+    real = srv.update_rows
+
+    def recording(mode, ids, rows):
+        last_ids[mode] = np.asarray(ids)
+        owners.append(len(np.unique(last_ids[mode] //
+                                    srv._block_rows[mode])))
+        return real(mode, ids, rows)
+
+    srv.update_rows = recording
+    # every round patches until the last, which the drift limit sends to
+    # a rebuild
+    scfg = SupervisorConfig(refresh_steps=R["steps"], window=R["arrivals"],
+                            backoff_base_s=1e-3, backoff_cap_s=5e-3,
+                            degraded_retry_s=5e-3, poll_interval_s=1e-3,
+                            max_patched_fraction=math.inf,
+                            max_colsum_drift=math.inf)
+    sup = RefreshSupervisor(srv, strategy, plan, dstate, config=scfg)
+    main = {k: 0 for k in REPLACES}
+    rounds = []
+    sup.start()
+    try:
+        for r in range(rounds_n):
+            if r == rounds_n - 1:
+                scfg.max_patched_fraction = 0.0
+            owners.clear()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            lo = r * R["arrivals"]
+            sup.submit(arr_idx[lo:lo + R["arrivals"]],
+                       arr_val[lo:lo + R["arrivals"]])
+            if not sup.drain(timeout=300):
+                raise AssertionError(f"sharded refresh: round {r} did not "
+                                     f"publish: {sup.health()}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+            h = sup.health()
+            kind = h["last_publish"]["kind"]
+            want = dict({k: 0 for k in REPLACES}, kruskal_grad=R["steps"],
+                        scatter_accum=3 * R["steps"])
+            if kind == "patch":
+                want["patch_table_rows"] = sum(owners)
+            else:
+                want["mode_product_rows"] = spans
+            _counts_are(f"sharded refresh round {r} ({kind})", counts, want)
+            if kind != ("rebuild" if r == rounds_n - 1 else "patch"):
+                raise AssertionError(f"sharded refresh: round {r} published "
+                                     f"a {kind}")
+            for k_, v in counts.items():
+                main[k_] += v
+            rounds.append({"dirty_rows": h["last_dirty"], "publish": kind,
+                           "workers_patched": list(owners), "wall_s": wall,
+                           "publish_s": h["stage_seconds"]["publish"],
+                           "launch_counts": counts})
+            log(f"sharded refresh round {r}: dirty rows {h['last_dirty']}, "
+                f"{kind}" + (f" on {owners} workers a mode" if owners else "")
+                + f", publish {h['stage_seconds']['publish'] * 1e3:.3f} ms, "
+                f"round {wall * 1e3:.1f} ms; launches "
+                f"{ {k_: v for k_, v in counts.items() if v} }")
+    finally:
+        sup.stop()
+    srv.update_rows = real
+    fresh = TuckerServer(sup.dstate.params, backend="cuda")
+    exact = all(torch.equal(a, b) for a, b in zip(srv._tables,
+                                                  fresh._tables))
+    cols = max(rel_err(a, b)[1] for a, b in zip(srv._colsums,
+                                                fresh._colsums))
+    log(f"sharded refresh: after {R['rounds']} patch rounds and a rebuild "
+        f"round, the joined row-sharded tables bitwise a fresh unsharded "
+        f"server's: {exact}; colsums within {cols:.3g}; "
+        f"{dict(srv.traffic)} bytes copied between workers")
+    if not (exact and cols <= 1e-5):
+        raise AssertionError("sharded refresh: tables or colsums differ")
+
+    # a sharded patch of mode 0's dirty rows (the last patch round's)
+    # against a sharded rebuild (host clock, medians of 7 in turns; the
+    # rows gathered first)
+    ids = last_ids[0].astype(np.int32)
+    rows = srv.params.factors[0].index_select(
+        0, torch.from_numpy(ids).long().cuda())
+    times = {"update_rows": [], "refresh_tables": []}
+    for _ in range(SHARD_TIME_ROUNDS):
+        for what, fn in (("update_rows",
+                          lambda: srv.update_rows(0, ids, rows)),
+                         ("refresh_tables", srv.refresh_tables)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[what].append(time.perf_counter() - t0)
+    med = {k_: statistics.median(v) * 1e3 for k_, v in times.items()}
+    log(f"sharded refresh times (row mode, M = {mesh.size}, J = R = 4): "
+        f"update_rows of mode 0's {len(ids):,} dirty rows "
+        f"{med['update_rows']:.4f} ms against refresh_tables "
+        f"{med['refresh_tables']:.4f} ms, x"
+        f"{med['refresh_tables'] / med['update_rows']:.2f} (medians of "
+        f"{SHARD_TIME_ROUNDS} in turns; recorded, not asserted)")
+    return {"rounds": rounds, "tables_bitwise": exact,
+            "colsum_rel_err": cols, "traffic": dict(srv.traffic),
+            "update_rows_ms": med["update_rows"],
+            "refresh_tables_ms": med["refresh_tables"],
+            "times_ms": {k_: [x * 1e3 for x in v]
+                         for k_, v in times.items()},
+            "dirty_rows": len(ids)}, main
+
+
+def phase_sharded_serving(torch, K, serve_tucker, online_train, base_res,
+                          wide_params, steps: int, out_dir: Path
+                          ) -> tuple[dict, dict]:
+    """Sharded Tucker serving on ``SHARD_WORKERS`` workers sharing the
+    card: both models' row and batch servers against the unsharded ones,
+    the supervised refresh on a row-sharded server, the ``auto`` policy,
+    ``serve_tucker --sharded`` and ``online_train --serve-shard-mode
+    row``, and ``bench_serve`` FULL at devices 4."""
+    import os
+
+    from repro_torch.benchmarks import bench_serve
+    from repro_torch.benchmarks.common import validate_bench_serve
+    from repro_torch.launch.mesh import FORCE_ENV_VAR, make_host_mesh
+    from repro_torch.serve import ShardPolicy, TuckerServer
+
+    M = SHARD_WORKERS
+    mesh = make_host_mesh(num_workers=M, device="cuda")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pool = base_res["test"].indices[:SERVE_POOL].cpu().numpy()
+    paper = base_res["state"].params
+    rec = {"models": {}}
+    main = {k: 0 for k in REPLACES}
+    t0 = time.perf_counter()
+    for name, params in (("paper, J = R = 4", paper),
+                         ("rank 64", wide_params)):
+        rec["models"][name] = _shard_queries(torch, K, name, params, pool,
+                                             mesh)
+    rec["queries_seconds"] = time.perf_counter() - t0
+    rec["refresh"], counts = _shard_refresh(torch, K, base_res, pool, mesh)
+    for k, v in counts.items():
+        main[k] += v
+
+    # the "auto" policy
+    hi = TuckerServer(paper, backend="cuda", mesh=mesh, expected_qps=16_000)
+    lo = TuckerServer(paper, backend="cuda", mesh=mesh)
+    wide = TuckerServer(wide_params, backend="cuda", mesh=mesh,
+                        expected_qps=16_000,
+                        policy=ShardPolicy(replicate_bytes_ceiling=64 << 20))
+    rec["auto"] = {n: str(s.shard_decision) for n, s in (
+        ("paper at 16,000 q/s", hi), ("paper, no rate", lo),
+        ("rank 64, 64 MiB ceiling", wide))}
+    for n, d in rec["auto"].items():
+        log(f"sharded serving auto [{n}]: {d}")
+    if (hi.shard_mode, lo.shard_mode, wide.shard_mode) != ("batch", "row",
+                                                           "row") \
+            or "ceiling" not in wide.shard_decision.reason:
+        raise AssertionError(f"sharded serving auto: {rec['auto']}")
+    del hi, lo, wide
+
+    old_env = os.environ.get(FORCE_ENV_VAR)
+    os.environ[FORCE_ENV_VAR] = str(M)
+    try:
+        # serve_tucker --sharded --shard-mode row
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        rep = serve_tucker.main(["--sharded", "--shard-mode", "row",
+                                 "--device", "cuda", "--backend", "cuda"])
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        log(f"serve_tucker --sharded --shard-mode row: {rep['shard_mode']}"
+            f", {rep['served_queries']:,} queries in {rep['flushes']} "
+            f"flushes, {rep['qps']:,.1f} q/s, flush p50 "
+            f"{rep['flush_ms']['p50']:.3f} ms; rmse {rep['rmse']:.4f}; "
+            f"launch counts { {k: v for k, v in counts.items() if v} }")
+        _check_path("serve_tucker --sharded", counts,
+                    ("kruskal_contract", "kruskal_grad", "scatter_accum",
+                     "mode_product_rows"), ("segment_reduce",) + LM_KERNELS)
+        if rep["shard_mode"] != "row" or not all(
+                math.isfinite(x) for row in rep["top_k"]["scores"]
+                for x in row):
+            raise AssertionError(f"serve_tucker --sharded: {rep}")
+        for k, v in counts.items():
+            main[k] += v
+        rec["serve_tucker"] = {k: rep[k] for k in (
+            "shard_mode", "served_queries", "flushes", "qps", "flush_ms",
+            "rmse")}
+        rec["serve_tucker"]["launch_counts"] = counts
+
+        # online_train --strategy strata --serve-shard-mode row
+        res, counts, wall = _online_run(
+            torch, K, online_train, f"strata, M = {M}, row-sharded serving",
+            ["--strategy", "strata", "--serve-shard-mode", "row", "--dims",
+             ",".join(map(str, NETFLIX_DIMS)), "--rank", "4", "--core-rank",
+             "4", "--batch", str(TRAIN_BATCH), "--warmup-steps", str(steps),
+             "--rounds", str(STRAT_ONLINE["rounds"]), "--refresh-steps",
+             str(ONLINE["refresh_steps"]), "--stream-fraction",
+             str(STRAT_ONLINE["stream_fraction"]), "--seed", "0",
+             "--backend", "cuda", "--device", "cuda", "--verify"],
+            (base_res["train"], base_res["test"]))
+        if res["server"].shard_mode != "row" or res["serve_workers"] != M:
+            raise AssertionError("online sharded: served "
+                                 f"{res['server'].shard_mode} on "
+                                 f"{res['serve_workers']} workers")
+        for k, v in counts.items():
+            main[k] += v
+        rec["online"] = {"wall_s": wall, "rounds": res["rounds"],
+                         "launch_counts": counts, "verify": res["verify"]}
+        del res
+    finally:
+        if old_env is None:
+            os.environ.pop(FORCE_ENV_VAR, None)
+        else:
+            os.environ[FORCE_ENV_VAR] = old_env
+
+    # bench_serve FULL at devices 4 (bench_serve/v1)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = bench_serve.run(smoke=False,
+                          out_path=str(out_dir / "BENCH_torch_serve.json"),
+                          device="cuda", backend="cuda", devices=M)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    validate_bench_serve(doc)
+    note_written("21 (bench_serve document)",
+                 (out_dir / "BENCH_torch_serve.json").stat().st_size)
+    thr, col, x = doc["throughput"], doc["collectives"], doc["crossover"]
+    log(f"bench_serve FULL at devices {M}: validate_bench_serve passed; "
+        f"per-query {thr['per_query_qps']:,.1f} q/s, bucketed "
+        f"{thr['bucketed_qps']:,.1f} q/s, speedup {thr['speedup']:.1f}; "
+        f"{thr['sweep_compiles']} bucket lengths launched (bound "
+        f"{thr['ladder_bound']}); top_k bytes a bucket of {col['bucket']} "
+        f"at k = {col['k']}: shard-local merge {col['sharded_operand_bytes']:,}"
+        f", score gather {col['gspmd_operand_bytes']:,}, reduction "
+        f"x{col['reduction']:.2f}; crossover row {x['row_max_qps']:,.1f} / "
+        f"batch {x['batch_max_qps']:,.1f} q/s, batch_vs_row "
+        f"{x['batch_vs_row']:.3f}; {secs:.1f} s; launch counts "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for r in doc["closed_loop"]["rows"]:
+        log(f"bench_serve closed loop [{r['shard_mode']} {r['query']} at "
+            f"{r['offered_qps']:,.0f} q/s offered]: achieved "
+            f"{r['achieved_qps']:,.1f} q/s, p50 {r['p50_ms']:.3f} ms, p99 "
+            f"{r['p99_ms']:.3f} ms, {r['served_requests']} requests, shed "
+            f"{r['shed']}")
+    _check_path("bench_serve", counts, ("kruskal_contract",),
+                ("kruskal_grad", "segment_reduce") + LM_KERNELS)
+    for k, v in counts.items():
+        main[k] += v
+    rec["bench_serve"] = {"doc": doc, "launch_counts": counts,
+                          "seconds": secs}
+    rec["launch_counts"] = main
+    return rec, main
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -4566,7 +5007,8 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core import fasttucker as ft
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.launch import online_train, serve, std_train, train
+    from repro_torch.launch import (online_train, serve, serve_tucker,
+                                    std_train, train)
 
     t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
@@ -4656,6 +5098,13 @@ def main(argv: list[str] | None = None) -> int:
     log(f"phase 20 (the multi-device strategies, {STRAT_WORKERS} workers): "
         f"{report['strategies_seconds']:.1f}s, disk writes "
         f"{report['strategies']['disk_bytes']:,} bytes")
+    t_shard = time.perf_counter()
+    report["sharded_serving"], shard_counts = phase_sharded_serving(
+        torch, K, serve_tucker, online_train, base, wide_params, args.steps,
+        ROOT / args.bench_out)
+    report["sharded_serving_seconds"] = time.perf_counter() - t_shard
+    log(f"phase 21 (sharded serving, {SHARD_WORKERS} workers): "
+        f"{report['sharded_serving_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -4664,7 +5113,7 @@ def main(argv: list[str] | None = None) -> int:
                  report["baselines"]["ccd"]["counts"],
                  report["baselines"]["bench_accuracy"]["launch_counts"],
                  serve_counts, conv_counts, bench_counts, online_counts,
-                 strat_counts):
+                 strat_counts, shard_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
@@ -4713,8 +5162,9 @@ def main(argv: list[str] | None = None) -> int:
         f"epochs, bench_accuracy, phase 16's closed loops and refresh "
         f"rounds, phase 17's warm starts, warm and adaptive runs and "
         f"bench_convergence, phase 18's benchmarks and examples, phase "
-        f"19's two online runs, and phase 20's strategy runs and online "
-        f"strata run; the LM "
+        f"19's two online runs, phase 20's strategy runs and online "
+        f"strata run, and phase 21's sharded queries, refresh rounds, "
+        f"serve_tucker, online run and bench_serve; the LM "
         f"serve request "
         f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")

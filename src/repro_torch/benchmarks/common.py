@@ -5,8 +5,8 @@ optional ``ingest`` section) and ``validate_bench_serve``
 (``bench_serve/v1``) are the port's own copies of the reference's
 ``benchmarks.common`` validators, word for word: the same schemas and the
 same claims.  ``validate_bench_serve`` keeps the ``devices > 1`` clauses
-(``collectives`` and ``crossover`` required there); a single-device
-document never reaches them.  ``validate_bench_accuracy`` is its copy of
+(``collectives`` and ``crossover`` required there), which the port's
+``bench_serve`` fills at its default of 4 in-process workers.  ``validate_bench_accuracy`` is its copy of
 ``validate_bench_accuracy`` (``bench_accuracy/v1``).
 ``validate_bench_convergence`` is its copy of
 ``validate_bench_convergence`` (``bench_convergence/v1``), with one
@@ -157,10 +157,13 @@ SERVE_CLOSED_LOOP_ROW_FIELDS = {
     "shed": int,             # queue-full + deadline rejections
 }
 
-# collectives: the sharded-top_k win at M > 1 devices (not ported yet:
-# ROADMAP Queue 1 item 4) —
-# per-bucket collective operand bytes of the shard-local merge program vs
-# the GSPMD-compiled unsharded program on the same row-sharded tables.
+# collectives: the sharded-top_k win at M > 1 workers — the bytes the
+# row-sharded top_k's copies move between workers for one request bucket
+# (the shard-local merge) vs the baseline on the same row-sharded tables
+# (the reference: the GSPMD-compiled unsharded program's collective
+# operand bytes; the port, which has no GSPMD: that program's data flow,
+# every worker's score block all-gathered, counted by the same rule; the
+# document's ``baseline`` field says so).
 SERVE_COLLECTIVE_FIELDS = {
     "devices": int,
     "bucket": int,                   # request bucket the programs serve

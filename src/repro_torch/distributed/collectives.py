@@ -14,6 +14,20 @@ strategies use (``launch.mesh`` says why the mesh is in-process):
     worker 0's device, copied back to every other worker: the same bits
     whatever the placement, and no float atomics.
 
+Sharded serving (``serve.engine``) adds three, each returning the bytes it
+copied between workers by ``shard_bytes``' rule (elements × item size of
+every tensor that leaves its worker; what stays on a worker is free):
+
+``gather_rows`` (the reference's masked ``psum`` row gather)
+    global row ids of a row-sharded table → their rows, in request order,
+    on one worker: each row copied from the worker that owns it,
+    ``id // block_rows``.
+``all_gather``
+    the workers' parts, concatenated in worker order 0 … M−1 on one
+    worker.
+``broadcast``
+    one worker's tensor, copied to every other worker.
+
 ``SideStreams`` issues a rotation's copies on one side CUDA stream per
 device (``strata_overlap``): each copy waits on an event of the compute
 stream recorded after its source was written and its destination
@@ -26,6 +40,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -70,6 +85,73 @@ def psum(parts: Sequence[tuple[torch.Tensor, ...]],
         sums.append(acc)
     return [tuple(sums)] + [tuple(copy_to(s, mesh.devices[m]) for s in sums)
                             for m in range(1, M)]
+
+
+def nbytes(t: torch.Tensor) -> int:
+    """Bytes of ``t``'s elements (``shard_bytes``' rule for one tensor)."""
+    return t.numel() * t.element_size()
+
+
+def gather_rows(shards: Sequence[torch.Tensor], ids: np.ndarray,
+                block_rows: int, mesh, dst: int = 0
+                ) -> tuple[torch.Tensor, int]:
+    """Rows ``ids`` (global, host ints) of a table whose rows
+    [m·block_rows, (m+1)·block_rows) worker m holds as ``shards[m]`` →
+    (len(ids), R) on worker ``dst``'s device in request order, and the
+    bytes copied from the other workers.
+
+    Exact: every row is copied, never summed.  The reference zero-masks
+    the rows a device does not own and adds the M blocks with one
+    ``psum``, which is exact too, but for one bit: a −0.0 entry comes
+    back as +0.0 there (−0.0 + 0.0) and as −0.0 here.  No prediction can
+    tell the two apart: the two zeros compare equal, and so do the
+    products and sums made from them.
+    """
+    dev = mesh.devices[dst]
+    ids = np.asarray(ids, dtype=np.int64)
+    if len(shards) == 1:
+        return shards[0].index_select(0, torch.from_numpy(ids).to(dev)), 0
+    owner = ids // block_rows
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner, minlength=len(shards))
+    local = (ids - owner * block_rows)[order]
+    parts, moved, start = [], 0, 0
+    for m, c in enumerate(counts.tolist()):
+        if not c:
+            continue
+        lid = torch.from_numpy(local[start:start + c]).to(mesh.devices[m])
+        part = shards[m].index_select(0, lid)
+        if m != dst:
+            part = copy_to(part, dev)
+            moved += nbytes(part)
+        parts.append(part)
+        start += c
+    rows = parts[0] if len(parts) == 1 else torch.cat(parts)
+    if (order[1:] < order[:-1]).any():      # back to request order
+        inv = np.empty_like(order)
+        inv[order] = np.arange(len(order))
+        rows = rows.index_select(0, torch.from_numpy(inv).to(dev))
+    return rows, moved
+
+
+def all_gather(parts: Sequence[torch.Tensor], mesh, dim: int = 0,
+               dst: int = 0) -> tuple[torch.Tensor, int]:
+    """``parts[m]`` on worker m → their concatenation along ``dim`` in
+    worker order on worker ``dst``, and the bytes copied to it."""
+    dev = mesh.devices[dst]
+    moved = [p if m == dst else copy_to(p, dev) for m, p in enumerate(parts)]
+    return (torch.cat(moved, dim=dim),
+            sum(nbytes(p) for m, p in enumerate(parts) if m != dst))
+
+
+def broadcast(t: torch.Tensor, mesh, workers: int,
+              src: int = 0) -> tuple[list[torch.Tensor], int]:
+    """``t`` (on worker ``src``) for each of the first ``workers``
+    workers: ``t`` itself on ``src``, a copy on every other one; and the
+    bytes copied."""
+    out = [t if m == src else copy_to(t, mesh.devices[m])
+           for m in range(workers)]
+    return out, (workers - 1) * nbytes(t)
 
 
 class Pending:

@@ -1,5 +1,5 @@
-"""Online training on one device: supervised ingest → refresh →
-publish rounds behind a live ``TuckerServer``.
+"""Online training: supervised ingest → refresh → publish rounds behind
+a live ``TuckerServer``.
 
 Counterpart of ``repro.launch.online_train``.  The warm-up and the
 refresh run under ``--strategy`` (``local``, or ``sync``, ``strata`` and
@@ -31,13 +31,14 @@ arrivals equal the reference's and the trajectory does not.
 ingest, transfer, refresh, publish) through the supervisor;
 ``--expect-breaker`` asserts that the run degraded and recovered;
 ``--verify`` holds the patched tables against a fresh server's from the
-refreshed parameters (bitwise for f32 tables, banded for bf16).
+refreshed parameters, in the same layout (bitwise for f32 tables, every
+worker's block or replica; banded for bf16).
 
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
 cpu`` runs on the CPU (``REPRO_FORCE_HOST_DEVICES=4`` gives the mesh
-strategies four workers there).  ``--serve-shard-mode row|batch`` waits
-for sharded serving (ROADMAP.md, Queue 1 item 4 (b)) and is refused before
-any data is made.
+strategies four workers there).  ``--serve-shard-mode row|batch`` serves
+the tables sharded over the training mesh when the strategy has one, else
+over ``make_host_mesh()``'s workers.
 
     PYTHONPATH=src python -m repro_torch.launch.online_train \\
         --dims 16,12,10 --nnz 400 --warmup-steps 4 --rounds 2 \\
@@ -103,8 +104,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve-shard-mode", default="none",
                     choices=["none", "row", "batch"],
-                    help="serving-table layout; row and batch need "
-                         "sharded serving (not ported yet)")
+                    help="serving-table layout (row/batch: over the "
+                         "training mesh, else a host mesh)")
     ap.add_argument("--table-dtype", default=None,
                     choices=[None, "float32", "bfloat16"])
     ap.add_argument("--spill-dir", default="",
@@ -145,11 +146,6 @@ def run(
     the generation; ``--dims`` must match it.
     """
     # refusals first, before any data is made
-    if args.serve_shard_mode in ("row", "batch"):
-        raise NotImplementedError(
-            f"--serve-shard-mode {args.serve_shard_mode} needs sharded "
-            "serving, which is not ported yet (ROADMAP.md, Queue 1 item 4 "
-            "(b))")
     strategy = get_strategy(args.strategy)
     device = resolve_device(args.device)
     backend = dispatch.resolve_backend_name(args.backend)
@@ -224,10 +220,18 @@ def run(
     warmup = {"steps": dstate.step, "seconds": warm_s, "rmse": float(r),
               "mae": float(m), "prepare_seconds": prepare_s}
 
-    server = TuckerServer(params, backend=backend,
-                          table_dtype=args.table_dtype)
-    log.info("serving %s tables, version %d", server.table_dtype,
-             server.table_version)
+    serve_mesh = None
+    if args.serve_shard_mode in ("row", "batch"):
+        serve_mesh = (mesh if mesh is not None
+                      else make_host_mesh(device=device))
+    server = TuckerServer(
+        params, backend=backend, mesh=serve_mesh,
+        shard_mode=args.serve_shard_mode if serve_mesh else "auto",
+        table_dtype=args.table_dtype)
+    log.info("serving %s tables (%s%s, version %d)", server.shard_mode,
+             server.table_dtype,
+             f", {serve_mesh.size} workers" if serve_mesh is not None
+             else "", server.table_version)
     # only the last `window` warm nonzeros can enter a window
     lo = max(0, n_warm - window)
     history = (train_t.indices[lo:n_warm].cpu().numpy(),
@@ -324,6 +328,7 @@ def run(
         "seconds": time.perf_counter() - t_start, "n_warm": n_warm,
         "n_stream": n_stream, "window": window, "device": str(device),
         "workers": mesh.size if mesh is not None else 1,
+        "serve_workers": serve_mesh.size if serve_mesh is not None else 1,
         "backend": backend, "strategy": strategy.name, "cfg": cfg,
         "server": server, "dstate": sup.dstate, "store": sup.store,
         "params": params, "train": train_t, "test": test_t,
@@ -332,18 +337,25 @@ def run(
 
 def _verify(server: TuckerServer, params, backend: str,
             table_dtype: str | None) -> dict:
-    """The patched server against a fresh one built from ``params``: f32
-    tables bitwise, bf16 tables within the reference's band (0.05); the
-    column sums within 1e-4."""
-    ref = TuckerServer(params, backend=backend, table_dtype=table_dtype)
+    """The patched server against a fresh one built from ``params`` in
+    its layout: f32 tables bitwise (every worker's block or replica),
+    bf16 tables within the reference's band (0.05); the column sums
+    within 1e-4."""
+    sharded = server.mesh is not None
+    ref = TuckerServer(params, backend=backend, mesh=server.mesh,
+                       shard_mode=server.shard_mode if sharded else "auto",
+                       table_dtype=table_dtype)
     exact = server.table_dtype == torch.float32
     for n in range(server.order):
-        a, b = server._tables[n].float(), ref._tables[n].float()
-        if exact:
-            if not torch.equal(a, b):
-                raise AssertionError(f"mode {n}: patched ≠ rebuilt")
-        else:
-            torch.testing.assert_close(a, b, rtol=0.05, atol=0.05)
+        got, want = server._live.tables[n], ref._live.tables[n]
+        for a, b in zip(got if sharded else (got,),
+                        want if sharded else (want,)):
+            a, b = a.float(), b.float()
+            if exact:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"mode {n}: patched ≠ rebuilt")
+            else:
+                torch.testing.assert_close(a, b, rtol=0.05, atol=0.05)
         torch.testing.assert_close(server._colsums[n], ref._colsums[n],
                                    rtol=1e-4, atol=1e-4)
     return {"exact": exact, "generations": server.table_version}

@@ -1,6 +1,6 @@
 """Batched FastTucker serving CLI — a microbatch queue over a TuckerServer.
 
-Counterpart of ``repro.launch.serve_tucker`` on one device: loads trained
+Counterpart of ``repro.launch.serve_tucker``: loads trained
 ``(factors, core_factors)`` from a ``checkpoint.manager`` directory (the
 newest commit; what ``std_train --ckpt-dir`` writes), or trains a quick
 ``local`` model first when the directory is empty (saving it there), stands
@@ -19,11 +19,16 @@ queries/s through the asyncio microbatch queue with admission control
 prints the report as JSON: achieved QPS, shed counts and per-bucket
 latency percentiles.
 
+``--sharded`` serves the tables over ``launch.mesh.make_host_mesh()``'s
+workers (``$REPRO_FORCE_HOST_DEVICES`` of them, else one a visible card;
+on one card they share it) in the layout ``--shard-mode`` names: ``row``
+(row-sharded tables), ``batch`` (replicated tables, split requests) or
+``auto`` (``serve.policy`` decides from the table bytes and
+``--expected-qps``; the decision is logged).
+
 Runs on the CUDA card with the ``"cuda"`` kernels by default; ``--device
 cpu`` runs on the CPU (the ``"cuda"`` backend's wrappers then take their
-plain paths).  The reference's ``--sharded``, ``--shard-mode`` and
-``--expected-qps`` wait for sharded serving (ROADMAP.md, Queue 1 item 4
-(b)).
+plain paths).
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch.data.synthetic import ratings_tensor
 from repro_torch.device import resolve_device
 from repro_torch.distributed import get_strategy
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serve import (
     AdmissionConfig, TuckerServer, load_params_from_checkpoint,
     run_closed_loop,
@@ -70,6 +76,14 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA card; "
                          "cpu must be asked for)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="serve the tables sharded over the host mesh")
+    ap.add_argument("--shard-mode", default="auto",
+                    choices=("auto", "row", "batch"),
+                    help="sharded table layout (auto → serve.policy "
+                         "decides from table bytes × --expected-qps)")
+    ap.add_argument("--expected-qps", type=float, default=None,
+                    help="declared traffic for the auto shard policy")
     ap.add_argument("--requests", type=int, default=200,
                     help="number of query batches to stream")
     ap.add_argument("--max-request", type=int, default=512,
@@ -141,10 +155,18 @@ def run(args: argparse.Namespace) -> dict:
     else:
         params = _train_and_save(args, train_t, cfg, ckpt, device)
 
-    server = TuckerServer(params, backend=backend)
+    mesh = make_host_mesh(device=device) if args.sharded else None
+    server = TuckerServer(params, backend=backend, mesh=mesh,
+                          shard_mode=args.shard_mode if mesh else "auto",
+                          expected_qps=args.expected_qps)
     r, m = rmse_mae(params, test_t, lambda p, i: ft.predict(p, i, backend))
-    log.info("serving %s on %s (backend=%s) — held-out rmse %.4f mae %.4f",
-             "×".join(map(str, dims)), device, backend, float(r), float(m))
+    log.info("serving %s on %s (backend=%s, shard_mode=%s%s) — held-out "
+             "rmse %.4f mae %.4f", "×".join(map(str, dims)), device, backend,
+             server.shard_mode,
+             f", {mesh.size} workers" if mesh is not None else "",
+             float(r), float(m))
+    if server.shard_decision is not None:
+        log.info("shard policy: %s", server.shard_decision)
     pool = test_t.indices.cpu().numpy()
 
     if args.qps is not None:
@@ -177,6 +199,7 @@ def run(args: argparse.Namespace) -> dict:
         if report.get("slo_violations"):
             log.info("  SLO violations (budget %s ms): %s",
                      report["slo_budget_ms"], report["slo_violations"])
+        report["shard_mode"] = server.shard_mode
         return report
 
     # ---- microbatch queue over a stream of variable-size requests ----------
@@ -211,7 +234,8 @@ def run(args: argparse.Namespace) -> dict:
               "seconds": wall, "qps": served / max(wall, 1e-9),
               "flush_ms": {"p50": float(np.percentile(lat, 50)),
                            "p95": float(np.percentile(lat, 95))},
-              "rmse": float(r), "mae": float(m)}
+              "rmse": float(r), "mae": float(m),
+              "shard_mode": server.shard_mode}
     log.info("served %d queries in %d flushes / %.2fs — %.0f q/s, "
              "flush latency p50 %.2fms p95 %.2fms (ladder of %d buckets)",
              served, len(flush_lat), wall, report["qps"],

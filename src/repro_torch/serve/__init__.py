@@ -1,5 +1,5 @@
 """Batched FastTucker inference (``repro_torch.serve``) — Theorem 1 as a
-server, counterpart of ``repro.serve`` on one device.
+server, counterpart of ``repro.serve``.
 
 At inference the a-rows and B^(n) are both frozen, so the mode dots for
 every row are cached once as per-mode Kruskal-product tables
@@ -12,7 +12,12 @@ Layout:
 
     ``engine``      ``TuckerServer`` (predict / reconstruct_rows / top_k,
                     update_rows / sync_factor_rows / refresh_tables),
-                    checkpoint loading
+                    checkpoint loading, sharded modes over an in-process
+                    worker mesh (``mesh=``: row-sharded tables with
+                    shard-local query programs, or replicated tables
+                    with split batches)
+    ``policy``      the automatic row- vs batch-sharding decision
+                    (table bytes × expected q/s)
     ``supervisor``  the online refresh round on a background thread, with
                     fault injection, retry, degraded mode and drift
                     escalation
@@ -21,8 +26,8 @@ Layout:
                     shed-on-deadline, per-bucket latency percentiles, and
                     the closed-loop load harness
 
-Entry point: ``repro_torch.launch.serve_tucker``.  Sharded serving and the
-reference's ``policy`` module wait for ROADMAP.md, Queue 1 item 4 (b).
+Entry point: ``repro_torch.launch.serve_tucker`` (``--sharded`` for the
+mesh layouts).
 """
 from .bucketing import bucket_for, bucket_ladder, split_batch
 from .engine import TuckerServer, load_params_from_checkpoint
@@ -30,6 +35,7 @@ from .frontend import (
     AdmissionConfig, FrontendStats, RequestShed, ServeFrontend,
     run_closed_loop,
 )
+from .policy import ShardDecision, ShardPolicy, choose_shard_mode
 from .supervisor import (
     DriftTracker, RefreshSupervisor, SupervisorConfig, window_block,
 )
@@ -49,4 +55,7 @@ __all__ = [
     "RequestShed",
     "ServeFrontend",
     "run_closed_loop",
+    "ShardDecision",
+    "ShardPolicy",
+    "choose_shard_mode",
 ]

@@ -251,6 +251,7 @@ def test_refresh_constants_are_the_reference_ones():
 def test_serve_and_sota_constants_are_the_reference_ones():
     assert bench_serve.FULL == ref_serve.FULL
     assert bench_serve.SMOKE == ref_serve.SMOKE
+    assert bench_serve.DEVICES == ref_serve.DEVICES
     for name in ("DIMS", "NNZ", "J", "BATCH", "SWEEP_DIMS", "SWEEP_NNZ",
                  "SWEEP_J", "SWEEP_BATCH", "SMOKE_DIMS", "SMOKE_NNZ",
                  "SMOKE_J", "SMOKE_BATCH", "FUSED_STEP_MODES"):
@@ -360,7 +361,8 @@ def test_step_sweep_smoke_matches_reference_keys(ref_smoke, tmp_path):
 
 def test_serve_smoke_matches_reference_keys(ref_smoke, tmp_path):
     out = tmp_path / bench_serve.OUT_NAME
-    doc = bench_serve.main(["--smoke", "--device", "cpu", "--out", str(out)])
+    doc = bench_serve.main(["--smoke", "--device", "cpu", "--devices", "1",
+                            "--out", str(out)])
     common.validate_bench_serve(json.loads(out.read_text()))
     ref = ref_smoke["serve"]
     assert _keys(doc) == _keys(ref)
@@ -371,6 +373,31 @@ def test_serve_smoke_matches_reference_keys(ref_smoke, tmp_path):
     assert doc["config"]["devices"] == 1
     assert doc["throughput"]["sweep_compiles"] \
         <= doc["throughput"]["ladder_bound"]
+
+
+def test_serve_smoke_at_four_workers_validates():
+    """``bench_serve`` SMOKE at devices 4 on the CPU (four in-process
+    workers): the document it returns passes the reference's validator
+    as ported, with the reference's multi-device sections — collectives
+    (the shard-local merge's bytes below the score gather's), the row,
+    batch and baseline closed-loop rows, and the crossover."""
+    doc = bench_serve.run(smoke=True, device="cpu", devices=4)
+    common.validate_bench_serve(doc)
+    assert doc["config"]["devices"] == 4
+    col = doc["collectives"]
+    assert col["devices"] == 4 and col["bucket"] == bench_serve.SMOKE[
+        "microbatch"] and col["k"] == bench_serve.SMOKE["k"]
+    assert 0 < col["sharded_operand_bytes"] < col["gspmd_operand_bytes"]
+    assert "all-gathered" in col["baseline"]
+    got = {(r["shard_mode"], r["query"], r["offered_qps"])
+           for r in doc["closed_loop"]["rows"]}
+    qps = bench_serve.SMOKE["predict_qps"][0]
+    tk = bench_serve.SMOKE["top_k_qps"]
+    assert got == {("none", "predict", qps), ("row", "predict", qps),
+                   ("batch", "predict", qps), ("row", "top_k", tk),
+                   ("gspmd", "top_k", tk)}
+    x = doc["crossover"]
+    assert x["batch_vs_row"] == x["batch_max_qps"] / x["row_max_qps"]
 
 
 def test_serve_sweep_counts_the_buckets_it_launched():

@@ -1069,6 +1069,83 @@ def test_serve_predict_cuda_matches_torch_on_card(dev, R):
     _close(s, s0, 2e-5)
 
 
+@pytest.mark.parametrize("shard_mode", ["row", "batch"])
+@pytest.mark.parametrize("R", [4, 64])
+def test_sharded_predict_bitwise_unsharded_on_card(dev, R, shard_mode):
+    """Four workers sharing the card: ``predict`` in row and batch mode
+    gives the unsharded ``"cuda"`` server's bits, with one
+    ``kruskal_contract`` a bucket chunk (row) or a worker's slice of it
+    (batch) and nothing else; ``top_k`` within 2e-5 and the same ids."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import TuckerServer, split_batch
+
+    dims = (20_003, 3_000, 501)
+    params = _serve_params(dev, dims, R, R, seed=R)
+    base = TuckerServer(params, backend="cuda")
+    srv = TuckerServer(params, backend="cuda", shard_mode=shard_mode,
+                       mesh=make_host_mesh(num_workers=4, device=dev))
+    rng = np.random.default_rng(2)
+    q = np.stack([rng.integers(0, d, 5000) for d in dims], 1).astype(
+        np.int32)
+    q[:4, 0] = [0, 5000, 15_003, 20_002]          # each block's edge
+    want = base.predict(q)
+    reset_launch_counts()
+    got = srv.predict(q)
+    torch.cuda.synchronize()
+    chunks = len(split_batch(len(q), srv.ladder))
+    assert launch_counts() == dict(
+        {k: 0 for k in launch_counts()},
+        kruskal_contract=chunks * (1 if shard_mode == "row" else 4))
+    assert torch.equal(got, want)
+    s0, i0 = base.top_k(0, q[:64, 0], 10)
+    s, i = srv.top_k(0, q[:64, 0], 10)
+    _close(s, s0, 2e-5)
+    assert torch.equal(i, i0)
+
+
+@pytest.mark.parametrize("R", [4, 64])
+def test_sharded_row_patch_bitwise_rebuild_on_card(dev, R):
+    """Row mode over four workers at the Netflix shape: patches of every
+    mode run one ``patch_table_rows`` a worker holding dirty rows, and
+    the joined tables are bitwise a fresh unsharded server's; a rebuild
+    runs one ``mode_product_rows`` a mode a worker and lands on the same
+    bits; colsums within 1e-5."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import TuckerServer
+
+    params = _serve_params(dev, NETFLIX_DIMS, R, R)
+    srv = TuckerServer(params, backend="cuda", shard_mode="row",
+                       mesh=make_host_mesh(num_workers=4, device=dev))
+    rng = np.random.default_rng(R)
+    facs = [f.clone() for f in params.factors]
+    reset_launch_counts()
+    owners = 0
+    for mode, f in ((0, 50_000), (1, 3_000), (2, 2_182), (0, 7)):
+        ids = np.sort(rng.permutation(NETFLIX_DIMS[mode])[:f]).astype(
+            np.int32)
+        owners += len(np.unique(ids // srv._block_rows[mode]))
+        new = torch.randn((f, R), device=dev)
+        facs[mode][torch.from_numpy(ids).long().to(dev)] = new
+        srv.update_rows(mode, ids, new)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict({k: 0 for k in launch_counts()},
+                                   patch_table_rows=owners)
+    fresh = TuckerServer(ft.FastTuckerParams(tuple(facs),
+                                             params.core_factors),
+                         backend="cuda")
+    for a, b in zip(srv._tables, fresh._tables):
+        assert torch.equal(a, b)
+    for a, b in zip(srv._colsums, fresh._colsums):
+        _close(a, b, 1e-5)
+    reset_launch_counts()
+    srv.refresh_tables()
+    torch.cuda.synchronize()
+    assert launch_counts() == dict({k: 0 for k in launch_counts()},
+                                   mode_product_rows=12)
+    for a, b in zip(srv._tables, fresh._tables):
+        assert torch.equal(a, b)
+
+
 def test_top_k_ties_ascending_on_card(dev):
     """Exact ties (integer factors) over a long row come back in ascending
     id on the card too (the sort is stable)."""

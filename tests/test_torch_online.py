@@ -221,8 +221,8 @@ def test_online_train_data_reuse(port_spill):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--serve-shard-mode", "row"], NotImplementedError, "Queue 1 item 4"),
-    (["--serve-shard-mode", "batch"], NotImplementedError, "Queue 1 item 4"),
+    (["--backend", "bogus"], KeyError, "unknown kernel backend"),
+    (["--inject-faults", "refresh@"], ValueError, "no check indices"),
     (["--strategy", "bogus"], KeyError, "unknown distributed strategy"),
 ])
 def test_online_train_refusals_before_data(monkeypatch, flags, exc, match):
@@ -232,6 +232,28 @@ def test_online_train_refusals_before_data(monkeypatch, flags, exc, match):
     monkeypatch.setattr(online_train, "planted_tensor", no_data)
     with pytest.raises(exc, match=match):
         online_train.main([*FLAGS, "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("shard_mode", ["row", "batch"])
+@pytest.mark.parametrize("strategy", ["local", "strata"])
+def test_online_train_serve_shard_modes_run(monkeypatch, strategy,
+                                            shard_mode):
+    """``--serve-shard-mode row|batch``, once refused, serves the tables
+    over the training mesh (``strata``) or a host mesh (``local``) of two
+    workers; the supervisor's patch and rebuild rounds leave every
+    worker's block or replica bitwise a fresh sharded server's
+    (``--verify``), and the sharded tables equal the unsharded run's."""
+    monkeypatch.setenv("REPRO_FORCE_HOST_DEVICES", "2")
+    flags = [*FLAGS, "--device", "cpu", "--backend", "torch", "--strategy",
+             strategy, "--verify"]
+    rec = online_train.main(flags + ["--serve-shard-mode", shard_mode])
+    srv = rec["server"]
+    assert srv.shard_mode == shard_mode and rec["serve_workers"] == 2
+    assert rec["verify"]["exact"] and len(rec["rounds"]) == 2
+    plain = online_train.main(flags)
+    assert plain["server"].shard_mode == "none"
+    for a, b in zip(srv._tables, plain["server"]._tables):
+        assert torch.equal(a, b)
 
 
 def test_online_train_strata_runs(monkeypatch):

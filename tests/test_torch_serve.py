@@ -691,8 +691,21 @@ def test_server_validates_params(tiny):
 
 
 def test_mesh_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TuckerServer(tiny[1], mesh=object())
+    """Once a refusal, ``mesh=`` now serves: a two-worker CPU mesh in
+    either layout answers with the unsharded server's bits, and a mesh
+    without a ``data`` axis is refused (the sharded contracts are
+    ``tests/test_torch_serve_sharded.py``'s)."""
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+
+    _, params, _, idx = tiny
+    mesh = make_host_mesh(num_workers=2, device="cpu")
+    want = TuckerServer(params).predict(idx)
+    for shard_mode in ("row", "batch"):
+        srv = TuckerServer(params, mesh=mesh, shard_mode=shard_mode)
+        assert srv.shard_mode == shard_mode
+        assert torch.equal(srv.predict(idx), want)
+    with pytest.raises(ValueError, match="'data' axis"):
+        TuckerServer(params, mesh=Mesh(mesh.devices, (2,), ("model",)))
 
 
 def test_table_rank_above_the_kernel_width_refused():
