@@ -1,12 +1,13 @@
 """Convergence speed on the port: steps and wall-clock to an RMSE target,
 the sketched warm start (``core.sketch``) against the cold init.
 
-Counterpart of ``benchmarks/bench_convergence.py``, in process on one
-device: the same schema (``bench_convergence/v1``, checked by the port's
-own ``benchmarks.common.validate_bench_convergence``) and the reference's
-``planted_local`` configurations in ``FULL`` and ``SMOKE`` (its
-``planted_strata`` ones wait for ROADMAP Queue 1 item 4 (b)); each
-config's ``backend`` is the run's.
+Counterpart of ``benchmarks/bench_convergence.py``, in process: the same
+schema (``bench_convergence/v1``, checked by the port's own
+``benchmarks.common.validate_bench_convergence``) and the reference's
+``FULL`` and ``SMOKE`` configurations, ``planted_local`` on one device and
+``planted_strata`` on ``make_host_mesh(num_workers=DEVICES)`` (the
+reference's ``DEVICES = 2`` forced host devices; here two workers sharing
+the device); each config's ``backend`` is the run's.
 
 Both arms share one config, one strategy plan and one step function; the
 warm arm's parameters come from ``sketched_init_params`` (what
@@ -36,14 +37,24 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from .common import BENCH_CONVERGENCE_SCHEMA, validate_bench_convergence
 
+DEVICES = 2   # workers of the strata configs' mesh
+
 FULL = [
     dict(name="planted_local", strategy="local",
+         dims=(400, 300, 200), nnz=150_000, rank=8, core_rank=8,
+         batch=2048, sketch_batch=16_384, seed=0,
+         target_rmse=0.12, horizon_steps=800, eval_every=50),
+    dict(name="planted_strata", strategy="strata",
          dims=(400, 300, 200), nnz=150_000, rank=8, core_rank=8,
          batch=2048, sketch_batch=16_384, seed=0,
          target_rmse=0.12, horizon_steps=800, eval_every=50),
 ]
 SMOKE = [
     dict(name="planted_local", strategy="local",
+         dims=(60, 50, 40), nnz=8_000, rank=4, core_rank=4,
+         batch=1024, sketch_batch=4_096, seed=0,
+         target_rmse=0.30, horizon_steps=160, eval_every=20),
+    dict(name="planted_strata", strategy="strata",
          dims=(60, 50, 40), nnz=8_000, rank=4, core_rank=4,
          batch=1024, sketch_batch=4_096, seed=0,
          target_rmse=0.30, horizon_steps=160, eval_every=20),
@@ -102,6 +113,7 @@ def _measure_config(c: dict, device: torch.device, backend: str) -> dict:
     from repro_torch.core.sketch import sketched_init_params
     from repro_torch.data.synthetic import planted_tensor
     from repro_torch.distributed import get_strategy
+    from repro_torch.launch.mesh import make_host_mesh
 
     dims = tuple(c["dims"])
     tensor = planted_tensor(dims, c["nnz"], rank=c["rank"],
@@ -113,7 +125,9 @@ def _measure_config(c: dict, device: torch.device, backend: str) -> dict:
         batch_size=c["batch"], backend=backend,
         sketch_batch=c["sketch_batch"])
     strategy = get_strategy(c["strategy"])
-    plan = strategy.prepare(train_t, cfg, None, seed=c["seed"])
+    mesh = (make_host_mesh(num_workers=DEVICES, device=device)
+            if strategy.needs_mesh else None)
+    plan = strategy.prepare(train_t, cfg, mesh, seed=c["seed"])
     predict_fn = lambda p, i: ft.predict(p, i, backend)  # noqa: E731
 
     gen = torch.Generator(device=device).manual_seed(c["seed"])
@@ -169,7 +183,7 @@ def run(smoke: bool = False, out_path: str | None = None,
         "smoke": smoke,
         "platform": (torch.cuda.get_device_name(device)
                      if device.type == "cuda" else device.type),
-        "devices": 1,
+        "devices": DEVICES,
         "configs": [_measure_config(c, device, backend)
                     for c in (SMOKE if smoke else FULL)],
     }

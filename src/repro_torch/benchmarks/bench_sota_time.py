@@ -32,9 +32,10 @@ plus the Gauss–Seidel joint / phase_split / sorted rows, and builds the
 ``bench_step/v3`` document (``common.validate_bench_step``, the
 reference's contract); every non-joint row carries ``speedup_vs_joint``
 and ``derived`` holds the headline ratios.  ``SMOKE`` runs ``"torch"``
-only, as the reference's runs ``"xla"`` only.  The reference's
-``attach_ingest`` waits for the out-of-core sweep (ROADMAP Queue 1 item
-4).  Steps reuse one generator, so each call samples a fresh batch.
+only, as the reference's runs ``"xla"`` only.  ``attach_ingest`` merges
+``bench_ingest``'s out-of-core sweep into a step document as its v3
+``ingest`` section, as the reference's does.  Steps reuse one generator,
+so each call samples a fresh batch.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_sota_time \\
         [--step-sweep] [--smoke] [--out BENCH_torch_step.json] \\
@@ -373,6 +374,28 @@ def run_step_sweep(smoke: bool = False, out_path: str | None = None,
             json.dump(doc, f, indent=1)
             f.write("\n")
         print(f"# wrote {out_path}", flush=True)
+    return doc
+
+
+def attach_ingest(ingest: dict, path: str = OUT_NAME) -> dict:
+    """Merge an ingestion sweep (``bench_ingest``) into an existing
+    BENCH_torch_step document, upgrading it to schema v3 in place.
+
+    The step-sweep rows are untouched — the ingest section is additive,
+    which is what keeps v2 documents readable after the upgrade.
+    """
+    if os.path.basename(path) == REFERENCE_NAME:
+        raise ValueError(f"{REFERENCE_NAME} is the reference's document; "
+                         f"attach to the port's {OUT_NAME}")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["schema"] = BENCH_STEP_SCHEMA
+    doc["ingest"] = ingest
+    validate_bench_step(doc)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print(f"# attached ingest sweep to {path}", flush=True)
     return doc
 
 

@@ -9,11 +9,11 @@ same claims.  ``validate_bench_serve`` keeps the ``devices > 1`` clauses
 ``bench_serve`` fills at its default of 4 in-process workers.  ``validate_bench_accuracy`` is its copy of
 ``validate_bench_accuracy`` (``bench_accuracy/v1``).
 ``validate_bench_convergence`` is its copy of
-``validate_bench_convergence`` (``bench_convergence/v1``), with one
-difference: coverage asks for a ``local`` config only, on any backend.
-The reference also asks for a ``strata*`` config on ``xla``; the port's
-``bench_convergence`` does not run its strata configs yet (ROADMAP Queue 1
-item 4 (b)).
+``validate_bench_convergence`` (``bench_convergence/v1``), word for word
+but for the backend of its coverage clause: a ``local`` and a ``strata*``
+config on the document's backend (its first config's: ``"cuda"`` or
+``"torch"`` for the port's documents), where the reference asks for
+``xla``.
 
 ``time_call`` and ``row`` are the reference's timing and CSV helpers, a
 ``torch.cuda.synchronize()`` closing each timed call where the reference
@@ -394,7 +394,8 @@ def _validate_convergence_arm(arm, where: str) -> None:
 def validate_bench_convergence(doc: dict) -> None:
     """Raise ``ValueError`` unless ``doc`` is a valid BENCH_convergence doc.
 
-    Beyond the format: at least one ``local`` config (any backend); in
+    Beyond the format: a ``local`` and a ``strata*`` config on the
+    document's backend (its first config's); in
     every config the warm start reaches the target (``sketched.reached``)
     in strictly fewer steps than cold, with ``speedup_vs_cold > 1``; its
     final RMSE is within 5 % of cold's; and on full (non-``smoke``)
@@ -449,10 +450,15 @@ def validate_bench_convergence(doc: dict) -> None:
             raise ValueError(
                 f"configs[{i}].wallclock_speedup_vs_cold must be > 1 on "
                 f"full runs, got {c['wallclock_speedup_vs_cold']}")
-        seen.add(c["strategy"])
-    if "local" not in seen:
-        raise ValueError(f"configs must cover strategy 'local', got "
-                         f"{sorted(seen)}")
+        seen.add((c["backend"],
+                  "strata" if c["strategy"].startswith("strata")
+                  else c["strategy"]))
+    backend = configs[0]["backend"]
+    for need in ((backend, "local"), (backend, "strata")):
+        if need not in seen:
+            raise ValueError(
+                f"configs must cover backend/strategy {need}, "
+                f"got {sorted(seen)}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,13 @@
 """Benchmark harness of the port: one module per paper table or figure.
 
-Counterpart of ``benchmarks/run.py`` for the names ported so far:
+Counterpart of ``benchmarks/run.py``, under the reference's names:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run \\
         [--only fig5,table13] [--device cpu]
 
 prints ``name,us_per_call,derived`` CSV rows; ``--device`` reaches every
 entry point.  ``fig7bc`` (``bench_multidev``) and ``ingest``
-(``bench_ingest``) are the multi-device benchmarks, not ported yet: asking
-for either exits non-zero before anything runs.
+(``bench_ingest``) run their workers on an in-process mesh on that device.
 """
 from __future__ import annotations
 
@@ -25,13 +24,12 @@ MODULES = {
     "fig34": "repro_torch.benchmarks.bench_accuracy",
     "tbl8_12": "repro_torch.benchmarks.bench_kernel_blocks",
     "fig7a": "repro_torch.benchmarks.bench_order_scaling",
+    "fig7bc": "repro_torch.benchmarks.bench_multidev",
+    "ingest": "repro_torch.benchmarks.bench_ingest",
     "serve": "repro_torch.benchmarks.bench_serve",
     "lm_step": "repro_torch.benchmarks.bench_lm_step",
     "convergence": "repro_torch.benchmarks.bench_convergence",
 }
-# the reference's names whose benchmarks wait for the multi-device
-# strategies
-NOT_PORTED = {"fig7bc": "bench_multidev", "ingest": "bench_ingest"}
 
 
 def entry(name: str):
@@ -48,11 +46,6 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device (default: the current CUDA card)")
     args = ap.parse_args(argv)
     names = args.only.split(",") if args.only else list(MODULES)
-    waiting = [n for n in names if n in NOT_PORTED]
-    if waiting:
-        what = ", ".join(f"{n} ({NOT_PORTED[n]})" for n in waiting)
-        sys.exit(f"not ported yet: {what} — the multi-device benchmarks "
-                 "wait for ROADMAP.md Queue 1 item 4 (b)")
     unknown = [n for n in names if n not in MODULES]
     if unknown:
         ap.error(f"unknown benchmark(s) {unknown}; known: {list(MODULES)}")

@@ -6,11 +6,13 @@
 interface the launchers drive.  ``local`` runs on one device; the other
 three run on an in-process worker mesh (``launch.mesh.make_host_mesh``),
 one worker a shard, with ``collectives`` doing the rotations and sums as
-explicit copies.  See ``base`` for the contract, ``strata``/``overlap``
-for the paper's Fig.-2 scheme and its variant with the rotations issued
-ahead of use.  The reference's sharding rules and mesh context for the LM
-(``sharding.py``, ``context.py``) come with sharded LM training (ROADMAP.md,
-Queue 1 item 4 (b)).
+explicit copies; every step function carries its ``collectives.Traffic``
+as ``step.traffic`` (``benchmarks.bench_multidev`` reads it).  See
+``base`` for the contract, ``strata``/``overlap`` for the paper's Fig.-2
+scheme and its variant with the rotations issued ahead of use.  The
+reference's sharding rules and mesh context for the LM (``sharding.py``,
+``context.py``) come with sharded LM training (ROADMAP.md, Queue 1 item 4
+(b3)).
 """
 from .base import (
     DistState,

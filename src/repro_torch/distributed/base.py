@@ -359,7 +359,7 @@ def get_strategy(name: str | None = None,
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def compressed_reduce(dense, ef, mesh=None):
+def compressed_reduce(dense, ef, mesh=None, traffic=None):
     """int8 error-feedback quantize → (sum over the workers) → dequantize.
 
     With ``mesh=None``, ``dense``/``ef`` are matching tuples of tensors and
@@ -370,6 +370,13 @@ def compressed_reduce(dense, ef, mesh=None):
     own part against its own residuals, and the dequantized parts are
     summed in fixed worker order (``collectives.psum``).  Returns
     ``(summed, new_ef)`` in the shape it was given.
+
+    What it moves goes into ``traffic`` (``collectives.Traffic``) as the
+    ``psum`` of the dequantized parts: each worker dequantizes its int8
+    payload before the sum, as the reference does before its
+    ``jax.lax.psum``, so the wire carries f32, the bytes of the
+    uncompressed sum.  Compression changes the values summed, not the
+    bytes counted.
     """
     from repro_torch.optim.compression import compress_ef, decompress
 
@@ -386,7 +393,7 @@ def compressed_reduce(dense, ef, mesh=None):
     from .collectives import psum
 
     deq, new_ef = zip(*(one(d, e) for d, e in zip(dense, ef)))
-    return psum(deq, mesh), list(new_ef)
+    return psum(deq, mesh, traffic), list(new_ef)
 
 
 __all__ = [

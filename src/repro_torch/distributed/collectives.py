@@ -35,6 +35,13 @@ allocated, records its own event, and the consumer's compute stream waits
 on that (``Pending.wait``).  The source is marked as used by the side
 stream, so the allocator does not hand its memory to a compute kernel
 before the copy has read it.  On the CPU the copies are synchronous.
+
+``Traffic`` is a step function's account of its collectives (``rotate``,
+``psum`` and ``SideStreams.rotate`` add to the one they are given), by the
+reference's rules for the collectives its compiled step holds
+(``repro.launch.hlo_analysis``), per worker: a ``psum`` of b bytes a
+worker is a ring all-reduce, 2·b·(M − 1)/M wire bytes; a rotation is one
+collective-permute of the worker's shard.
 """
 from __future__ import annotations
 
@@ -42,6 +49,55 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+
+class Traffic:
+    """What a step function's collectives moved, summed over its calls
+    until ``reset`` (divide by the steps taken for a figure a step).
+
+    ``psum_bytes``     per worker: 2·b·(M − 1)/M for every ``psum`` of b
+                       bytes a worker (ring all-reduce); 0 on one worker
+    ``permute_bytes``  per worker: the bytes of the shard each non-zero
+                       rotation moves off it (``shard_bytes`` ÷ M)
+    ``rotated_bytes``  all workers' together: ``shard_bytes`` of every
+                       rotation (M × ``permute_bytes`` for equal shards)
+    ``permutes``       non-zero rotations a worker issued
+    ``async_starts``   of those, the ones a side CUDA stream carried
+                       (``SideStreams`` on the card; 0 on the CPU, where
+                       the copies are synchronous)
+    ``hidden_flops``   per worker: FLOPs of the compute-stream work issued
+                       between a side rotation's issue and its
+                       ``Pending.wait`` (the caller adds them)
+    """
+
+    FIELDS = ("psum_bytes", "permute_bytes", "rotated_bytes", "permutes",
+              "async_starts", "hidden_flops")
+    __slots__ = FIELDS
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        for f in self.FIELDS:
+            setattr(self, f, 0)
+
+    def add_psum(self, part: Sequence[torch.Tensor], workers: int) -> None:
+        """One ``psum`` of ``part`` (one worker's tensors) over
+        ``workers``."""
+        if workers > 1:
+            b = sum(nbytes(t) for t in part)
+            self.psum_bytes += 2.0 * b * (workers - 1) / workers
+
+    def add_rotation(self, shards: Sequence[torch.Tensor], shift: int,
+                     side: bool = False) -> None:
+        """One rotation of ``shards`` by ``shift`` (nothing at shift 0 mod
+        M); ``side`` when a side stream carries its copies."""
+        moved = shard_bytes(shards, shift)
+        if moved:
+            self.rotated_bytes += moved
+            self.permute_bytes += moved / len(shards)
+            self.permutes += 1
+            self.async_starts += int(side)
 
 
 def copy_to(src: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -56,11 +112,13 @@ def shard_bytes(shards: Sequence[torch.Tensor], shift: int) -> int:
     return sum(t.numel() * t.element_size() for t in shards)
 
 
-def rotate(shards: Sequence[torch.Tensor], shift: int,
-           mesh) -> list[torch.Tensor]:
+def rotate(shards: Sequence[torch.Tensor], shift: int, mesh,
+           traffic: Traffic | None = None) -> list[torch.Tensor]:
     """``ppermute`` by ``shift``: worker m gets a copy of worker
     (m + shift) mod M's shard, on its own device.  Shifts compose
     additively: from shift d to d' is a rotation by (d' − d) mod M."""
+    if traffic is not None:
+        traffic.add_rotation(shards, shift)
     M = len(shards)
     if shift % M == 0:
         return list(shards)
@@ -68,12 +126,14 @@ def rotate(shards: Sequence[torch.Tensor], shift: int,
             for m in range(M)]
 
 
-def psum(parts: Sequence[tuple[torch.Tensor, ...]],
-         mesh) -> list[tuple[torch.Tensor, ...]]:
+def psum(parts: Sequence[tuple[torch.Tensor, ...]], mesh,
+         traffic: Traffic | None = None) -> list[tuple[torch.Tensor, ...]]:
     """``parts[m]`` a tuple of tensors on worker m's device → the leafwise
     sum, added in worker order on worker 0's device, one copy a worker.
     With one worker its part comes back unchanged."""
     M = len(parts)
+    if traffic is not None:
+        traffic.add_psum(parts[0], M)
     if M == 1:
         return [tuple(parts[0])]
     dev0 = mesh.devices[0]
@@ -185,15 +245,17 @@ class SideStreams:
             s = self._streams[device] = torch.cuda.Stream(device=device)
         return s
 
-    def rotate(self, shards: Sequence[torch.Tensor], shift: int,
-               mesh) -> Pending:
+    def rotate(self, shards: Sequence[torch.Tensor], shift: int, mesh,
+               traffic: Traffic | None = None) -> Pending:
         """``rotate`` issued on the side streams; ``Pending.wait`` before
         the shards are read."""
         M = len(shards)
         if shift % M == 0:
             return Pending(list(shards), [None] * M)
         if mesh.devices[0].type != "cuda":
-            return Pending(rotate(shards, shift, mesh), [None] * M)
+            return Pending(rotate(shards, shift, mesh, traffic), [None] * M)
+        if traffic is not None:
+            traffic.add_rotation(shards, shift, side=True)
         out, events = [], []
         for m in range(M):
             src, dev = shards[(m + shift) % M], mesh.devices[m]

@@ -25,6 +25,7 @@ from repro_torch.core.sampling import sample_batch_arrays
 from repro_torch.core.sptensor import SparseTensor
 
 from .base import DistState, DistStrategy, compressed_reduce
+from .collectives import Traffic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,4 +104,5 @@ class LocalStrategy(DistStrategy):
             return step_batch(plan, dstate._replace(rng=gen.get_state()),
                               idx, val)
 
+        step.traffic = Traffic()   # one device: no collective, all zeros
         return step

@@ -33,11 +33,12 @@ from typing import Callable
 import torch
 
 from repro_torch.core import fasttucker as ft
+from repro_torch.core.cost import core_update_flops
 
 from .base import DistState, WorkerDraws
-from .collectives import SideStreams, shard_bytes
+from .collectives import SideStreams, Traffic
 from .strata import (LocalBatch, MeshPlacer, StrataRunPlan, StrataStrategy,
-                     Traffic, _blocks_at, _offset_tables, _prepare_run_plan,
+                     _blocks_at, _offset_tables, _prepare_run_plan,
                      core_update, row_update)
 
 DEFAULT_CHUNK = 4
@@ -56,7 +57,12 @@ def _run_chunk(plan: OverlapPlan, dstate: DistState, pos: int, blocks,
                picks_of, tables: dict, side: SideStreams,
                traffic: Traffic) -> DistState:
     """K strata from schedule position ``pos``: ``blocks[k]`` the workers'
-    blocks of stratum k, ``picks_of(k, rng)`` its draws → (picks, rng)."""
+    blocks of stratum k, ``picks_of(k, rng)`` its draws → (picks, rng).
+
+    ``traffic`` counts the rotations and the core sums, and as hidden
+    FLOPs each core update issued while a non-zero rotation is in flight
+    (between its issue and its ``Pending.wait``); the draw, localization
+    and sort in the same window are integer work and count nothing."""
     cfg, mesh = plan.cfg, plan.mesh
     M, N = mesh.size, cfg.order
     K = len(blocks)
@@ -75,11 +81,12 @@ def _run_chunk(plan: OverlapPlan, dstate: DistState, pos: int, blocks,
         pending = []
         for n in range(N):
             shift = (digits[n] - prev[n]) % M
-            traffic.rotated_bytes += shard_bytes(moving[n], shift)
-            pending.append(side.rotate(moving[n], shift, mesh))
+            pending.append(side.rotate(moving[n], shift, mesh, traffic))
         if k > 0:
             core, ef = core_update(cfg, mesh, core, core_grads, ef, step,
-                                   plan.compress)
+                                   plan.compress, traffic)
+            if any((d - p) % M for d, p in zip(digits, prev)):
+                traffic.hidden_flops += core_update_flops(cfg, M)
             step += 1
         if k == K:
             break

@@ -40,7 +40,7 @@ from repro_torch.core.sptensor import SparseTensor, partition_for_workers
 
 from .base import (DistState, MeshStrategy, WorkerDraws, compressed_reduce,
                    stack_ef, unstack_ef, worker_rng)
-from .collectives import copy_to, psum, rotate, shard_bytes
+from .collectives import Traffic, copy_to, psum, rotate
 
 
 # ---------------------------------------------------------------------------
@@ -144,12 +144,12 @@ def gather_shards(workers: Sequence[ft.FastTuckerParams],
 # per-stratum body (shared with ``strata_overlap``)
 # ---------------------------------------------------------------------------
 
-def rotate_shard(shards: Sequence[torch.Tensor], shift: int,
-                 mesh) -> list[torch.Tensor]:
+def rotate_shard(shards: Sequence[torch.Tensor], shift: int, mesh,
+                 traffic: Traffic | None = None) -> list[torch.Tensor]:
     """Rotate one mode's row shards so that worker m ends up holding the
     block owned by (m + shift) mod M.  Shifts compose additively: from
     digits d to d' is a rotation by (d' − d) mod M, home is (−d) mod M."""
-    return rotate(shards, shift, mesh)
+    return rotate(shards, shift, mesh, traffic)
 
 
 def local_gather_ids(lidx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -211,13 +211,15 @@ def stratum_row_update(cfg: ft.FastTuckerConfig, rot, core_f, block,
 
 def core_update(cfg: ft.FastTuckerConfig, mesh, core_f: Sequence[tuple],
                 core_grads: Sequence[tuple], ef: Sequence[tuple],
-                step_no: int, compress: bool) -> tuple[list, list]:
+                step_no: int, compress: bool,
+                traffic: Traffic | None = None) -> tuple[list, list]:
     """Summed (optionally int8-EF-compressed) core-factor update of every
-    worker's replica at lr_b/M → (replicas, residuals)."""
+    worker's replica at lr_b/M → (replicas, residuals); the sum is counted
+    into ``traffic``."""
     if compress:
-        summed, ef = compressed_reduce(core_grads, ef, mesh)
+        summed, ef = compressed_reduce(core_grads, ef, mesh, traffic)
     else:
-        summed = psum(core_grads, mesh)
+        summed = psum(core_grads, mesh, traffic)
     lr_b = ft.dynamic_lr(cfg.alpha_b, cfg.beta_b, step_no) / mesh.size
     return ([tuple(ft._sgd_update(b, lr_b, g) for b, g in zip(c, s))
              for c, s in zip(core_f, summed)], list(ef))
@@ -356,15 +358,6 @@ def _blocks_at(plan: StrataRunPlan, pos: int) -> list[tuple]:
             for m, d in enumerate(plan.mesh.devices)]
 
 
-class Traffic:
-    """Bytes a step function's rotations moved."""
-
-    __slots__ = ("rotated_bytes",)
-
-    def __init__(self):
-        self.rotated_bytes = 0
-
-
 def _strata_step(plan: StrataRunPlan, dstate: DistState, pos: int, blocks,
                  picks, tables: dict, traffic: Traffic) -> DistState:
     """One stratum: rotate in, every worker's row update, rotate home,
@@ -375,9 +368,8 @@ def _strata_step(plan: StrataRunPlan, dstate: DistState, pos: int, blocks,
     params = dstate.params
     rot = []
     for n in range(N):
-        shards = [p.factors[n] for p in params]
-        traffic.rotated_bytes += shard_bytes(shards, digits[n])
-        rot.append(rotate_shard(shards, digits[n], mesh))
+        rot.append(rotate_shard([p.factors[n] for p in params], digits[n],
+                                mesh, traffic))
     lr_a = ft.dynamic_lr(cfg.alpha_a, cfg.beta_a, dstate.step)
     new, core_grads = [], []
     for m, d in enumerate(mesh.devices):
@@ -389,12 +381,11 @@ def _strata_step(plan: StrataRunPlan, dstate: DistState, pos: int, blocks,
         core_grads.append(cg)
     back = []
     for n in range(N):
-        shards = [w[n] for w in new]
-        traffic.rotated_bytes += shard_bytes(shards, -digits[n])
-        back.append(rotate_shard(shards, -digits[n], mesh))
+        back.append(rotate_shard([w[n] for w in new], -digits[n], mesh,
+                                 traffic))
     core, ef = core_update(cfg, mesh, [p.core_factors for p in params],
                            core_grads, dstate.ef or [()] * M, dstate.step,
-                           plan.compress)
+                           plan.compress, traffic)
     return DistState(
         tuple(ft.FastTuckerParams(tuple(back[n][m] for n in range(N)),
                                   core[m]) for m in range(M)),

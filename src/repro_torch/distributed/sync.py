@@ -23,7 +23,7 @@ from repro_torch.core.sptensor import SparseTensor
 
 from .base import (DistState, MeshStrategy, WorkerDraws, compressed_reduce,
                    stack_ef, unstack_ef, worker_rng)
-from .collectives import copy_to, psum
+from .collectives import Traffic, copy_to, psum
 
 
 def shard_nonzeros(tensor: SparseTensor, num_shards: int
@@ -58,19 +58,21 @@ def _worker_gradients(cfg: ft.FastTuckerConfig, params: ft.FastTuckerParams,
 def sync_update(cfg: ft.FastTuckerConfig, mesh, compress: bool,
                 replicas: Sequence[ft.FastTuckerParams], step_no: int,
                 batches: Sequence[tuple[torch.Tensor, torch.Tensor]],
-                ef: Sequence[tuple]) -> tuple[list, list]:
+                ef: Sequence[tuple], traffic: Traffic | None = None
+                ) -> tuple[list, list]:
     """The body shared by the legacy step and the strategy: worker m's
     batch ``batches[m]`` on ``replicas[m]``; returns (new replicas, new
-    per-worker residuals)."""
+    per-worker residuals).  The two sums (dense factor gradients, core
+    gradients) are counted into ``traffic``."""
     M = mesh.size
     per = [_worker_gradients(cfg, p, i, v)
            for p, (i, v) in zip(replicas, batches)]
     dense = [d for d, _ in per]
     if compress:
-        dense, ef = compressed_reduce(dense, ef, mesh)
+        dense, ef = compressed_reduce(dense, ef, mesh, traffic)
     else:
-        dense = psum(dense, mesh)
-    core = psum([c for _, c in per], mesh)
+        dense = psum(dense, mesh, traffic)
+    core = psum([c for _, c in per], mesh, traffic)
     lr_a = ft.dynamic_lr(cfg.alpha_a, cfg.beta_a, step_no) / M
     lr_b = ft.dynamic_lr(cfg.alpha_b, cfg.beta_b, step_no) / M
     out = [ft.FastTuckerParams(
@@ -126,12 +128,14 @@ class SyncPlan:
 
 @torch.no_grad()
 def _step_fed(plan: SyncPlan, dstate: DistState,
-              picks: Sequence[torch.Tensor]) -> DistState:
+              picks: Sequence[torch.Tensor],
+              traffic: Traffic | None = None) -> DistState:
     batches = [(i.index_select(0, p), v.index_select(0, p))
                for i, v, p in zip(plan.idx_shards, plan.val_shards, picks)]
     params, ef = sync_update(plan.cfg, plan.mesh, plan.compress,
                              dstate.params, dstate.step, batches,
-                             dstate.ef or [() for _ in dstate.params])
+                             dstate.ef or [() for _ in dstate.params],
+                             traffic)
     return DistState(tuple(params), dstate.step + 1, dstate.rng,
                      tuple(ef) if plan.compress else ())
 
@@ -169,11 +173,13 @@ class SyncStrategy(MeshStrategy):
     def make_step(self, plan: SyncPlan) -> Callable[[DistState], DistState]:
         draws = WorkerDraws(plan.mesh)
         highs = [v.shape[0] for v in plan.val_shards]
+        traffic = Traffic()
 
         def step(dstate: DistState) -> DistState:
             picks, rng = draws.draw(dstate.rng, highs, plan.cfg.batch_size)
-            return _step_fed(plan, dstate._replace(rng=rng), picks)
+            return _step_fed(plan, dstate._replace(rng=rng), picks, traffic)
 
+        step.traffic = traffic
         return step
 
     def eval_params(self, plan: SyncPlan,

@@ -490,23 +490,61 @@ def dispatch_counts():
 
 def test_run_modules_are_the_reference_ones_ported():
     ported = {k: v.replace("benchmarks.", "repro_torch.benchmarks.", 1)
-              for k, v in ref_run.MODULES.items()
-              if k not in run.NOT_PORTED}
+              for k, v in ref_run.MODULES.items()}
     assert run.MODULES == ported
-    assert set(run.NOT_PORTED) == {"fig7bc", "ingest"}
+    assert list(run.MODULES) == list(ref_run.MODULES)
+    assert {"fig7bc", "ingest"} <= set(run.MODULES)
     for name in run.MODULES:
         assert callable(run.entry(name))
 
 
 @pytest.mark.parametrize("name", ["fig7bc", "ingest"])
-def test_run_refuses_the_multi_device_benchmarks(name, monkeypatch):
-    called = []
-    monkeypatch.setattr(run, "entry", lambda n: called.append(n))
-    with pytest.raises(SystemExit) as e:
-        run.main(["--only", f"fig5,{name}"])
-    assert e.value.code != 0
-    assert "Queue 1 item 4" in str(e.value.code) and name in str(e.value.code)
-    assert called == []         # nothing ran, not even the ported name
+def test_run_refuses_the_multi_device_benchmarks(name, monkeypatch, capsys):
+    """The multi-device benchmarks, once refused, dispatch with their
+    device like every other name."""
+    seen = []
+    monkeypatch.setattr(run, "entry", lambda n: lambda device=None:
+                        seen.append((n, device)))
+    run.main(["--only", f"fig5,{name}", "--device", "cpu"])
+    assert seen == [("fig5", "cpu"), (name, "cpu")]
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        "# all benches complete"
+
+
+def test_committed_step_document_carries_the_ingest_sweep():
+    """``BENCH_torch_step.json`` as ``chip_smoke.py``'s phase 22 left it: a
+    v3 document whose ``ingest`` section holds both FULL points, the
+    resident run skipped past the budget at 10^7 nonzeros and the
+    store-fed states bitwise the resident one at 10^6."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.benchmarks import bench_ingest
+    from repro_torch.benchmarks.common import validate_bench_step
+
+    doc = json.loads((Path(__file__).resolve().parents[1]
+                      / "BENCH_torch_step.json").read_text())
+    validate_bench_step(doc)
+    assert doc["schema"] == "bench_step/v3" and not doc["ingest"]["smoke"]
+    small, big = doc["ingest"]["rows"]
+    assert [r["nnz"] for r in (small, big)] == [
+        p["nnz"] for p in bench_ingest.FULL_POINTS]
+    assert small["stream_bitwise_resident"] is True
+    assert big["us_per_step_resident"] is None and big["resident_skipped"]
+
+
+def test_committed_convergence_document_covers_local_and_strata():
+    import json
+    from pathlib import Path
+
+    from repro_torch.benchmarks.common import validate_bench_convergence
+
+    doc = json.loads((Path(__file__).resolve().parents[1]
+                      / "BENCH_torch_convergence.json").read_text())
+    validate_bench_convergence(doc)
+    assert not doc["smoke"] and doc["devices"] == 2
+    assert [(c["name"], c["backend"]) for c in doc["configs"]] == [
+        ("planted_local", "cuda"), ("planted_strata", "cuda")]
 
 
 def test_run_dispatches_with_its_device(monkeypatch, capsys):

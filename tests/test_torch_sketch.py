@@ -455,20 +455,23 @@ def test_bench_convergence_smoke_validates(tmp_path):
     doc = bench_convergence.run(smoke=True, out_path=str(out),
                                 device="cpu", backend="torch")
     assert out.exists()
-    (c,) = doc["configs"]
-    assert c["backend"] == "torch" and c["strategy"] == "local"
-    assert c["sketched"]["steps_to_target"] < c["cold"]["steps_to_target"]
-    assert c["sketched"]["init_s"] > 0
+    assert [(c["backend"], c["strategy"]) for c in doc["configs"]] == [
+        ("torch", "local"), ("torch", "strata")]
+    assert doc["devices"] == bench_convergence.DEVICES
+    for c in doc["configs"]:
+        assert (c["sketched"]["steps_to_target"]
+                < c["cold"]["steps_to_target"])
+        assert c["sketched"]["init_s"] > 0
 
 
 def test_bench_convergence_configs_are_the_reference_ones():
     import benchmarks.bench_convergence as ref
 
+    assert bench_convergence.DEVICES == ref.DEVICES
     for mine, theirs in ((bench_convergence.FULL, ref.FULL),
                          (bench_convergence.SMOKE, ref.SMOKE)):
-        local = [c for c in theirs if c["strategy"] == "local"]
         assert mine == [{k: v for k, v in c.items() if k != "backend"}
-                        for c in local]
+                        for c in theirs]
 
 
 def test_bench_convergence_refuses_the_reference_name(tmp_path):
@@ -553,18 +556,31 @@ def test_convergence_validator_agrees_with_reference(name, mutate):
 
 
 def test_convergence_validator_asks_for_local_only():
-    """The one difference: a local config alone, on the port's backend,
-    is enough (the strata clause waits for the port's strata strategy)."""
+    """The restored coverage clause: a local and a strata* config on the
+    document's backend.  A local config alone is refused, on the port's
+    backend as the reference refuses it on xla; local and strata on
+    ``"cuda"`` pass where the reference asks for ``"xla"``; a strata config
+    on another backend than the local one does not cover it."""
     from benchmarks.common import validate_bench_convergence as ref_validate
 
     doc = _conv_doc()
     doc["configs"] = doc["configs"][:1]
     doc["configs"][0]["backend"] = "cuda"
+    with pytest.raises(ValueError, match="cover.*strata"):
+        validate_bench_convergence(doc)
+    with pytest.raises(ValueError, match="cover"):
+        ref_validate(doc)
+    doc = _conv_doc()
+    for c in doc["configs"]:
+        c["backend"] = "cuda"
     validate_bench_convergence(doc)
     with pytest.raises(ValueError, match="cover"):
         ref_validate(doc)
+    doc["configs"][1]["backend"] = "torch"
+    with pytest.raises(ValueError, match=r"\('cuda', 'strata'\)"):
+        validate_bench_convergence(doc)
     doc["configs"][0]["strategy"] = "strata"
-    with pytest.raises(ValueError, match="local"):
+    with pytest.raises(ValueError, match=r"\('cuda', 'local'\)"):
         validate_bench_convergence(doc)
 
 

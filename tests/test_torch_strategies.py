@@ -76,7 +76,7 @@ def _cfg(**kw):
 # registry
 # ---------------------------------------------------------------------------
 
-def test_registry_has_local_only():
+def test_registry_has_all_four_strategies():
     """``local`` is the default and the one strategy without a mesh; the
     reference's other three are registered beside it."""
     assert available_strategies() == ("local", "strata", "strata_overlap",
@@ -93,7 +93,7 @@ def test_unknown_strategy_lists_available():
 
 
 @pytest.mark.parametrize("name", ["sync", "strata", "strata_overlap"])
-def test_unported_strategies_raise_not_implemented(name):
+def test_mesh_strategies_are_registered_with_their_class(name):
     """The reference's multi-device strategies, once refused, are each
     registered with its class and need a mesh."""
     from repro_torch.distributed import (StrataOverlapStrategy,
@@ -110,7 +110,7 @@ def test_register_twice_refused():
         base.register_strategy(local.LocalStrategy())
 
 
-def test_device_axis_not_ported():
+def test_compressed_reduce_sums_each_workers_quantized_part():
     """``compressed_reduce`` over a mesh: each worker quantizes its own part
     against its own residuals; the dequantized parts are summed in worker
     order, every worker gets the sum."""
@@ -432,7 +432,8 @@ def test_std_train_compress_converges():
 @pytest.mark.parametrize("flag", ["--mode=local", "--donate=on",
                                   "--prefetch-depth=2", "--spill-dir=x",
                                   "--out-of-core"])
-def test_std_train_refuses_unported_flags(flag, capsys, tmp_path):
+def test_std_train_runs_the_reference_flags_and_refuses_donate(flag, capsys,
+                                                              tmp_path):
     """``--donate`` has no PyTorch meaning and stays refused; the
     reference's other flags run (``--out-of-core`` under a strata
     strategy, ``--spill-dir`` pointing at a fresh directory)."""
@@ -463,7 +464,7 @@ def _no_warning():
     return contextlib.nullcontext()
 
 
-def test_std_train_refuses_unported_strategy(monkeypatch):
+def test_std_train_runs_strata_on_one_worker(monkeypatch):
     """``--strategy strata`` runs (on one worker: no REPRO_FORCE_HOST_DEVICES
     here), and its RMSE falls."""
     monkeypatch.delenv("REPRO_FORCE_HOST_DEVICES", raising=False)
