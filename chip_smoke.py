@@ -358,6 +358,30 @@ Phases (each failure ends the run with a non-zero exit code):
    (2 workers) through its validator into ``BENCH_torch_convergence.json``.
    The multipod example
    (``strata_overlap``, 8 workers, 200 steps): RMSE finite and falling.
+23. Sharded LM training, M = 4 workers sharing the card, full width
+   (``SHARDED_LM``): ``tucker_matmul`` (forward and dx, x bf16 and f32)
+   and the flash forward and backward against their plain versions at
+   the per-worker shapes of every (c) run, within phase 11's bounds;
+   (a) a (1, 1) mesh's 3 fed steps at 2 layers within
+   1e-5 of ``make_train_step`` (loss, params, m, v); (b) fsdp_tp (2, 2),
+   zero3 (4, 1), tp (1, 4) and zero3_dp (2, 2), 3 fed steps at 2 layers,
+   global batch 4, the residual stream in f32 (``SHARDED_LM``'s note),
+   against the unsharded ``"cuda"`` step under phase 13's bounds (loss
+   2⁻⁷, each moment 2⁻⁵ of its largest, the parameters where the
+   reference's |g| is past a quarter of its leaf's largest at every step
+   within 2⁻⁵ of the summed lr: each step moves a parameter by about
+   lr·sign, so one flipped sign costs 2 lr), and in the config's bf16
+   one step of tp (1, 4) and of zero3 (4, 1) with the ``"cuda"`` backend
+   against ``"torch"`` on the same mesh, as phase 13 holds them; (c) each pair 10 steps at 4
+   layers in bf16 through ``launch/train.run --mesh``: steps/s, tokens/s, peak device bytes,
+   state bytes a worker (equal to the layouts' count) and the collective
+   bytes a step; loss finite and falling; (d) exactly 6·L·W
+   ``tucker_matmul``, L·W of each flash kernel a step (W = 4); (e) a
+   failure at step 7 of 8 replayed from the step-5 checkpoint within 1e-5
+   of the uninterrupted (2, 2) fsdp_tp run, and that checkpoint restored
+   into (4, 1) zero3 and into one device, every leaf bitwise (2 layers,
+   vocab cut to 32,768: phase 12's checkpoint leaves no room under the
+   machine's 45 GiB of writes for a full-vocab one).
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -374,6 +398,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
+import gc
 import itertools
 import json
 import math
@@ -552,6 +578,28 @@ REF_FIG7BC = {
         "strata": (3_940_256, 1_152, 0, 0),
         "strata_overlap": (3_940_257.5, 7_296, 1.25, 4_102.75)},
 }
+# phase 23: sharded LM training on 4 workers sharing the card, full width.
+# The parity runs (a), (b) at 2 layers, 3 fed steps (global batch 4), with
+# the residual stream in f32: in the config's bf16 the sharded runs' f32
+# sums, in another order than the unsharded step's (zero3 computes one
+# batch row a worker, and the kernels split 2,048 rows otherwise than
+# 8,192), flip bf16 roundings, and the worst moment read 0.030 of its
+# largest against phase 13's 2⁻⁵ (NVIDIA H100 80GB HBM3, 700.00 W) — a
+# margin too thin to tell the sharding's faults from them.  The training
+# runs (c) at 4 layers in bf16, 10 steps; (e)'s runs and checkpoint at 2
+# layers with the vocab cut to 32,768: a full-vocab state is at least
+# 19.8 GB, and phase 12's 28.1 GB checkpoint leaves no room for another
+# under the machine's 45 GiB of disk writes
+SHARDED_LM = dict(batch=4, seq=2048, parity_layers=2, parity_steps=3,
+                  layers=4, steps=10, lr=1e-3, elastic_vocab=32_768,
+                  elastic=dict(steps=8, ckpt_at=5, fail_at=7))
+SHARDED_LM_PAIRS = [((2, 2), "fsdp_tp"), ((4, 1), "zero3"), ((1, 4), "tp"),
+                    ((2, 2), "zero3_dp")]
+SHARDED_LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+# (b) in the config's bf16: "cuda" against "torch" on one mesh, one step as
+# phase 13 takes, for the tensor-parallel route (vocab-parallel head, H/mp
+# heads, d_ff/mp rows) and the gathered one (every weight all-gathered)
+SHARDED_LM_BACKEND_PAIRS = [((1, 4), "tp"), ((4, 1), "zero3")]
 # the GPU machine stops a call past this many bytes written to its disk
 SHARD_WORKERS = 4            # phase 21's serving workers, sharing the card
 SHARD_QUERIES = 65_536       # predict tuples checked a layout
@@ -1516,26 +1564,30 @@ def _flash_inputs(torch, gen, Sq, Sk, B=4, H=40, Hk=8, D=128):
     return q, k, v
 
 
+def _held(worst: dict, key: str, got, want, what: str) -> None:
+    """A kernel's output against its plain version's, within ``TOL[key]``
+    of the plain one's largest; the worst (abs, relative) into
+    ``worst[key]``."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{key} {what}: {got.dtype} "
+                             f"{tuple(got.shape)} against the plain "
+                             f"version's {want.dtype} {tuple(want.shape)}")
+    e, r = rel_err(got, want)
+    w = worst.setdefault(key, [0.0, 0.0])
+    w[0], w[1] = max(w[0], e), max(w[1], r)
+    log(f"  {key} {what}: max abs err {e:.3g}, relative {r:.3g}")
+    if not r <= TOL[key]:
+        raise AssertionError(f"{key} {what}: max abs err {e:.3g}, "
+                             f"relative {r:.3g} > {TOL[key]}")
+
+
 def phase_lm_kernels_vs_plain(torch, K, cfg) -> dict:
     ref = K.ref
     tm = K.tucker_matmul.tucker_matmul
     fa = K.flash_attention.flash_attention
     gen = torch.Generator(device="cuda").manual_seed(4321)
     worst = {k: [0.0, 0.0] for k in LM_KERNELS}
-
-    def record(key, got, want, what):
-        if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{key} {what}: {got.dtype} "
-                                 f"{tuple(got.shape)} against the plain "
-                                 f"version's {want.dtype} "
-                                 f"{tuple(want.shape)}")
-        e, r = rel_err(got, want)
-        worst[key][0] = max(worst[key][0], e)
-        worst[key][1] = max(worst[key][1], r)
-        log(f"  {key} {what}: max abs err {e:.3g}, relative {r:.3g}")
-        if not r <= TOL[key]:
-            raise AssertionError(f"{key} {what}: max abs err {e:.3g}, "
-                                 f"relative {r:.3g} > {TOL[key]}")
+    record = functools.partial(_held, worst)
 
     d, f = cfg.d_model, cfg.d_ff
     for M in (8192, 4, 8191):
@@ -5171,6 +5223,507 @@ def phase_multidev_benchmarks(torch, K, out_dir: Path) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 23
+# ---------------------------------------------------------------------------
+
+def _sharded_mesh(shape):
+    """``make_host_mesh``'s workers for ``shape``, every one on the card."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(shape[1], num_workers=shape[0] * shape[1],
+                          device="cuda")
+    if mesh.shape != shape or any(d.type != "cuda" for d in mesh.devices):
+        raise AssertionError(f"sharded LM: mesh {mesh.shape} on "
+                             f"{mesh.devices}, want {shape} on the card")
+    return mesh
+
+
+def _worker_shapes(torch, train, cfg, mesh, policy: str, B: int, T: int
+                   ) -> dict:
+    """Worker 0's kernel shapes in a sharded step of ``cfg`` (global batch
+    B × T) on ``mesh`` under ``policy``, from the step's own layouts and
+    head selection: its batch rows, query and KV heads, and the d_ff rows
+    of its Tucker FFN (every worker's alike where each dimension
+    divides)."""
+    import types
+
+    from repro_torch.distributed.sharded_lm import ShardedLM
+    from repro_torch.distributed.sharding import Layout, batch_spec
+
+    lm = ShardedLM(cfg, mesh, train.layouts_for(cfg, mesh, policy), policy)
+
+    def gathered(name):      # worker 0's copy of a leaf before it computes
+        return tuple(r.stop - r.start for r in lm.plans[name].region[0])
+
+    mixer = types.SimpleNamespace(**{
+        w: torch.empty(gathered(f"layers.0.mixer.{w}"), device="meta")
+        for w in ("wq", "wk", "wv")})
+    mixer = lm._local_attention(mixer, 0, 0)
+    rows = Layout((B, T), batch_spec(mesh, B, 1, policy), mesh).index(0)[0]
+    bw = len(range(B)[rows])
+    return {"B_w": bw, "M": bw * T, "H": mixer.wq.shape[1],
+            "Kv": mixer.wk.shape[1],
+            "d_ff_up": gathered("layers.0.ffn.up.u2")[0],
+            "d_ff_down": gathered("layers.0.ffn.down.u1")[0]}
+
+
+def _sharded_kernel_checks(torch, K, train, cfg, B: int, T: int) -> dict:
+    """``tucker_matmul`` (forward and dx, x in bf16 and f32) and the flash
+    forward and backward against their plain versions at the per-worker
+    shapes of every ``SHARDED_LM_PAIRS`` run, within phase 11's bounds.
+    The flash kernels take f32 only: the model projects q, k, v in f32
+    (its weights are f32) whatever the residual stream's dtype."""
+    ref = K.ref
+    tm = K.tucker_matmul.tucker_matmul
+    fa = K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(2323)
+    d, D = cfg.d_model, cfg.head_dim
+    shapes = {f"{shape} {policy}": _worker_shapes(
+        torch, train, cfg, _sharded_mesh(shape), policy, B, T)
+        for shape, policy in SHARDED_LM_PAIRS}
+    for tag, w in shapes.items():
+        log(f"sharded LM kernels: {tag} worker shapes {w}")
+    worst: dict = {}
+    ffn = sorted({(w["M"], w["d_ff_up"], w["d_ff_down"])
+                  for w in shapes.values()}, reverse=True)
+    for M, n_up, k_down in ffn:
+        for name, (Kd, N) in (("up/gate", (d, n_up)), ("down", (k_down, d))):
+            for xdt in (torch.bfloat16, torch.float32):
+                dt = str(xdt)[6:]
+                x, u1, g, u2 = _tucker_inputs(torch, gen, M, Kd, N, xdt)
+                _held(worst, "tucker_matmul", tm(x, u1, g, u2),
+                      ref.tucker_matmul_ref(x, u1, g, u2),
+                      f"{name} M={M} K={Kd} N={N} x {dt}")
+                gy = torch.randn((M, N), generator=gen,
+                                 device="cuda").to(xdt)
+                gt = g.t().contiguous()
+                _held(worst, "tucker_matmul", tm(gy, u2, gt, u1),
+                      ref.tucker_matmul_ref(gy, u2, gt, u1),
+                      f"{name} dx M={M} {N}->{Kd} Gᵀ ȳ {dt}")
+                del x, u1, g, u2, gy, gt
+    heads = sorted({(w["B_w"], w["H"], w["Kv"]) for w in shapes.values()},
+                   reverse=True)
+    for bw, h, kv in heads:
+        what = f"B={bw} S={T} H={h} Kv={kv} D={D} causal"
+        q, k, v = _flash_inputs(torch, gen, T, T, B=bw, H=h, Hk=kv, D=D)
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        o, lse = fa(q, k, v, causal=True, return_lse=True)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, True,
+                                                 return_lse=True)
+        _held(worst, "flash_attention", o, o_ref, what)
+        _held(worst, "flash_attention", lse, lse_ref, what + " lse")
+        got = fb(q, k, v, o, lse, dout, causal=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, True)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            _held(worst, "flash_attention_bwd", a, b, f"{what} {nm}")
+        del q, k, v, dout, o, lse, o_ref, lse_ref, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for key, (e, r) in worst.items():
+        log(f"sharded LM kernels at the worker shapes: {key} max abs err "
+            f"{e:.3g}, max relative err {r:.3g} (tolerance {TOL[key]})")
+    return {"worker_shapes": shapes,
+            **{k: {"max_abs_err": e, "max_rel_err": r, "tol": TOL[k]}
+               for k, (e, r) in worst.items()}}
+
+
+def _sharded_backends(torch, train, S, cfg, opt_cfg, batch, shape,
+                      policy: str) -> dict:
+    """Phase 13 on a mesh: one sharded step of ``cfg`` (the config's
+    dtype) from one state with the ``"cuda"`` backend and with
+    ``"torch"``; the loss within 2⁻⁷, m and v within 2⁻⁵ of each leaf's
+    largest, and the parameters where the torch step's |g| is past
+    ``LM_SETTLED`` of its leaf's largest within 2⁻⁵ of the lr."""
+    from repro_torch.checkpoint.manager import flatten
+
+    mesh = _sharded_mesh(shape)
+    loss, tag = {}, f"{shape} {policy}"
+    for bk in ("torch", "cuda"):
+        st, layouts = train.build_state(
+            torch.Generator(device="cuda").manual_seed(23), cfg, mesh, policy)
+        step = S.make_sharded_train_step(cfg, opt_cfg, mesh, layouts, bk,
+                                         policy=policy)
+        st, met = step(st, batch)
+        loss[bk], lr = float(met["loss"]), float(met["lr"])
+        if bk == "torch":
+            settled = {}
+            for name, m in flatten(st).items():
+                if name.startswith("opt.m."):   # m ∝ g after one step
+                    g = m.full().abs()
+                    settled["params." + name[len("opt.m."):]] = (
+                        g > LM_SETTLED * g.max()).cpu()
+                    del g
+            want = _host_leaves(torch, st)
+            del st, step
+            torch.cuda.empty_cache()
+    rel_loss = abs(loss["cuda"] - loss["torch"]) / abs(loss["torch"])
+    errs = _leaf_errs(torch, st, want)
+    mv = max(((n, e) for n, e in errs.items() if n.startswith("opt.")),
+             key=lambda kv: kv[1])
+    pw, pleaf, held = _settled_param_err(torch, st, want, settled, lr)
+    del st, step, want, settled
+    torch.cuda.empty_cache()
+    log(f"sharded LM (b, {cfg.dtype}) {tag}, {cfg.num_layers} layers, batch "
+        f"{batch['tokens'].shape[0]}: one step 'cuda' against 'torch': loss "
+        f"{loss['cuda']:.6f} / {loss['torch']:.6f}, relative diff "
+        f"{rel_loss:.3g} (tolerance {TOL['lm.loss']:.4g}); worst moment "
+        f"{mv[0]} {mv[1]:.3g} of its largest (tolerance "
+        f"{TOL['lm.grads']:.4g}); parameters where |g| > {LM_SETTLED:g} of "
+        f"its leaf's largest ({held:,}): worst {pleaf} {pw:.3g} of the lr")
+    if not (math.isfinite(loss["cuda"]) and rel_loss <= TOL["lm.loss"]
+            and mv[1] <= TOL["lm.grads"] and pw <= TOL["lm.grads"]):
+        raise AssertionError(f"sharded LM (b, {cfg.dtype}) {tag}: loss "
+                             f"{rel_loss:.3g}, moment {mv}, parameters "
+                             f"{pw:.3g} ({pleaf})")
+    return {"loss": loss, "loss_rel_diff": rel_loss, "worst_moment": mv,
+            "worst_settled_param": [pleaf, pw], "settled_entries": held}
+
+
+def _host_leaves(torch, state) -> dict:
+    """Every leaf of a (sharded or not) training state, unsharded, in
+    pinned host memory (the comparisons copy each back to the card: ~4×
+    the rate of pageable copies, and the pinned blocks are reused by the
+    next call)."""
+    from repro_torch.checkpoint.manager import flatten
+
+    out = {}
+    for name, t in flatten(state).items():
+        full = t.full() if hasattr(t, "full") else t.detach()
+        out[name] = torch.empty(full.shape, dtype=full.dtype,
+                                pin_memory=True).copy_(full)
+        del full
+    return out
+
+
+def _leaf_errs(torch, state, want: dict) -> dict:
+    """{leaf name: max |state − want| / max |want|}, a leaf at a time on
+    the card."""
+    from repro_torch.checkpoint.manager import flatten
+
+    errs = {}
+    for name, t in flatten(state).items():
+        got = t.full() if hasattr(t, "full") else t.detach()
+        errs[name] = rel_err(got.float(),
+                             want[name].to(got.device, non_blocking=True
+                                           ).float())[1]
+        del got
+    return errs
+
+
+def _settled_param_err(torch, state, want: dict, settled: dict,
+                       lr_sum: float) -> tuple:
+    """Phase 13's sign rule over several steps: the parameters settled at
+    every step (``settled``, host masks by leaf name), max |Δ| over the
+    steps' summed lr → (worst ratio, leaf, entries)."""
+    from repro_torch.checkpoint.manager import flatten
+
+    worst, leaf, held = 0.0, "", 0
+    for name, t in flatten(state).items():
+        if name not in settled:
+            continue
+        got = t.full() if hasattr(t, "full") else t.detach()
+        d = (got.float() - want[name].cuda(non_blocking=True).float())[
+            settled[name].cuda()]
+        held += d.numel()
+        r = d.abs().max().item() / lr_sum if d.numel() else 0.0
+        if r > worst:
+            worst, leaf = r, name
+        del got, d
+    return worst, leaf, held
+
+
+def _step_settled(torch, opt, prev: dict | None, masks: dict, b1: float
+                  ) -> dict:
+    """AND into ``masks`` ({"params." + name: bool mask}) where this step's
+    gradient — ∝ m − b1·m_prev — is past ``LM_SETTLED`` of its leaf's
+    largest; → a copy of m for the next step."""
+    for n, m in opt.m.items():
+        g = (m - b1 * prev[n]) if prev is not None else m
+        g = g.abs()
+        ok = g > LM_SETTLED * g.max()
+        key = "params." + n
+        masks[key] = ok if key not in masks else masks[key] & ok
+        del g
+    return {n: m.clone() for n, m in opt.m.items()}
+
+
+def phase_sharded_lm(torch, K, train, cfg) -> tuple[dict, dict]:
+    """Sharded LM training on M = 4 workers sharing the card (full width;
+    the depth, batch and steps of ``SHARDED_LM``): the kernels against
+    their plain versions at every run's per-worker shapes; (a) a (1, 1)
+    mesh against ``make_train_step``; (b) four policy/mesh pairs against
+    the unsharded ``"cuda"`` step in f32, and two "cuda" against "torch"
+    in the config's bf16; (c) 10 steps of each through
+    ``launch/train.run`` — the phase's main path — with (d) its launch
+    counts; (e) the elastic restore of a (2, 2) fsdp_tp checkpoint into
+    (4, 1) zero3 and one device, and a failure's replay."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FailureInjector
+
+    C = SHARDED_LM
+    B, T = C["batch"], C["seq"]
+    rec: dict = {"card": nvidia_smi_line()}
+    seconds: dict = {}
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=T, global_batch=B))
+    batches = [train.device_batch(pipe.global_batch(i), "cuda")
+               for i in range(C["parity_steps"])]
+
+    torch.cuda.empty_cache()
+    log(f"sharded LM: {torch.cuda.memory_allocated():,} device bytes "
+        "held by earlier phases at the start")
+    t0 = time.perf_counter()
+    cfg4 = dataclasses.replace(cfg, num_layers=C["layers"])
+    rec["kernels"] = _sharded_kernel_checks(torch, K, train, cfg4, B, T)
+    seconds["kernels"] = time.perf_counter() - t0
+
+    # (a), (b): three fed steps at 2 layers against the unsharded step, the
+    # residual stream in f32 (``SHARDED_LM``)
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=C["parity_layers"],
+                               dtype="float32")
+    opt_cfg = adamw.AdamWConfig(**SHARDED_LM_OPT)
+    state = S.init_train_state(cfg2, gen(23), "cuda")
+    step = S.make_train_step(cfg2, opt_cfg, "cuda")
+    ref_loss, lrs, masks, prev = [], [], {}, None
+    for b in batches:
+        state, m = step(state, b)
+        ref_loss.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        prev = _step_settled(torch, state.opt, prev, masks, opt_cfg.b1)
+    want = _host_leaves(torch, state)
+    settled = {n: t.cpu() for n, t in masks.items()}
+    del state, step, prev, masks
+    torch.cuda.empty_cache()
+    log(f"sharded LM parity reference: the unsharded 'cuda' step, "
+        f"{cfg2.num_layers} layers, batch {B} x seq {T}, losses "
+        f"{[f'{x:.6f}' for x in ref_loss]}")
+    parity, compare = {}, 0.0
+    for shape, policy in [((1, 1), "fsdp_tp")] + SHARDED_LM_PAIRS:
+        mesh = _sharded_mesh(shape)
+        st, layouts = train.build_state(gen(23), cfg2, mesh, policy)
+        sstep = S.make_sharded_train_step(cfg2, opt_cfg, mesh, layouts,
+                                          "cuda", policy=policy)
+        losses = []
+        for b in batches:
+            st, m = sstep(st, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(losses, ref_loss))
+        tc = time.perf_counter()
+        errs = _leaf_errs(torch, st, want)
+        tag = f"{shape} {policy}"
+        if shape == (1, 1):
+            worst = max(errs.items(), key=lambda kv: kv[1])
+            log(f"sharded LM (a) {tag}: losses {losses}, max relative "
+                f"diff {loss_err:.3g}; worst leaf {worst[0]} {worst[1]:.3g} "
+                f"of its largest (tolerance {TOL['lm.resume']})")
+            if not (loss_err <= TOL["lm.resume"]
+                    and worst[1] <= TOL["lm.resume"]):
+                raise AssertionError(f"sharded LM (a): the (1, 1) mesh is "
+                                     f"not make_train_step ({loss_err:.3g}, "
+                                     f"{worst})")
+            parity[tag] = {"loss_rel_diff": loss_err, "worst_leaf": worst}
+        else:
+            mv = max(((n, e) for n, e in errs.items()
+                      if n.startswith("opt.")), key=lambda kv: kv[1])
+            pw, pleaf, held = _settled_param_err(torch, st, want, settled,
+                                                 sum(lrs))
+            log(f"sharded LM (b) {tag}: losses {losses}, max relative diff "
+                f"{loss_err:.3g} (tolerance {TOL['lm.loss']:.4g}); worst "
+                f"moment {mv[0]} {mv[1]:.3g} of its largest (tolerance "
+                f"{TOL['lm.grads']:.4g}); parameters where the reference's "
+                f"|g| > {LM_SETTLED:g} of its leaf's largest at every step "
+                f"({held:,}): "
+                f"worst {pleaf} {pw:.3g} of the summed lr; traffic a step "
+                f"{_per_step(sstep.traffic, len(batches))}")
+            if not (loss_err <= TOL["lm.loss"] and mv[1] <= TOL["lm.grads"]
+                    and pw <= TOL["lm.grads"]):
+                raise AssertionError(f"sharded LM (b) {tag}: loss "
+                                     f"{loss_err:.3g}, moment {mv}, "
+                                     f"parameters {pw:.3g} ({pleaf})")
+            parity[tag] = {"loss_rel_diff": loss_err, "worst_moment": mv,
+                           "worst_settled_param": [pleaf, pw],
+                           "settled_entries": held}
+        compare += time.perf_counter() - tc
+        del st, sstep
+        torch.cuda.empty_cache()
+    del want, settled
+    seconds["parity f32"] = time.perf_counter() - t0
+    seconds["parity f32, of it the leaf comparisons"] = compare
+    # (b) in the config's bf16, "cuda" against "torch" (phase 13's check)
+    t0 = time.perf_counter()
+    cfg2b = dataclasses.replace(cfg, num_layers=C["parity_layers"])
+    for shape, policy in SHARDED_LM_BACKEND_PAIRS:
+        parity[f"{shape} {policy} {cfg2b.dtype} cuda-torch"] = (
+            _sharded_backends(torch, train, S, cfg2b,
+                              adamw.AdamWConfig(**LM_TRAIN_PARITY_OPT),
+                              batches[0], shape, policy))
+    seconds["parity bf16"] = time.perf_counter() - t0
+    rec["parity"] = parity
+
+    # (c), (d): the training runs, the phase's main path
+    t0 = time.perf_counter()
+    L, W = cfg4.num_layers, 4
+    N = C["steps"]
+    ckpt_root = ROOT / "build" / "sharded_ckpt"   # git-ignored
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    runs, counts_all = {}, {}
+    for shape, policy in SHARDED_LM_PAIRS:
+        mesh = _sharded_mesh(shape)
+        K.reset_launch_counts()
+        res = train.run(cfg4, steps=N, batch=B, seq=T, lr=C["lr"],
+                        ckpt_dir=str(ckpt_root / "runs"), ckpt_every=N + 1,
+                        log_every=5, device="cuda", backend="cuda",
+                        mesh=mesh, policy=policy)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        hist = res["history"]
+        losses = [hist[i]["loss"] for i in range(1, N + 1)]
+        med = statistics.median(hist[i]["seconds"] for i in range(2, N + 1))
+        wantc = {"tucker_matmul": 6 * L * W * N, "flash_attention": L * W * N,
+                 "flash_attention_bwd": L * W * N}
+        tag = f"{shape} {policy}"
+        log(f"sharded LM (c) {tag}: {L} layers, batch {B} x seq {T}, {N} "
+            f"steps: {res['steps_per_s']:.4f} steps/s, "
+            f"{res['tokens_per_s']:.1f} tokens/s (median step {med:.4f}s = "
+            f"{B * T / med:.1f} tokens/s); peak device bytes "
+            f"{res['peak_device_bytes'] or 0:,}; state bytes a worker "
+            f"{res['state_bytes_per_worker']:,} (from the layouts "
+            f"{res['layout_state_bytes']:,}); collective bytes a step and "
+            f"worker {res['traffic_per_step']}; losses "
+            + ", ".join(f"{x:.4f}" for x in losses))
+        log(f"sharded LM (d) {tag}: launch counts {counts} (want {wantc}: "
+            f"6·L·W tucker_matmul, L·W of each flash kernel a step, "
+            f"W = {W})")
+        if res["state_bytes_per_worker"] != res["layout_state_bytes"]:
+            raise AssertionError(f"sharded LM (c) {tag}: a worker holds "
+                                 f"{res['state_bytes_per_worker']:,} bytes, "
+                                 f"the layouts say "
+                                 f"{res['layout_state_bytes']:,}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"sharded LM (c) {tag}: losses {losses}")
+        for k in REPLACES:
+            if counts[k] != wantc.get(k, 0):
+                raise AssertionError(f"sharded LM (d) {tag}: {k} launched "
+                                     f"{counts[k]} times, want "
+                                     f"{wantc.get(k, 0)}")
+        runs[tag] = {"steps_per_s": res["steps_per_s"],
+                     "tokens_per_s": res["tokens_per_s"],
+                     "median_step_s": med,
+                     "peak_device_bytes": res["peak_device_bytes"],
+                     "state_bytes_per_worker": res["state_bytes_per_worker"],
+                     "traffic_per_step": res["traffic_per_step"],
+                     "losses": losses, "launch_counts": counts}
+        del res
+        torch.cuda.empty_cache()
+    rec["runs"] = runs
+    seconds["runs"] = time.perf_counter() - t0
+
+    # (e): a failure's replay and the elastic restore, at the cut vocab
+    te = time.perf_counter()
+    cfge = dataclasses.replace(cfg, num_layers=C["parity_layers"],
+                               vocab_size=C["elastic_vocab"])
+    mesh = _sharded_mesh((2, 2))
+    E = C["elastic"]
+    whole = train.run(cfge, steps=E["steps"], batch=B, seq=T, lr=C["lr"],
+                      ckpt_dir=str(ckpt_root / "whole"),
+                      ckpt_every=E["steps"] + 1, log_every=E["steps"],
+                      device="cuda", backend="cuda", mesh=mesh,
+                      policy="fsdp_tp")
+    want = _host_leaves(torch, whole["state"])
+    wl = [whole["history"][i]["loss"] for i in range(1, E["steps"] + 1)]
+    del whole
+    torch.cuda.empty_cache()
+    failed = train.run(cfge, steps=E["steps"], batch=B, seq=T, lr=C["lr"],
+                       ckpt_dir=str(ckpt_root / "cut"),
+                       ckpt_every=E["ckpt_at"], log_every=E["steps"],
+                       device="cuda", backend="cuda", mesh=mesh,
+                       policy="fsdp_tp",
+                       injector=FailureInjector({E["fail_at"]}))
+    fl = [failed["history"][i]["loss"] for i in range(1, E["steps"] + 1)]
+    loss_err = max(abs(g - w) / abs(w) for g, w in zip(fl, wl))
+    errs = _leaf_errs(torch, failed["state"], want)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    restarts = failed["stats"].restarts
+    del failed, want
+    torch.cuda.empty_cache()
+    log(f"sharded LM (e) failure at step {E['fail_at']} of {E['steps']} "
+        f"((2, 2) fsdp_tp, vocab {cfge.vocab_size}, {cfge.num_layers} "
+        f"layers): {restarts} restart from step {E['ckpt_at']}; losses "
+        f"against the uninterrupted run's: max relative diff "
+        f"{loss_err:.3g}; worst final leaf {worst[0]} {worst[1]:.3g} of its "
+        f"largest (tolerance {TOL['lm.resume']})")
+    if not (restarts == 1 and loss_err <= TOL["lm.resume"]
+            and worst[1] <= TOL["lm.resume"]):
+        raise AssertionError(f"sharded LM (e): the replay ended "
+                             f"{loss_err:.3g} / {worst} from the "
+                             "uninterrupted run")
+    ckpt = CheckpointManager(ckpt_root / "cut")
+    if ckpt.all_steps() != [E["ckpt_at"]]:
+        raise AssertionError(f"sharded LM (e): checkpoints "
+                             f"{ckpt.all_steps()}")
+    manifest, saved = ckpt.load_leaves(E["ckpt_at"])
+    elastic = {}
+    for what in ("(4, 1) zero3", "one device"):
+        t0 = time.perf_counter()
+        if what == "one device":
+            dst, shardings = S.init_train_state(cfge, gen(5), "cuda"), None
+        else:
+            dst, layouts = train.build_state(
+                gen(5), cfge, _sharded_mesh((4, 1)), "zero3")
+            shardings = train.state_shardings(layouts)
+        dst, at = ckpt.restore(dst, shardings=shardings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _host_leaves(torch, dst)
+        bad = [s["name"] for s, a in zip(manifest["leaves"], saved)
+               if not _same_host_bits(torch, got[s["name"]], a, s["dtype"])]
+        log(f"sharded LM (e) elastic restore of the (2, 2) fsdp_tp step-"
+            f"{at} checkpoint into {what}: {len(saved)} leaves in "
+            f"{secs:.2f}s, {len(saved) - len(bad)} bitwise the checkpoint's")
+        if bad or at != E["ckpt_at"]:
+            raise AssertionError(f"sharded LM (e): {what} differs in {bad}")
+        elastic[what] = {"restore_seconds": secs, "leaves": len(saved)}
+        del dst, got
+        torch.cuda.empty_cache()
+    del saved
+    note_written("23 (sharded LM checkpoint)", tree_bytes(ckpt_root))
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    rec["elastic"] = {"loss_rel_diff": loss_err, "worst_leaf": worst,
+                      "restores": elastic, "vocab": cfge.vocab_size}
+    seconds["elastic"] = time.perf_counter() - te
+    rec["seconds"] = seconds
+    log("sharded LM: seconds by part " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return rec, counts_all
+
+
+def _per_step(traffic, steps: int) -> dict:
+    return {k: v / steps for k, v in traffic.as_dict().items() if v}
+
+
+def _same_host_bits(torch, got, saved, dtype: str) -> bool:
+    """A restored leaf (host tensor) bitwise its checkpoint array."""
+    from repro_torch.checkpoint.manager import from_host
+
+    want = from_host(saved, dtype)
+    return got.shape == want.shape and got.dtype == want.dtype and bool(
+        torch.equal(got.view(torch.uint8) if got.dim() else got,
+                    want.view(torch.uint8) if want.dim() else want))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
@@ -5309,6 +5862,16 @@ def main(argv: list[str] | None = None) -> int:
     report["multidev_benchmarks_seconds"] = time.perf_counter() - t_multi
     log(f"phase 22 (the multi-device benchmarks): "
         f"{report['multidev_benchmarks_seconds']:.1f}s")
+    # phase 23 takes the card's memory to ~78 GB: drop the FastTucker runs'
+    # device tensors (their training and test sets) first
+    del paths, base, wide_params
+    gc.collect()
+    t_lm = time.perf_counter()
+    report["sharded_lm"], sharded_counts = phase_sharded_lm(
+        torch, K, train, lm_cfg)
+    report["sharded_lm_seconds"] = time.perf_counter() - t_lm
+    log(f"phase 23 (sharded LM training, 4 workers): "
+        f"{report['sharded_lm_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -5317,7 +5880,7 @@ def main(argv: list[str] | None = None) -> int:
                  report["baselines"]["ccd"]["counts"],
                  report["baselines"]["bench_accuracy"]["launch_counts"],
                  serve_counts, conv_counts, bench_counts, online_counts,
-                 strat_counts, shard_counts, multi_counts):
+                 strat_counts, shard_counts, multi_counts, sharded_counts):
         for k, v in part.items():
             counts[k] += v
     report["seconds"] = time.perf_counter() - t_start
@@ -5332,7 +5895,9 @@ def main(argv: list[str] | None = None) -> int:
                              f"the machine's {DISK_LIMIT:,}")
 
     errs = report["kernels_vs_plain"]
-    lm_errs = report["lm_kernels_vs_plain"]
+    lm_errs = {k: {"max_abs_err": max(
+        v["max_abs_err"], report["sharded_lm"]["kernels"][k]["max_abs_err"])}
+        for k, v in report["lm_kernels_vs_plain"].items()}
     max_err = {
         "kruskal_contract": errs["kruskal_contract"]["max_abs_err"],
         "kruskal_grad": max(errs["kruskal_grad.rows"]["max_abs_err"],
@@ -5341,7 +5906,10 @@ def main(argv: list[str] | None = None) -> int:
         "segment_reduce": errs["segment_reduce"]["max_abs_err"],
         "tucker_matmul": lm_errs["tucker_matmul"]["max_abs_err"],
         "flash_attention": lm_errs["flash_attention"]["max_abs_err"],
-        "flash_attention_bwd": report["flash_bwd"]["max_abs_err"],
+        "flash_attention_bwd": max(
+            report["flash_bwd"]["max_abs_err"],
+            report["sharded_lm"]["kernels"]["flash_attention_bwd"][
+                "max_abs_err"]),
         **table_errs,
     }
     kernels = []
@@ -5370,8 +5938,8 @@ def main(argv: list[str] | None = None) -> int:
         f"strata run, phase 21's sharded queries, refresh rounds, "
         f"serve_tucker, online run and bench_serve, and phase 22's "
         f"fig7bc, ingest, bench_convergence and multipod runs; the LM "
-        f"serve request "
-        f"and the LM training run for {', '.join(LM_KERNELS)}): {counts}")
+        f"serve request, the LM training run and phase 23's four sharded "
+        f"training runs for {', '.join(LM_KERNELS)}): {counts}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -28,8 +28,14 @@ bfloat16: a bf16 leaf is stored as its ``uint16`` view, with
 copies the leaves into the tensors of the tree it is given, on their
 devices (a second copy of a full-width training state would not fit the
 card), and raises on a name, shape or dtype mismatch before it copies
-anything.  The reference's elastic re-placement onto another mesh waits
-for sharded training (ROADMAP.md).
+anything.
+
+A sharded leaf (``distributed.sharding.ShardedTensor``, sharded training)
+is saved unsharded: its name and full shape, its workers' parts written
+into it in worker order — so a checkpoint of a 4-worker state and one of
+the same state on one device are the same files.  ``restore`` slices each
+leaf onto the layout of the leaf it restores into, whatever mesh or policy
+wrote it: the reference's elastic restore.
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import ShardedTensor
+
 BF16 = "bfloat16"
 
 
@@ -53,7 +61,7 @@ def flatten(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
-        if isinstance(node, torch.Tensor):
+        if isinstance(node, (torch.Tensor, ShardedTensor)):
             out[path] = node
             return
         if isinstance(node, nn.Module):
@@ -75,9 +83,9 @@ def flatten(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` (never a view of its storage) and its dtype
-    name."""
-    t = t.detach()
+    """A host copy of ``t`` (never a view of its storage; a sharded leaf
+    unsharded) and its dtype name."""
+    t = t.full("cpu") if isinstance(t, ShardedTensor) else t.detach()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy().view(
             np.uint16), BF16
@@ -207,13 +215,22 @@ class CheckpointManager:
                   for i in range(manifest["num_leaves"])]
         return manifest, leaves
 
-    def restore(self, like: Any, step: int | None = None
+    def restore(self, like: Any, step: int | None = None,
+                shardings: Mapping[str, Any] | None = None
                 ) -> tuple[Any, int]:
         """Copy a committed step (default: the latest) into the tensors of
-        ``like`` → (like, step).  Raises ``ValueError`` before copying
-        anything when the names, shapes or dtypes differ."""
+        ``like`` → (like, step); a sharded leaf's parts take their slices
+        of the saved leaf.  ``shardings`` ({leaf name: Layout}, as
+        ``launch.train.state_shardings`` gives them) names the layouts the
+        leaves must have.  Raises ``ValueError`` before copying anything
+        when the names, shapes, dtypes or layouts differ."""
         d, manifest = self._committed(step)
         leaves = flatten(like)
+        for name, lay in (shardings or {}).items():
+            have = getattr(leaves.get(name), "layout", None)
+            if have != lay:
+                raise ValueError(f"{name}: layout {lay} asked for, the "
+                                 f"state's is {have}")
         saved = manifest["leaves"]
         names = [s["name"] for s in saved]
         if names != list(leaves):
@@ -231,6 +248,11 @@ class CheckpointManager:
                     "state")
         with torch.no_grad():
             for i, (s, t) in enumerate(zip(saved, leaves.values())):
-                t.copy_(from_host(np.load(d / f"leaf_{i:06d}.npy"),
-                                  s["dtype"]))
+                full = from_host(np.load(d / f"leaf_{i:06d}.npy"),
+                                 s["dtype"])
+                if isinstance(t, ShardedTensor):
+                    for m, part in enumerate(t.parts):
+                        part.copy_(full[t.layout.index(m)])
+                else:
+                    t.copy_(full)
         return like, manifest["step"]

@@ -9,11 +9,16 @@ one worker a shard, with ``collectives`` doing the rotations and sums as
 explicit copies; every step function carries its ``collectives.Traffic``
 as ``step.traffic`` (``benchmarks.bench_multidev`` reads it).  See
 ``base`` for the contract, ``strata``/``overlap`` for the paper's Fig.-2
-scheme and its variant with the rotations issued ahead of use.  The
-reference's sharding rules and mesh context for the LM (``sharding.py``,
-``context.py``) come with sharded LM training (ROADMAP.md, Queue 1 item 4
-(b3)).
+scheme and its variant with the rotations issued ahead of use.
+
+Sharded LM training: ``sharding`` holds the reference's logical-axis rules
+(``tp``, ``fsdp_tp``, ``fsdp_tp_v2``, ``zero3``, ``zero3_dp``), ``spec_for``
+and the ``Layout`` a spec gives a leaf on a mesh; ``context`` the ambient
+mesh and activation hooks the model calls; ``sharded_lm`` the LM's loss
+over the workers, through ``collectives``' differentiable all-gather and
+psum (``launch.steps.make_sharded_train_step``, ``launch.train --mesh``).
 """
+from . import context, sharding
 from .base import (
     DistState,
     DistStrategy,
@@ -34,6 +39,8 @@ register_strategy(StrataStrategy())
 register_strategy(StrataOverlapStrategy())
 
 __all__ = [
+    "context",
+    "sharding",
     "DistState",
     "DistStrategy",
     "available_strategies",

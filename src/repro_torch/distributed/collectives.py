@@ -36,15 +36,25 @@ on that (``Pending.wait``).  The source is marked as used by the side
 stream, so the allocator does not hand its memory to a compute kernel
 before the copy has read it.  On the CPU the copies are synchronous.
 
+Sharded LM training (``distributed.sharded_lm``) differentiates through
+its collectives: ``GatherLeaf`` all-gathers a parameter's parts over the
+mesh axes it is gathered on (backward: the reduce-scatter, and the sum
+over the workers holding the same part) and ``Psum`` sums each group's
+parts (backward: the sum of the group's cotangents, to every member).
+Every backward adds in worker order, 0 … k − 1, with no float atomics.
+
 ``Traffic`` is a step function's account of its collectives (``rotate``,
 ``psum`` and ``SideStreams.rotate`` add to the one they are given), by the
 reference's rules for the collectives its compiled step holds
 (``repro.launch.hlo_analysis``), per worker: a ``psum`` of b bytes a
 worker is a ring all-reduce, 2·b·(M − 1)/M wire bytes; a rotation is one
-collective-permute of the worker's shard.
+collective-permute of the worker's shard; over a group of g workers an
+all-gather of a b-byte result costs b·(g − 1)/g, a reduce-scatter of an
+r-byte result shard r·(g − 1), an all-reduce of b bytes 2·b·(g − 1)/g.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -68,10 +78,13 @@ class Traffic:
     ``hidden_flops``   per worker: FLOPs of the compute-stream work issued
                        between a side rotation's issue and its
                        ``Pending.wait`` (the caller adds them)
+    ``all_gather_bytes``, ``reduce_scatter_bytes``, ``all_reduce_bytes``
+                       per worker, the sharded LM step's collectives
     """
 
     FIELDS = ("psum_bytes", "permute_bytes", "rotated_bytes", "permutes",
-              "async_starts", "hidden_flops")
+              "async_starts", "hidden_flops", "all_gather_bytes",
+              "reduce_scatter_bytes", "all_reduce_bytes")
     __slots__ = FIELDS
 
     def __init__(self):
@@ -87,6 +100,18 @@ class Traffic:
         if workers > 1:
             b = sum(nbytes(t) for t in part)
             self.psum_bytes += 2.0 * b * (workers - 1) / workers
+
+    def add_all_gather(self, result_bytes: float, group: int) -> None:
+        self.all_gather_bytes += result_bytes * (group - 1) / group
+
+    def add_reduce_scatter(self, shard_bytes: float, group: int) -> None:
+        self.reduce_scatter_bytes += shard_bytes * (group - 1)
+
+    def add_all_reduce(self, nbytes: float, group: int) -> None:
+        self.all_reduce_bytes += 2.0 * nbytes * (group - 1) / group
+
+    def as_dict(self) -> dict:
+        return {f: getattr(self, f) for f in self.FIELDS}
 
     def add_rotation(self, shards: Sequence[torch.Tensor], shift: int,
                      side: bool = False) -> None:
@@ -276,3 +301,191 @@ class SideStreams:
             out.append(dst)
             events.append(done)
         return Pending(out, events)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives of sharded LM training
+# ---------------------------------------------------------------------------
+
+class GatherPlan:
+    """Where each worker's gathered region of a leaf comes from.
+
+    ``layout`` is the leaf's ``sharding.Layout``; ``keep`` the dimensions
+    left as the worker's own slice (tensor parallelism).  Every other
+    dimension a mesh axis binds is gathered whole.  ``region[m]`` is worker
+    m's region of the full leaf; ``sources[m]`` the distinct blocks it is
+    assembled from, ``(w, slices in the region)``, each taken from worker m
+    itself where it holds the block, else from the first worker that does;
+    ``sinks[w]`` every worker whose region holds worker w's block, in
+    worker order.  ``group`` is the size of the gather; ``replicas`` the
+    workers holding each block.
+    """
+
+    def __init__(self, layout, keep: Sequence[int] = ()):
+        from .sharding import entry_axes
+
+        self.layout = layout
+        mesh = layout.mesh
+        M = mesh.size
+        idx = [layout.index(m) for m in range(M)]
+        spec = tuple(layout.spec) + (None,) * (len(layout.shape)
+                                               - len(layout.spec))
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        keep = set(keep)
+        self.group = math.prod(sizes[a] for d, e in enumerate(spec)
+                               if d not in keep for a in entry_axes(e))
+        self.region = [tuple(idx[m][d] if d in keep else slice(0, n)
+                             for d, n in enumerate(layout.shape))
+                       for m in range(M)]
+        blocks = {idx[w] for w in range(M)}
+        self.replicas = M // len(blocks)
+
+        def rel(w, m):
+            return tuple(slice(b.start - r.start, b.stop - r.start)
+                         for b, r in zip(idx[w], self.region[m]))
+
+        def inside(w, m):
+            return all(r.start <= b.start and b.stop <= r.stop
+                       for b, r in zip(idx[w], self.region[m]))
+
+        self.sources, self.sinks = [], []
+        for m in range(M):
+            seen, src = set(), []
+            for w in [m] + [w for w in range(M) if w != m]:
+                if inside(w, m) and idx[w] not in seen:
+                    seen.add(idx[w])
+                    src.append((w, rel(w, m)))
+            self.sources.append(src)
+        for w in range(M):
+            self.sinks.append([(m, rel(w, m)) for m in range(M)
+                               if inside(w, m)])
+        self.own = [self.region[m] == idx[m] for m in range(M)]
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        return [parts[m] if self.own[m] else self.gather_one(parts, m)
+                for m in range(len(parts))]
+
+    def gather_one(self, parts: Sequence[torch.Tensor], m: int
+                   ) -> torch.Tensor:
+        """Worker m's region, a new buffer on its device."""
+        part = parts[m]
+        shape = tuple(s.stop - s.start for s in self.region[m])
+        buf = torch.empty(shape, dtype=part.dtype, device=part.device)
+        for w, rel in self.sources[m]:
+            buf[rel] = parts[w]
+        return buf
+
+    def reduce(self, grads: Sequence[torch.Tensor],
+               devices: Sequence[torch.device]) -> list[torch.Tensor]:
+        """The adjoint: worker w's part receives the sum over every worker
+        whose region holds its block, in worker order."""
+        out = []
+        for w, dev in enumerate(devices):
+            acc = None
+            for m, rel in self.sinks[w]:
+                g = grads[m][rel].to(dev)
+                acc = g if acc is None else acc + g
+            out.append(acc)
+        return out
+
+
+class GatherLeaf(torch.autograd.Function):
+    """parts (one a worker) → each worker's gathered region
+    (``GatherPlan``); backward: ``GatherPlan.reduce``."""
+
+    @staticmethod
+    def forward(ctx, plan: GatherPlan, traffic, *parts):
+        ctx.plan, ctx.traffic = plan, traffic
+        ctx.devices = [p.device for p in parts]
+        out = plan.gather(parts)
+        if traffic is not None and plan.group > 1:
+            traffic.add_all_gather(nbytes(out[0]), plan.group)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan, traffic = ctx.plan, ctx.traffic
+        out = plan.reduce(grads, ctx.devices)
+        if traffic is not None:
+            part = nbytes(out[0])
+            if plan.group > 1:
+                traffic.add_reduce_scatter(part, plan.group)
+            if plan.replicas > 1:
+                traffic.add_all_reduce(part, plan.replicas)
+        return (None, None, *out)
+
+
+def gather_leaf(plan: GatherPlan, parts: Sequence[torch.Tensor],
+                traffic: Traffic | None = None) -> list[torch.Tensor]:
+    """``GatherLeaf`` on a mesh of more than one worker; one worker's part
+    as it is."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(GatherLeaf.apply(plan, traffic, *parts))
+
+
+def _group_sum(ts: Sequence[torch.Tensor], group: Sequence[int],
+               devices: Sequence[torch.device]) -> dict[int, torch.Tensor]:
+    dev0 = devices[group[0]]
+    acc = ts[group[0]]
+    for m in group[1:]:
+        acc = acc + ts[m].to(dev0)
+    return {m: acc if i == 0 else copy_to(acc, devices[m])
+            for i, m in enumerate(group)}
+
+
+class Psum(torch.autograd.Function):
+    """Each group's parts summed in worker order, the sum to every member
+    (``groups``: lists of worker indices, every worker in one); backward:
+    the same sum of the members' cotangents."""
+
+    @staticmethod
+    def forward(ctx, groups, traffic, *parts):
+        ctx.groups, ctx.traffic = groups, traffic
+        ctx.devices = [p.device for p in parts]
+        out: dict[int, torch.Tensor] = {}
+        for g in groups:
+            out.update(_group_sum(parts, g, ctx.devices))
+        _count_all_reduce(traffic, parts, groups)
+        return tuple(out[m] for m in range(len(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out: dict[int, torch.Tensor] = {}
+        for g in ctx.groups:
+            out.update(_group_sum(grads, g, ctx.devices))
+        _count_all_reduce(ctx.traffic, grads, ctx.groups)
+        return (None, None, *(out[m] for m in range(len(grads))))
+
+
+def psum_groups(parts: Sequence[torch.Tensor], groups,
+                traffic: Traffic | None = None) -> list[torch.Tensor]:
+    """``Psum`` where a group has more than one worker; the parts as they
+    are otherwise."""
+    if all(len(g) == 1 for g in groups):
+        return list(parts)
+    return list(Psum.apply(groups, traffic, *parts))
+
+
+@torch.no_grad()
+def pmax_groups(parts: Sequence[torch.Tensor], groups,
+                traffic: Traffic | None = None) -> list[torch.Tensor]:
+    """Each group's elementwise maximum, to every member (no gradient)."""
+    devices = [p.device for p in parts]
+    out: dict[int, torch.Tensor] = {}
+    for g in groups:
+        acc = parts[g[0]]
+        for m in g[1:]:
+            acc = torch.maximum(acc, parts[m].to(devices[g[0]]))
+        out.update({m: acc if i == 0 else copy_to(acc, devices[m])
+                    for i, m in enumerate(g)})
+    _count_all_reduce(traffic, parts, groups)
+    return [out[m] for m in range(len(parts))]
+
+
+def _count_all_reduce(traffic: Traffic | None, parts, groups) -> None:
+    """One all-reduce of worker 0's part over its group: a figure a
+    worker (the groups are alike)."""
+    g = next(g for g in groups if 0 in g)
+    if traffic is not None and len(g) > 1:
+        traffic.add_all_reduce(nbytes(parts[0]), len(g))

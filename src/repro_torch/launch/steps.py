@@ -6,6 +6,9 @@ functions to ``jax.jit``; here they run eagerly (no ``torch.compile``).
 The cache index is a Python int.  The training step is ``loss_fn`` →
 ``torch.autograd.grad`` → ``adamw.update``, which writes the new
 parameters and moments in place (``optim.adamw``).
+``make_sharded_train_step`` is the same step with the parameters and
+moments sharded over an in-process mesh (``distributed.sharded_lm``): the
+reference's jitted step with ``in_shardings`` (``launch.train``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.collectives import Traffic
+from repro_torch.distributed.sharding import ShardedTensor
+from repro_torch.distributed.sharded_lm import ShardedLM
 from repro_torch.models import Model, decode_step, init_model, loss_fn
 from repro_torch.optim import adamw
 
@@ -45,6 +51,34 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig,
         metrics["loss"] = loss.detach()
         return TrainState(state.params, opt), metrics
 
+    return train_step
+
+
+def make_sharded_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, layouts,
+                            backend: str | None = None, *,
+                            policy: str = "fsdp_tp"):
+    """(state, batch) → (state, metrics), the state's parameters and
+    moments ``ShardedTensor``s on ``layouts`` ({name: Layout}, as
+    ``launch.train.build_state`` makes them) and the batch the global one
+    (split by ``sharding.batch_spec`` under ``policy``).  ``step.traffic``
+    accumulates the collectives' bytes a worker (``collectives.Traffic``)
+    over the steps run."""
+    traffic = Traffic()
+    lm = ShardedLM(cfg, mesh, layouts, policy, backend, traffic)
+
+    def train_step(state: TrainState, batch: dict):
+        names = list(state.params)
+        loss = lm.loss(state.params, batch)
+        flat = [p for n in names for p in state.params[n].parts]
+        got = iter(torch.autograd.grad(loss, flat))
+        grads = {n: ShardedTensor([next(got) for _ in state.params[n].parts],
+                                  state.params[n].layout) for n in names}
+        _, opt, metrics = adamw.update(grads, state.opt, state.params,
+                                       opt_cfg)
+        metrics["loss"] = loss.detach()
+        return TrainState(state.params, opt), metrics
+
+    train_step.traffic = traffic
     return train_step
 
 

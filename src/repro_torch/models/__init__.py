@@ -11,9 +11,10 @@ from .model import (
     init_cache,
     init_model,
     loss_fn,
+    param_axes,
 )
 
 __all__ = [
     "Model", "cross_entropy_loss", "decode_step", "forward", "init_cache",
-    "init_model", "loss_fn",
+    "init_model", "loss_fn", "param_axes",
 ]

@@ -89,17 +89,23 @@ class GQA(nn.Module):
         super().__init__()
         d, H, Kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim)
-        self.wq = dense_param((d, H, hd), generator, device)
-        self.wk = dense_param((d, Kv, hd), generator, device)
-        self.wv = dense_param((d, Kv, hd), generator, device)
-        self.wo = dense_param((H, hd, d), generator, device)
+        self.wq = dense_param((d, H, hd), generator, device,
+                              ("embed", "heads", "head_dim"))
+        self.wk = dense_param((d, Kv, hd), generator, device,
+                              ("embed", "kv_heads", "head_dim"))
+        self.wv = dense_param((d, Kv, hd), generator, device,
+                              ("embed", "kv_heads", "head_dim"))
+        self.wo = dense_param((H, hd, d), generator, device,
+                              ("heads", "head_dim", "embed"))
         if cfg.qkv_bias:
-            self.bq = const_param((H, hd), 0.0, device)
-            self.bk = const_param((Kv, hd), 0.0, device)
-            self.bv = const_param((Kv, hd), 0.0, device)
+            self.bq = const_param((H, hd), 0.0, device, ("heads", "head_dim"))
+            self.bk = const_param((Kv, hd), 0.0, device,
+                                  ("kv_heads", "head_dim"))
+            self.bv = const_param((Kv, hd), 0.0, device,
+                                  ("kv_heads", "head_dim"))
         if cfg.qk_norm:
-            self.q_norm = RMSNorm(hd, device)
-            self.k_norm = RMSNorm(hd, device)
+            self.q_norm = RMSNorm(hd, device, "head_dim")
+            self.k_norm = RMSNorm(hd, device, "head_dim")
 
 
 def init_gqa(cfg, generator: torch.Generator, device=None) -> GQA:

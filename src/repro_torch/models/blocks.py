@@ -10,6 +10,8 @@ layer and loops (``models.convert`` unstacks the reference's groups).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 from torch import nn
 
@@ -56,7 +58,8 @@ class TuckerMLP(nn.Module):
         d, f, r = cfg.d_model, cfg.d_ff, cfg.tucker_rank
         self.up = init_tucker_linear(generator, d, f, r, device)
         self.gate = init_tucker_linear(generator, d, f, r, device)
-        self.down = init_tucker_linear(generator, f, d, r, device)
+        self.down = init_tucker_linear(generator, f, d, r, device,
+                                       in_axis="mlp", out_axis="embed")
 
 
 class Layer(nn.Module):
@@ -95,30 +98,62 @@ def apply_layer(
     cache_index: int | None = None,
     backend: str | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
+    (x,), (new_cache,) = apply_layer_workers(
+        [params], cfg, spec, [x], positions=[positions], caches=[cache],
+        cache_index=cache_index, backend=backend)
+    return x, new_cache
+
+
+def apply_layer_workers(
+    params: list,
+    cfg,
+    spec: str,
+    xs: list[torch.Tensor],
+    *,
+    positions: list[torch.Tensor],
+    caches: list[dict | None] | None = None,
+    cache_index: int | None = None,
+    backend: str | None = None,
+    reduce: Callable[[str, list], list] | None = None,
+) -> tuple[list[torch.Tensor], list[dict | None]]:
+    """The layer body, over the workers of a mesh (one entry of ``params``,
+    ``xs`` and ``positions`` a worker; one worker is ``apply_layer``).
+    Each sublayer runs on every worker, then ``reduce(sublayer, outputs)``
+    (``"attn"``, ``"ffn"``; e.g. the sum of tensor-parallel partial
+    outputs) before its residual add."""
     _, norm = make_norm(cfg.norm_type)
     causal = not cfg.encoder_only
-    new_cache: dict = {}
+    caches = caches if caches is not None else [None] * len(xs)
+    new_caches: list[dict | None] = []
+    ys = []
+    for p, x, pos, cache in zip(params, xs, positions, caches):
+        h = norm(p.ln1, x, cfg.norm_eps)
+        sub = cache.get("attn") if cache else None
+        y, nc = attn.gqa_attention(p.mixer, cfg, h, pos, causal=causal,
+                                   cache=sub, cache_index=cache_index,
+                                   backend=backend)
+        ys.append(y)
+        new_caches.append({"attn": nc} if nc is not None else None)
+    if reduce is not None:
+        ys = reduce("attn", ys)
+    xs = [x + y.to(x.dtype) for x, y in zip(xs, ys)]
 
-    h = norm(params.ln1, x, cfg.norm_eps)
-    sub = cache.get("attn") if cache else None
-    y, nc = attn.gqa_attention(params.mixer, cfg, h, positions,
-                               causal=causal, cache=sub,
-                               cache_index=cache_index, backend=backend)
-    if nc is not None:
-        new_cache["attn"] = nc
-    x = x + y.to(x.dtype)
+    ys = [ffn_out(p.ffn, cfg, spec, norm(p.ln2, x, cfg.norm_eps), backend)
+          for p, x in zip(params, xs)]
+    if reduce is not None:
+        ys = reduce("ffn", ys)
+    return [x + y.to(x.dtype) for x, y in zip(xs, ys)], new_caches
 
-    h = norm(params.ln2, x, cfg.norm_eps)
+
+def ffn_out(ffn, cfg, spec: str, h: torch.Tensor,
+            backend: str | None = None) -> torch.Tensor:
+    """The FFN sublayer's output (before the residual add)."""
     if spec.endswith("+tucker_mlp"):
-        ffn = params.ffn
         up = tucker_linear(ffn.up, h, backend)
         gate = tucker_linear(ffn.gate, h, backend)
-        y = tucker_linear(ffn.down, torch.nn.functional.silu(gate) * up,
-                          backend)
-    else:
-        y = mlp(params.ffn, h, cfg.activation)
-    x = x + y.to(x.dtype)
-    return x, (new_cache if new_cache else None)
+        return tucker_linear(ffn.down, torch.nn.functional.silu(gate) * up,
+                             backend)
+    return mlp(ffn, h, cfg.activation)
 
 
 def init_layer_cache(cfg, spec: str, batch: int, max_len: int,

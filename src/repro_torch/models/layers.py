@@ -4,9 +4,10 @@ Counterpart of ``repro.models.layers``.  Parameters live in ``nn.Module``s
 whose attribute names are the reference's dict keys (``ln1.scale``,
 ``mixer.wq``, ``ffn.up.u1``, …), so ``models.convert`` maps the
 reference's parameter tree onto them by name.  The ops are plain
-functions on those modules and tensors.  JAX-only parts are dropped: the
-``Boxed`` leaves and their logical sharding axes (the port runs on one
-device).
+functions on those modules and tensors.  Each parameter carries the
+reference's logical axes as ``param.axes`` (its ``Boxed.axes``: one
+logical name or ``None`` a dimension); ``models.param_axes`` collects them
+by name for ``distributed.sharding``.
 
 dtype promotion: JAX promotes a bf16 × f32 product to f32, PyTorch refuses
 a mixed matmul.  ``promote`` casts both operands to
@@ -55,21 +56,32 @@ def truncated_normal_(t: torch.Tensor, scale: float,
     return t.clamp_(-_TRUNC * scale, _TRUNC * scale)
 
 
-def dense_param(shape, generator: torch.Generator, device,
+def _with_axes(p: nn.Parameter, axes) -> nn.Parameter:
+    axes = tuple(axes)
+    if len(axes) != p.dim():
+        raise ValueError(f"axes {axes} for a {p.dim()}-D parameter")
+    p.axes = axes
+    return p
+
+
+def dense_param(shape, generator: torch.Generator, device, axes,
                 scale: float | None = None) -> nn.Parameter:
-    """Truncated-normal fan-in (LeCun) init; fan-in is ``shape[0]`` for a
-    matrix or higher, as in the reference's ``dense_init``."""
+    """Truncated-normal fan-in (LeCun) init with logical ``axes``; fan-in
+    is ``shape[0]`` for a matrix or higher, as in the reference's
+    ``dense_init``.  On the ``meta`` device nothing is drawn."""
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    with torch.no_grad():
-        truncated_normal_(t, s, generator)
-    return nn.Parameter(t, requires_grad=False)
+    if t.device.type != "meta":
+        with torch.no_grad():
+            truncated_normal_(t, s, generator)
+    return _with_axes(nn.Parameter(t, requires_grad=False), axes)
 
 
-def const_param(shape, value: float, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(tuple(shape), value, dtype=torch.float32,
-                                   device=device), requires_grad=False)
+def const_param(shape, value: float, device, axes) -> nn.Parameter:
+    return _with_axes(nn.Parameter(
+        torch.full(tuple(shape), value, dtype=torch.float32, device=device),
+        requires_grad=False), axes)
 
 
 # ---------------------------------------------------------------------------
@@ -77,9 +89,9 @@ def const_param(shape, value: float, device) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, device=None, axis: str = "embed"):
         super().__init__()
-        self.scale = const_param((dim,), 1.0, device)
+        self.scale = const_param((dim,), 1.0, device, (axis,))
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -91,10 +103,10 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, device=None, axis: str = "embed"):
         super().__init__()
-        self.scale = const_param((dim,), 1.0, device)
-        self.bias = const_param((dim,), 0.0, device)
+        self.scale = const_param((dim,), 1.0, device, (axis,))
+        self.bias = const_param((dim,), 0.0, device, (axis,))
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -127,10 +139,13 @@ class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, gated: bool,
                  generator: torch.Generator, device=None):
         super().__init__()
-        self.wi = dense_param((d_model, d_ff), generator, device)
-        self.wo = dense_param((d_ff, d_model), generator, device)
+        self.wi = dense_param((d_model, d_ff), generator, device,
+                              ("embed", "mlp"))
+        self.wo = dense_param((d_ff, d_model), generator, device,
+                              ("mlp", "embed"))
         if gated:
-            self.wg = dense_param((d_model, d_ff), generator, device)
+            self.wg = dense_param((d_model, d_ff), generator, device,
+                                  ("embed", "mlp"))
 
 
 def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -147,20 +162,27 @@ def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class TuckerLinear(nn.Module):
-    """W ≈ U1 G U2ᵀ: u1 (d_in, rank), g (rank, rank), u2 (d_out, rank)."""
+    """W ≈ U1 G U2ᵀ: u1 (d_in, rank), g (rank, rank), u2 (d_out, rank);
+    the rows of u1 and u2 take the input's and the output's logical
+    axes."""
 
     def __init__(self, d_in: int, d_out: int, rank: int,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None,
+                 in_axis: str = "embed", out_axis: str = "mlp"):
         super().__init__()
-        self.u1 = dense_param((d_in, rank), generator, device)
-        self.g = dense_param((rank, rank), generator, device,
+        self.u1 = dense_param((d_in, rank), generator, device,
+                              (in_axis, None))
+        self.g = dense_param((rank, rank), generator, device, (None, None),
                              scale=1.0 / math.sqrt(rank))
-        self.u2 = dense_param((d_out, rank), generator, device)
+        self.u2 = dense_param((d_out, rank), generator, device,
+                              (out_axis, None))
 
 
 def init_tucker_linear(generator: torch.Generator, d_in: int, d_out: int,
-                       rank: int, device=None) -> TuckerLinear:
-    return TuckerLinear(d_in, d_out, rank, generator, device)
+                       rank: int, device=None, in_axis: str = "embed",
+                       out_axis: str = "mlp") -> TuckerLinear:
+    return TuckerLinear(d_in, d_out, rank, generator, device, in_axis,
+                        out_axis)
 
 
 class TuckerMatmul(torch.autograd.Function):
@@ -235,7 +257,7 @@ class Embedding(nn.Module):
                  device=None):
         super().__init__()
         self.embedding = dense_param((vocab, d_model), generator, device,
-                                     scale=1.0)
+                                     ("vocab", "embed"), scale=1.0)
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:

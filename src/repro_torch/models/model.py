@@ -6,11 +6,15 @@ device, from a ``torch.Generator`` on that device, so a full-size model's
 weights are drawn where they live; ``forward``/``decode_step`` take it as
 their ``params``.  Its parameters take no gradient unless a caller asks
 (``launch.steps.init_train_state`` does; serving builds no autograd
-graph).  Dropped, being JAX-only: the boxed axes tree, the
-``_grad_safe_barrier`` (an identity), ``remat`` (training keeps every
-activation: at the trained depth they fit the card, and the flash
-attention saves only O(S) of its own), ``dist_ctx.constrain`` (one
-device) and the scan over stacked layer groups (an eager loop here).  ``backend`` selects the kernel backend of
+graph).  ``param_axes`` is the reference's ``axes_tree`` by parameter
+name, without the stacked groups' leading ``"layers"`` axis.  As in the
+reference, ``distributed.context.constrain`` is applied to the residual
+stream after every layer and ``constrain_logits`` to the forward's
+logits (no-ops unless a launcher installs them).  Dropped, being
+JAX-only: the ``_grad_safe_barrier`` (an identity), ``remat`` (training
+keeps every activation: at the trained depth they fit the card, and the
+flash attention saves only O(S) of its own) and the scan over stacked
+layer groups (an eager loop here).  ``backend`` selects the kernel backend of
 ``tucker_linear`` and of the flash region of ``chunked_attention``
 (``None``: ``$REPRO_TORCH_KERNEL_BACKEND``, else ``"cuda"``).
 """
@@ -21,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import require_ported
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dist_ctx
 
 from .blocks import apply_layer, init_layer, init_layer_cache, layer_specs
 from .layers import Embedding, dense_param, embed, make_norm
@@ -42,17 +47,24 @@ class Model(nn.Module):
         self.ln_f = norm_cls(cfg.d_model, device)
         if not cfg.tie_embeddings:
             self.lm_head = dense_param((cfg.d_model, cfg.vocab_size),
-                                       generator, device)
+                                       generator, device, ("embed", "vocab"))
 
 
 def init_model(cfg, generator: torch.Generator | None = None,
                device=None) -> Model:
     """Random weights drawn on ``device`` (default: the current card) from
-    ``generator`` (default: one on that device seeded 0)."""
+    ``generator`` (default: one on that device seeded 0).  On the
+    ``meta`` device only the shapes and axes are made."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     return Model(cfg, generator, device)
+
+
+def param_axes(model: Model) -> dict[str, tuple]:
+    """{parameter name: its logical axes} (the reference's ``axes_tree``
+    of an unstacked layer)."""
+    return {n: p.axes for n, p in model.named_parameters()}
 
 
 def embed_inputs(params: Model, cfg, batch: dict) -> torch.Tensor:
@@ -68,6 +80,7 @@ def _run_layers(params: Model, cfg, x, positions, *, caches=None,
         x, nc = apply_layer(layer, cfg, spec, x, positions=positions,
                             cache=caches[i] if caches is not None else None,
                             cache_index=cache_index, backend=backend)
+        x = dist_ctx.constrain(x)
         if new_caches is not None:
             new_caches.append(nc)
     return x, new_caches
@@ -87,7 +100,7 @@ def forward(params: Model, cfg, batch: dict, *,
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_layers(params, cfg, x, positions, backend=backend)
-    return _head(params, cfg, x)
+    return dist_ctx.constrain_logits(_head(params, cfg, x))
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -113,13 +126,20 @@ def decode_step(params: Model, cfg, batch: dict, caches: list,
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = -100) -> torch.Tensor:
     """Mean CE over non-ignored positions; stable log-softmax in f32."""
+    nll, valid = nll_terms(logits, labels, ignore_index)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def nll_terms(logits: torch.Tensor, labels: torch.Tensor,
+              ignore_index: int = -100) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each position's negative log-likelihood, 0 where ignored; the
+    valid-position mask)."""
     logits = logits.float()
     valid = labels != ignore_index
     labels_safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
-    nll = (logz - gold) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    return (logz - gold) * valid, valid
 
 
 def loss_fn(params: Model, cfg, batch: dict, *,

@@ -12,8 +12,10 @@ parameters and moments would not fit the card, so ``update`` writes the
 new parameters and moments into the tensors it is given and returns them.
 Parameters and their gradients are name → tensor mappings (an
 ``nn.Module`` stands for its ``named_parameters()``); the moments use the
-same names.  The ZeRO sharding of the reference's moments waits for
-sharded training (ROADMAP.md).
+same names.  A leaf may be a ``distributed.sharding.ShardedTensor`` (sharded
+training): its moments take its layout (ZeRO), and the update, being
+elementwise, runs on each worker's part; ``global_norm`` counts each
+element once.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ from typing import Mapping, NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import ShardedTensor
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor                # int32, 0-dim
-    m: dict[str, torch.Tensor]        # f32, per parameter name
-    v: dict[str, torch.Tensor]
+    m: dict[str, torch.Tensor]        # f32, per parameter name (sharded
+    v: dict[str, torch.Tensor]        # as the parameter is)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,24 +66,43 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.clamp(warm, max=1.0) * cos
 
 
+def _parts(t) -> list[torch.Tensor]:
+    return t.parts if isinstance(t, ShardedTensor) else [t]
+
+
+def _zeros(t):
+    """f32 zeros shaped and laid out as ``t``."""
+    z = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+         for p in _parts(t)]
+    return ShardedTensor(z, t.layout) if isinstance(t, ShardedTensor) \
+        else z[0]
+
+
 def init(params) -> AdamWState:
-    """Zero moments (f32) and step 0, on the parameters' device."""
+    """Zero moments (f32) and step 0, on the parameters' device (worker
+    0's for sharded parameters)."""
     p = named(params)
-    dev = next(iter(p.values())).device if p else None
-    zeros = {n: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-             for n, t in p.items()}
+    dev = _parts(next(iter(p.values())))[0].device if p else None
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        m=zeros,
-        v={n: torch.zeros_like(t) for n, t in zeros.items()})
+        m={n: _zeros(t) for n, t in p.items()},
+        v={n: _zeros(t) for n, t in p.items()})
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of their squares, in f32."""
+    """sqrt of the sum over leaves of their squares, in f32.  A sharded
+    leaf adds its owners' parts (``Layout.owners``: a part replicated over
+    an axis counted from the axis's index-0 worker only), in worker order,
+    on the first leaf's device."""
     total = None
     for x in tree.values():
-        s = torch.sum(torch.square(x.float()))
-        total = s if total is None else total + s
+        if isinstance(x, ShardedTensor):
+            terms = [x.parts[m] for m in x.layout.owners()]
+        else:
+            terms = [x]
+        for t in terms:
+            s = torch.sum(torch.square(t.float()))
+            total = s if total is None else total + s.to(total.device)
     return torch.sqrt(total)
 
 
@@ -100,26 +123,36 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamWState, params,
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                      device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                      device=stepf.device), stepf)
+    scalars = {stepf.device: (scale, lr, bc1, bc2)}
     # the reference's expressions, each product and sum in its order, with
     # the temporaries reused in place (a 3.1 GB leaf at full width)
-    for name, w in p.items():
-        g = grads[name].float() * scale
-        m, v = state.m[name], state.v[name]
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(g.square_().mul_(1 - b2))
-        del g
-        delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-        if w.dim() >= 1:  # decoupled weight decay
-            delta.add_(w.float() * cfg.weight_decay)
-        delta.mul_(lr)
-        if w.dtype == torch.float32:
-            w.sub_(delta)
-        else:
-            w.copy_((w.float() - delta).to(w.dtype))
+    for name, leaf in p.items():
+        for w, g, m, v in zip(_parts(leaf), _parts(grads[name]),
+                              _parts(state.m[name]), _parts(state.v[name])):
+            if w.device not in scalars:
+                scalars[w.device] = tuple(t.to(w.device)
+                                          for t in scalars[stepf.device])
+            sc, lr_w, bc1_w, bc2_w = scalars[w.device]
+            _update_leaf(w, g, m, v, sc, lr_w, bc1_w, bc2_w, cfg)
     return params, AdamWState(step, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}
+
+
+def _update_leaf(w, g, m, v, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    m.mul_(b1).add_(g * (1 - b1))
+    v.mul_(b2).add_(g.square_().mul_(1 - b2))
+    del g
+    delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+    if w.dim() >= 1:  # decoupled weight decay
+        delta.add_(w.float() * cfg.weight_decay)
+    delta.mul_(lr)
+    if w.dtype == torch.float32:
+        w.sub_(delta)
+    else:
+        w.copy_((w.float() - delta).to(w.dtype))

@@ -15,7 +15,8 @@ Counterpart of ``repro.runtime.fault``:
     budget of ``max_restarts``; it checkpoints every ``checkpoint_every``
     steps and counts straggler steps against an EWMA of the step time.
     ``restore`` copies into the state it is given
-    (``checkpoint.manager``).  ``FailureInjector`` is the step-targeted
+    (``checkpoint.manager``), onto the layouts ``state_shardings``
+    names for a sharded state.  ``FailureInjector`` is the step-targeted
     injector it is tested with.
 """
 from __future__ import annotations
@@ -186,6 +187,7 @@ class Supervisor:
         step_fn: Callable[[Any, int], Any],
         num_steps: int,
         start_step: int = 0,
+        state_shardings: Any = None,
     ) -> Any:
         """Run ``step_fn(state, i) -> state`` with restart-on-failure.
 
@@ -231,7 +233,8 @@ class Supervisor:
                     log.error("no checkpoint to restore; restarting fresh")
                     i = start_step
                     continue
-                state, i = self.ckpt.restore(state)
+                state, i = self.ckpt.restore(
+                    state, shardings=state_shardings)
         self.ckpt.wait()
         return state
 

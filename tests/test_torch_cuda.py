@@ -1526,3 +1526,57 @@ def test_strata_negative_local_ids_on_card(dev):
     torch.cuda.synchronize()
     p = st.eval_params(plan, ds)
     assert all(torch.isfinite(f).all() for f in p.factors + p.core_factors)
+
+
+def test_sharded_tp_step_launches_sliced_kernels_on_card(dev):
+    """The (1, 4) ``tp`` step of reduced qwen3_14b (tucker_rank 8, seq
+    1088: the flash region) on four workers sharing the card: every worker
+    launches its ``tucker_matmul``s at d_ff/4 rows and its flash kernels
+    on its one query head; the loss, m and v after one step within phase
+    13's bounds of the ``"torch"`` backend's, the parameters under its
+    sign rule (where |m| is past a quarter of its leaf's largest, within
+    2⁻⁵ of the lr)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.configs.qwen3_14b import REDUCED
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(REDUCED, tucker_rank=8)
+    mesh = make_host_mesh(4, num_workers=4, device=dev)
+    assert mesh.shape == (1, 4)
+    batch = train.device_batch(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=1088, global_batch=2)
+    ).global_batch(0), dev)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    out = {}
+    for bk in ("cuda", "torch"):
+        state, layouts = train.build_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, mesh, "tp")
+        assert tuple(layouts["layers.0.ffn.up.u2"].part_shape()) == (32, 8)
+        step = steps.make_sharded_train_step(cfg, opt, mesh, layouts, bk,
+                                             policy="tp")
+        reset_launch_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        L, W = cfg.num_layers, mesh.size
+        want = (6 * L * W, L * W, L * W) if bk == "cuda" else (0, 0, 0)
+        assert (counts["tucker_matmul"], counts["flash_attention"],
+                counts["flash_attention_bwd"]) == want
+        out[bk] = (float(m["loss"]), float(m["lr"]),
+                   {k: (v.full() if hasattr(v, "full") else v).detach()
+                    for k, v in flatten(state).items()})
+    (lc, lr, c), (lt, _, t) = out["cuda"], out["torch"]
+    assert abs(lc - lt) <= 2.0 ** -7 * abs(lt)
+    for name in t:
+        if name.startswith("opt."):
+            _close(c[name].float(), t[name].float(), 2.0 ** -5)
+    for name in (n for n in t if n.startswith("params.")):
+        mom = t["opt.m." + name[len("params."):]].abs()
+        settled = mom > 0.25 * mom.max()
+        d = (c[name] - t[name])[settled]
+        assert d.abs().max().item() <= 2.0 ** -5 * lr, name
