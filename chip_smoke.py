@@ -382,10 +382,42 @@ Phases (each failure ends the run with a non-zero exit code):
    into (4, 1) zero3 and into one device, every leaf bitwise (2 layers,
    vocab cut to 32,768: phase 12's checkpoint leaves no room under the
    machine's 45 GiB of writes for a full-vocab one).
+24. MoE and MLA serving at full width.  (a) The flash kernel at MLA's
+   (D, Dv) = (192, 128) against its plain version at the prefill's shapes
+   (B = 4, H = Kv = 16 into the 2,080 cache: Sq = 2,048 with kv_len
+   2,048; Sq = 2,047; Sq = 1,024 behind ``q_offset`` 1,024) and at
+   Qwen3-MoE's prefill (B = 4, H = 32 over Kv = 4, D = 128, Sq = 2,048
+   into the 2,056 cache), with and without the lse, within 2e-5 (phase
+   7's bound), two calls bitwise
+   equal; its time by phase 5's method beside the bound (3xTF32 at 495
+   TFLOP/s), the plain version and ``scaled_dot_product_attention`` in
+   f32.  (b) DeepSeek-V2-Lite (``MOE_SERVE``: the published 27 layers,
+   15.7 B f32 parameters drawn on the card) through
+   ``launch/serve.run``: batch 4, prompt 2,048, 32 greedy tokens, a
+   warm-up request then the measured one; init, prefill and decode times,
+   peak device bytes (under 80 GB; 76 GB is the aim), finite logits,
+   exactly L ``flash_attention`` launches a prefill, none in decode and no
+   other kernel; ``torch.profiler`` windows of a prefill and of three
+   decode steps, as phase 8's.  The warm-up prints the share of picks the
+   capacity dropped at prefill and at decode, and fails if the first MoE
+   layer's routed output (less the shared experts') is all zero, which
+   the reference's dispatch fault would give (ROADMAP.md, Queue 3).
+   (c) Parity at 2 layers (the dense one and one MoE layer), batch 2,
+   prompt 2,048, 4 fed decode steps, the residual stream in f32:
+   ``"cuda"`` against ``"torch"``, the logits within 1e-4 on the tokens
+   whose routes agree, the routes recomputed from every MoE call's input;
+   a pick that differs must lie within ``ROUTE_MARGIN`` of another of the
+   token's best router logits; and the absorbed decode
+   (``mla_absorb=True``) against the decompressing one within the
+   reference's 3e-3.  (d) Qwen3-MoE-30B-A3B at full width and 8 of its 48
+   layers (``MOE_SERVE``), batch 4, prompt 2,048, 8 tokens: finite logits,
+   L flash launches a prefill (D = 128, G = 8), times, peak and drops.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
-took it, beside each kernel), the ``nvidia-smi`` line, and last
+took it, beside each kernel; ``flash_attention_mla`` is the flash
+kernel's (192, 128) route, its launches DeepSeek-V2-Lite's serve
+request's), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
 record there as JSON.  ``--refresh-host`` runs only the patch's host
 split, the refresh contract at J = R = 4 and ``bench_refresh`` FULL on
@@ -396,6 +428,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -457,9 +490,26 @@ TOL = {  # max |kernel − plain| / max |plain|, f32, sums in another order
     # largest entry: ALS's bound against the reference (Gram condition
     # numbers ~5e3), which the four refine passes' row solves dominate
     "sketch": 2e-3,
+    # phase 24: MoE serving parity in f32, cuda against torch, on the
+    # tokens whose routes agree (phase 9's f32 bound of the card tests)
+    "moe.logits": 1e-4,
+    # the absorbed MLA decode against the decompressing one: the
+    # reference's own bound (tests/test_models.py:228-252)
+    "mla.absorb": 3e-3,
 }
 LM_RANK = 512        # the largest rank tucker_matmul.py designs for
 LM_SERVE = dict(batch=4, prompt_len=2048, gen=32)
+# phase 24: DeepSeek-V2-Lite serves at its published 27 layers (62.8 GB of
+# f32 weights); Qwen3-MoE at 8 of its 48 layers and 8 tokens (22 GB of f32
+# weights; the cut keeps the phase short); the parity runs at 2 layers
+# of DeepSeek-V2-Lite (its dense layer and one MoE layer), f32; a pick that
+# differs between two runs must lie this close to the next-best router
+# logit; DeepSeek-V2-Lite's peak is held under this (its 62.8 GB of f32
+# weights included)
+MOE_SERVE = dict(ds_layers=27, qm_layers=8, qm_gen=8)
+MOE_PARITY = dict(layers=2, batch=2, prompt_len=2048, gen=4)
+ROUTE_MARGIN = 1e-5
+MOE_PEAK = 76e9
 LM_PARITY = dict(layers=2, batch=2, prompt_len=2048, gen=4)
 # one checkpoint (at step 16): the full f32 state of 8 layers is 26.2 GiB,
 # and the GPU machine takes at most 45 GiB of disk writes per call
@@ -5725,6 +5775,401 @@ def _same_host_bits(torch, got, saved, dtype: str) -> bool:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 24
+# ---------------------------------------------------------------------------
+
+def _mla_flash(torch, K, cfg, qm_cfg) -> tuple[dict, dict]:
+    """(a): the flash kernel at the prefill shapes phase 24 sends it —
+    MLA's (D, Dv) = (192, 128) and Qwen3-MoE's GQA at D = 128, G = 8 —
+    against its plain version, with and without the lse, two calls
+    bitwise equal; then the (192, 128) route's time beside the bound, the
+    plain version and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    fa = K.flash_attention.flash_attention
+    ref = K.ref
+    gen = torch.Generator(device="cuda").manual_seed(2424)
+    B, H = LM_SERVE["batch"], cfg.num_heads
+    D = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    Dv = cfg.v_head_dim
+    P = LM_SERVE["prompt_len"]
+    Sk = P + LM_SERVE["gen"]
+    dev = torch.device("cuda")
+
+    def inputs(h, kv, d, dv, sk, Sq):
+        return (torch.randn((B, Sq, h, d), generator=gen, device=dev),
+                torch.randn((B, sk, kv, d), generator=gen, device=dev),
+                torch.randn((B, sk, kv, dv), generator=gen, device=dev))
+
+    mla = (H, H, D, Dv, Sk)
+    qm = (qm_cfg.num_heads, qm_cfg.num_kv_heads, qm_cfg.head_dim,
+          qm_cfg.head_dim, P + MOE_SERVE["qm_gen"])
+    worst = {"mla": {}, "gqa": {}}
+    cases = [  # (route, (H, Kv, D, Dv, Sk), Sq, kv_len, q_offset)
+        ("mla", mla, P, P, 0),            # the prefill into the serving cache
+        ("mla", mla, P - 1, P - 1, 0),    # a ragged prompt
+        ("mla", mla, P // 2, P, P // 2),  # a chunk behind 1024 cached keys
+        ("gqa", qm, P, P, 0)]             # Qwen3-MoE's prefill
+    for route, shape, Sq, kv_len, q_offset in cases:
+        h, kv, d, dv, sk = shape
+        q, k, v = inputs(*shape, Sq)
+        for with_lse in (False, True):
+            kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset,
+                      return_lse=with_lse)
+            got, again = fa(q, k, v, **kw), fa(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, True, kv_len=kv_len,
+                                           q_offset=q_offset,
+                                           return_lse=with_lse)
+            what = (f"(D, Dv) = ({d}, {dv}) B={B} H={h} Kv={kv} "
+                    f"G={h // kv} Sq={Sq} Sk={sk} kv_len={kv_len} "
+                    f"q_offset={q_offset}")
+            held = functools.partial(_held, worst[route], "flash_attention")
+            if with_lse:
+                held(got[0], want[0], what + " with lse")
+                held(got[1], want[1], what + ": the lse")
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+            else:
+                held(got, want, what)
+                same = torch.equal(got, again)
+            if not same:
+                raise AssertionError(f"flash_attention {what}: two calls "
+                                     "gave different bits")
+            del got, again, want
+        del q, k, v
+    torch.cuda.synchronize()
+
+    q, k, v = inputs(*mla, P)
+    call = lambda: fa(q, k, v, causal=True, kv_len=P)  # noqa: E731
+    ms = device_ms(torch, call, iters=30)
+    plain = device_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, True, kv_len=P), iters=10)
+    dev_ms = profiled_ms(torch, call, "flash_fwd_kernel")
+    floor = floor_ms(torch, K.build)
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :P].transpose(1, 2) for t in (k, v))
+    try:
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=30)
+    except (RuntimeError, TypeError) as exc:   # Dv != D not taken
+        log(f"scaled_dot_product_attention at (D, Dv) = ({D}, {Dv}): {exc}")
+        lib = None
+    pairs = P * (P + 1) // 2        # causal (i, j ≤ i), all below kv_len
+    nbytes = 4 * B * P * H * (2 * D + 2 * Dv)
+    flops = 2 * pairs * B * H * (D + Dv)   # Q Kᵀ and P V, 3xTF32 in both
+    t_b, by = tc_bound(nbytes, [(3, flops)])
+    f32 = bound(nbytes, flops)
+    log(f"flash_attention [(D, Dv) = ({D}, {Dv}) prefill B={B} H=Kv={H} "
+        f"S={P} causal, cache {Sk}]: {ms:.4f} ms/call (plain {plain:.4f} ms"
+        + (f", scaled_dot_product_attention {lib:.4f} ms" if lib else "")
+        + f"; device {dev_ms} ms by the profiler), bound on the kernel's "
+        f"units {t_b:.4f} ms by {by} ({t_b / ms:.1%} of it), f32 bound "
+        f"{f32[0]:.4f} ms ({f32[0] / ms:.1%}), launch floor {floor:.4f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    (e, r), (ge, gr) = (worst[k]["flash_attention"] for k in ("mla", "gqa"))
+    return ({"max_abs_err": e, "max_rel_err": r, "tol": TOL["flash_attention"],
+             "gqa": {"max_abs_err": ge, "max_rel_err": gr,
+                     "variant": f"B={B} H={qm[0]} Kv={qm[1]} D={qm[2]} "
+                                f"Sq={P} Sk={qm[4]} causal"}},
+            {"name": "flash_attention_mla",
+             "variant": f"prefill B={B} H=Kv={H} S={P} (D, Dv) = ({D}, {Dv}) "
+                        f"causal, cache {Sk}",
+             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": t_b,
+             "bound_by": by, "floor_ms": floor, "device_ms": dev_ms,
+             "f32_bound_ms": f32[0], "f32_bound_by": f32[1],
+             "launches_note": "1 per layer per prefill"})
+
+
+@contextlib.contextmanager
+def _moe_calls(on_call):
+    """Every ``models.moe.moe_ffn`` call of the block runs as it does,
+    then ``on_call(params, cfg, x, y)`` sees its input and output."""
+    from repro_torch.models import moe
+
+    orig = moe.moe_ffn
+
+    def spy(params, cfg, x):
+        y = orig(params, cfg, x)
+        on_call(params, cfg, x, y)
+        return y
+
+    moe.moe_ffn = spy
+    try:
+        yield
+    finally:
+        moe.moe_ffn = orig
+
+
+def _routes(torch, params, cfg, x) -> dict:
+    """A MoE call's routes from its input: router logits, picks, kept."""
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, x.shape[-1])
+    logits, _, ids = moe.route(params, cfg, xt)
+    _, keep, _ = moe.dispatch_indices(ids, cfg.num_experts,
+                                      moe.capacity(cfg, xt.shape[0]))
+    return {"logits": logits, "ids": ids, "keep": keep}
+
+
+def _drop_stats(torch, batch: int):
+    """(on_call, stats): the share of picks the capacity dropped at prefill
+    (T > batch) and at decode, and the largest |routed output| of the first
+    MoE call of each (the output less the shared experts')."""
+    from repro_torch.models.layers import mlp
+
+    stats = {k: {"picks": 0, "dropped": 0, "routed_max": None}
+             for k in ("prefill", "decode")}
+
+    def on_call(params, cfg, x, y):
+        r = _routes(torch, params, cfg, x)
+        kind = "prefill" if r["ids"].shape[0] > batch else "decode"
+        s = stats[kind]
+        s["picks"] += r["keep"].numel()
+        s["dropped"] += int((~r["keep"]).sum())
+        if s["routed_max"] is None:
+            xt = x.reshape(-1, x.shape[-1])
+            shared = (mlp(params.shared, xt, cfg.activation)
+                      if hasattr(params, "shared") else 0)
+            s["routed_max"] = float(
+                (y.reshape(xt.shape[0], -1) - shared).abs().max())
+    return on_call, stats
+
+
+def _serve_moe(torch, K, serve, cfg, name: str, gen: int, profile: bool
+               ) -> dict:
+    """(b), (d): ``launch/serve.run`` of ``cfg`` with random weights drawn
+    on the card: a warm-up request (which records the capacity's drops and
+    the routed output), then the measured one: exactly L flash launches a
+    prefill, none in decode, no other kernel; finite logits; the peak."""
+    from repro_torch.models import init_model
+
+    B, P = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{name}: {L} layers, {n_params:,} f32 parameters drawn on the card "
+        f"in {init_s:.2f}s")
+    on_call, drops = _drop_stats(torch, B)
+    with _moe_calls(on_call):
+        warm = serve.run(cfg, batch=B, prompt_len=P, gen=4, seed=1,
+                         device="cuda", backend="cuda", params=params)
+    log(f"{name} warm-up request: prefill {warm['prefill_seconds']:.3f}s")
+    del warm
+    for kind, s in drops.items():
+        s["share"] = s["dropped"] / max(s["picks"], 1)
+        log(f"{name} {kind}: the capacity dropped {s['dropped']:,} of "
+            f"{s['picks']:,} picks ({s['share']:.2%}); the first MoE "
+            f"layer's routed output max |y| {s['routed_max']:.4g}")
+        if not s["routed_max"] > 0:
+            raise AssertionError(f"{name} {kind}: the routed experts' "
+                                 "output is all zero")
+    K.reset_launch_counts()
+    res = serve.run(cfg, batch=B, prompt_len=P, gen=gen, seed=0,
+                    device="cuda", backend="cuda", params=params)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = res["peak_device_bytes"]
+    log(f"{name} serve: batch {B}, prompt {P}, {gen} tokens: prefill "
+        f"{res['prefill_seconds']:.4f}s, decode "
+        f"{res['decode_tokens_per_s']:.2f} tokens/s "
+        f"({res['decode_seconds']:.4f}s for {gen - 1} steps), peak device "
+        f"bytes {peak:,} ({'under' if peak < MOE_PEAK else 'OVER'} "
+        f"{MOE_PEAK / 1e9:.0f} GB), logits finite {res['finite']}")
+    log(f"{name} serve: sample generation {res['generated'][0].tolist()}")
+    log(f"{name} serve: launch counts {counts} (want flash_attention {L}: "
+        "L per prefill, none in decode, no other kernel)")
+    if not res["finite"]:
+        raise AssertionError(f"{name} serve: non-finite prefill logits")
+    if res["generated"].shape != (B, gen):
+        raise AssertionError(f"{name} serve: generated "
+                             f"{res['generated'].shape}")
+    want = {k: (L if k == "flash_attention" else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{name} serve: launch counts {counts}, want "
+                             f"{want}")
+    if not peak < 80e9:
+        raise AssertionError(f"{name} serve: peak {peak:,} bytes")
+    out = {k: res[k] for k in ("prefill_seconds", "decode_seconds",
+                               "decode_tokens_per_s", "peak_device_bytes",
+                               "finite")}
+    out.update(init_seconds=init_s, layers=L, params=n_params,
+               launch_counts=counts, drops=drops,
+               generated=res["generated"].tolist())
+    if profile:
+        out["profile"] = phase_lm_profile(torch, serve, cfg, params)
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _route_mask(torch, got: list, want: list, what: str, rec: dict):
+    """Tokens whose picks and kept picks agree in every MoE call of both
+    runs (``got``, ``want``: one ``_routes`` a call, in order).  Where the
+    picks or their order differ, two of the token's K + 1 best router
+    logits must lie within ``ROUTE_MARGIN`` (a last-bit flip); a kept pick that differs where the picks agree is
+    the capacity's answer to such a flip earlier in the arrival order."""
+    mask = None
+    for i, (g, w) in enumerate(zip(got, want)):
+        ids_same = (g["ids"] == w["ids"]).all(-1)
+        same = ids_same & (g["keep"] == w["keep"]).all(-1)
+        if not ids_same.all():
+            # the closest two of the K + 1 best logits: a flip of order
+            # inside the picks, or of the last pick and the next
+            k = w["ids"].shape[1]
+            top = w["logits"].sort(-1, descending=True).values[:, :k + 1]
+            margin = (top[:, :-1] - top[:, 1:]).min(-1).values[~ids_same]
+            layer = w.get("layer", i)
+            for t, m in zip((~ids_same).nonzero()[:, 0].tolist(),
+                            margin.tolist()):
+                log(f"  {what}: layer {layer} token {t}: the picks differ, "
+                    f"router margin {m:.3g}")
+                rec.setdefault("route_flips", []).append(
+                    {"what": what, "layer": layer, "token": t, "margin": m})
+                if m > ROUTE_MARGIN:
+                    raise AssertionError(
+                        f"{what}: layer {layer} token {t} routes otherwise "
+                        f"with a router margin of {m:.3g} > {ROUTE_MARGIN}")
+        elif not same.all():
+            raise AssertionError(f"{what}: MoE call {i}: kept picks differ "
+                                 "where no pick does")
+        mask = same if mask is None else mask & same
+    return mask
+
+
+def _moe_parity(torch, cfg) -> dict:
+    """(c): 2 layers (the dense one, one MoE layer), batch 2, prompt 2048,
+    4 fed decode steps, the residual stream in f32: "cuda" against "torch"
+    on the card (the logits within ``TOL["moe.logits"]`` on the tokens
+    whose routes agree: the MoE layer is the last, so a token's logits
+    depend on its own route only), and the absorbed decode against the
+    decompressing one (``TOL["mla.absorb"]``)."""
+    from repro_torch.models import decode_step, init_cache, init_model
+
+    C = MOE_PARITY
+    cfg2 = dataclasses.replace(cfg, num_layers=C["layers"], dtype="float32")
+    cfg_abs = dataclasses.replace(cfg2, mla_absorb=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = init_model(cfg2, gen, "cuda")
+    layer_of = {id(layer.ffn): i for i, layer in enumerate(params.layers)}
+    B, P, G = C["batch"], C["prompt_len"], C["gen"]
+    prompts = torch.randint(0, cfg2.vocab_size, (B, P), generator=gen,
+                            device="cuda")
+    runs = ("cuda", "torch", "absorbed")
+    caches = {r: init_cache(cfg2, B, P + G, dtype=torch.float32,
+                            device="cuda") for r in ("cuda", "torch")}
+    calls: dict = {r: [] for r in runs}
+    rec: dict = {"prefill": None, "decode": [], "absorbed": []}
+    worst = {"moe.logits": 0.0, "mla.absorb": 0.0}
+
+    def step(r, toks, index):
+        c = cfg_abs if r == "absorbed" else cfg2
+        bk = "cuda" if r == "absorbed" else r
+        calls[r].clear()
+        with _moe_calls(lambda p, cf, x, y: calls[r].append(
+                {**_routes(torch, p, cf, x), "layer": layer_of[id(p)]})):
+            return decode_step(params, c, {"tokens": toks}, caches[r],
+                               index, backend=bk)[0]
+
+    def compare(key, a, b, what):
+        mask = _route_mask(torch, calls[a], calls[b], what, rec)
+        la, lb = logits[a].reshape(mask.shape[0], -1), logits[b].reshape(
+            mask.shape[0], -1)
+        e, r = rel_err(la[mask], lb[mask])
+        worst[key] = max(worst[key], r)
+        log(f"MoE parity {what}: max abs diff {e:.4g}, relative {r:.4g} "
+            f"over {int(mask.sum())} of {mask.numel()} tokens "
+            f"(tolerance {TOL[key]})")
+        return {"max_abs_diff": e, "max_rel_diff": r,
+                "tokens": int(mask.sum()), "of": mask.numel()}
+
+    logits = {r: step(r, prompts, 0) for r in ("cuda", "torch")}
+    rec["prefill"] = compare("moe.logits", "cuda", "torch",
+                             f"prefill (2 layers, batch {B}, prompt {P})")
+    caches["absorbed"] = [{"attn": {k: v.clone() for k, v in
+                                    c["attn"].items()}}
+                          for c in caches["cuda"]]
+    for i in range(G):
+        fed = logits["cuda"][:, -1].float().argmax(-1).to(torch.int32)[
+            :, None]
+        logits = {r: step(r, fed, P + i) for r in runs}
+        rec["decode"].append(compare("moe.logits", "cuda", "torch",
+                                     f"decode step {i}"))
+        rec["absorbed"].append(compare("mla.absorb", "absorbed", "cuda",
+                                       f"absorbed decode step {i}"))
+    torch.cuda.synchronize()
+    for key, w in worst.items():
+        if not w <= TOL[key]:
+            raise AssertionError(f"MoE parity: {key} differs by {w:.4g} of "
+                                 f"the largest (tolerance {TOL[key]})")
+    rec["worst"] = worst
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mla_kernel_row(report: dict, row: dict, moe_counts: dict) -> dict:
+    """The kernels line's entry of the flash kernel's MLA route."""
+    return {"name": "flash_attention_mla", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": REPLACES["flash_attention"],
+            "launches": moe_counts["flash_attention_mla"],
+            "max_abs_err": report["moe_serving"]["kernel"]["max_abs_err"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "floor_ms", "device_ms")}}
+
+
+def phase_moe_serving(torch, K, serve, ds_cfg, qm_cfg
+                      ) -> tuple[dict, dict, dict]:
+    """Phase 24: MoE and MLA serving at full width — (a) the flash kernel
+    at (192, 128), (b) DeepSeek-V2-Lite through ``launch/serve.run``,
+    (c) its "cuda" and "torch" parity at 2 layers, (d) Qwen3-MoE at 8
+    layers.  Returns (record, the kernel's times row, launch counts of
+    the two serving runs: DeepSeek-V2-Lite's flash launches are the MLA
+    route's)."""
+    rec: dict = {"card": nvidia_smi_line()}
+    seconds: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"MoE serving: {torch.cuda.memory_allocated():,} device bytes held "
+        "by earlier phases at the start")
+    t0 = time.perf_counter()
+    rec["kernel"], row = _mla_flash(torch, K, ds_cfg, qm_cfg)
+    seconds["kernel"] = time.perf_counter() - t0
+    if ds_cfg.num_layers != 27:
+        log(f"CUT: {ds_cfg.num_layers} layers instead of DeepSeek-V2-Lite's "
+            "27")
+    t0 = time.perf_counter()
+    rec["deepseek"] = _serve_moe(torch, K, serve, ds_cfg,
+                                 "deepseek_v2_lite_16b", LM_SERVE["gen"],
+                                 profile=True)
+    seconds["deepseek"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["parity"] = _moe_parity(torch, ds_cfg)
+    seconds["parity"] = time.perf_counter() - t0
+    log(f"CUT: {qm_cfg.num_layers} layers instead of Qwen3-MoE's 48 "
+        "(MOE_SERVE: the phase's time)")
+    t0 = time.perf_counter()
+    rec["qwen3_moe"] = _serve_moe(torch, K, serve, qm_cfg,
+                                  "qwen3_moe_30b_a3b", MOE_SERVE["qm_gen"],
+                                  profile=False)
+    seconds["qwen3_moe"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    log("phase 24 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    counts = {"flash_attention_mla": rec["deepseek"]["launch_counts"][
+        "flash_attention"],
+        "flash_attention": rec["qwen3_moe"]["launch_counts"][
+            "flash_attention"]}
+    return rec, row, counts
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--steps", type=int, default=600)
@@ -5872,6 +6317,16 @@ def main(argv: list[str] | None = None) -> int:
     report["sharded_lm_seconds"] = time.perf_counter() - t_lm
     log(f"phase 23 (sharded LM training, 4 workers): "
         f"{report['sharded_lm_seconds']:.1f}s")
+    t_moe = time.perf_counter()
+    ds_cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b"),
+                                 num_layers=MOE_SERVE["ds_layers"])
+    qm_cfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b"),
+                                 num_layers=MOE_SERVE["qm_layers"])
+    report["moe_serving"], mla_row, moe_counts = phase_moe_serving(
+        torch, K, serve, ds_cfg, qm_cfg)
+    report["moe_serving_seconds"] = time.perf_counter() - t_moe
+    log(f"phase 24 (MoE and MLA serving): "
+        f"{report['moe_serving_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -5883,6 +6338,7 @@ def main(argv: list[str] | None = None) -> int:
                  strat_counts, shard_counts, multi_counts, sharded_counts):
         for k, v in part.items():
             counts[k] += v
+    counts["flash_attention"] += moe_counts["flash_attention"]
     report["seconds"] = time.perf_counter() - t_start
     total_written = sum(WRITTEN.values())
     report["disk_writes"] = {"reckoned_by_phase": dict(WRITTEN),
@@ -5905,7 +6361,9 @@ def main(argv: list[str] | None = None) -> int:
         "scatter_accum": errs["scatter_accum"]["max_abs_err"],
         "segment_reduce": errs["segment_reduce"]["max_abs_err"],
         "tucker_matmul": lm_errs["tucker_matmul"]["max_abs_err"],
-        "flash_attention": lm_errs["flash_attention"]["max_abs_err"],
+        "flash_attention": max(
+            lm_errs["flash_attention"]["max_abs_err"],
+            report["moe_serving"]["kernel"]["gqa"]["max_abs_err"]),
         "flash_attention_bwd": max(
             report["flash_bwd"]["max_abs_err"],
             report["sharded_lm"]["kernels"]["flash_attention_bwd"][
@@ -5924,6 +6382,7 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "floor_ms": t["floor_ms"], "device_ms": t.get("device_ms")})
+    kernels.append(_mla_kernel_row(report, mla_row, moe_counts))
     report["kernels"] = kernels
     if args.report:
         path = Path(args.report)
@@ -5939,7 +6398,10 @@ def main(argv: list[str] | None = None) -> int:
         f"serve_tucker, online run and bench_serve, and phase 22's "
         f"fig7bc, ingest, bench_convergence and multipod runs; the LM "
         f"serve request, the LM training run and phase 23's four sharded "
-        f"training runs for {', '.join(LM_KERNELS)}): {counts}")
+        f"training runs for {', '.join(LM_KERNELS)}; phase 24's Qwen3-MoE "
+        f"serve request for flash_attention): {counts}; the MLA route "
+        f"(DeepSeek-V2-Lite's serve request): "
+        f"{moe_counts['flash_attention_mla']}")
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

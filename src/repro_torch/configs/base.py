@@ -2,11 +2,12 @@
 
 ``ModelConfig`` has the fields of ``src/repro/configs/base.py`` so that a
 reference config and its port differ in nothing but the package, and
-``dataclasses.replace`` takes the same names.  The port runs the dense GQA
-models only, with dense or Tucker-compressed FFNs: ``get_config`` of an
-architecture that is not ported yet, and ``require_ported`` of a config
-that asks for a part that is not ported, raise ``NotImplementedError``
-(see ROADMAP.md).
+``dataclasses.replace`` takes the same names.  The port runs the GQA and
+MLA attention models with dense, Tucker-compressed or MoE FFNs:
+``get_config`` of an architecture that is not ported yet, and
+``require_ported`` of a config that asks for a part that is not ported,
+raise ``NotImplementedError`` (see ROADMAP.md).  ``require_trainable``
+adds the parts that serve but do not train yet (MLA and MoE).
 """
 from __future__ import annotations
 
@@ -113,15 +114,14 @@ ARCH_IDS = [
     "qwen2_5_14b",
     "starcoder2_15b",
 ]
-PORTED_ARCHS = ("qwen3_14b",)
+PORTED_ARCHS = ("qwen3_14b", "deepseek_v2_lite_16b", "qwen3_moe_30b_a3b")
 
 
 def require_ported(cfg: ModelConfig) -> ModelConfig:
     """``cfg`` if the port runs every part it asks for, else raise."""
     parts = {
-        "MLA (use_mla)": cfg.use_mla or cfg.mixer == "mla",
-        "MoE (num_experts)": cfg.num_experts > 0,
         f"the {cfg.mixer} mixer": cfg.mixer not in ("gqa", "mla"),
+        "the expert-parallel MoE island (moe_sharded)": cfg.moe_sharded,
         "the zamba2 shared block (shared_attn_every)":
             cfg.shared_attn_every > 0,
         f"the {cfg.frontend} frontend": cfg.frontend is not None,
@@ -134,6 +134,21 @@ def require_ported(cfg: ModelConfig) -> ModelConfig:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not ported to repro_torch "
             "yet (see ROADMAP.md, Queue 1)")
+    return cfg
+
+
+def require_trainable(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` if the port trains every part it asks for, else raise: MLA
+    and MoE serve, but their training (the MoE gradients, the flash
+    backward at MLA's head widths) is not ported yet."""
+    require_ported(cfg)
+    parts = {"MLA (use_mla)": cfg.use_mla or cfg.mixer == "mla",
+             "MoE (num_experts)": cfg.num_experts > 0}
+    missing = [name for name, asked in parts.items() if asked]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training of {', '.join(missing)} is not ported "
+            "to repro_torch yet; it serves (see ROADMAP.md, Queue 1)")
     return cfg
 
 

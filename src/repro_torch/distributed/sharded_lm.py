@@ -47,6 +47,7 @@ from typing import Callable, Mapping
 
 import torch
 
+from repro_torch.configs import require_trainable
 from repro_torch.distributed import collectives, context as dist_ctx
 from repro_torch.distributed.sharding import (BATCH_AXES_BY_POLICY, Layout,
                                               ShardedTensor, batch_spec,
@@ -120,6 +121,7 @@ class ShardedLM:
     def __init__(self, cfg, mesh, layouts: Mapping[str, Layout],
                  policy: str, backend: str | None = None,
                  traffic: collectives.Traffic | None = None):
+        require_trainable(cfg)   # MLA and MoE do not train yet
         self.cfg, self.mesh, self.policy = cfg, mesh, policy
         self.layouts = dict(layouts)
         self.backend = backend

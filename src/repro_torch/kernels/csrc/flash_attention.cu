@@ -9,7 +9,11 @@
 //   * GQA without copies: q is (B, Sq, H, D), k and v are (B, Sk, H/G, D),
 //     and query head h reads key/value head h / G;
 //   * q_offset: query i sits at position q_offset + i (prefill into a KV
-//     cache), so the causal test is q_offset + i >= j.
+//     cache), so the causal test is q_offset + i >= j;
+//   * v narrower than q and k: (D, Dv) = (192, 128) is MLA's prefill
+//     (DeepSeek-V2: q·k over 128 + 64 rope dims, v at 128), the scale
+//     1/sqrt(D) of the q·k width.  The kernel is templated on both widths;
+//     the other instances take D = Dv in {16, 32, 64, 128}.
 // Every tensor is addressed through its (batch, sequence, head) strides
 // with D contiguous, so a KV cache (B, S_max, Kv, D) is read in place and
 // the (BH, S, D) layout of the Pallas kernel is the case B = 1, H = BH.
@@ -27,7 +31,8 @@
 // TF32 big and small parts once for the block (not once per warp that
 // reads it).  Shared rows are padded so every fragment load is free of bank
 // conflicts (Q and K rows D + 8, read in 64-bit pairs; V rows D + 4); at
-// D = 128 a block takes 172 KB, one block (8 warps) per SM.  The row max
+// D = 128 a block takes 172 KB, at (192, 128) 229,888 bytes of the
+// 232,448 a block may have, one block (8 warps) per SM.  The row max
 // and row sum are taken in registers from the S accumulator fragments (a
 // row lives in one quad of lanes: two shuffles), in base 2 (exp2f).  With k
 // permuted inside each group of 8 keys (mma_tf32.cuh), the S accumulator
@@ -46,6 +51,9 @@
 // D = 128, causal): 2·B·H·S²·D = 172 GFLOP of causal work against 403 MB
 // of bytes — bound by operations: 2.6 ms at the 67 TFLOP/s f32 SIMT peak,
 // 1.0 ms for 3 x that work at the 495 TFLOP/s TF32 tensor-core peak.
+// MLA's prefill (B = 4, H = Kv = 16, S = 2048, (D, Dv) = (192, 128),
+// causal): B·H·S²·(D + Dv) = 85.9 GFLOP, 0.52 ms as 3xTF32 at 495 TFLOP/s,
+// 1.28 ms at the f32 SIMT peak.
 #include "common.cuh"
 
 namespace {
@@ -56,19 +64,19 @@ constexpr int BQ = 16 * WARPS;   // query rows per block
 constexpr int BKV = 32;          // keys per tile
 constexpr float NEG = -1e30f;
 
-template <int D>
+template <int D, int DV>
 struct Smem {
   // row strides (floats), fragments read as in mma_tf32.cuh:
   static constexpr int QS = D + 8;   // Q, K: pairs (g, 2t..2t+1), 8g + 2t
   static constexpr int KS = D + 8;
-  static constexpr int VS = D + 4;   // V: rows 2t and 2t+1, column g: 8t + g
+  static constexpr int VS = DV + 4;  // V: rows 2t and 2t+1, column g: 8t + g
   static constexpr int STAGE = BKV * (KS + VS);
   // two ring stages of K and V, the small parts of the current stage, Q
   static constexpr int FLOATS = 3 * STAGE + BQ * QS;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
@@ -76,9 +84,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, int kv_len,
     int q_offset, int causal, float scale, float* __restrict__ lse) {
-  constexpr int DK = D / 8;     // k8 steps of Q·Kᵀ; n8 tiles of O
+  constexpr int DK = D / 8;     // k8 steps of Q·Kᵀ
+  constexpr int DO = DV / 8;    // n8 tiles of O
   constexpr int NK = BKV / 8;   // n8 tiles of S; k8 steps of P·V
-  using S = Smem<D>;
+  using S = Smem<D, DV>;
   extern __shared__ __align__(16) float smem[];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -99,9 +108,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   // the running max of those and p = exp2(x - m) = exp(logit - max)
   const float scale2 = scale * 1.4426950408889634f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float acc[DK][4];
+  float acc[DO][4];
 #pragma unroll
-  for (int d = 0; d < DK; ++d)
+  for (int d = 0; d < DO; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
 
@@ -119,13 +128,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     float* Ks = smem + (tile & 1) * S::STAGE;
     float* Vs = Ks + BKV * S::KS;
     const int k0 = tile * BKV;
-    constexpr int CH = D / 4;   // 16-byte chunks per row
+    constexpr int CK = D / 4, CV = DV / 4;   // 16-byte chunks per row
 #pragma unroll
-    for (int i = threadIdx.x; i < BKV * CH; i += THREADS) {
-      const int r = i / CH, c = (i % CH) * 4;
+    for (int i = threadIdx.x; i < BKV * CK; i += THREADS) {
+      const int r = i / CK, c = (i % CK) * 4;
       const bool in = k0 + r < k_lim;
       cp_async16(Ks + r * S::KS + c, in ? kb + (k0 + r) * kss + c : kb,
                  in ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = threadIdx.x; i < BKV * CV; i += THREADS) {
+      const int r = i / CV, c = (i % CV) * 4;
+      const bool in = k0 + r < k_lim;
       cp_async16(Vs + r * S::VS + c, in ? vb + (k0 + r) * vss + c : vb,
                  in ? 16 : 0);
     }
@@ -219,16 +233,16 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         l[hf] = l[hf] * alpha + sum;
         m[hf] = m_new;
 #pragma unroll
-        for (int d = 0; d < DK; ++d) {
+        for (int d = 0; d < DO; ++d) {
           acc[d][2 * hf] *= alpha;
           acc[d][2 * hf + 1] *= alpha;
         }
       }
 
       // this tile's P·V in fresh accumulators (see mma_tf32.cuh)
-      float pv_acc[DK][4];
+      float pv_acc[DO][4];
 #pragma unroll
-      for (int d = 0; d < DK; ++d)
+      for (int d = 0; d < DO; ++d)
 #pragma unroll
         for (int e = 0; e < 4; ++e) pv_acc[d][e] = 0.f;
 #pragma unroll
@@ -238,7 +252,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         Frag<4> pa;
         frag_split<false>(pv, pa);
 #pragma unroll
-        for (int d = 0; d < DK; ++d) {
+        for (int d = 0; d < DO; ++d) {
           const int vo = (kk * 8 + 2 * t) * S::VS + d * 8 + g;
           const float* vs = Sm + BKV * S::KS + vo;
           const Frag<2> vf = {
@@ -248,7 +262,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         }
       }
 #pragma unroll
-      for (int d = 0; d < DK; ++d)
+      for (int d = 0; d < DO; ++d)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[d][e] += pv_acc[d][e];
     }
@@ -262,7 +276,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     if (r >= Sq) continue;
     const float den = fmaxf(l[hf], 1e-30f);
 #pragma unroll
-    for (int d = 0; d < DK; ++d)
+    for (int d = 0; d < DO; ++d)
       *reinterpret_cast<float2*>(ob + r * oss + d * 8 + 2 * t) =
           make_float2(acc[d][2 * hf] / den, acc[d][2 * hf + 1] / den);
     // the log-sum-exp of the row's scaled logits, for the backward: m and
@@ -273,21 +287,23 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const float* q, const float* k, const float* v, float* o, int B,
            int Sq, int Sk, int H, int G, const long long* st, int kv_len,
            int q_offset, int causal, float scale, float* lse,
            cudaStream_t stream) {
+  static_assert(Smem<D, DV>::BYTES <= 232448,
+                "a block's shared memory is at most 227 KB");
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Smem<D>::BYTES));
+        flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Smem<D, DV>::BYTES));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+  flash_fwd_kernel<D, DV><<<grid, THREADS, Smem<D, DV>::BYTES, stream>>>(
       q, k, v, o, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], kv_len, q_offset, causal, scale,
       lse);
@@ -297,25 +313,27 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 }  // namespace
 
 // strides: 12 values, (batch, seq, head) of q, k, v and o, in elements.
+// D: the width of q and k; Dv: the width of v and o.
 // lse: null, or (B, H, Sq) f32 for the row log-sum-exps (the backward's).
 extern "C" int flash_attention_f32(
     const float* q, const float* k, const float* v, float* o, int B, int Sq,
-    int Sk, int H, int Hk, int D, const long long* strides, int kv_len,
-    int q_offset, int causal, float scale, float* lse, void* stream) {
+    int Sk, int H, int Hk, int D, int Dv, const long long* strides,
+    int kv_len, int q_offset, int causal, float scale, float* lse,
+    void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || Hk < 1 || H % Hk != 0 ||
       kv_len < 1 || q_offset < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / Hk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                               q_offset, causal, scale, lse, st);
-    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                               q_offset, causal, scale, lse, st);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                               q_offset, causal, scale, lse, st);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len,
-                                 q_offset, causal, scale, lse, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_FLASH_CASE(DQK, DVV)                                        \
+  if (D == DQK && Dv == DVV)                                              \
+    return launch<DQK, DVV>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len, \
+                            q_offset, causal, scale, lse, st);
+  REPRO_FLASH_CASE(16, 16)
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(192, 128)
+#undef REPRO_FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,9 +13,12 @@ pointer and every (batch, sequence, head) stride in 16-byte units (a
 stride of a dimension of size 1 is never stepped and is not checked).  On
 CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_ref``); on CUDA tensors it launches the kernel or
-raises — it never falls back.  f32 only; D in {16, 32, 64, 128}.
-``return_lse`` adds each row's log-sum-exp, which the backward
-(``flash_attention_bwd``) recomputes the probabilities from.
+raises — it never falls back.  f32 only; the widths (D of q and k, Dv
+of v and the output) are one of ``WIDTHS``: D = Dv in {16, 32, 64, 128},
+or (192, 128), MLA's prefill (DeepSeek-V2: q·k over 128 + 64 rope dims,
+v at 128; the scale is 1/sqrt(D)).  ``return_lse`` adds each row's
+log-sum-exp, which the backward (``flash_attention_bwd``) recomputes the
+probabilities from.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 from . import build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # D = Dv; the backward takes these only
+WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)   # (D, Dv)
 ALIGN = 16    # bytes: the kernel's cp.async copies
 
 
@@ -52,12 +56,13 @@ def _check(q, k, v, kv_len, q_offset) -> None:
     q4, k4, v4 = _as_4d(q), _as_4d(k), _as_4d(v)
     B, Sq, H, D = q4.shape
     Sk, Hk = k4.shape[1], k4.shape[2]
-    if k4.shape != v4.shape or k4.shape[0] != B or k4.shape[3] != D:
+    if k4.shape[:3] != v4.shape[:3] or k4.shape[0] != B \
+            or k4.shape[3] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes D in "
-                         f"{HEAD_DIMS}, got {D}")
+    if (D, v4.shape[3]) not in WIDTHS:
+        raise ValueError(f"flash_attention: the kernel takes (D, Dv) in "
+                         f"{WIDTHS}, got {(D, v4.shape[3])}")
     if H % Hk:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {Hk} key/value heads")
@@ -83,14 +88,15 @@ def _check(q, k, v, kv_len, q_offset) -> None:
 def flash_attention(
     q: torch.Tensor,   # (BH, Sq, D) or (B, Sq, H, D)
     k: torch.Tensor,   # (BH/G, Sk, D) or (B, Sk, H/G, D)
-    v: torch.Tensor,   # like k
+    v: torch.Tensor,   # like k, of width Dv
     *,
     causal: bool = True,
     kv_len: int | None = None,
     q_offset: int = 0,
     return_lse: bool = False,
 ):
-    """Softmax attention with an online softmax -> q's shape, f32.
+    """Softmax attention with an online softmax -> q's shape with v's
+    width, f32.
 
     ``return_lse``: also return each row's log-sum-exp of the scaled
     logits, f32, (B, H, Sq) — (BH, Sq) in the 3-D layout — for the
@@ -101,10 +107,12 @@ def flash_attention(
                                    q_offset=q_offset, return_lse=return_lse)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len, q_offset)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.empty((*q.shape[:-1], v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     lse = None
     q4, k4, v4, o4 = _as_4d(q), _as_4d(k), _as_4d(v), _as_4d(out)
     B, Sq, H, D = q4.shape
+    Dv = v4.shape[3]
     Sk, Hk = k4.shape[1], k4.shape[2]
     if return_lse:
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -112,14 +120,14 @@ def flash_attention(
         s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
     fn = build.function(
         "flash_attention", "flash_attention_f32",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
            ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check("flash_attention", fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, Hk, D, strides, kv_len, int(q_offset),
+            B, Sq, Sk, H, Hk, D, Dv, strides, kv_len, int(q_offset),
             int(causal), 1.0 / math.sqrt(D),
             None if lse is None else lse.data_ptr(), stream))
     flash_attention.launches += 1

@@ -15,7 +15,9 @@ The kernel's 16-byte ``cp.async`` copies need q, k, v, o and dO on
 ``plan()`` lays out its three launches, and the C entry refuses a plan it
 was not built for.  On CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_bwd_ref``); on CUDA tensors it launches the kernel
-or raises — it never falls back.  f32 only; D in {16, 32, 64, 128}.
+or raises — it never falls back.  f32 only; D in {16, 32, 64, 128}
+(q, k and v of one width: MLA's (192, 128), which the forward takes, is
+refused by name until its backward is ported).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import math
 import torch
 
 from . import build
-from .flash_attention import ALIGN, HEAD_DIMS, _as_4d
+from .flash_attention import ALIGN, HEAD_DIMS, WIDTHS, _as_4d
 from .ref import flash_attention_bwd_ref
 
 WARPS = 8             # a block of both passes: 16 rows a warp
@@ -110,6 +112,11 @@ def _check(q, k, v, o, lse, dout, kv_len, q_offset) -> None:
     q4, k4 = _as_4d(q), _as_4d(k)
     B, Sq, H, D = q4.shape
     Sk, Hk = k4.shape[1], k4.shape[2]
+    if v.shape[-1] != D and (D, v.shape[-1]) in WIDTHS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: (D, Dv) = {(D, v.shape[-1])} (MLA's "
+            "widths) is not ported yet; the forward takes it (see "
+            "ROADMAP.md, Queue 1)")
     if v.shape != k.shape or k4.shape[0] != B or k4.shape[3] != D:
         raise ValueError(f"flash_attention_bwd: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")

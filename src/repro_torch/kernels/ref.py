@@ -215,7 +215,7 @@ def _attention_logits(q, k, causal, kv_len, q_offset):
 def flash_attention_ref(
     q: torch.Tensor,   # (BH, Sq, D) or (B, Sq, H, D)
     k: torch.Tensor,   # (BH/G, Sk, D) or (B, Sk, H/G, D)
-    v: torch.Tensor,   # like k
+    v: torch.Tensor,   # like k, of width Dv (the output's)
     causal: bool = True,
     *,
     kv_len: int | None = None,

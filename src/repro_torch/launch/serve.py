@@ -1,7 +1,8 @@
 """LM serving driver: prefill a batch of prompts, then greedy decode.
 
-Counterpart of ``repro.launch.serve`` (language-model configs only; it does
-not serve Tucker decompositions).  It keeps the reference's flags and adds
+Counterpart of ``repro.launch.serve`` (language-model configs only: the
+dense Qwen3-14B and the MoE models DeepSeek-V2-Lite-16B, with MLA, and
+Qwen3-MoE-30B-A3B; it does not serve Tucker decompositions).  It keeps the reference's flags and adds
 ``--tucker-rank`` (Tucker-compress every FFN at that rank, as
 ``examples/train_lm.py`` does), ``--device`` and ``--backend``:
 
@@ -13,8 +14,9 @@ Runs on the CUDA card with the ``"cuda"`` kernels by default (backend:
 ``--backend`` > ``$REPRO_TORCH_KERNEL_BACKEND`` > ``cuda``); without CUDA
 it raises unless ``--device cpu`` is given.  Weights and prompts are
 random, drawn on the device from seed 0 (``run(seed=)``); the KV cache is
-f32, as in the reference.
-``run(cfg, ...)`` is the same driver for a config built in code.
+f32, as in the reference (MLA's is the compressed ``c_kv`` and ``k_pe``).
+``run(cfg, ...)`` is the same driver for a config built in code, e.g. one
+with ``num_layers`` cut to fit the card.
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.configs import require_trainable
 from repro_torch.distributed.collectives import Traffic
 from repro_torch.distributed.sharding import ShardedTensor
 from repro_torch.distributed.sharded_lm import ShardedLM
@@ -41,7 +42,10 @@ def init_train_state(cfg, generator: torch.Generator | None = None,
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig,
                     backend: str | None = None):
     """(state, batch) → (state, metrics with ``loss``, ``grad_norm`` and
-    ``lr`` as 0-dim device tensors)."""
+    ``lr`` as 0-dim device tensors).  MLA and MoE configs raise
+    (``configs.require_trainable``)."""
+    require_trainable(cfg)
+
     def train_step(state: TrainState, batch: dict):
         params = adamw.named(state.params)
         loss = loss_fn(state.params, cfg, batch, backend=backend)
@@ -62,7 +66,7 @@ def make_sharded_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, layouts,
     ``launch.train.build_state`` makes them) and the batch the global one
     (split by ``sharding.batch_spec`` under ``policy``).  ``step.traffic``
     accumulates the collectives' bytes a worker (``collectives.Traffic``)
-    over the steps run."""
+    over the steps run.  MLA and MoE configs raise (``ShardedLM``)."""
     traffic = Traffic()
     lm = ShardedLM(cfg, mesh, layouts, policy, backend, traffic)
 

@@ -1,7 +1,9 @@
-"""The LM stack: dense GQA models with dense or Tucker-compressed FFNs.
+"""The LM stack: GQA and MLA attention with dense, Tucker-compressed or
+MoE FFNs.
 
-Counterpart of ``repro.models`` (MLA, MoE, the SSM/xLSTM mixers and the
-frontends are not ported yet; see ROADMAP.md).
+Counterpart of ``repro.models`` (the SSM/xLSTM mixers, the frontends,
+``mixed_precision`` and the expert-parallel MoE island are not ported
+yet, and MLA and MoE serve but do not train yet; see ROADMAP.md).
 """
 from .model import (
     Model,

@@ -1,12 +1,14 @@
 """Block composition: per-layer specs, init, and apply (with caches).
 
-Counterpart of ``repro.models.blocks`` for the specs the port runs,
-``"gqa+tucker_mlp"`` and ``"gqa+mlp"``; ``layer_specs`` names the
-attention specs as the reference does, and ``init_layer`` refuses the
-others.  The
-reference stacks runs of identical layers and scans them (a compile-time
-win under ``jit``); PyTorch runs eagerly, so the port keeps one module per
-layer and loops (``models.convert`` unstacks the reference's groups).
+Counterpart of ``repro.models.blocks`` for the specs the port runs
+(``PORTED_SPECS``: GQA or MLA attention, a dense, Tucker-compressed or
+MoE FFN); ``layer_specs`` names the attention specs as the reference
+does, and ``init_layer`` refuses the others.  As in the reference, the
+first ``first_k_dense`` layers of an MoE config take a dense MLP at
+``dense_d_ff``.  The reference stacks runs of identical layers and scans
+them (a compile-time win under ``jit``); PyTorch runs eagerly, so the port
+keeps one module per layer and loops (``models.convert`` unstacks the
+reference's groups).
 """
 from __future__ import annotations
 
@@ -16,10 +18,12 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import (MLP, init_tucker_linear, make_norm, mlp,
                      tucker_linear)
 
-PORTED_SPECS = ("gqa+tucker_mlp", "gqa+mlp")
+PORTED_SPECS = ("gqa+tucker_mlp", "gqa+mlp", "mla+mlp", "mla+moe",
+                "gqa+moe")
 
 
 def layer_specs(cfg) -> list[str]:
@@ -73,12 +77,18 @@ class Layer(nn.Module):
         norm_cls, _ = make_norm(cfg.norm_type)
         self.spec = spec
         self.ln1 = norm_cls(cfg.d_model, device)
-        self.mixer = attn.init_gqa(cfg, generator, device)
+        init_mixer = (attn.init_mla if spec.startswith("mla")
+                      else attn.init_gqa)
+        self.mixer = init_mixer(cfg, generator, device)
         self.ln2 = norm_cls(cfg.d_model, device)
-        if spec.endswith("+tucker_mlp"):
+        if spec.endswith("+moe"):
+            self.ffn = moe_mod.init_moe(cfg, generator, device)
+        elif spec.endswith("+tucker_mlp"):
             self.ffn = TuckerMLP(cfg, generator, device)
         else:
-            self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.activation != "gelu",
+            dff = (cfg.dense_d_ff if cfg.num_experts and cfg.dense_d_ff
+                   else cfg.d_ff)
+            self.ffn = MLP(cfg.d_model, dff, cfg.activation != "gelu",
                            generator, device)
 
 
@@ -124,14 +134,15 @@ def apply_layer_workers(
     _, norm = make_norm(cfg.norm_type)
     causal = not cfg.encoder_only
     caches = caches if caches is not None else [None] * len(xs)
+    attend = (attn.mla_attention if spec.startswith("mla")
+              else attn.gqa_attention)
     new_caches: list[dict | None] = []
     ys = []
     for p, x, pos, cache in zip(params, xs, positions, caches):
         h = norm(p.ln1, x, cfg.norm_eps)
         sub = cache.get("attn") if cache else None
-        y, nc = attn.gqa_attention(p.mixer, cfg, h, pos, causal=causal,
-                                   cache=sub, cache_index=cache_index,
-                                   backend=backend)
+        y, nc = attend(p.mixer, cfg, h, pos, causal=causal, cache=sub,
+                       cache_index=cache_index, backend=backend)
         ys.append(y)
         new_caches.append({"attn": nc} if nc is not None else None)
     if reduce is not None:
@@ -148,6 +159,8 @@ def apply_layer_workers(
 def ffn_out(ffn, cfg, spec: str, h: torch.Tensor,
             backend: str | None = None) -> torch.Tensor:
     """The FFN sublayer's output (before the residual add)."""
+    if spec.endswith("+moe"):
+        return moe_mod.moe_ffn(ffn, cfg, h)
     if spec.endswith("+tucker_mlp"):
         up = tucker_linear(ffn.up, h, backend)
         gate = tucker_linear(ffn.gate, h, backend)
@@ -158,7 +171,12 @@ def ffn_out(ffn, cfg, spec: str, h: torch.Tensor,
 
 def init_layer_cache(cfg, spec: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device=None) -> dict:
-    if not spec.startswith("gqa"):
-        raise NotImplementedError(f"cache of layer spec {spec!r} is not "
-                                  "ported to repro_torch yet")
-    return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype, device)}
+    mixer = spec.split("+")[0]
+    if mixer == "gqa":
+        return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
+                                            device)}
+    if mixer == "mla":
+        return {"attn": attn.init_mla_cache(cfg, batch, max_len, dtype,
+                                            device)}
+    raise NotImplementedError(f"cache of layer spec {spec!r} is not ported "
+                              "to repro_torch yet (see ROADMAP.md)")

@@ -1,6 +1,7 @@
 """Top-level model: embeddings → layers → head.
 
-Counterpart of ``repro.models.model`` for the dense GQA models.
+Counterpart of ``repro.models.model`` for the GQA and MLA models (dense,
+Tucker-compressed or MoE FFNs).
 ``init_model`` builds an ``nn.Module`` (a ``ModuleList`` of layers) on the
 device, from a ``torch.Generator`` on that device, so a full-size model's
 weights are drawn where they live; ``forward``/``decode_step`` take it as

@@ -1,0 +1,167 @@
+"""Mixture-of-Experts: shared + routed experts, capacity-based dispatch.
+
+Counterpart of ``repro.models.moe`` (``moe_ffn_sharded``, the
+expert-parallel island, is not ported: ``require_ported`` refuses
+``moe_sharded``).  Dispatch is the reference's position-in-expert scheme:
+each (token, pick) in arrival order takes the next free slot of its
+expert's (E, C) index matrix, and picks past the capacity C are dropped.
+The router runs in f32.  The expert FFN is the reference's three einsums,
+done as ``torch.bmm`` over (E, C, d) buffers (the reference computes them
+outside any Pallas kernel, so they stay library matmuls).
+
+Two points where the port departs from the reference's code on purpose:
+
+* ``dispatch_indices`` takes each pick's slot from a stable sort by
+  expert, writes the kept picks' arrival indices into the index matrix
+  with a plain scatter, sends every dropped pick to one overflow element
+  past the matrix, and leaves the empty slots at T·K: the matrix the
+  reference meant, as its ``jnp.where(index_mat < 0, T * K, …)`` shows.
+  The reference fills the matrix with the sentinel T·K and scatters with a
+  maximum, so the sentinel wins every slot, its routed experts receive
+  only zeros and add nothing (ROADMAP.md, Queue 3).  Its ``keep`` and
+  ``slot`` are right and the port's equal them.
+* The top-k picks ties by the lower expert index first, as
+  ``jax.lax.top_k`` does (``torch.topk`` on CUDA does not promise an
+  order): a stable descending sort.  The order of a token's K picks is
+  the arrival order, which decides which picks the capacity drops.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import MLP, activation, dense_param, mlp, promote
+
+
+class MoE(nn.Module):
+    """Router (d, E), experts ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d),
+    and, with ``num_shared_experts``, a gated ``shared`` MLP at
+    ``moe_d_ff · num_shared_experts``, drawn in the reference's order."""
+
+    def __init__(self, cfg, generator: torch.Generator, device=None):
+        super().__init__()
+        d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        self.router = dense_param((d, E), generator, device,
+                                  ("embed", None), scale=0.02)
+        self.wi = dense_param((E, d, f), generator, device,
+                              ("experts", "embed", "mlp"))
+        self.wg = dense_param((E, d, f), generator, device,
+                              ("experts", "embed", "mlp"))
+        self.wo = dense_param((E, f, d), generator, device,
+                              ("experts", "mlp", "embed"))
+        if cfg.num_shared_experts:
+            self.shared = MLP(d, f * cfg.num_shared_experts, True,
+                              generator, device)
+
+
+def init_moe(cfg, generator: torch.Generator, device=None) -> MoE:
+    return MoE(cfg, generator, device)
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Slots an expert has for ``tokens`` tokens: the reference's
+    ``int(T * K / E * capacity_factor) + 1``, in Python floats."""
+    return int(tokens * cfg.top_k / cfg.num_experts
+               * cfg.capacity_factor) + 1
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, descending,
+    ties by the lower index first."""
+    vals, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def route(params: MoE, cfg, xt: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xt (T, d) → (router logits (T, E) f32, gate values (T, K) f32,
+    expert ids (T, K) int64), the reference's router."""
+    logits = xt.float() @ params.router.float()
+    if cfg.router_softmax_then_topk:
+        gate_vals, expert_ids = top_k(torch.softmax(logits, dim=-1),
+                                      cfg.top_k)
+    else:
+        top_logits, expert_ids = top_k(logits, cfg.top_k)
+        gate_vals = torch.softmax(top_logits, dim=-1)
+    if cfg.norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return logits, gate_vals, expert_ids
+
+
+def dispatch_indices(expert_ids: torch.Tensor, num_experts: int,
+                     capacity: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """expert_ids (T, K) → (index_mat (E, C) int64 into T·K, T·K where
+    the slot is empty; keep (T, K) bool; slot (T, K) int64).
+
+    A pick's slot is its occurrence rank among the picks of its expert in
+    arrival order (token-major, then pick order): the reference's cumsum
+    of a (T·K, E) one-hot, here its position in a stable sort by expert
+    less the start of its expert's run (the same integers, without the
+    one-hot; the cumsum down its long axis took 12.9 ms a layer at
+    DeepSeek-V2-Lite's prefill on the H100).  It is kept if its slot is
+    below ``capacity``.  The kept (expert, slot) pairs are unique, so each
+    index is written once; the dropped picks all go to one extra element
+    past the matrix, written in no fixed order and discarded.  No host
+    synchronization."""
+    T, K = expert_ids.shape
+    E, C = num_experts, capacity
+    flat = expert_ids.reshape(-1).long()                    # arrival order
+    by_expert, order = torch.sort(flat, stable=True)
+    run_start = torch.searchsorted(by_expert, by_expert)
+    slot = torch.empty_like(flat)
+    slot[order] = torch.arange(T * K, device=flat.device) - run_start
+    keep = slot < C
+    where = torch.where(keep, flat * C + slot, E * C)
+    index_mat = torch.full((E * C + 1,), T * K, dtype=torch.long,
+                           device=flat.device)
+    index_mat.scatter_(0, where, torch.arange(T * K, device=flat.device))
+    return (index_mat[:E * C].reshape(E, C), keep.reshape(T, K),
+            slot.reshape(T, K))
+
+
+def moe_ffn(params: MoE, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d), in the promoted dtype of x and the
+    weights (f32 for f32 weights, as the reference's einsums give)."""
+    B, S, d = x.shape
+    T, E, K = B * S, cfg.num_experts, cfg.top_k
+    xt = x.reshape(T, d)
+    _, gate_vals, expert_ids = route(params, cfg, xt)
+    index_mat, keep, _ = dispatch_indices(expert_ids, E, capacity(cfg, T))
+
+    # gather tokens into expert buffers (E, C, d); empty slots read zeros
+    token_of = torch.where(index_mat >= T * K, T,
+                           torch.div(index_mat, K, rounding_mode="floor"))
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
+    expert_in, wi = promote(xt_pad[token_of], params.wi)
+    h = torch.bmm(expert_in, wi)
+    g = torch.bmm(expert_in, params.wg.to(wi.dtype))
+    del expert_in
+    h = activation(cfg.activation, g) * h
+    del g
+    expert_out = torch.bmm(h, params.wo.to(h.dtype))        # (E, C, d)
+    del h
+
+    # combine: scatter the expert outputs back to (token, pick) rows.  The
+    # kept indices are unique; every empty slot writes row T·K, in no fixed
+    # order (index_put_ with duplicates), and that row is discarded
+    flat_out = expert_out.new_zeros((T * K + 1, d))
+    flat_out[index_mat.reshape(-1)] = expert_out.reshape(-1, d)
+    del expert_out
+    gates = (gate_vals * keep).to(flat_out.dtype)           # dropped → 0
+    y = torch.einsum("tkd,tk->td", flat_out[:T * K].reshape(T, K, d), gates)
+
+    if hasattr(params, "shared"):
+        y = y + mlp(params.shared, xt, cfg.activation)
+    return y.reshape(B, S, d)
+
+
+def load_balance_loss(logits: torch.Tensor, expert_ids: torch.Tensor,
+                      E: int) -> torch.Tensor:
+    """Aux loss (Switch): E · Σ_e f_e · p_e over the first picks (not used
+    by the default configs)."""
+    probs = torch.softmax(logits, dim=-1)
+    f = F.one_hot(expert_ids[..., 0].long(), E).to(probs.dtype).mean(0)
+    return E * torch.sum(f * probs.mean(0))

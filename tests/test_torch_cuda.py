@@ -630,6 +630,105 @@ def test_lm_serve_cuda_matches_torch_on_card(dev):
     assert torch.equal(res["generated"], plain["generated"])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_mla_widths_match_plain_on_card(dev, causal):
+    """(D, Dv) = (192, 128), MLA's prefill: ragged lengths off the 128/32
+    tiles, q_offset and kv_len, the lse, and two calls with one set of
+    bits."""
+    rng = np.random.default_rng(192 + causal)
+    B, Sq, Sk, H = 2, 197, 230, 4
+    q = torch.tensor(rng.normal(size=(B, Sq, H, 192)), dtype=torch.float32,
+                     device=dev)
+    k = torch.tensor(rng.normal(size=(B, Sk, H, 192)), dtype=torch.float32,
+                     device=dev)
+    v = torch.tensor(rng.normal(size=(B, Sk, H, 128)), dtype=torch.float32,
+                     device=dev)
+    reset_launch_counts()
+    for kv_len, q_offset in ((Sk, 0), (150, 17), (197, 0)):
+        got, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset,
+            return_lse=True)
+        again = flash_attention.flash_attention(
+            q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset)
+        want, want_lse = ref.flash_attention_ref(
+            q, k, v, causal, kv_len=kv_len, q_offset=q_offset,
+            return_lse=True)
+        torch.cuda.synchronize()
+        assert got.shape == (B, Sq, H, 128)
+        assert _rel(got, want) <= 2e-5
+        assert _rel(lse, want_lse) <= 2e-5
+        assert torch.equal(got, again)
+    assert launch_counts()["flash_attention"] == 6
+
+
+def test_flash_attention_bwd_refuses_mla_widths_on_card(dev):
+    """The backward at (192, 128) is not ported: it raises by name and
+    launches nothing; (192, 192) is no width of the forward."""
+    q = torch.zeros((1, 64, 2, 192), device=dev)
+    v = torch.zeros((1, 64, 2, 128), device=dev)
+    o, lse = flash_attention.flash_attention(q, q, v, return_lse=True)
+    reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        flash_attention_bwd.flash_attention_bwd(q, q, v, o, lse, o)
+    with pytest.raises(ValueError, match="Dv"):
+        flash_attention.flash_attention(q, q, q)
+    assert launch_counts()["flash_attention_bwd"] == 0
+    assert launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b"])
+def test_moe_layer_cuda_matches_torch_on_card(dev, arch):
+    """An MoE layer (MLA or GQA attention, then the MoE FFN) of the reduced
+    config (MLA at its full head widths) at a 1100-token prompt (the flash region): "cuda" against
+    "torch" from the same weights, f32, within 1e-4 of the largest.  The
+    capacity factor is E / K, so nothing drops and a route that the
+    attention's last bits flip moves only its own token: such tokens must
+    have a router margin under 1e-5, and are left out of the compare."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import apply_layer, init_layer
+    from repro_torch.models.layers import rmsnorm
+
+    cfg0 = get_config(arch, reduced=True)
+    # MLA at the kernel's (192, 128) route: the reduced config's (24, 16)
+    # is no width of the kernel
+    widths = (dict(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                   v_head_dim=128) if cfg0.use_mla else {})
+    cfg = dataclasses.replace(cfg0, capacity_factor=float(
+        cfg0.num_experts / cfg0.top_k), **widths)
+    spec = ("mla" if cfg.use_mla else "gqa") + "+moe"
+    layer = init_layer(cfg, spec, torch.Generator(dev).manual_seed(0), dev)
+    x = torch.randn((2, 1100, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    pos = torch.arange(1100, device=dev)
+    attend = attn.mla_attention if cfg.use_mla else attn.gqa_attention
+    reset_launch_counts()
+    outs, routes = {}, {}
+    for bk in ("cuda", "torch"):
+        outs[bk], _ = apply_layer(layer, cfg, spec, x, positions=pos,
+                                  backend=bk)
+        # the MoE's input, recomputed as the layer body forms it
+        y, _ = attend(layer.mixer, cfg, rmsnorm(layer.ln1, x, cfg.norm_eps),
+                      pos, backend=bk)
+        h = rmsnorm(layer.ln2, x + y, cfg.norm_eps).reshape(-1, cfg.d_model)
+        logits, _, ids = moe.route(layer.ffn, cfg, h)
+        routes[bk] = (logits, ids.sort(-1).values)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 2   # layer + recompute
+    same = (routes["cuda"][1] == routes["torch"][1]).all(-1)
+    if not same.all():
+        logits = routes["torch"][0][~same]
+        top = logits.sort(-1, descending=True).values
+        margin = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]).abs()
+        assert (margin <= 1e-5).all(), margin.max().item()
+    got = outs["cuda"].reshape(-1, cfg.d_model)[same]
+    want = outs["torch"].reshape(-1, cfg.d_model)[same]
+    assert _rel(got, want) <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # LM training: the flash backward, the forward's lse, TuckerMatmul, a step
 # ---------------------------------------------------------------------------

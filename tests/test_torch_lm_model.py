@@ -213,15 +213,27 @@ def test_full_config_matches_the_reference_config():
         == dataclasses.asdict(J_REDUCED)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b",
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "internvl2_2b",
                                   "xlstm_125m", "hubert_xlarge"])
 def test_unported_architectures_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config(arch)
 
 
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b"])
+def test_moe_architectures_load_and_serve(arch):
+    """Lifted from the refusals above: both MoE configs load, full and
+    reduced, and the reduced one serves on the CPU."""
+    from repro_torch.launch import serve
+
+    assert get_config(arch).num_experts > 0
+    res = serve.run(get_config(arch, reduced=True), batch=2, prompt_len=8,
+                    gen=2, device="cpu", backend="torch")
+    assert res["finite"] and res["generated"].shape == (2, 2)
+
+
 @pytest.mark.parametrize("change", [
-    {"use_mla": True}, {"num_experts": 4}, {"mixer": "mamba2"},
+    {"moe_sharded": True}, {"shared_attn_every": 2}, {"mixer": "mamba2"},
     {"mixer": "xlstm"}, {"frontend": "vision"}, {"encoder_only": True},
     {"mixed_precision": True}])
 def test_unported_parts_of_a_config_raise(change):
@@ -230,3 +242,42 @@ def test_unported_parts_of_a_config_raise(change):
         require_ported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         init_model(cfg, device="cpu")
+
+
+MLA = dict(use_mla=True, kv_lora_rank=32, qk_nope_head_dim=16,
+           qk_rope_head_dim=8, v_head_dim=16)
+MOE = dict(num_experts=4, top_k=2, moe_d_ff=32)
+
+
+@pytest.mark.parametrize("change", [MLA, MOE], ids=["use_mla", "num_experts"])
+def test_mla_and_moe_parts_of_a_config_run(change):
+    """Lifted from the refusals above: MLA attention and MoE FFNs in the
+    reduced Qwen3-14B init and run a forward on the CPU."""
+    cfg = require_ported(dataclasses.replace(REDUCED, **change))
+    model = init_model(cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 8))
+    logits = forward(model, cfg, {"tokens": toks})
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("entry", ["train_run", "make_train_step",
+                                   "make_sharded_train_step", "ShardedLM"])
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b"])
+def test_mla_and_moe_training_raise_naming_the_roadmap(arch, entry):
+    from repro_torch.distributed.sharded_lm import ShardedLM
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch, reduced=True)
+    opt = adamw.AdamWConfig()
+    call = {
+        "train_run": lambda: train.run(cfg, steps=1, device="cpu"),
+        "make_train_step": lambda: steps.make_train_step(cfg, opt),
+        "make_sharded_train_step": lambda: steps.make_sharded_train_step(
+            cfg, opt, None, {}),
+        "ShardedLM": lambda: ShardedLM(cfg, None, {}, "fsdp_tp"),
+    }[entry]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        call()
+
