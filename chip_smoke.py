@@ -412,12 +412,42 @@ Phases (each failure ends the run with a non-zero exit code):
    reference's 3e-3.  (d) Qwen3-MoE-30B-A3B at full width and 8 of its 48
    layers (``MOE_SERVE``), batch 4, prompt 2,048, 8 tokens: finite logits,
    L flash launches a prefill (D = 128, G = 8), times, peak and drops.
+25. MoE and MLA training at full width.  (a) The flash backward at MLA's
+   (D, Dv) = (192, 128) (16-row ring tiles) against its plain version at
+   the training shape (B = 2, H = Kv = 16, S = 2,048, causal), at
+   S = 2,047, at Sq = 1,024 behind ``q_offset`` 1,024 and non-causal with
+   kv_len < Sk: dq, dk, dv each within 2e-5 of its largest, two calls
+   bitwise; its time beside the bound (3xTF32 at 495 TFLOP/s), the plain
+   version and the f32 backward of ``scaled_dot_product_attention``.
+   bf16 q, k, v (o and dO in the backward) into both kernels at every
+   width (``BF16_SHAPES``: Qwen3-14B's G = 5 and Qwen3-MoE's G = 8 at 128,
+   MLA's (192, 128)): the forward with and without the lse and the
+   backward give the f32 kernels' bits on the inputs widened to f32 (the
+   forward's output rounded to bf16), or within 2e-5 where not (logged);
+   their times at MLA's shape beside bf16 SDPA.  (b) DeepSeek-V2-Lite and
+   (c) Qwen3-MoE at full width and 4 layers (``MOE_TRAIN``; the cut is
+   logged) through ``launch/train.run``: batch 2 × 2,048, 20 steps, no
+   checkpoint; steps/s, tokens/s, peak (under 80 GB), finite and falling
+   loss, exactly L ``flash_attention`` and L ``flash_attention_bwd``
+   launches a step and no other kernel, the capacity's drop share over
+   one batch; one more DeepSeek step under the profiler.  (d) ``"cuda"``
+   against ``"torch"`` at 2 layers of DeepSeek-V2-Lite in f32 with phase
+   13's bounds, both runs' picks recorded through ``models.moe.route``
+   (wrapped here), each differing pick within ``ROUTE_MARGIN`` and the
+   ``"torch"`` run then fed the ``"cuda"`` run's picks.  (e)
+   ``mixed_precision``: DeepSeek-V2-Lite at 4 layers for 10 steps, every
+   flash call bf16 at (192, 128), loss finite and falling, and (d) again
+   in mixed precision within 2⁻⁵ (picks within ``MIXED_ROUTE_MARGIN``).
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
 took it, beside each kernel; ``flash_attention_mla`` is the flash
 kernel's (192, 128) route, its launches DeepSeek-V2-Lite's serve
-request's), the ``nvidia-smi`` line, and last
+request's and training run's; ``flash_attention_bwd_mla`` the backward's
+(192, 128) route, its launches that training run's;
+``flash_attention_bf16`` and ``flash_attention_bwd_bf16`` the bf16
+routes, their launches the mixed-precision run's), the ``nvidia-smi``
+line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
 record there as JSON.  ``--refresh-host`` runs only the patch's host
 split, the refresh contract at J = R = 4 and ``bench_refresh`` FULL on
@@ -510,6 +540,26 @@ MOE_SERVE = dict(ds_layers=27, qm_layers=8, qm_gen=8)
 MOE_PARITY = dict(layers=2, batch=2, prompt_len=2048, gen=4)
 ROUTE_MARGIN = 1e-5
 MOE_PEAK = 76e9
+# phase 25: DeepSeek-V2-Lite and Qwen3-MoE train at 4 of their 27 and 48
+# layers (DeepSeek's dense first layer and 3 MoE layers).  Reckoned, one
+# MoE layer's f32 parameters, gradients and AdamW m and v take 9.36 GB
+# (DeepSeek-V2-Lite) and 9.97 GB (Qwen3-MoE), the embedding and head 6.71
+# and 9.96 GB: 36.1 and 49.8 GB at 4 layers before activations.  The
+# mixed_precision run takes mixed_steps; the parity runs parity_layers
+# (phase 13's batch and sequence); a pick that differs between "cuda" and
+# "torch" under mixed_precision (a bf16 stream) must lie this close to
+# the next-best router logit (about 8 bf16 ulps of a logit of 2)
+MOE_TRAIN = dict(layers=4, batch=2, seq=2048, steps=20, mixed_steps=10,
+                 parity_layers=2)
+MIXED_ROUTE_MARGIN = 2.0 ** -4
+# phase 25 (a): bf16 into both flash kernels at every width, (tag, H, Kv,
+# D, Dv), B and S of MOE_TRAIN; the paths' shapes where a path takes the
+# width (MLA's last: its times are taken there)
+BF16_SHAPES = (("D = 16", 8, 2, 16, 16), ("D = 32", 8, 2, 32, 32),
+               ("D = 64", 8, 2, 64, 64),
+               ("Qwen3-14B, G = 5", 40, 8, 128, 128),
+               ("Qwen3-MoE, G = 8", 32, 4, 128, 128),
+               ("MLA", 16, 16, 192, 128))
 LM_PARITY = dict(layers=2, batch=2, prompt_len=2048, gen=4)
 # one checkpoint (at step 16): the full f32 state of 8 layers is 26.2 GiB,
 # and the GPU machine takes at most 45 GiB of disk writes per call
@@ -2393,21 +2443,37 @@ def phase_lm_train_parity(torch, train, cfg) -> dict:
             lo, list(params.values()))))
         loss[bk] = float(lo.detach())
         del lo
+    rec = _backend_parity(torch, state, params, loss, grads,
+                          f"LM train parity ({cfg2.num_layers} layers, "
+                          f"batch {P['batch']}, seq {P['seq']})")
+    del state, params
+    torch.cuda.empty_cache()
+    return {"layers": cfg2.num_layers, **rec}
+
+
+def _backend_parity(torch, state, params, loss: dict, grads: dict, what: str,
+                    loss_tol: str = "lm.loss") -> dict:
+    """Phase 13's comparison of ``"cuda"`` against ``"torch"`` from one
+    ``state``: their losses and gradients (``loss``, ``grads``: each by
+    backend; ``loss_tol`` the loss's key of ``TOL``), then m, v and the
+    parameters after one AdamW step from each backend's gradients;
+    ``grads`` is emptied and the step taken in ``state``."""
+    from repro_torch.optim import adamw
+
     rel_loss = abs(loss["cuda"] - loss["torch"]) / abs(loss["torch"])
     worst_g, worst_name = 0.0, ""
     for name in params:
         _, r = rel_err(grads["cuda"][name], grads["torch"][name])
         if r > worst_g:
             worst_g, worst_name = r, name
-    log(f"LM train parity ({cfg2.num_layers} layers, batch {P['batch']}, "
-        f"seq {P['seq']}): loss cuda {loss['cuda']:.6f}, torch "
+    log(f"{what}: loss cuda {loss['cuda']:.6f}, torch "
         f"{loss['torch']:.6f}, relative diff {rel_loss:.3g} (tolerance "
-        f"{TOL['lm.loss']:.4g}); worst gradient leaf {worst_name}: "
+        f"{TOL[loss_tol]:.4g}); worst gradient leaf {worst_name}: "
         f"{worst_g:.3g} of its largest (tolerance {TOL['lm.grads']:.4g})")
-    if not (math.isfinite(loss["cuda"]) and rel_loss <= TOL["lm.loss"]):
-        raise AssertionError(f"LM train parity: loss {loss}")
+    if not (math.isfinite(loss["cuda"]) and rel_loss <= TOL[loss_tol]):
+        raise AssertionError(f"{what}: loss {loss}")
     if not worst_g <= TOL["lm.grads"]:
-        raise AssertionError(f"LM train parity: gradient {worst_name} "
+        raise AssertionError(f"{what}: gradient {worst_name} "
                              f"differs by {worst_g:.3g} of its largest")
 
     # one AdamW step from each backend's gradients, from the same state.
@@ -2446,7 +2512,7 @@ def phase_lm_train_parity(torch, train, cfg) -> dict:
     del grads
     torch.cuda.synchronize()
     n_all = sum(p.numel() for p in params.values())
-    log(f"LM train parity: one AdamW step (lr {lr:.3g}, warmup 1): worst "
+    log(f"{what}: one AdamW step (lr {lr:.3g}, warmup 1): worst "
         f"m leaf {worst['m'][1]}: {worst['m'][0]:.3g} of its largest, worst "
         f"v leaf {worst['v'][1]}: {worst['v'][0]:.3g} (tolerance "
         f"{TOL['lm.grads']:.4g}); parameters where |g| > "
@@ -2456,11 +2522,10 @@ def phase_lm_train_parity(torch, train, cfg) -> dict:
         f"zero gradient 1)")
     for key, (r, name) in worst.items():
         if not r <= TOL["lm.grads"]:
-            raise AssertionError(f"LM train parity: {key} of {name} differs "
+            raise AssertionError(f"{what}: {key} of {name} differs "
                                  f"by {r:.3g} after one AdamW step")
-    del state, params, after, opt_c, opt_t
-    torch.cuda.empty_cache()
-    return {"layers": cfg2.num_layers, "loss": loss, "loss_rel_diff": rel_loss,
+    del after, opt_c, opt_t
+    return {"loss": loss, "loss_rel_diff": rel_loss,
             "worst_grad": {"leaf": worst_name, "rel_diff": worst_g},
             "adamw_step": {"lr": lr, "settled_entries": held,
                            "entries": n_all,
@@ -6170,6 +6235,597 @@ def phase_moe_serving(torch, K, serve, ds_cfg, qm_cfg
     return rec, row, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 25
+# ---------------------------------------------------------------------------
+
+def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, dict]:
+    """(a): the flash backward at MLA's (D, Dv) = (192, 128) against its
+    plain version at the training shape and three variants, two calls
+    bitwise; its time beside the bound, the plain version and the backward
+    of ``scaled_dot_product_attention`` in f32."""
+    import torch.nn.functional as F
+
+    ref, fa = K.ref, K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(2525)
+    B, S, H = MOE_TRAIN["batch"], MOE_TRAIN["seq"], cfg.num_heads
+    D, Dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    def inputs(Sq, Sk):
+        return (torch.randn((B, Sq, H, D), generator=gen, device="cuda"),
+                torch.randn((B, Sk, H, D), generator=gen, device="cuda"),
+                torch.randn((B, Sk, H, Dv), generator=gen, device="cuda"),
+                torch.randn((B, Sq, H, Dv), generator=gen, device="cuda"))
+
+    cases = [  # (tag, Sq, Sk, causal, kv_len, q_offset)
+        ("training shape", S, S, True, S, 0),
+        ("S = 2047", S - 1, S - 1, True, S - 1, 0),
+        ("Sq = 1024 behind q_offset 1024", S // 2, S, True, S, S // 2),
+        ("non-causal, kv_len < Sk", S - 1, S, False, S - 77, 0)]
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst_abs = 0.0
+    for tag, Sq, Sk, causal, kv_len, q_offset in cases:
+        q, k, v, dout = inputs(Sq, Sk)
+        kw = dict(causal=causal, kv_len=kv_len, q_offset=q_offset)
+        o, lse = fa(q, k, v, return_lse=True, **kw)
+        got, again = fb(q, k, v, o, lse, dout, **kw), \
+            fb(q, k, v, o, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal,
+                                           kv_len=kv_len, q_offset=q_offset)
+        torch.cuda.synchronize()
+        msg = []
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            if g.shape != w.shape:
+                raise AssertionError(f"flash backward (192, 128) [{tag}]: "
+                                     f"{name} {tuple(g.shape)}")
+            e, r = rel_err(g, w)
+            worst[name] = max(worst[name], r)
+            worst_abs = max(worst_abs, e)
+            msg.append(f"{name} {e:.3g} ({r:.3g} of its largest)")
+            if not r <= TOL["flash_attention_bwd"]:
+                raise AssertionError(
+                    f"flash backward (192, 128) [{tag}]: {name} {r:.3g} of "
+                    f"its largest > {TOL['flash_attention_bwd']}")
+            if not torch.equal(g, a):
+                raise AssertionError(f"flash backward (192, 128) [{tag}]: "
+                                     f"two calls gave different {name} bits")
+        log(f"  flash_attention_bwd [(D, Dv) = ({D}, {Dv}) {tag}: B={B} "
+            f"Sq={Sq} Sk={Sk} H=Kv={H} causal={causal} kv_len={kv_len} "
+            f"q_offset={q_offset}]: " + ", ".join(msg)
+            + "; two calls bitwise equal")
+        del q, k, v, dout, o, lse, got, again, want
+    torch.cuda.empty_cache()
+
+    q, k, v, dout = inputs(S, S)
+    o, lse = fa(q, k, v, return_lse=True)
+    kernel = lambda: fb(q, k, v, o, lse, dout)            # noqa: E731
+    ms = device_ms(torch, kernel, iters=20)
+    plain = device_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, dout), iters=5)
+    floor = floor_ms(torch, K.build)
+    lib = _sdpa_bwd_ms(torch, F, q, k, v, dout)
+    pairs = S * (S + 1) // 2
+    # q, k, v, o, dO and lse in; dq, dk, dv out
+    nbytes = 4 * (B * S * H * (4 * D + 4 * Dv) + B * H * S)
+    flops = 2 * pairs * B * H * (D + Dv + Dv + D + D)   # S, dP, dV, dK, dQ
+    bplan = K.flash_attention_bwd.plan(B, S, S, H, H, D, Dv)
+    t_tc, by_tc = tc_bound(nbytes, [(bplan.passes[0], flops)])
+    f32 = bound(nbytes, flops)
+    row = {"name": "flash_attention_bwd_mla",
+           "variant": f"training B={B} H=Kv={H} S={S} (D, Dv) = ({D}, {Dv}) "
+                      "causal", "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": t_tc, "bound_by": by_tc,
+           "floor_ms": floor, "f32_bound_ms": f32[0],
+           "f32_bound_by": f32[1], "device_ms": None,
+           "plan": dataclasses.asdict(bplan)}
+    log(f"flash_attention_bwd [{row['variant']}]: {ms:.4f} ms/call (plain "
+        f"{plain:.4f} ms"
+        + (f", scaled_dot_product_attention backward {lib:.4f} ms"
+           if lib is not None else "")
+        + f"), bound on the tensor cores {t_tc:.4f} ms by {by_tc} "
+        f"({t_tc / ms:.1%} of it), f32 bound {f32[0]:.4f} ms "
+        f"({f32[0] / ms:.1%}); launch floor {floor:.4f} ms; ring tiles "
+        f"{bplan.kv_tile[1]} rows, {bplan.smem[0]:,} shared bytes a block")
+    del q, k, v, dout, o, lse
+    torch.cuda.empty_cache()
+    return ({"worst_rel": worst, "max_abs_err": worst_abs,
+             "tol": TOL["flash_attention_bwd"]}, row)
+
+
+def _sdpa_bwd_ms(torch, F, q, k, v, dout) -> float | None:
+    """Device ms of one backward of ``scaled_dot_product_attention`` (causal,
+    the layouts transposed to (B, H, S, D)), or None where it does not take
+    these inputs."""
+    try:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gt = dout.transpose(1, 2)
+        ms = device_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), gt, retain_graph=True), iters=10)
+        del out
+        return ms
+    except (TypeError, RuntimeError) as exc:
+        log(f"scaled_dot_product_attention backward at {tuple(q.shape)} "
+            f"{q.dtype}, v {tuple(v.shape)}: {exc}")
+        return None
+
+
+def _sdpa_fwd_ms(torch, F, q, k, v) -> float | None:
+    try:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=20)
+    except (TypeError, RuntimeError) as exc:
+        log(f"scaled_dot_product_attention at {tuple(q.shape)} {q.dtype}, "
+            f"v {tuple(v.shape)}: {exc}")
+        return None
+
+
+def _bf16_checks(torch, K) -> tuple[dict, list[dict]]:
+    """(a): bf16 q, k, v (and o, dO) into both flash kernels at every
+    width in ``WIDTHS``, at the paths' shapes where a path takes the width:
+    the f32 kernels' bits on the inputs widened to f32 (the forward's
+    output then rounded to bf16), or, where not, within 2e-5; and against
+    the plain versions on the same inputs, within 2e-5 of each output's
+    largest (o, which both round to bf16, within that plus half a bf16
+    ulp of the plain f32 value: the rounding itself).  ``max_abs_err`` is
+    the distance to the plain versions.  The MLA shape's times."""
+    import torch.nn.functional as F
+
+    fa = K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    ref = K.ref
+    gen = torch.Generator(device="cuda").manual_seed(2526)
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    rec: dict = {"cases": [], "bitwise": True, "max_abs_err": 0.0,
+                 "max_abs_err_fwd": 0.0, "max_abs_err_bwd": 0.0}
+    for tag, h, hk, d, dv in BF16_SHAPES:
+        if (d, dv) not in K.flash_attention.WIDTHS:
+            raise AssertionError(f"bf16 check at ({d}, {dv}): not a width")
+        q = torch.randn((B, S, h, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, S, hk, d), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((B, S, hk, dv), generator=gen,
+                        device="cuda").bfloat16()
+        dout = torch.randn((B, S, h, dv), generator=gen,
+                           device="cuda").bfloat16()
+        o_plain = fa(q, k, v)
+        o, lse = fa(q, k, v, return_lse=True)
+        o32, lse32 = fa(q.float(), k.float(), v.float(), return_lse=True)
+        got = fb(q, k, v, o, lse, dout)
+        want = fb(q.float(), k.float(), v.float(), o.float(), lse,
+                  dout.float())
+        # the plain versions on the same inputs: bf16 is exact in f32, so
+        # the widened copies are the same values; o before its rounding
+        p_o, p_lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                             True, return_lse=True)
+        p_grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout)
+        torch.cuda.synchronize()
+        pairs = [("o", o_plain, o32.bfloat16()), ("o with lse", o, o32),
+                 ("lse", lse, lse32), *zip(("dq", "dk", "dv"), got, want)]
+        case = {"case": tag, "shape": [B, S, h, hk, d, dv], "bitwise": {},
+                "plain_rel": {}}
+        for name, g, w in pairs:
+            same = bool(torch.equal(g, w.to(g.dtype)))
+            case["bitwise"][name] = same
+            if not same:
+                e, r = rel_err(g, w)
+                rec["bitwise"] = False
+                log(f"  bf16 flash [{tag}] {name}: not the f32 kernel's bits "
+                    f"on the widened inputs: {e:.3g} ({r:.3g} of its "
+                    "largest)")
+                if not r <= TOL["flash_attention_bwd"]:
+                    raise AssertionError(f"bf16 flash [{tag}] {name}: {r:.3g}")
+        # half a bf16 ulp of each plain value: 2^(e - 9) for x = m·2^e,
+        # m in [0.5, 1), with bf16's 8 significant bits
+        half_ulp = torch.ldexp(torch.ones_like(p_o),
+                               torch.frexp(p_o)[1] - 9)
+        for name, g in (("o", o_plain), ("o with lse", o)):
+            over = ((g.float() - p_o).abs() - half_ulp).clamp_min(0)
+            e = over.max().item()
+            r = e / p_o.abs().max().item()
+            case["plain_rel"][name] = r
+            rec["max_abs_err_fwd"] = max(rec["max_abs_err_fwd"], e)
+            if not r <= TOL["flash_attention"]:
+                raise AssertionError(
+                    f"bf16 flash [{tag}] {name}: {r:.3g} of its largest past "
+                    f"its bf16 rounding from the plain version")
+        for name, g, w in (("lse", lse, p_lse),
+                           *zip(("dq", "dk", "dv"), got, p_grads)):
+            e, r = rel_err(g, w)
+            case["plain_rel"][name] = r
+            side = "max_abs_err_fwd" if name == "lse" else "max_abs_err_bwd"
+            rec[side] = max(rec[side], e)
+            if not r <= TOL["flash_attention_bwd"]:
+                raise AssertionError(f"bf16 flash [{tag}] {name}: {r:.3g} of "
+                                     "its largest from the plain version")
+        log(f"  bf16 flash [{tag}: B={B} S={S} H={h} Kv={hk} (D, Dv) = ({d}, "
+            f"{dv}) causal]: forward without and with the lse, lse and "
+            "backward against the f32 kernels on the widened inputs: "
+            + ("bitwise equal" if all(case["bitwise"].values())
+               else f"{case['bitwise']}") + "; against the plain versions "
+            "on the same inputs (of each output's largest; o past its bf16 "
+            "rounding): " + ", ".join(f"{n} {r:.3g}"
+                                      for n, r in case["plain_rel"].items()))
+        rec["cases"].append(case)
+        del q, k, v, dout, o_plain, o, lse, o32, lse32, got, want
+        del p_o, p_lse, p_grads, half_ulp
+    rec["max_abs_err"] = max(rec["max_abs_err_fwd"], rec["max_abs_err_bwd"])
+    torch.cuda.empty_cache()
+
+    # times at MLA's training shape, the mixed-precision path's
+    h, d, dv = BF16_SHAPES[-1][1], BF16_SHAPES[-1][3], BF16_SHAPES[-1][4]
+    q = torch.randn((B, S, h, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, S, h, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, S, h, dv), generator=gen, device="cuda").bfloat16()
+    dout = torch.randn((B, S, h, dv), generator=gen, device="cuda").bfloat16()
+    o, lse = fa(q, k, v, return_lse=True)
+    floor = floor_ms(torch, K.build)
+    pairs_n = S * (S + 1) // 2
+    f_ms = device_ms(torch, lambda: fa(q, k, v, return_lse=True), iters=20)
+    f_plain = device_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, True, return_lse=True), iters=5)
+    f_lib = _sdpa_fwd_ms(torch, F, q, k, v)
+    f_bytes = 2 * B * S * h * (2 * d + 2 * dv) + 4 * B * h * S
+    # tensor-core passes per product by its operands: a bf16 value is
+    # exact in TF32, so bf16 × bf16 needs one pass and f32 × bf16 two
+    # (the kernels run all three; the bound is the function's)
+    f_tb, f_by = tc_bound(f_bytes, [(1, 2 * pairs_n * B * h * d),    # S
+                                    (2, 2 * pairs_n * B * h * dv)])  # P·V
+    b_ms = device_ms(torch, lambda: fb(q, k, v, o, lse, dout), iters=20)
+    b_plain = device_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, dout), iters=5)
+    b_lib = _sdpa_bwd_ms(torch, F, q, k, v, dout)
+    b_bytes = (2 * B * S * h * (2 * d + 3 * dv) + 4 * B * h * S
+               + 4 * B * S * h * (2 * d + dv))
+    unit = 2 * pairs_n * B * h
+    b_tb, b_by = tc_bound(b_bytes, [(1, unit * d), (1, unit * dv),  # S, dP
+                                    (2, unit * dv), (2, unit * d),  # dV, dK
+                                    (2, unit * d)])                 # dQ
+    variant = f"B={B} H=Kv={h} S={S} (D, Dv) = ({d}, {dv}) causal, bf16"
+    rows = [
+        {"name": "flash_attention_bf16", "variant": "training forward with "
+         "lse " + variant, "ms": f_ms, "plain_ms": f_plain,
+         "library_ms": f_lib, "bound_ms": f_tb, "bound_by": f_by,
+         "floor_ms": floor, "device_ms": None},
+        {"name": "flash_attention_bwd_bf16", "variant": "training " + variant,
+         "ms": b_ms, "plain_ms": b_plain, "library_ms": b_lib,
+         "bound_ms": b_tb, "bound_by": b_by, "floor_ms": floor,
+         "device_ms": None}]
+    for r in rows:
+        log(f"{r['name']} [{r['variant']}]: {r['ms']:.4f} ms/call (plain "
+            f"{r['plain_ms']:.4f} ms"
+            + (f", scaled_dot_product_attention {r['library_ms']:.4f} ms "
+               "in bf16" if r["library_ms"] is not None else "")
+            + f"), bound {r['bound_ms']:.4f} ms by {r['bound_by']} (TF32 "
+            "at 495 TFLOP/s, 1 pass for bf16 × bf16, 2 for f32 × bf16; bf16 "
+            f"bytes; {r['bound_ms'] / r['ms']:.1%} of it)")
+    del q, k, v, dout, o, lse
+    torch.cuda.empty_cache()
+    return rec, rows
+
+
+@contextlib.contextmanager
+def _flash_calls(K, seen: set):
+    """The ``"cuda"`` backend's two flash entries record (name, dtype, D,
+    Dv) of every call into ``seen``, then run as they are."""
+    be = K.dispatch.get_backend("cuda")
+    fwd, bwd = be.flash_attention, be.flash_attention_bwd
+
+    def f_spy(q, k, v, **kw):
+        seen.add(("flash_attention", str(q.dtype), q.shape[-1], v.shape[-1]))
+        return fwd(q, k, v, **kw)
+
+    def b_spy(q, k, v, o, lse, dout, **kw):
+        seen.add(("flash_attention_bwd", str(q.dtype), q.shape[-1],
+                  v.shape[-1]))
+        return bwd(q, k, v, o, lse, dout, **kw)
+
+    be.flash_attention, be.flash_attention_bwd = f_spy, b_spy
+    try:
+        yield
+    finally:
+        del be.flash_attention, be.flash_attention_bwd
+
+
+def _train_moe(torch, K, train, cfg, name: str, steps: int,
+               profile: bool) -> dict:
+    """(b), (c), (e): ``launch/train.run`` of ``cfg`` on the card (no
+    checkpoint is written): steps/s, tokens/s, peak, finite and falling
+    loss, exactly L ``flash_attention`` and L ``flash_attention_bwd``
+    launches a step and no other kernel, the (dtype, D, Dv) the flash
+    kernels were called at; then the capacity's drop share over one
+    batch, and (``profile``) one more step under the profiler."""
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import forward
+    from repro_torch.optim import adamw
+
+    L, B, T = cfg.num_layers, MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen: set = set()
+    K.reset_launch_counts()
+    with _flash_calls(K, seen):
+        res = train.run(cfg, steps=steps, batch=B, seq=T,
+                        ckpt_dir=str(ROOT / "build" / "moe_train_ckpt"),
+                        ckpt_every=steps + 1, log_every=5, device="cuda",
+                        backend="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    hist = res["history"]
+    losses = [hist[i]["loss"] for i in range(1, steps + 1)]
+    gnorms = [hist[i]["grad_norm"] for i in range(1, steps + 1)]
+    med = statistics.median(hist[i]["seconds"] for i in range(2, steps + 1))
+    n_params = sum(p.numel() for p in res["state"].params.parameters())
+    peak = res["peak_device_bytes"]
+    want = {k: (L * steps if k in ("flash_attention", "flash_attention_bwd")
+                else 0) for k in counts}
+    log(f"{name} train: {L} layers, {n_params:,} f32 parameters "
+        f"(mixed_precision {cfg.mixed_precision}, dtype {cfg.dtype}), batch "
+        f"{B} × seq {T}, {steps} steps: {res['seconds']:.2f}s, "
+        f"{res['steps_per_s']:.3f} steps/s, {res['tokens_per_s']:.1f} "
+        f"tokens/s; median step {med:.4f}s = {B * T / med:.1f} tokens/s; "
+        f"peak device bytes {peak:,}")
+    log(f"{name} train: loss per step "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"{name} train: grad norm per step "
+        + ", ".join(f"{x:.4f}" for x in gnorms))
+    log(f"{name} train: launch counts {counts} (want {want}); flash calls "
+        f"at (name, dtype, D, Dv) {sorted(seen)}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{name} train: a non-finite loss or grad norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} train: loss did not fall "
+                             f"({losses[0]:.4f} → {losses[-1]:.4f})")
+    if not peak < 80e9:
+        raise AssertionError(f"{name} train: peak {peak:,} bytes")
+    if counts != want:
+        raise AssertionError(f"{name} train: launch counts {counts}, want "
+                             f"{want}")
+    out = {"layers": L, "params": n_params, "steps": steps, "batch": B,
+           "seq": T, "losses": losses, "grad_norms": gnorms,
+           "seconds": res["seconds"], "steps_per_s": res["steps_per_s"],
+           "tokens_per_s": res["tokens_per_s"], "median_step_s": med,
+           "median_tokens_per_s": B * T / med, "peak_device_bytes": peak,
+           "launch_counts": counts, "flash_calls": sorted(seen)}
+    state = res["state"]
+    del res
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=T, global_batch=B))
+    on_call, drops = _drop_stats(torch, B)
+    with torch.no_grad(), _moe_calls(on_call):
+        forward(state.params, cfg, train.device_batch(pipe.global_batch(0),
+                                                      "cuda"),
+                backend="cuda")
+    d = drops["prefill"]
+    d["share"] = d["dropped"] / max(d["picks"], 1)
+    log(f"{name} train: the capacity dropped {d['dropped']:,} of "
+        f"{d['picks']:,} picks ({d['share']:.2%}) over batch 0's {B * T} "
+        f"tokens; the first MoE layer's routed output max |y| "
+        f"{d['routed_max']:.4g}")
+    if not d["routed_max"] > 0:
+        raise AssertionError(f"{name} train: the routed output is all zero")
+    out["drops"] = d
+    if profile:
+        step = S.make_train_step(cfg, adamw.AdamWConfig(total_steps=steps),
+                                 "cuda")
+        box = {}
+
+        def one_step():
+            box["s"], box["m"] = step(state, train.device_batch(
+                pipe.global_batch(steps), "cuda"))
+            float(box["m"]["loss"])
+
+        wall, kernels = _profile_window(torch, one_step)
+        out["profile"] = {"measured": bool(kernels), "wall_ms": wall * 1e3}
+        if kernels:
+            busy = sum(v[1] for v in kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:16]
+            log(f"{name} train profile [one step]: {wall * 1e3:.1f} ms wall "
+                f"under the profiler; device busy {busy / 1e3:.1f} ms = "
+                f"{busy / (wall * 1e6):.1%} of wall; "
+                f"{sum(v[0] for v in kernels.values())} device operations")
+            for kname, (cnt, us) in top:
+                log(f"  {us / 1e3:9.3f} ms  {cnt:5d}x  {kname[:90]}")
+            out["profile"].update(
+                device_busy_ms=busy / 1e3,
+                top_kernels=[{"name": k, "calls": c, "ms": us / 1e3}
+                             for k, (c, us) in top])
+        else:
+            log(f"{name} train profile: no device time recorded (not "
+                "measured)")
+        del box, step
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _route_tap(record: list | None = None, feed: list | None = None):
+    """Every ``models.moe.route`` call appends its router logits and picks
+    to ``record``; with ``feed`` (one entry of such a record a call, in
+    order) the call takes the fed experts instead, its gates from its own
+    logits at them (``moe.gates``, as ``route`` forms them)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    calls = iter(feed) if feed is not None else None
+
+    def tap(params, cfg, xt):
+        logits, gates, ids = real(params, cfg, xt)
+        if calls is not None:
+            ids = next(calls)["ids"]
+            gates = moe.gates(cfg, logits, ids)
+        if record is not None:
+            record.append({"logits": logits.detach(), "ids": ids})
+        return logits, gates, ids
+
+    moe.route = tap
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def _route_flips(torch, got: list, want: list, margin: float, what: str
+                 ) -> list:
+    """Picks of two runs' MoE calls compared: each token whose picks differ
+    reported with the closest two of ``want``'s K + 1 best router logits,
+    which must lie within ``margin`` of each other."""
+    flips = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g["ids"] != w["ids"]).any(-1)
+        if not diff.any():
+            continue
+        k = w["ids"].shape[1]
+        top = w["logits"].sort(-1, descending=True).values[:, :k + 1]
+        gaps = (top[:, :-1] - top[:, 1:]).min(-1).values[diff]
+        for t, m in zip(diff.nonzero()[:, 0].tolist(), gaps.tolist()):
+            log(f"  {what}: MoE call {i} token {t}: the picks differ, "
+                f"router margin {m:.3g}")
+            flips.append({"call": i, "token": t, "margin": m})
+            if m > margin:
+                raise AssertionError(f"{what}: MoE call {i} token {t} routes "
+                                     f"otherwise at a margin of {m:.3g} > "
+                                     f"{margin}")
+    return flips
+
+
+def _moe_train_parity(torch, train, cfg, what: str, margin: float,
+                      loss_tol: str, repeat: bool = False) -> dict:
+    """(d), (e): ``"cuda"`` against ``"torch"`` at 2 layers from one state,
+    phase 13's comparison (``_backend_parity``); both runs' picks
+    recorded, and where a pick differs the ``"torch"`` run fed the
+    ``"cuda"`` run's picks.  ``repeat``: the ``"cuda"`` run once more, and
+    the gradient leaves whose bits differ between the two recorded (the
+    MoE gather's backward and the embedding's add into rows with
+    ``index_put_``'s accumulation)."""
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import adamw
+
+    P = LM_TRAIN_PARITY
+    cfg2 = dataclasses.replace(cfg, num_layers=MOE_TRAIN["parity_layers"])
+    state = S.init_train_state(
+        cfg2, torch.Generator(device="cuda").manual_seed(11), "cuda")
+    params = adamw.named(state.params)
+    batch = train.device_batch(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg2.vocab_size, seq_len=P["seq"],
+        global_batch=P["batch"])).global_batch(0), "cuda")
+    loss, grads, picks = {}, {}, {}
+
+    def run(bk, feed=None):
+        picks[bk] = []
+        with _route_tap(picks[bk], feed):
+            lo = loss_fn(state.params, cfg2, batch, backend=bk)
+        grads[bk] = dict(zip(params, torch.autograd.grad(
+            lo, list(params.values()))))
+        loss[bk] = float(lo.detach())
+
+    run("cuda")
+    differ = None
+    if repeat:
+        first = grads.pop("cuda")
+        run("cuda")
+        differ = [n for n in params if not torch.equal(first[n],
+                                                       grads["cuda"][n])]
+        log(f"{what}: the cuda gradients twice: "
+            + (f"{len(differ)} of {len(params)} leaves differ in their bits: "
+               f"{differ}" if differ else "bitwise equal"))
+        del first
+    run("torch")
+    flips = _route_flips(torch, picks["torch"], picks["cuda"], margin, what)
+    if flips:
+        log(f"{what}: {len(flips)} picks differ; the torch run again, fed "
+            "the cuda run's picks")
+        run("torch", feed=picks["cuda"])
+    del picks
+    rec = _backend_parity(torch, state, params, loss, grads, what, loss_tol)
+    rec.update(layers=cfg2.num_layers, route_flips=flips,
+               dtype=cfg2.dtype, mixed_precision=cfg2.mixed_precision,
+               repeat_differing_leaves=differ)
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_moe_train(torch, K, train, ds_cfg, qm_cfg
+                    ) -> tuple[dict, list[dict], dict]:
+    """Phase 25: MoE and MLA training at full width — (a) the flash
+    backward at (192, 128) and bf16 into both flash kernels, (b)
+    DeepSeek-V2-Lite and (c) Qwen3-MoE through ``launch/train.run`` at
+    ``MOE_TRAIN["layers"]`` layers, (d) ``"cuda"`` against ``"torch"`` at
+    2 layers in f32, (e) ``mixed_precision``.  Returns (record, the new
+    routes' kernel rows, their launches on the main paths)."""
+    rec: dict = {"card": nvidia_smi_line()}
+    seconds: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["mla_bwd"], mla_row = _mla_bwd_checks(torch, K, ds_cfg)
+    rec["bf16"], bf16_rows = _bf16_checks(torch, K)
+    seconds["kernels"] = time.perf_counter() - t0
+    for cfg, full in ((ds_cfg, 27), (qm_cfg, 48)):
+        log(f"CUT: {cfg.arch_id} trains at {cfg.num_layers} of its {full} "
+            "layers (MOE_TRAIN: the f32 parameters, gradients and AdamW "
+            "moments of the whole model do not fit the card)")
+    t0 = time.perf_counter()
+    rec["deepseek"] = _train_moe(torch, K, train, ds_cfg,
+                                 "deepseek_v2_lite_16b", MOE_TRAIN["steps"],
+                                 profile=True)
+    seconds["deepseek"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["qwen3_moe"] = _train_moe(torch, K, train, qm_cfg,
+                                  "qwen3_moe_30b_a3b", MOE_TRAIN["steps"],
+                                  profile=False)
+    seconds["qwen3_moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["parity"] = _moe_train_parity(
+        torch, train, dataclasses.replace(ds_cfg, dtype="float32"),
+        "MoE train parity (deepseek_v2_lite_16b, 2 layers, f32)",
+        ROUTE_MARGIN, "lm.loss", repeat=True)
+    seconds["parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp = dataclasses.replace(ds_cfg, mixed_precision=True, dtype="bfloat16")
+    rec["mixed"] = _train_moe(torch, K, train, mp,
+                              "deepseek_v2_lite_16b mixed_precision",
+                              MOE_TRAIN["mixed_steps"], profile=False)
+    want = {("flash_attention", "torch.bfloat16", 192, 128),
+            ("flash_attention_bwd", "torch.bfloat16", 192, 128)}
+    if set(map(tuple, rec["mixed"]["flash_calls"])) != want:
+        raise AssertionError(f"mixed_precision: flash calls "
+                             f"{rec['mixed']['flash_calls']}, want {want}")
+    rec["mixed_parity"] = _moe_train_parity(
+        torch, train, mp,
+        "MoE train parity (deepseek_v2_lite_16b, 2 layers, mixed_precision)",
+        MIXED_ROUTE_MARGIN, "lm.grads")
+    seconds["mixed"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    log("phase 25 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    ds, mx = rec["deepseek"]["launch_counts"], rec["mixed"]["launch_counts"]
+    launches = {"flash_attention_mla": ds["flash_attention"],
+                "flash_attention_bwd_mla": ds["flash_attention_bwd"],
+                "flash_attention_bf16": mx["flash_attention"],
+                "flash_attention_bwd_bf16": mx["flash_attention_bwd"],
+                "flash_attention": rec["qwen3_moe"]["launch_counts"][
+                    "flash_attention"],
+                "flash_attention_bwd": rec["qwen3_moe"]["launch_counts"][
+                    "flash_attention_bwd"]}
+    errs = {"flash_attention_bwd_mla": rec["mla_bwd"]["max_abs_err"],
+            "flash_attention_bf16": rec["bf16"]["max_abs_err_fwd"],
+            "flash_attention_bwd_bf16": rec["bf16"]["max_abs_err_bwd"]}
+    rows = [dict(r, max_abs_err=errs[r["name"]])
+            for r in [mla_row, *bf16_rows]]
+    return rec, rows, launches
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--steps", type=int, default=600)
@@ -6327,6 +6983,14 @@ def main(argv: list[str] | None = None) -> int:
     report["moe_serving_seconds"] = time.perf_counter() - t_moe
     log(f"phase 24 (MoE and MLA serving): "
         f"{report['moe_serving_seconds']:.1f}s")
+    t_mt = time.perf_counter()
+    report["moe_train"], train_rows, train_launches = phase_moe_train(
+        torch, K, train,
+        *(dataclasses.replace(get_config(a), num_layers=MOE_TRAIN["layers"])
+          for a in ("deepseek_v2_lite_16b", "qwen3_moe_30b_a3b")))
+    report["moe_train_seconds"] = time.perf_counter() - t_mt
+    log(f"phase 25 (MoE and MLA training): "
+        f"{report['moe_train_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -6339,6 +7003,9 @@ def main(argv: list[str] | None = None) -> int:
         for k, v in part.items():
             counts[k] += v
     counts["flash_attention"] += moe_counts["flash_attention"]
+    for k in ("flash_attention", "flash_attention_bwd"):
+        counts[k] += train_launches[k]   # Qwen3-MoE's training, D = 128
+    moe_counts["flash_attention_mla"] += train_launches["flash_attention_mla"]
     report["seconds"] = time.perf_counter() - t_start
     total_written = sum(WRITTEN.values())
     report["disk_writes"] = {"reckoned_by_phase": dict(WRITTEN),
@@ -6383,6 +7050,15 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "floor_ms": t["floor_ms"], "device_ms": t.get("device_ms")})
     kernels.append(_mla_kernel_row(report, mla_row, moe_counts))
+    for r in train_rows:   # phase 25's routes of the two flash kernels
+        base = r["name"].replace("_mla", "").replace("_bf16", "")
+        kernels.append({
+            "name": r["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{base}.cu",
+            "replaces": REPLACES[base], "launches": train_launches[r["name"]],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "floor_ms",
+                                 "device_ms")}})
     report["kernels"] = kernels
     if args.report:
         path = Path(args.report)
@@ -6399,9 +7075,13 @@ def main(argv: list[str] | None = None) -> int:
         f"fig7bc, ingest, bench_convergence and multipod runs; the LM "
         f"serve request, the LM training run and phase 23's four sharded "
         f"training runs for {', '.join(LM_KERNELS)}; phase 24's Qwen3-MoE "
-        f"serve request for flash_attention): {counts}; the MLA route "
-        f"(DeepSeek-V2-Lite's serve request): "
-        f"{moe_counts['flash_attention_mla']}")
+        f"serve request for flash_attention; phase 25's Qwen3-MoE training "
+        f"for both flash kernels): {counts}; the MLA route "
+        f"(DeepSeek-V2-Lite's serve request and training): "
+        f"{moe_counts['flash_attention_mla']}; phase 25's new routes: "
+        + ", ".join(f"{k} {train_launches[k]}" for k in (
+            "flash_attention_bwd_mla", "flash_attention_bf16",
+            "flash_attention_bwd_bf16")))
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

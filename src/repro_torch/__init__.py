@@ -11,12 +11,15 @@ Entry points run on the CUDA card unless the caller passes
 (``repro_torch.device.resolve_device``).
 
 float32 means float32: TF32 is switched off for matmuls and cuDNN here,
-so the ``"torch"`` oracle backend computes in full f32 on the card.
+so the ``"torch"`` oracle backend computes in full f32 on the card; and
+cuBLAS may not reduce a bf16 GEMM in reduced precision (PyTorch's default
+lets it), so under ``mixed_precision`` every dot still accumulates in f32.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .device import resolve_device  # noqa: E402
 

@@ -1,9 +1,8 @@
 """LM side: train-step wall time of every ported architecture, reduced config.
 
 Counterpart of ``benchmarks/bench_lm_step.py`` for the names in
-``configs.PORTED_ARCHS`` whose training is ported (``make_train_step``
-refuses MLA and MoE until ROADMAP Queue 1's next slice): one
-``loss → grad → AdamW`` step (``launch.steps.make_train_step``) at batch 4
+``configs.PORTED_ARCHS`` (Qwen3-14B, DeepSeek-V2-Lite with MLA and MoE,
+Qwen3-MoE), in that order: one ``loss → grad → AdamW`` step (``launch.steps.make_train_step``) at batch 4
 × 64 tokens, one warm-up call and the median of three.  Not a paper table:
 it shows that each ported architecture runs a whole training step, and
 gives a relative cost.  At 64 tokens attention takes the dense block
@@ -39,10 +38,7 @@ def run(device: str | torch.device | None = None,
     out = []
     for arch in PORTED_ARCHS:
         cfg = get_config(arch, reduced=True)
-        try:
-            step = S.make_train_step(cfg, adamw.AdamWConfig(), backend)
-        except NotImplementedError:     # serves, does not train yet
-            continue
+        step = S.make_train_step(cfg, adamw.AdamWConfig(), backend)
         state = S.init_train_state(
             cfg, torch.Generator(device=device).manual_seed(0), device)
         g = torch.Generator(device=device).manual_seed(1)

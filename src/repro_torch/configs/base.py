@@ -6,8 +6,10 @@ reference config and its port differ in nothing but the package, and
 MLA attention models with dense, Tucker-compressed or MoE FFNs:
 ``get_config`` of an architecture that is not ported yet, and
 ``require_ported`` of a config that asks for a part that is not ported,
-raise ``NotImplementedError`` (see ROADMAP.md).  ``require_trainable``
-adds the parts that serve but do not train yet (MLA and MoE).
+raise ``NotImplementedError`` (see ROADMAP.md).  Every ported config
+trains on one device; ``distributed.sharded_lm.ShardedLM`` refuses the
+parts that do not train sharded over a mesh yet (MLA, MoE and
+``mixed_precision``).
 """
 from __future__ import annotations
 
@@ -126,7 +128,6 @@ def require_ported(cfg: ModelConfig) -> ModelConfig:
             cfg.shared_attn_every > 0,
         f"the {cfg.frontend} frontend": cfg.frontend is not None,
         "encoder_only": cfg.encoder_only,
-        "mixed_precision": cfg.mixed_precision,
         f"dtype={cfg.dtype!r}": cfg.dtype not in ("float32", "bfloat16"),
     }
     missing = [name for name, asked in parts.items() if asked]
@@ -134,21 +135,6 @@ def require_ported(cfg: ModelConfig) -> ModelConfig:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not ported to repro_torch "
             "yet (see ROADMAP.md, Queue 1)")
-    return cfg
-
-
-def require_trainable(cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` if the port trains every part it asks for, else raise: MLA
-    and MoE serve, but their training (the MoE gradients, the flash
-    backward at MLA's head widths) is not ported yet."""
-    require_ported(cfg)
-    parts = {"MLA (use_mla)": cfg.use_mla or cfg.mixer == "mla",
-             "MoE (num_experts)": cfg.num_experts > 0}
-    missing = [name for name, asked in parts.items() if asked]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training of {', '.join(missing)} is not ported "
-            "to repro_torch yet; it serves (see ROADMAP.md, Queue 1)")
     return cfg
 
 

@@ -47,7 +47,7 @@ from typing import Callable, Mapping
 
 import torch
 
-from repro_torch.configs import require_trainable
+from repro_torch.configs import require_ported
 from repro_torch.distributed import collectives, context as dist_ctx
 from repro_torch.distributed.sharding import (BATCH_AXES_BY_POLICY, Layout,
                                               ShardedTensor, batch_spec,
@@ -114,6 +114,23 @@ class _Rebuilt:
         return make().as_strided(size, stride, offset)
 
 
+def refuse_sharded(cfg) -> None:
+    """Raise for the parts of ``cfg`` that train on one device but not
+    sharded yet: MLA (its head split), MoE (the experts on ``model`` and
+    the expert-parallel ``moe_ffn_sharded``) and ``mixed_precision`` (the
+    bf16 cast of the gathered leaves)."""
+    parts = {"MLA (use_mla)": cfg.use_mla or cfg.mixer == "mla",
+             "MoE (num_experts)": cfg.num_experts > 0,
+             "mixed_precision": cfg.mixed_precision}
+    require_ported(cfg)
+    missing = [name for name, asked in parts.items() if asked]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: sharded training of {', '.join(missing)} is "
+            "not ported to repro_torch yet; it trains on one device (see "
+            "ROADMAP.md, Queue 1)")
+
+
 class ShardedLM:
     """The loss of ``cfg``'s model over ``mesh``, its parameters on
     ``layouts`` ({name: Layout}) under ``policy``."""
@@ -121,7 +138,7 @@ class ShardedLM:
     def __init__(self, cfg, mesh, layouts: Mapping[str, Layout],
                  policy: str, backend: str | None = None,
                  traffic: collectives.Traffic | None = None):
-        require_trainable(cfg)   # MLA and MoE do not train yet
+        refuse_sharded(cfg)
         self.cfg, self.mesh, self.policy = cfg, mesh, policy
         self.layouts = dict(layouts)
         self.backend = backend

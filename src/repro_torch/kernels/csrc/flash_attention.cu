@@ -1,4 +1,5 @@
-// Flash-attention forward (online softmax), Hopper (sm_90a), f32.
+// Flash-attention forward (online softmax), Hopper (sm_90a), f32 arithmetic
+// on f32 or bf16 inputs.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_fwd (the
 // Pallas TPU kernel `_kernel`).  Same function: logits q·kᵀ scaled by
@@ -47,6 +48,18 @@
 // natural-log units, which the backward (flash_attention_bwd.cu) recomputes
 // P from; without it nothing else changes, so serving keeps its bits.
 //
+// bf16 q, k and v (mixed-precision training) are read in place, and the
+// output o is written in their dtype (rounded to nearest even), the lse in
+// f32.  A bf16 value is exact in f32 and in TF32's big part (its small
+// part is 0), so the bf16 route keeps the f32 route's tiles, orders and
+// all three passes (the zero small parts included: dropping them is a
+// later redesign) and gives the f32 kernel's bits on the inputs widened to
+// f32, o then rounded to bf16.  The Q tile is loaded with 16-byte loads of
+// 8 values, widened and stored as f32; each K/V tile lands by cp.async in
+// a bf16 landing zone (two, in the space of the second f32 stage) and is
+// widened and split into the first stage and the small parts in one pass,
+// so the shared bytes are the f32 route's.
+//
 // Bound on the card.  Prefill of the LM (B = 4, H = 40, Kv = 8, S = 2048,
 // D = 128, causal): 2·B·H·S²·D = 172 GFLOP of causal work against 403 MB
 // of bytes — bound by operations: 2.6 ms at the 67 TFLOP/s f32 SIMT peak,
@@ -74,12 +87,15 @@ struct Smem {
   // two ring stages of K and V, the small parts of the current stage, Q
   static constexpr int FLOATS = 3 * STAGE + BQ * QS;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  // bf16: a tile's K rows of D values, then its V rows of DV, back to back
+  static constexpr int LAND = BKV * (D + DV) / 2;   // floats
+  static_assert(2 * LAND <= STAGE, "two bf16 zones fill one f32 stage");
 };
 
-template <int D, int DV>
+template <int D, int DV, typename T>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
     int G, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, int kv_len,
@@ -98,9 +114,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / G;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + hk * ksh;
-  const float* vb = v + b * vsb + hk * vsh;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
   const int wq0 = q0 + warp * 16;             // this warp's first row
   const int rows[2] = {wq0 + g, wq0 + g + 8};  // this thread's two rows
 
@@ -124,33 +140,56 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   const int w_last = q_offset + min(wq0 + 15, Sq - 1);
   const bool warp_rows = wq0 < Sq;
 
+  // f32: tile t lands raw in stage t & 1 and is split in place; bf16: it
+  // lands in zone t & 1 (the second stage's space) and is widened and split
+  // into stage 0.  Ks below is the split tile's stage either way.
+  constexpr bool WIDE = sizeof(T) == 2;
+  constexpr int V8 = 16 / sizeof(T);   // values per 16-byte copy
+  auto land = [&](int tile) {
+    return reinterpret_cast<T*>(
+        WIDE ? smem + S::STAGE + (tile & 1) * S::LAND
+             : smem + (tile & 1) * S::STAGE);
+  };
   auto load = [&](int tile) {
-    float* Ks = smem + (tile & 1) * S::STAGE;
-    float* Vs = Ks + BKV * S::KS;
+    T* Kl = land(tile);
+    T* Vl = Kl + (WIDE ? BKV * D : BKV * S::KS);
     const int k0 = tile * BKV;
-    constexpr int CK = D / 4, CV = DV / 4;   // 16-byte chunks per row
+    constexpr int CK = D / V8, CV = DV / V8;   // 16-byte chunks per row
 #pragma unroll
     for (int i = threadIdx.x; i < BKV * CK; i += THREADS) {
-      const int r = i / CK, c = (i % CK) * 4;
+      const int r = i / CK, c = (i % CK) * V8;
       const bool in = k0 + r < k_lim;
-      cp_async16(Ks + r * S::KS + c, in ? kb + (k0 + r) * kss + c : kb,
-                 in ? 16 : 0);
+      cp_async16(Kl + r * (WIDE ? D : S::KS) + c,
+                 in ? kb + (k0 + r) * kss + c : kb, in ? 16 : 0);
     }
 #pragma unroll
     for (int i = threadIdx.x; i < BKV * CV; i += THREADS) {
-      const int r = i / CV, c = (i % CV) * 4;
+      const int r = i / CV, c = (i % CV) * V8;
       const bool in = k0 + r < k_lim;
-      cp_async16(Vs + r * S::VS + c, in ? vb + (k0 + r) * vss + c : vb,
-                 in ? 16 : 0);
+      cp_async16(Vl + r * (WIDE ? DV : S::VS) + c,
+                 in ? vb + (k0 + r) * vss + c : vb, in ? 16 : 0);
     }
   };
 
-  // the Q tile (rows past Sq zero-filled), with the first K/V tile
-  for (int i = threadIdx.x; i < BQ * (D / 4); i += THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+  // the Q tile (rows past Sq zero-filled), with the first K/V tile; bf16
+  // rows are widened on the way (plain 16-byte loads, seen by every warp
+  // after the loop's first barrier)
+  for (int i = threadIdx.x; i < BQ * (D / V8); i += THREADS) {
+    const int r = i / (D / V8), c = (i % (D / V8)) * V8;
     const bool in = q0 + r < Sq;
-    cp_async16(Qs + r * S::QS + c, in ? qb + (q0 + r) * qss + c : qb,
-               in ? 16 : 0);
+    if constexpr (WIDE) {
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (in)
+        widen8(__ldg(reinterpret_cast<const uint4*>(qb + (q0 + r) * qss + c)),
+               f);
+      *reinterpret_cast<float4*>(Qs + r * S::QS + c) =
+          make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(Qs + r * S::QS + c + 4) =
+          make_float4(f[4], f[5], f[6], f[7]);
+    } else {
+      cp_async16(Qs + r * S::QS + c, in ? qb + (q0 + r) * qss + c : qb,
+                 in ? 16 : 0);
+    }
   }
   if (ntiles > 0) load(0);
   cp_async_commit();
@@ -159,12 +198,21 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     cp_async_commit();
     cp_async_wait<1>();   // tile it has landed (this thread's copies)
     __syncthreads();      // ... and every thread's
-    // split the tile once for the block: big parts in place, small to Sm
-    split_smem(smem + (it & 1) * S::STAGE, Sm, S::STAGE / 4);
+    // split the tile once for the block: big parts in its stage, small
+    // to Sm
+    float* Kt = WIDE ? smem : smem + (it & 1) * S::STAGE;
+    if constexpr (WIDE) {
+      const T* Kl = land(it);
+      widen_split_rows(Kl, BKV, D, Kt, Sm, S::KS);
+      widen_split_rows(Kl + BKV * D, BKV, DV, Kt + BKV * S::KS,
+                       Sm + BKV * S::KS, S::VS);
+    } else {
+      split_smem(Kt, Sm, S::STAGE / 4);
+    }
     __syncthreads();
     const int k0 = it * BKV;
     if (warp_rows && (!causal || k0 <= w_last)) {
-      const float* Ks = smem + (it & 1) * S::STAGE;
+      const float* Ks = Kt;
       const float* Vs = Ks + BKV * S::KS;
       // S = Q·Kᵀ, each 3xTF32 pass in its own accumulator (three chains of
       // D/8 dependent products instead of one of 3·D/8), summed after
@@ -269,16 +317,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     __syncthreads();  // this stage is consumed before it is refilled
   }
 
-  float* ob = o + b * osb + h * osh;
+  T* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = rows[hf];
     if (r >= Sq) continue;
     const float den = fmaxf(l[hf], 1e-30f);
 #pragma unroll
-    for (int d = 0; d < DO; ++d)
-      *reinterpret_cast<float2*>(ob + r * oss + d * 8 + 2 * t) =
+    for (int d = 0; d < DO; ++d) {
+      const float2 y =
           make_float2(acc[d][2 * hf] / den, acc[d][2 * hf + 1] / den);
+      if constexpr (WIDE)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r * oss + d * 8 + 2 * t) =
+            __floats2bfloat162_rn(y.x, y.y);
+      else
+        *reinterpret_cast<float2*>(ob + r * oss + d * 8 + 2 * t) = y;
+    }
     // the log-sum-exp of the row's scaled logits, for the backward: m and
     // l are base 2, so lse = (m + log2 l)·ln 2
     if (lse != nullptr && t == 0)
@@ -287,8 +341,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   }
 }
 
-template <int D, int DV>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
+template <int D, int DV, typename T>
+int launch(const T* q, const T* k, const T* v, T* o, int B,
            int Sq, int Sk, int H, int G, const long long* st, int kv_len,
            int q_offset, int causal, float scale, float* lse,
            cudaStream_t stream) {
@@ -297,29 +351,24 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D, DV, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(Smem<D, DV>::BYTES));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D, DV><<<grid, THREADS, Smem<D, DV>::BYTES, stream>>>(
+  flash_fwd_kernel<D, DV, T><<<grid, THREADS, Smem<D, DV>::BYTES, stream>>>(
       q, k, v, o, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], kv_len, q_offset, causal, scale,
       lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// strides: 12 values, (batch, seq, head) of q, k, v and o, in elements.
-// D: the width of q and k; Dv: the width of v and o.
-// lse: null, or (B, H, Sq) f32 for the row log-sum-exps (the backward's).
-extern "C" int flash_attention_f32(
-    const float* q, const float* k, const float* v, float* o, int B, int Sq,
-    int Sk, int H, int Hk, int D, int Dv, const long long* strides,
-    int kv_len, int q_offset, int causal, float scale, float* lse,
-    void* stream) {
+template <typename T>
+int entry(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
+          int H, int Hk, int D, int Dv, const long long* strides, int kv_len,
+          int q_offset, int causal, float scale, float* lse, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || Hk < 1 || H % Hk != 0 ||
       kv_len < 1 || q_offset < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -327,8 +376,8 @@ extern "C" int flash_attention_f32(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(DQK, DVV)                                        \
   if (D == DQK && Dv == DVV)                                              \
-    return launch<DQK, DVV>(q, k, v, o, B, Sq, Sk, H, G, strides, kv_len, \
-                            q_offset, causal, scale, lse, st);
+    return launch<DQK, DVV, T>(q, k, v, o, B, Sq, Sk, H, G, strides,      \
+                               kv_len, q_offset, causal, scale, lse, st);
   REPRO_FLASH_CASE(16, 16)
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
@@ -336,4 +385,28 @@ extern "C" int flash_attention_f32(
   REPRO_FLASH_CASE(192, 128)
 #undef REPRO_FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// strides: 12 values, (batch, seq, head) of q, k, v and o, in elements.
+// D: the width of q and k; Dv: the width of v and o.
+// lse: null, or (B, H, Sq) f32 for the row log-sum-exps (the backward's).
+// The bf16 entry reads q, k, v and writes o as bf16; lse is f32 in both.
+extern "C" int flash_attention_f32(
+    const float* q, const float* k, const float* v, float* o, int B, int Sq,
+    int Sk, int H, int Hk, int D, int Dv, const long long* strides,
+    int kv_len, int q_offset, int causal, float scale, float* lse,
+    void* stream) {
+  return entry<float>(q, k, v, o, B, Sq, Sk, H, Hk, D, Dv, strides, kv_len,
+                      q_offset, causal, scale, lse, stream);
+}
+
+extern "C" int flash_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    __nv_bfloat16* o, int B, int Sq, int Sk, int H, int Hk, int D, int Dv,
+    const long long* strides, int kv_len, int q_offset, int causal,
+    float scale, float* lse, void* stream) {
+  return entry<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hk, D, Dv, strides,
+                              kv_len, q_offset, causal, scale, lse, stream);
 }

@@ -96,6 +96,46 @@ __device__ __forceinline__ void split_smem(float* raw, float* small, int n4) {
   }
 }
 
+// 8 bf16 values (16 bytes, the first in the low half of u.x) as f32: a
+// bf16 value is the high 16 bits of its f32 value, so this is exact.
+__device__ __forceinline__ void widen8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// n rows of w bf16 values (w a multiple of 8; rows back to back, 16-byte
+// aligned) widened to f32 and split as split_smem splits: big parts to
+// big, small parts to small, row r at r * ld floats in both.  A bf16 value
+// is exact in TF32, so big is the widened value and small is 0: the split
+// an f32 tile of the widened values gets.  The caller synchronises.
+__device__ __forceinline__ void widen_split_rows(const __nv_bfloat16* src,
+                                                 int n, int w, float* big,
+                                                 float* small, int ld) {
+  const int ch = w / 8;
+  for (int i = threadIdx.x; i < n * ch; i += blockDim.x) {
+    const int r = i / ch, c = (i % ch) * 8;
+    float f[8];
+    widen8(*reinterpret_cast<const uint4*>(src + r * w + c), f);
+    uint32_t b[8], s[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) tf32_split(f[e], b[e], s[e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = r * ld + c + 4 * h;
+      *reinterpret_cast<float4*>(big + o) = make_float4(
+          __uint_as_float(b[4 * h]), __uint_as_float(b[4 * h + 1]),
+          __uint_as_float(b[4 * h + 2]), __uint_as_float(b[4 * h + 3]));
+      *reinterpret_cast<float4*>(small + o) = make_float4(
+          __uint_as_float(s[4 * h]), __uint_as_float(s[4 * h + 1]),
+          __uint_as_float(s[4 * h + 2]), __uint_as_float(s[4 * h + 3]));
+    }
+  }
+}
+
 // Split f32 values into a fragment; with EXACT (a bf16 source) the small
 // part is never read and is not formed.
 template <bool EXACT, int N>

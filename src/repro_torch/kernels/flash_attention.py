@@ -13,12 +13,15 @@ pointer and every (batch, sequence, head) stride in 16-byte units (a
 stride of a dimension of size 1 is never stepped and is not checked).  On
 CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_ref``); on CUDA tensors it launches the kernel or
-raises — it never falls back.  f32 only; the widths (D of q and k, Dv
-of v and the output) are one of ``WIDTHS``: D = Dv in {16, 32, 64, 128},
-or (192, 128), MLA's prefill (DeepSeek-V2: q·k over 128 + 64 rope dims,
-v at 128; the scale is 1/sqrt(D)).  ``return_lse`` adds each row's
-log-sum-exp, which the backward (``flash_attention_bwd``) recomputes the
-probabilities from.
+raises — it never falls back.  q, k and v are all f32 or all bf16 (the
+``mixed_precision`` forward's), read in place either way; the output
+comes in their dtype, the arithmetic is f32 (a bf16 call gives the f32
+kernel's bits on the inputs widened to f32, the output then rounded to
+bf16).  The widths (D of q and k, Dv of v and the output) are one of
+``WIDTHS``: D = Dv in {16, 32, 64, 128}, or (192, 128), MLA's (DeepSeek-V2:
+q·k over 128 + 64 rope dims, v at 128; the scale is 1/sqrt(D)).
+``return_lse`` adds each row's log-sum-exp (f32), which the backward
+(``flash_attention_bwd``) recomputes the probabilities from.
 """
 from __future__ import annotations
 
@@ -30,9 +33,10 @@ import torch
 from . import build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # D = Dv; the backward takes these only
+HEAD_DIMS = (16, 32, 64, 128)   # D = Dv
 WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)   # (D, Dv)
-ALIGN = 16    # bytes: the kernel's cp.async copies
+ALIGN = 16    # bytes: the kernel's cp.async copies (4 f32 or 8 bf16 values)
+STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}  # C entry suffixes
 
 
 def _as_4d(t: torch.Tensor) -> torch.Tensor:
@@ -46,9 +50,9 @@ def _check(q, k, v, kv_len, q_offset) -> None:
         raise ValueError(
             "flash_attention: the CUDA kernel takes CUDA tensors on one "
             f"device, got {[str(t.device) for t in (q, k, v)]}")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError("flash_attention: the kernel takes float32 q, k, v "
-                        f"(bf16 inputs are not ported), got {q.dtype}, "
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in STORAGE):
+        raise TypeError("flash_attention: the kernel takes q, k, v all "
+                        f"float32 or all bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     if not (q.dim() == k.dim() == v.dim() and q.dim() in (3, 4)):
         raise ValueError("flash_attention: q, k, v must all be (BH, S, D) "
@@ -96,7 +100,7 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """Softmax attention with an online softmax -> q's shape with v's
-    width, f32.
+    width, in q's dtype.
 
     ``return_lse``: also return each row's log-sum-exp of the scaled
     logits, f32, (B, H, Sq) — (BH, Sq) in the 3-D layout — for the
@@ -107,7 +111,7 @@ def flash_attention(
                                    q_offset=q_offset, return_lse=return_lse)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len, q_offset)
-    out = torch.empty((*q.shape[:-1], v.shape[-1]), dtype=torch.float32,
+    out = torch.empty((*q.shape[:-1], v.shape[-1]), dtype=q.dtype,
                       device=q.device)
     lse = None
     q4, k4, v4, o4 = _as_4d(q), _as_4d(k), _as_4d(v), _as_4d(out)
@@ -119,7 +123,7 @@ def flash_attention(
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
     fn = build.function(
-        "flash_attention", "flash_attention_f32",
+        "flash_attention", f"flash_attention_{STORAGE[q.dtype]}",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
            ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])

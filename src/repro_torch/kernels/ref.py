@@ -225,8 +225,9 @@ def flash_attention_ref(
     """Dense-softmax oracle of the flash-attention kernel.
 
     The reference's ``flash_attention_ref`` (logits / sqrt(D), masked to
-    −1e30, softmax in f32, probabilities cast to v's dtype) with the
-    kernel's two extensions: query head h reads key/value head h // G
+    −1e30, softmax in f32) with the kernel's arithmetic: bf16 inputs are
+    widened to f32 and the output is rounded to their dtype at the end;
+    and with the kernel's two extensions: query head h reads key/value head h // G
     (G = H / H_kv, no copies), query i sits at position ``q_offset + i``,
     and keys at or past ``kv_len`` (default Sk) are masked.  3-D inputs
     are the Pallas layout (batch·heads flattened), the case B = 1.
@@ -242,14 +243,16 @@ def flash_attention_ref(
             return res[0][0].transpose(0, 1), res[1][0]
         return res[0].transpose(0, 1)
     B, Sq, H, D = q.shape
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     logits, mask = _attention_logits(q, k, causal, kv_len, q_offset)
     logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits.float(), dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
-    out = out.reshape(B, Sq, H, v.shape[-1])
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    out = out.reshape(B, Sq, H, v.shape[-1]).to(dtype)
     if not return_lse:
         return out
-    return out, torch.logsumexp(logits.float(), dim=-1).reshape(B, H, Sq)
+    return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
 
 
 def flash_attention_bwd_ref(

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs import require_trainable
+from repro_torch.configs import require_ported
 from repro_torch.distributed.collectives import Traffic
 from repro_torch.distributed.sharding import ShardedTensor
 from repro_torch.distributed.sharded_lm import ShardedLM
@@ -42,9 +42,10 @@ def init_train_state(cfg, generator: torch.Generator | None = None,
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig,
                     backend: str | None = None):
     """(state, batch) → (state, metrics with ``loss``, ``grad_norm`` and
-    ``lr`` as 0-dim device tensors).  MLA and MoE configs raise
-    (``configs.require_trainable``)."""
-    require_trainable(cfg)
+    ``lr`` as 0-dim device tensors).  Every ported config trains, MLA,
+    MoE and ``mixed_precision`` (bf16 copies of the f32 parameters a step,
+    ``models.model.forward``) included."""
+    require_ported(cfg)
 
     def train_step(state: TrainState, batch: dict):
         params = adamw.named(state.params)
@@ -66,7 +67,8 @@ def make_sharded_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, layouts,
     ``launch.train.build_state`` makes them) and the batch the global one
     (split by ``sharding.batch_spec`` under ``policy``).  ``step.traffic``
     accumulates the collectives' bytes a worker (``collectives.Traffic``)
-    over the steps run.  MLA and MoE configs raise (``ShardedLM``)."""
+    over the steps run.  MLA, MoE and ``mixed_precision`` configs raise
+    (``ShardedLM``)."""
     traffic = Traffic()
     lm = ShardedLM(cfg, mesh, layouts, policy, backend, traffic)
 

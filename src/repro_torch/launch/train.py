@@ -37,7 +37,10 @@ policy restores what any other wrote.  ``run(cfg, ...)`` is the same
 driver for a config built in code.  At full width the f32 AdamW state of
 Qwen3-14B's 40 layers (88 GB) does not fit one 80 GB card, so one card
 trains ``num_layers`` cut (8 fit); sharded by ``fsdp_tp`` or ``zero3``
-over four cards, a worker holds a quarter of it (22 GB).
+over four cards, a worker holds a quarter of it (22 GB).  The MoE models
+(``deepseek_v2_lite_16b`` with MLA, ``qwen3_moe_30b_a3b``) and
+``mixed_precision`` configs train on one device; sharded, they are
+refused (``distributed.sharded_lm.ShardedLM``).
 """
 from __future__ import annotations
 

@@ -240,6 +240,10 @@ def mla_attention(
       so the cache is never decompressed.  The reference reads
       ``getattr(cfg, "mla_absorb", True)``, and the field defaults to
       False, so its default decode decompresses too.
+
+    Training differentiates the decompress route: k_pe is expanded over
+    the heads, so its gradient is autograd's sum over them, and the flash
+    region's backward is ``flash_attention_bwd`` at (dn + dr, dv).
     """
     B, S, _ = x.shape
     H = cfg.num_heads

@@ -18,6 +18,10 @@ flash attention saves only O(S) of its own) and the scan over stacked
 layer groups (an eager loop here).  ``backend`` selects the kernel backend of
 ``tucker_linear`` and of the flash region of ``chunked_attention``
 (``None``: ``$REPRO_TORCH_KERNEL_BACKEND``, else ``"cuda"``).
+``mixed_precision`` (with ``dtype="bfloat16"``) is the reference's
+``_cast_params``: ``forward`` and ``decode_step`` run on a bf16 copy of
+every f32 parameter (``cast_params``), made once a call, so the f32
+masters take the gradients through the cast.
 """
 from __future__ import annotations
 
@@ -68,6 +72,31 @@ def param_axes(model: Model) -> dict[str, tuple]:
     return {n: p.axes for n, p in model.named_parameters()}
 
 
+def _cast_view(module: nn.Module) -> nn.Module:
+    """A structural copy of ``module`` whose f32 parameters are bf16
+    tensors cast from them (differentiable: their gradients reach the
+    parameters); ``module`` itself is not touched."""
+    view = object.__new__(type(module))
+    view.__dict__ = dict(module.__dict__)
+    view._parameters = {
+        n: (p.to(torch.bfloat16) if p is not None
+            and p.dtype == torch.float32 else p)
+        for n, p in module._parameters.items()}
+    view._modules = {n: _cast_view(m) for n, m in module._modules.items()}
+    return view
+
+
+def cast_params(params: Model, cfg) -> Model:
+    """Mixed precision, the reference's ``_cast_params``: under
+    ``cfg.mixed_precision`` and ``dtype="bfloat16"`` a view of ``params``
+    with every f32 leaf cast to bf16 (router, norm scales, Tucker factors,
+    embedding and head included), else ``params`` as it is.  One copy a
+    call; the state keeps only the f32 masters."""
+    if not (cfg.mixed_precision and cfg.dtype == "bfloat16"):
+        return params
+    return _cast_view(params)
+
+
 def embed_inputs(params: Model, cfg, batch: dict) -> torch.Tensor:
     """batch["tokens"] (B, S) → (B, S, d) activations in the config's
     dtype."""
@@ -98,6 +127,7 @@ def _head(params: Model, cfg, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Model, cfg, batch: dict, *,
             backend: str | None = None) -> torch.Tensor:
     """Training/prefill forward → logits (B, S, vocab), no cache."""
+    params = cast_params(params, cfg)
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_layers(params, cfg, x, positions, backend=backend)
@@ -117,6 +147,7 @@ def decode_step(params: Model, cfg, batch: dict, caches: list,
     """One step from ``cache_index``: batch["tokens"] (B, S) → (logits
     (B, S, V), caches).  S = 1 decodes; S > 1 from index 0 is prefill.
     The caches are updated in place and returned."""
+    params = cast_params(params, cfg)
     x = embed_inputs(params, cfg, batch)
     positions = cache_index + torch.arange(x.shape[1], device=x.device)
     x, new_caches = _run_layers(params, cfg, x, positions, caches=caches,

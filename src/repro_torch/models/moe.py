@@ -24,6 +24,18 @@ Two points where the port departs from the reference's code on purpose:
   ``jax.lax.top_k`` does (``torch.topk`` on CUDA does not promise an
   order): a stable descending sort.  The order of a token's K picks is
   the arrival order, which decides which picks the capacity drops.
+
+Gradients (training) run through autograd, as ``jax.grad`` runs through
+the reference: through the gather ``xt_pad[token_of]`` (its backward adds
+each slot's gradient into its token's row, the discarded row T taking
+the empty slots'), the three ``bmm``s, the combine (an empty slot's
+write lands in the discarded row T·K, so its gradient is that row's, 0)
+and the gate values, which the sort's gather hands to the router logits.
+The expert ids, slots and ``keep`` are integers or masks and take none,
+as in ``jax.lax.top_k``; a dropped pick's gate is multiplied by 0, so no
+gradient reaches it.  The router learns through the gates alone: the
+reference's ``loss_fn`` adds no ``load_balance_loss``, and neither does
+the port's.
 """
 from __future__ import annotations
 
@@ -78,16 +90,25 @@ def route(params: MoE, cfg, xt: torch.Tensor
     """xt (T, d) → (router logits (T, E) f32, gate values (T, K) f32,
     expert ids (T, K) int64), the reference's router."""
     logits = xt.float() @ params.router.float()
+    scores = (torch.softmax(logits, dim=-1) if cfg.router_softmax_then_topk
+              else logits)
+    _, expert_ids = top_k(scores, cfg.top_k)
+    return logits, gates(cfg, logits, expert_ids), expert_ids
+
+
+def gates(cfg, logits: torch.Tensor, expert_ids: torch.Tensor
+          ) -> torch.Tensor:
+    """The gate values (T, K) of picks ``expert_ids`` from the router
+    logits (T, E), as the reference forms them: the softmax over all
+    experts at the picks (``router_softmax_then_topk``) or the softmax
+    over the picks' logits, then (``norm_topk_prob``) over their sum."""
     if cfg.router_softmax_then_topk:
-        gate_vals, expert_ids = top_k(torch.softmax(logits, dim=-1),
-                                      cfg.top_k)
+        vals = torch.softmax(logits, dim=-1).gather(-1, expert_ids)
     else:
-        top_logits, expert_ids = top_k(logits, cfg.top_k)
-        gate_vals = torch.softmax(top_logits, dim=-1)
+        vals = torch.softmax(logits.gather(-1, expert_ids), dim=-1)
     if cfg.norm_topk_prob:
-        gate_vals = gate_vals / torch.clamp(
-            gate_vals.sum(-1, keepdim=True), min=1e-9)
-    return logits, gate_vals, expert_ids
+        vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    return vals
 
 
 def dispatch_indices(expert_ids: torch.Tensor, num_experts: int,

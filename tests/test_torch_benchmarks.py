@@ -476,7 +476,9 @@ def test_fusion_and_lm_step_rows():
     assert bench_kernel_blocks.batch_gradients_launches(
         torch.device("cpu")) == {k: 0 for k in dispatch_counts()}
     lm = bench_lm_step.run(device="cpu", backend="torch")
-    assert [ln.rsplit(",", 2)[0] for ln in lm] == ["lm_step/qwen3_14b"]
+    from repro_torch.configs import PORTED_ARCHS
+    assert [ln.rsplit(",", 2)[0] for ln in lm] == [
+        f"lm_step/{arch}" for arch in PORTED_ARCHS]
 
 
 def dispatch_counts():

@@ -661,19 +661,103 @@ def test_flash_attention_mla_widths_match_plain_on_card(dev, causal):
     assert launch_counts()["flash_attention"] == 6
 
 
-def test_flash_attention_bwd_refuses_mla_widths_on_card(dev):
-    """The backward at (192, 128) is not ported: it raises by name and
-    launches nothing; (192, 192) is no width of the forward."""
-    q = torch.zeros((1, 64, 2, 192), device=dev)
-    v = torch.zeros((1, 64, 2, 128), device=dev)
-    o, lse = flash_attention.flash_attention(q, q, v, return_lse=True)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_mla_widths_match_plain_on_card(dev, causal):
+    """The backward at (D, Dv) = (192, 128), MLA's training widths (16-row
+    ring tiles): ragged lengths, q_offset and kv_len; dq, dk, dv each
+    within 2e-5 of its largest, dv at v's width, two calls the same bits;
+    (192, 192) is no width of the forward."""
+    rng = np.random.default_rng(1920 + causal)
+    B, Sq, Sk, H = 2, 197, 230, 4
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev)
+
+    q, k, v, dout = t(B, Sq, H, 192), t(B, Sk, H, 192), t(B, Sk, H, 128), \
+        t(B, Sq, H, 128)
     reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flash_attention_bwd.flash_attention_bwd(q, q, v, o, lse, o)
+    for kv_len, q_offset in ((Sk, 0), (150, 17), (197, 0)):
+        kw = dict(causal=causal, kv_len=kv_len, q_offset=q_offset)
+        o, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                                 **kw)
+        got = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                      **kw)
+        again = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse,
+                                                        dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal,
+                                           kv_len=kv_len, q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert [tuple(g.shape) for g in got] == [
+            tuple(x.shape) for x in (q, k, v)]
+        for g, a, w in zip(got, again, want):
+            assert _rel(g, w) <= FLASH_BWD_TOL
+            assert torch.equal(g, a)
+    assert launch_counts()["flash_attention_bwd"] == 6
     with pytest.raises(ValueError, match="Dv"):
         flash_attention.flash_attention(q, q, q)
-    assert launch_counts()["flash_attention_bwd"] == 0
-    assert launch_counts()["flash_attention"] == 0
+    assert launch_counts()["flash_attention"] == 3
+
+
+def _bf16_inputs(dev, B, Sq, Sk, H, Hk, D, Dv, seed):
+    """q, k, v and dO drawn in f32 and rounded to bf16."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, Sq, H, D), (B, Sk, Hk, D), (B, Sk, Hk, Dv), (B, Sq, H, Dv))
+    return [torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                         device=dev).bfloat16() for s in shapes]
+
+
+BF16_SHAPES = [  # (B, Sq, Sk, H, Hk, D, Dv, causal, kv_len, q_offset)
+    (2, 133, 200, 6, 2, 16, 16, True, 150, 17),
+    (1, 197, 197, 4, 4, 32, 32, False, None, 0),
+    (2, 200, 290, 4, 2, 64, 64, True, 280, 77),
+    (1, 301, 333, 10, 2, 128, 128, True, None, 0),    # G = 5, ragged
+    (1, 256, 256, 16, 2, 128, 128, True, None, 0),    # G = 8
+    (2, 197, 230, 4, 4, 192, 128, True, 150, 17),     # MLA
+    (1, 160, 160, 2, 2, 192, 128, False, None, 0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,D,Dv,causal,kv_len,q_offset",
+                         BF16_SHAPES)
+def test_flash_kernels_bf16_give_the_f32_bits_on_card(
+        dev, B, Sq, Sk, H, Hk, D, Dv, causal, kv_len, q_offset):
+    """bf16 q, k, v (and o, dO in the backward) read in place: the forward
+    gives the f32 kernel's output on the inputs widened to f32, rounded to
+    bf16, and its lse; the backward the f32 kernel's dq, dk, dv, bit for
+    bit, at every width.  Against the plain versions on the same inputs:
+    lse, dq, dk, dv within 2e-5 of each one's largest, o within that plus
+    half a bf16 ulp of the plain f32 value (its rounding)."""
+    q, k, v, dout = _bf16_inputs(dev, B, Sq, Sk, H, Hk, D, Dv, Sq + D)
+    kw = dict(causal=causal, kv_len=kv_len, q_offset=q_offset)
+    reset_launch_counts()
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    plain = flash_attention.flash_attention(q, k, v, **kw)
+    wide = [x.float() for x in (q, k, v, dout)]
+    o32, lse32 = flash_attention.flash_attention(*wide[:3], return_lse=True,
+                                                 **kw)
+    assert o.dtype == plain.dtype == torch.bfloat16
+    assert lse.dtype == torch.float32
+    assert torch.equal(o, o32.bfloat16()) and torch.equal(plain, o)
+    assert torch.equal(lse, lse32)
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                  **kw)
+    want = flash_attention_bwd.flash_attention_bwd(
+        *wide[:3], o.float(), lse, wide[3], **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert launch_counts()["flash_attention"] == 3
+    assert launch_counts()["flash_attention_bwd"] == 2
+    p_o, p_lse = ref.flash_attention_ref(*wide[:3], causal, return_lse=True,
+                                         kv_len=kv_len, q_offset=q_offset)
+    half_ulp = torch.ldexp(torch.ones_like(p_o), torch.frexp(p_o)[1] - 9)
+    over = ((o.float() - p_o).abs() - half_ulp).clamp_min(0).max()
+    assert (over / p_o.abs().max()).item() <= 2e-5
+    assert _rel(lse, p_lse) <= 2e-5
+    for g, w in zip(got, ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                                     **kw)):
+        assert _rel(g, w) <= 2e-5
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b"])

@@ -236,6 +236,25 @@ def test_flash_bwd_plan_workspace_at_the_training_shape():
                                     32).workspace == 4 * 10 * 301
 
 
+def test_flash_bwd_plan_at_mla_widths_takes_16_row_ring_tiles():
+    """(D, Dv) = (192, 128): resident 128 × 192 and 128 × 128 tiles and
+    three stages of 32-row ring tiles would take 289,792 shared bytes;
+    16-row ring tiles take 226,816, within the 232,448 a block may have.
+    The grids and the Di workspace are those of any width."""
+    p = flash_attention_bwd.plan(2, 2048, 2048, 16, 16, 192, 128)
+    assert p.kv_tile == p.q_tile == (128, 16)
+    assert p.smem == (226_816, 226_816)
+    assert flash_attention_bwd._smem_bytes(192, 128, 128, 32) == 289_792
+    assert p.passes == (3,) * 5 and p.workspace == 4 * 2 * 16 * 2048
+    assert p.grids == flash_attention_bwd.plan(2, 2048, 2048, 16, 16,
+                                               128).grids
+    c = list(p.to_c())
+    assert c[:5] == [8, 128, 16, 128, 16] and c[6:8] == [226_816] * 2
+    for bad in ((192, 192), (128, 192), (192, 64)):
+        with pytest.raises(ValueError, match="D in"):
+            flash_attention_bwd.plan(1, 64, 64, 2, 2, *bad)
+
+
 @pytest.mark.parametrize("D", [8, 24, 96, 256])
 def test_flash_bwd_plan_refuses_head_sizes_the_kernel_lacks(D):
     with pytest.raises(ValueError, match="D in"):
