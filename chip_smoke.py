@@ -391,8 +391,9 @@ Phases (each failure ends the run with a non-zero exit code):
    7's bound), two calls bitwise
    equal; its time by phase 5's method beside the bound (3xTF32 at 495
    TFLOP/s), the plain version and ``scaled_dot_product_attention`` in
-   f32.  (b) DeepSeek-V2-Lite (``MOE_SERVE``: the published 27 layers,
-   15.7 B f32 parameters drawn on the card) through
+   f32, the kernel and SDPA timed in turns (``alternate_ms``: ``ROUNDS``
+   rounds, the medians).  (b) DeepSeek-V2-Lite (``MOE_SERVE``: the
+   published 27 layers, 15.7 B f32 parameters drawn on the card) through
    ``launch/serve.run``: batch 4, prompt 2,048, 32 greedy tokens, a
    warm-up request then the measured one; init, prefill and decode times,
    peak device bytes (under 80 GB; 76 GB is the aim), finite logits,
@@ -417,14 +418,20 @@ Phases (each failure ends the run with a non-zero exit code):
    the training shape (B = 2, H = Kv = 16, S = 2,048, causal), at
    S = 2,047, at Sq = 1,024 behind ``q_offset`` 1,024 and non-causal with
    kv_len < Sk: dq, dk, dv each within 2e-5 of its largest, two calls
-   bitwise; its time beside the bound (3xTF32 at 495 TFLOP/s), the plain
-   version and the f32 backward of ``scaled_dot_product_attention``.
+   bitwise, and the forward with the lse that feeds it within 2e-5; the
+   backward's time beside the bound (3xTF32 at 495 TFLOP/s), the plain
+   version and the f32 backward of ``scaled_dot_product_attention``, and
+   the forward's with the lse (row 6d) beside
+   ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``
+   in f32, the one PyTorch call that returns the output and the lse (or
+   why it refuses, logged), each in turns with its yardstick.
    bf16 q, k, v (o and dO in the backward) into both kernels at every
    width (``BF16_SHAPES``: Qwen3-14B's G = 5 and Qwen3-MoE's G = 8 at 128,
    MLA's (192, 128)): the forward with and without the lse and the
    backward give the f32 kernels' bits on the inputs widened to f32 (the
    forward's output rounded to bf16), or within 2e-5 where not (logged);
-   their times at MLA's shape beside bf16 SDPA.  (b) DeepSeek-V2-Lite and
+   their times at MLA's shape beside bf16 SDPA, in turns, and the bf16
+   forward's time against the f32 one's.  (b) DeepSeek-V2-Lite and
    (c) Qwen3-MoE at full width and 4 layers (``MOE_TRAIN``; the cut is
    logged) through ``launch/train.run``: batch 2 × 2,048, 20 steps, no
    checkpoint; steps/s, tokens/s, peak (under 80 GB), finite and falling
@@ -1263,6 +1270,24 @@ def device_ms(torch, fn, iters: int = 100) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+# rounds of the kernel-against-yardstick timings (alternate_ms)
+ROUNDS = 5
+
+
+def alternate_ms(torch, fns: dict, iters: int = 20, rounds: int = ROUNDS
+                 ) -> dict:
+    """Each call's ``device_ms`` taken in turns, ``rounds`` times (the
+    order rotated each round, so a drift of the card's clock reaches every
+    call alike), and the median over the rounds; a call given as None
+    stays None."""
+    names = [n for n, fn in fns.items() if fn is not None]
+    got: dict = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            got[n].append(device_ms(torch, fns[n], iters=iters))
+    return {n: statistics.median(got[n]) if n in got else None for n in fns}
 
 
 def floor_ms(torch, build) -> float:
@@ -5906,19 +5931,22 @@ def _mla_flash(torch, K, cfg, qm_cfg) -> tuple[dict, dict]:
 
     q, k, v = inputs(*mla, P)
     call = lambda: fa(q, k, v, causal=True, kv_len=P)  # noqa: E731
-    ms = device_ms(torch, call, iters=30)
-    plain = device_ms(torch, lambda: ref.flash_attention_ref(
-        q, k, v, True, kv_len=P), iters=10)
-    dev_ms = profiled_ms(torch, call, "flash_fwd_kernel")
-    floor = floor_ms(torch, K.build)
     qt = q.transpose(1, 2)
     kt, vt = (t[:, :P].transpose(1, 2) for t in (k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(    # noqa: E731
+        qt, kt, vt, is_causal=True)
     try:
-        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=30)
+        sdpa()
     except (RuntimeError, TypeError) as exc:   # Dv != D not taken
         log(f"scaled_dot_product_attention at (D, Dv) = ({D}, {Dv}): {exc}")
-        lib = None
+        sdpa = None
+    # the kernel and its yardstick in turns
+    t = alternate_ms(torch, {"kernel": call, "library": sdpa}, iters=30)
+    ms, lib = t["kernel"], t["library"]
+    plain = device_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, True, kv_len=P), iters=10)
+    dev_ms = profiled_ms(torch, call, "flash_fwd")
+    floor = floor_ms(torch, K.build)
     pairs = P * (P + 1) // 2        # causal (i, j ≤ i), all below kv_len
     nbytes = 4 * B * P * H * (2 * D + 2 * Dv)
     flops = 2 * pairs * B * H * (D + Dv)   # Q Kᵀ and P V, 3xTF32 in both
@@ -5926,7 +5954,9 @@ def _mla_flash(torch, K, cfg, qm_cfg) -> tuple[dict, dict]:
     f32 = bound(nbytes, flops)
     log(f"flash_attention [(D, Dv) = ({D}, {Dv}) prefill B={B} H=Kv={H} "
         f"S={P} causal, cache {Sk}]: {ms:.4f} ms/call (plain {plain:.4f} ms"
-        + (f", scaled_dot_product_attention {lib:.4f} ms" if lib else "")
+        + (f", scaled_dot_product_attention {lib:.4f} ms: the kernel "
+           f"{ms / lib:.3f}x of it, medians of {ROUNDS} rounds in turns"
+           if lib else "")
         + f"; device {dev_ms} ms by the profiler), bound on the kernel's "
         f"units {t_b:.4f} ms by {by} ({t_b / ms:.1%} of it), f32 bound "
         f"{f32[0]:.4f} ms ({f32[0] / ms:.1%}), launch floor {floor:.4f} ms")
@@ -6239,11 +6269,15 @@ def phase_moe_serving(torch, K, serve, ds_cfg, qm_cfg
 # phase 25
 # ---------------------------------------------------------------------------
 
-def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, dict]:
+def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, list[dict]]:
     """(a): the flash backward at MLA's (D, Dv) = (192, 128) against its
     plain version at the training shape and three variants, two calls
-    bitwise; its time beside the bound, the plain version and the backward
-    of ``scaled_dot_product_attention`` in f32."""
+    bitwise, and the forward with the lse that feeds it against its plain
+    version; the backward's time beside the bound, the plain version and
+    the backward of ``scaled_dot_product_attention`` in f32, and the
+    forward's (with the lse) beside ``_scaled_dot_product_efficient_
+    attention`` with ``compute_log_sumexp``, each in turns with its
+    yardstick."""
     import torch.nn.functional as F
 
     ref, fa = K.ref, K.flash_attention.flash_attention
@@ -6264,11 +6298,19 @@ def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, dict]:
         ("Sq = 1024 behind q_offset 1024", S // 2, S, True, S, S // 2),
         ("non-causal, kv_len < Sk", S - 1, S, False, S - 77, 0)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    worst_abs = 0.0
+    worst_abs = fwd_abs = 0.0
     for tag, Sq, Sk, causal, kv_len, q_offset in cases:
         q, k, v, dout = inputs(Sq, Sk)
         kw = dict(causal=causal, kv_len=kv_len, q_offset=q_offset)
         o, lse = fa(q, k, v, return_lse=True, **kw)
+        for name, g, w in zip(("o", "lse"), (o, lse), ref.flash_attention_ref(
+                q, k, v, causal, kv_len=kv_len, q_offset=q_offset,
+                return_lse=True)):
+            e, r = rel_err(g, w)
+            fwd_abs = max(fwd_abs, e)
+            if not r <= TOL["flash_attention"]:
+                raise AssertionError(f"flash forward (192, 128) with the lse "
+                                     f"[{tag}]: {name} {r:.3g} of its largest")
         got, again = fb(q, k, v, o, lse, dout, **kw), \
             fb(q, k, v, o, lse, dout, **kw)
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal,
@@ -6300,11 +6342,12 @@ def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, dict]:
     q, k, v, dout = inputs(S, S)
     o, lse = fa(q, k, v, return_lse=True)
     kernel = lambda: fb(q, k, v, o, lse, dout)            # noqa: E731
-    ms = device_ms(torch, kernel, iters=20)
+    sdpa_bwd = _sdpa_bwd_call(torch, F, q, k, v, dout)
+    t = alternate_ms(torch, {"kernel": kernel, "library": sdpa_bwd})
+    ms, lib = t["kernel"], t["library"]
     plain = device_ms(torch, lambda: ref.flash_attention_bwd_ref(
         q, k, v, o, lse, dout), iters=5)
     floor = floor_ms(torch, K.build)
-    lib = _sdpa_bwd_ms(torch, F, q, k, v, dout)
     pairs = S * (S + 1) // 2
     # q, k, v, o, dO and lse in; dq, dk, dv out
     nbytes = 4 * (B * S * H * (4 * D + 4 * Dv) + B * H * S)
@@ -6321,45 +6364,102 @@ def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, dict]:
            "plan": dataclasses.asdict(bplan)}
     log(f"flash_attention_bwd [{row['variant']}]: {ms:.4f} ms/call (plain "
         f"{plain:.4f} ms"
-        + (f", scaled_dot_product_attention backward {lib:.4f} ms"
-           if lib is not None else "")
+        + (f", scaled_dot_product_attention backward {lib:.4f} ms: the "
+           f"kernel {ms / lib:.3f}x of it, in turns" if lib is not None
+           else "")
         + f"), bound on the tensor cores {t_tc:.4f} ms by {by_tc} "
         f"({t_tc / ms:.1%} of it), f32 bound {f32[0]:.4f} ms "
         f"({f32[0] / ms:.1%}); launch floor {floor:.4f} ms; ring tiles "
         f"{bplan.kv_tile[1]} rows, {bplan.smem[0]:,} shared bytes a block")
-    del q, k, v, dout, o, lse
+    del sdpa_bwd
+    torch.cuda.empty_cache()
+
+    # the forward with the lse that training calls (row 6d), beside the
+    # one PyTorch call that returns the output and the lse
+    fwd = lambda: fa(q, k, v, return_lse=True)           # noqa: E731
+    eff = _efficient_lse_call(torch, q, k, v)
+    t = alternate_ms(torch, {"kernel": fwd, "library": eff})
+    f_plain = device_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, True, return_lse=True), iters=5)
+    f_bytes = 4 * (B * S * H * (2 * D + 2 * Dv) + B * H * S)
+    f_flops = 2 * pairs * B * H * (D + Dv)   # Q Kᵀ and P V, 3xTF32 in both
+    f_tb, f_by = tc_bound(f_bytes, [(3, f_flops)])
+    f_f32 = bound(f_bytes, f_flops)
+    fwd_row = {"name": "flash_attention_mla_lse",
+               "variant": f"training forward with the lse B={B} H=Kv={H} "
+                          f"S={S} (D, Dv) = ({D}, {Dv}) causal, f32",
+               "ms": t["kernel"], "plain_ms": f_plain,
+               "library_ms": t["library"], "bound_ms": f_tb,
+               "bound_by": f_by, "floor_ms": floor,
+               "f32_bound_ms": f_f32[0], "f32_bound_by": f_f32[1],
+               "device_ms": None}
+    log(f"flash_attention [{fwd_row['variant']}]: {t['kernel']:.4f} ms/call "
+        f"(plain {f_plain:.4f} ms"
+        + (f", _scaled_dot_product_efficient_attention with the lse "
+           f"{t['library']:.4f} ms: the kernel "
+           f"{t['kernel'] / t['library']:.3f}x of it, in turns"
+           if t["library"] else "")
+        + f"), bound on the tensor cores {f_tb:.4f} ms by {f_by} "
+        f"({f_tb / t['kernel']:.1%} of it), f32 bound {f_f32[0]:.4f} ms")
+    del q, k, v, dout, o, lse, eff
     torch.cuda.empty_cache()
     return ({"worst_rel": worst, "max_abs_err": worst_abs,
-             "tol": TOL["flash_attention_bwd"]}, row)
+             "fwd_max_abs_err": fwd_abs,
+             "tol": TOL["flash_attention_bwd"]}, [row, fwd_row])
 
 
-def _sdpa_bwd_ms(torch, F, q, k, v, dout) -> float | None:
-    """Device ms of one backward of ``scaled_dot_product_attention`` (causal,
-    the layouts transposed to (B, H, S, D)), or None where it does not take
-    these inputs."""
+def _sdpa_bwd_call(torch, F, q, k, v, dout):
+    """One backward of ``scaled_dot_product_attention`` (causal, the
+    layouts transposed to (B, H, S, D)) as a call, or None where it does
+    not take these inputs."""
     try:
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         gt = dout.transpose(1, 2)
-        ms = device_ms(torch, lambda: torch.autograd.grad(
-            out, (qt, kt, vt), gt, retain_graph=True), iters=10)
-        del out
-        return ms
+
+        def call():
+            return torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+        call()
+        return call
     except (TypeError, RuntimeError) as exc:
         log(f"scaled_dot_product_attention backward at {tuple(q.shape)} "
             f"{q.dtype}, v {tuple(v.shape)}: {exc}")
         return None
 
 
-def _sdpa_fwd_ms(torch, F, q, k, v) -> float | None:
+def _sdpa_fwd_call(torch, F, q, k, v):
+    """``scaled_dot_product_attention`` (causal) as a call, or None."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     try:
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        return device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=20)
+        call()
+        return call
     except (TypeError, RuntimeError) as exc:
         log(f"scaled_dot_product_attention at {tuple(q.shape)} {q.dtype}, "
             f"v {tuple(v.shape)}: {exc}")
+        return None
+
+
+def _efficient_lse_call(torch, q, k, v):
+    """``_scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp`` (causal): the one PyTorch call that returns the
+    output and the lse, as a call, or None, with the reason logged, where
+    it refuses these inputs."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, compute_log_sumexp=True, is_causal=True)
+    try:
+        call()
+        return call
+    except (TypeError, RuntimeError, NotImplementedError) as exc:
+        log(f"_scaled_dot_product_efficient_attention at {tuple(q.shape)} "
+            f"{q.dtype}, v {tuple(v.shape)}: {exc}")
         return None
 
 
@@ -6464,20 +6564,23 @@ def _bf16_checks(torch, K) -> tuple[dict, list[dict]]:
     o, lse = fa(q, k, v, return_lse=True)
     floor = floor_ms(torch, K.build)
     pairs_n = S * (S + 1) // 2
-    f_ms = device_ms(torch, lambda: fa(q, k, v, return_lse=True), iters=20)
+    t = alternate_ms(torch, {"kernel": lambda: fa(q, k, v, return_lse=True),
+                             "library": _sdpa_fwd_call(torch, F, q, k, v)})
+    f_ms, f_lib = t["kernel"], t["library"]
     f_plain = device_ms(torch, lambda: ref.flash_attention_ref(
         q, k, v, True, return_lse=True), iters=5)
-    f_lib = _sdpa_fwd_ms(torch, F, q, k, v)
     f_bytes = 2 * B * S * h * (2 * d + 2 * dv) + 4 * B * h * S
     # tensor-core passes per product by its operands: a bf16 value is
-    # exact in TF32, so bf16 × bf16 needs one pass and f32 × bf16 two
-    # (the kernels run all three; the bound is the function's)
+    # exact in TF32, so bf16 × bf16 needs one pass and f32 × bf16 two, the
+    # passes the kernels' bf16 instances run
     f_tb, f_by = tc_bound(f_bytes, [(1, 2 * pairs_n * B * h * d),    # S
                                     (2, 2 * pairs_n * B * h * dv)])  # P·V
-    b_ms = device_ms(torch, lambda: fb(q, k, v, o, lse, dout), iters=20)
+    t = alternate_ms(torch, {
+        "kernel": lambda: fb(q, k, v, o, lse, dout),
+        "library": _sdpa_bwd_call(torch, F, q, k, v, dout)})
+    b_ms, b_lib = t["kernel"], t["library"]
     b_plain = device_ms(torch, lambda: ref.flash_attention_bwd_ref(
         q, k, v, o, lse, dout), iters=5)
-    b_lib = _sdpa_bwd_ms(torch, F, q, k, v, dout)
     b_bytes = (2 * B * S * h * (2 * d + 3 * dv) + 4 * B * h * S
                + 4 * B * S * h * (2 * d + dv))
     unit = 2 * pairs_n * B * h
@@ -6768,8 +6871,11 @@ def phase_moe_train(torch, K, train, ds_cfg, qm_cfg
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rec["mla_bwd"], mla_row = _mla_bwd_checks(torch, K, ds_cfg)
+    rec["mla_bwd"], mla_rows = _mla_bwd_checks(torch, K, ds_cfg)
     rec["bf16"], bf16_rows = _bf16_checks(torch, K)
+    f32_ms, bf16_ms = mla_rows[1]["ms"], bf16_rows[0]["ms"]
+    log(f"the forward with the lse at MLA's training shape: bf16 "
+        f"{bf16_ms:.4f} ms, {bf16_ms / f32_ms:.3f}x f32's {f32_ms:.4f} ms")
     seconds["kernels"] = time.perf_counter() - t0
     for cfg, full in ((ds_cfg, 27), (qm_cfg, 48)):
         log(f"CUT: {cfg.arch_id} trains at {cfg.num_layers} of its {full} "
@@ -6811,6 +6917,7 @@ def phase_moe_train(torch, K, train, ds_cfg, qm_cfg
         f"{k} {v:.1f}" for k, v in seconds.items()))
     ds, mx = rec["deepseek"]["launch_counts"], rec["mixed"]["launch_counts"]
     launches = {"flash_attention_mla": ds["flash_attention"],
+                "flash_attention_mla_lse": ds["flash_attention"],
                 "flash_attention_bwd_mla": ds["flash_attention_bwd"],
                 "flash_attention_bf16": mx["flash_attention"],
                 "flash_attention_bwd_bf16": mx["flash_attention_bwd"],
@@ -6819,10 +6926,11 @@ def phase_moe_train(torch, K, train, ds_cfg, qm_cfg
                 "flash_attention_bwd": rec["qwen3_moe"]["launch_counts"][
                     "flash_attention_bwd"]}
     errs = {"flash_attention_bwd_mla": rec["mla_bwd"]["max_abs_err"],
+            "flash_attention_mla_lse": rec["mla_bwd"]["fwd_max_abs_err"],
             "flash_attention_bf16": rec["bf16"]["max_abs_err_fwd"],
             "flash_attention_bwd_bf16": rec["bf16"]["max_abs_err_bwd"]}
     rows = [dict(r, max_abs_err=errs[r["name"]])
-            for r in [mla_row, *bf16_rows]]
+            for r in [*mla_rows, *bf16_rows]]
     return rec, rows, launches
 
 
@@ -7051,7 +7159,7 @@ def main(argv: list[str] | None = None) -> int:
             "floor_ms": t["floor_ms"], "device_ms": t.get("device_ms")})
     kernels.append(_mla_kernel_row(report, mla_row, moe_counts))
     for r in train_rows:   # phase 25's routes of the two flash kernels
-        base = r["name"].replace("_mla", "").replace("_bf16", "")
+        base = r["name"].split("_mla")[0].split("_bf16")[0]
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{base}.cu",
@@ -7080,8 +7188,8 @@ def main(argv: list[str] | None = None) -> int:
         f"(DeepSeek-V2-Lite's serve request and training): "
         f"{moe_counts['flash_attention_mla']}; phase 25's new routes: "
         + ", ".join(f"{k} {train_launches[k]}" for k in (
-            "flash_attention_bwd_mla", "flash_attention_bf16",
-            "flash_attention_bwd_bf16")))
+            "flash_attention_mla_lse", "flash_attention_bwd_mla",
+            "flash_attention_bf16", "flash_attention_bwd_bf16")))
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

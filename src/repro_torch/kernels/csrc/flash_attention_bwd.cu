@@ -50,10 +50,11 @@
 // function's five), not a workspace of per-key-tile partials: no atomics,
 // no scratch beyond Di, every output element written once, by one warp,
 // after a loop of fixed order, so two calls give the same bits.
-// All five products run on the tensor cores in 3xTF32 (m16n8k8 mma.sync,
-// f32 accuracy): each ring tile is split into its big and small TF32 parts
-// once for the block (split_smem); the resident tiles (K, V; Q, dO), read as
-// A, are split per use in registers; P and dS are split once per tile.
+// All five products run on the tensor cores in 3xTF32 on f32 inputs
+// (m16n8k8 mma.sync, f32 accuracy; bf16 below): each ring tile is split
+// into its big and small TF32 parts once for the block (split_smem); the
+// resident tiles (K, V; Q, dO), read as A, are split per use in registers;
+// P and dS are split once per tile.
 // Fragments read along rows come in with ldmatrix (one x4 load of 16-byte
 // rows for a whole A fragment, or for a B fragment's big and small parts);
 // those read along columns (B of the three products over the query or key
@@ -67,7 +68,7 @@
 // their width + 4 floats.  Every fragment load is then free of bank
 // conflicts.  Tiles that lie wholly past kv_len or wholly above the causal
 // diagonal are not loaded (per block) or not multiplied (per warp).  IEEE
-// exp2f; one pass of TF32 is never used: f32 means f32.
+// exp2f; one pass of TF32 is never used on f32 data: f32 means f32.
 //
 // The ring tiles' height NT.  At D = Dv (NT = 32) the two resident 128-row
 // tiles and three ring stages take 232,448 bytes at D = 128, all an SM
@@ -83,21 +84,27 @@
 // that share each tile brought in (twice the ring's copies from L2).  The
 // cost: twice the ring's barriers and splits per query.
 //
-// bf16.  A bf16 value is exact in f32 and in TF32's big part (its small
-// part is 0), so the bf16 route keeps the f32 route's tiles, orders and all
-// three passes (the zero small parts included: dropping them is a later
-// redesign), and gives the f32 kernel's bits on the inputs widened to f32.
-// The resident tiles are loaded once a block with 16-byte loads of 8
-// values, widened, and stored as f32; each ring tile lands by cp.async in
-// a bf16 landing zone (two, in the space of the second f32 stage) and is
-// widened and split into the first stage and the small parts in one pass,
-// so the shared bytes are the f32 route's.  Di reads o and dO as bf16.
+// bf16.  A bf16 value is exact in f32 and in TF32 (its small part is 0),
+// so the bf16 instances keep the f32 route's tiles and orders and issue
+// only the passes whose operands are not exact: S = q·kᵀ and dP = dO·vᵀ
+// (bf16 × bf16) one pass each, dV = Pᵀ·dO, dK = dSᵀ·q and dQ = dS·k (the
+// f32 P or dS × bf16) two each (the plan's passes, which the C entry
+// checks).  A pass of exact zeros adds nothing to its accumulator, so
+// they give the f32 kernel's bits on the inputs widened to f32.  The
+// resident tiles are loaded once a block with 16-byte loads of 8 values,
+// widened, and stored as f32 (their fragments then need no split); each
+// ring tile lands by cp.async in a bf16 landing zone (two, in the space of
+// the second f32 stage) and is widened into the first stage, with no small
+// parts (the f32 route's third stage stays unused: 32-row ring tiles at
+// (192, 128) would still need 246,784 bytes).  Di reads o and dO as bf16.
 //
 // Registers (ptxas, sm_90a): at D = 128 the dK and dV sums take 128 a
-// thread; dkdv_kernel<128, 128, 32> uses 255 with 104 bytes of spill
-// stores (140 for bf16), the other kernels of D = Dv spill nothing.  At
-// (192, 128) both kernels use 255: dkdv spills 64 bytes (44 for bf16), dq
-// 8 (4).
+// thread; dkdv_kernel<128, 128, 32> uses 255 with 92 bytes of spill
+// stores (68 for bf16), the other kernels of D = Dv spill nothing.  At
+// (192, 128) both kernels use 255: dkdv spills 28 bytes (36 for bf16), dq
+// 8 (none).  The splits round by integer adds (mma_tf32.cuh): with
+// cvt.rna the f32 call at (192, 128) took 3.96 ms on the H100, with them
+// 3.49.
 //
 // Bound on the card.  The LM's training shape (B = 2, H = 40 over Kv = 8,
 // S = 2048, D = 128, causal): five (S × S × D) products (Qkᵀ, dO vᵀ, Pᵀ dO,
@@ -109,7 +116,8 @@
 // out; 403 MB) take 0.12 ms.  MLA's training shape (B = 2, H = Kv = 16,
 // S = 2048, (192, 128), causal): B·H·S²·(192 + 128 + 128 + 192 + 192)
 // = 111.7 GFLOP of causal work, 0.677 ms as 3xTF32 (1.667 ms at the f32
-// SIMT peak); with the dQ pass's recompute 154.6 GFLOP, 0.937 ms.
+// SIMT peak); with the dQ pass's recompute 154.6 GFLOP, 0.937 ms.  In
+// bf16 (S and dP one pass, the rest two) 0.365 ms.
 #include "common.cuh"
 
 namespace {
@@ -118,7 +126,11 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BK = 16 * WARPS;   // dK/dV pass: keys per block
 constexpr int BQ = 16 * WARPS;   // dQ pass: queries per block
-constexpr int PASSES = kPasses<false, false>;   // every product, f32 x f32
+// A bf16 value is exact in TF32 (its small part is 0), so a bf16 operand
+// skips its small pass: with T = bf16, S and dP (bf16 x bf16) take 1 pass,
+// dV, dK and dQ (the f32 P or dS times bf16 dO, Q or K) 2; f32 takes 3.
+template <typename T>
+constexpr bool kExact = sizeof(T) == 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {   // (batch, sequence, head) strides, in elements
@@ -232,15 +244,15 @@ struct Ring {
     load_ring<DV, NT>(st + (sizeof(T) == 4 ? S::TILE_A : NT * D), b, bs, r0,
                       lim);
   }
-  // the landed tile it split for the products (the caller synchronises)
+  // the landed tile it split for the products (the caller synchronises);
+  // bf16 is only widened: its values are their own big parts
   __device__ __forceinline__ void split(int it) const {
     if constexpr (sizeof(T) == 4) {
       split_smem(big(it), small(), S::STAGE / 4);
     } else {
       const T* st = stage(it);
-      widen_split_rows(st, NT, D, big(it), small(), Lay<D>::RING);
-      widen_split_rows(st + NT * D, NT, DV, big(it) + S::TILE_A,
-                       small() + S::TILE_A, Lay<DV>::RING);
+      widen_rows(st, NT, D, big(it), Lay<D>::RING);
+      widen_rows(st + NT * D, NT, DV, big(it) + S::TILE_A, Lay<DV>::RING);
     }
   }
 };
@@ -254,10 +266,19 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
       : "r"(smem_addr(p)));
 }
 
+// Two 8 x 4 f32 matrices, lanes 0..15 giving the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 // The A fragment of rows r0.., k-step kd of a resident tile (raw f32),
-// split: a = X[g][t], X[g+8][t], X[g][t+4], X[g+8][t+4] of the k8 block
-// (k in its natural order; the B side of these products reads the same).
-template <int W>
+// split (EXACT, a bf16 tile: the big parts alone): a = X[g][t], X[g+8][t],
+// X[g][t+4], X[g+8][t+4] of the k8 block (k in its natural order; the B
+// side of these products reads the same).
+template <int W, bool EXACT>
 __device__ __forceinline__ void a_rows(const float* X, int r0, int kd,
                                        Frag<4>& f) {
   const int i = threadIdx.x % 32;
@@ -266,39 +287,52 @@ __device__ __forceinline__ void a_rows(const float* X, int r0, int kd,
                              kd * 8 + 4 * (i / 16)));
   const float v[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
                       __uint_as_float(r[2]), __uint_as_float(r[3])};
-  frag_split<false>(v, f);
+  frag_split<EXACT>(v, f);
 }
 
 // The B fragment (k = d, n = row) of rows n0.. of a split ring tile: rows
-// n0 + g, columns 8kd + t and 8kd + t + 4.
-template <int W>
+// n0 + g, columns 8kd + t and 8kd + t + 4 (EXACT: the big parts alone).
+template <int W, bool EXACT>
 __device__ __forceinline__ Frag<2> b_rows(const float* big,
                                           const float* small, int n0,
                                           int kd) {
   const int i = threadIdx.x % 32;
-  uint32_t r[4];
-  ldsm_x4(r, (i < 16 ? big : small) +
-                 Lay<W>::ring(n0 + i % 8, kd * 8 + 4 * (i / 8 % 2)));
-  return {{r[0], r[1]}, {r[2], r[3]}};
+  const int o = Lay<W>::ring(n0 + i % 8, kd * 8 + 4 * (i / 8 % 2));
+  Frag<2> f;
+  if constexpr (EXACT) {
+    ldsm_x2(f.big, big + o);
+  } else {
+    uint32_t r[4];
+    ldsm_x4(r, (i < 16 ? big : small) + o);
+    f = {{r[0], r[1]}, {r[2], r[3]}};
+  }
+  return f;
 }
 
 // The B fragment (k = row, n = d) of a split ring tile, k permuted as the
 // accumulator-as-A fragment is (mma_tf32.cuh): rows k0 + 2t and k0 + 2t + 1,
 // column 8d + g.
-template <int W>
+template <int W, bool EXACT>
 __device__ __forceinline__ Frag<2> b_cols(const float* big,
                                           const float* small, int k0,
                                           int d) {
   const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int o = Lay<W>::ring(k0 + 2 * t, d * 8 + g);
   constexpr int R = Lay<W>::RING;
-  return {{__float_as_uint(big[o]), __float_as_uint(big[o + R])},
-          {__float_as_uint(small[o]), __float_as_uint(small[o + R])}};
+  Frag<2> f;
+  f.big[0] = __float_as_uint(big[o]);
+  f.big[1] = __float_as_uint(big[o + R]);
+  if constexpr (!EXACT) {
+    f.small[0] = __float_as_uint(small[o]);
+    f.small[1] = __float_as_uint(small[o + R]);
+  }
+  return f;
 }
 
 // x = A·Bᵀ for the 16 resident rows of this warp (A, width W, split per
-// use) and the NT rows of a split ring tile (B): NT/8 n8 tiles, k = d.
-template <int W, int NT>
+// use) and the NT rows of a split ring tile (B): NT/8 n8 tiles, k = d;
+// EXACT (bf16 on both sides): one pass.
+template <int W, int NT, bool EXACT>
 __device__ __forceinline__ void tile_scores(const float* A, const float* big,
                                             const float* small,
                                             float (&x)[NT / 8][4]) {
@@ -310,18 +344,20 @@ __device__ __forceinline__ void tile_scores(const float* A, const float* big,
 #pragma unroll
   for (int kd = 0; kd < W / 8; ++kd) {
     Frag<4> a;
-    a_rows<W>(A, 16 * warp, kd, a);
+    a_rows<W, EXACT>(A, 16 * warp, kd, a);
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j)
-      mma_3xtf32<false, false>(x[j], a, b_rows<W>(big, small, 8 * j, kd));
+      mma_3xtf32<EXACT, EXACT>(x[j], a,
+                               b_rows<W, EXACT>(big, small, 8 * j, kd));
   }
 }
 
 // acc += A·B over the NT/8 k-steps of one NT-row ring tile of width W: A
 // the split accumulator fragments a[kk] (rows of this warp, k = the tile's
 // rows), B the tile's columns; each group of up to 4 n8 tiles chains into
-// fresh zero accumulators that are then added to acc in f32.
-template <int W, int NT>
+// fresh zero accumulators that are then added to acc in f32; B_EXACT (a
+// bf16 tile): two passes.
+template <int W, int NT, bool B_EXACT>
 __device__ __forceinline__ void tile_product(const Frag<4> (&a)[NT / 8],
                                              const float* big,
                                              const float* small,
@@ -339,8 +375,8 @@ __device__ __forceinline__ void tile_product(const Frag<4> (&a)[NT / 8],
     for (int kk = 0; kk < NT / 8; ++kk)
 #pragma unroll
       for (int i = 0; i < DG; ++i)
-        mma_3xtf32<false, false>(f[i], a[kk],
-                                 b_cols<W>(big, small, 8 * kk, d0 + i));
+        mma_3xtf32<false, B_EXACT>(
+            f[i], a[kk], b_cols<W, B_EXACT>(big, small, 8 * kk, d0 + i));
 #pragma unroll
     for (int i = 0; i < DG; ++i)
 #pragma unroll
@@ -410,6 +446,7 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(
     int H, int G, Strides qs, Strides ks, Strides vs, Strides dos, int kv_len,
     int q_offset, int causal, float scale) {
   constexpr int NJ = NT / 8;    // n8 tiles of Sᵀ; k8 steps of dK, dV
+  constexpr bool EXACT = kExact<T>;
   using S = Smem<D, DV, NT>;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -493,7 +530,7 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(
       // (one after the other: the dK and dV sums hold 128 registers at
       // D = 128); element (key g + 8hf, query 8j + 2t + e)
       float s[NJ][4], dp[NJ][4];
-      tile_scores<D, NT>(Ks, Qb, Qsm, s);
+      tile_scores<D, NT, EXACT>(Ks, Qb, Qsm, s);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -506,7 +543,7 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(
             s[j][2 * hf + e] =
                 ok ? exp2f(s[j][2 * hf + e] * scale2 - lq[j][e]) : 0.f;
           }
-      tile_scores<DV, NT>(Vs, dOb, dOsm, dp);
+      tile_scores<DV, NT, EXACT>(Vs, dOb, dOsm, dp);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -514,9 +551,9 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(
           dp[j][e] = s[j][e] * (dp[j][e] - dc[j][e % 2]);
       Frag<4> a[NJ];
       acc_as_a<NT>(s, a);
-      tile_product<DV, NT>(a, dOb, dOsm, acc_v);   // dV += Pᵀ·dO
+      tile_product<DV, NT, EXACT>(a, dOb, dOsm, acc_v);   // dV += Pᵀ·dO
       acc_as_a<NT>(dp, a);
-      tile_product<D, NT>(a, Qb, Qsm, acc_k);      // dK += dSᵀ·Q
+      tile_product<D, NT, EXACT>(a, Qb, Qsm, acc_k);      // dK += dSᵀ·Q
     }
     __syncthreads();   // this stage is consumed before it is refilled
   }
@@ -539,6 +576,7 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(
     Strides ks, Strides vs, Strides dos, int kv_len, int q_offset,
     int causal, float scale) {
   constexpr int NJ = NT / 8;
+  constexpr bool EXACT = kExact<T>;
   using S = Smem<D, DV, NT>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -606,8 +644,8 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(
       const float* Vsm = Ksm + S::TILE_A;
       // S = Q·Kᵀ and dP = dO·Vᵀ: this warp's 16 queries × the NT keys
       float s[NJ][4], dp[NJ][4];
-      tile_scores<D, NT>(Qs, Kb, Ksm, s);
-      tile_scores<DV, NT>(dOs, Vb, Vsm, dp);
+      tile_scores<D, NT, EXACT>(Qs, Kb, Ksm, s);
+      tile_scores<DV, NT, EXACT>(dOs, Vb, Vsm, dp);
       // dS in place; element (query g + 8hf, key 8j + 2t + e)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -624,7 +662,7 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(
           }
       Frag<4> a[NJ];
       acc_as_a<NT>(dp, a);
-      tile_product<D, NT>(a, Kb, Ksm, acc);   // dQ += dS·K
+      tile_product<D, NT, EXACT>(a, Kb, Ksm, acc);   // dQ += dS·K
     }
     __syncthreads();
   }
@@ -640,12 +678,14 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(
 // and of the dQ kernel; the x extents of the dot, dK/dV and dQ grids.
 constexpr int PLAN = 11;
 
-template <int D, int DV, int NT>
+template <int D, int DV, int NT, typename T>
 bool plan_matches(const int* plan, int B, int Sq, int Sk, int H, int Hk) {
   using S = Smem<D, DV, NT>;
+  constexpr bool E = kExact<T>;
   const long long rows = static_cast<long long>(B) * H * Sq;
   const long long want[PLAN] = {
-      WARPS, BK, NT, BQ, NT, PASSES * (1 + 4 + 16 + 64 + 256),
+      WARPS, BK, NT, BQ, NT,
+      kPasses<E, E> * (1 + 4) + kPasses<false, E> * (16 + 64 + 256),
       static_cast<long long>(S::BYTES), static_cast<long long>(S::BYTES),
       (rows * 32 + THREADS - 1) / THREADS,
       static_cast<long long>((Sk + BK - 1) / BK) * Hk * B,
@@ -662,7 +702,7 @@ int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
            int kv_len, int q_offset, int causal, float scale,
            const int* plan, cudaStream_t stream) {
   using S = Smem<D, DV, NT>;
-  if (!plan_matches<D, DV, NT>(plan, B, Sq, Sk, H, H / G))
+  if (!plan_matches<D, DV, NT, T>(plan, B, Sq, Sk, H, H / G))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {

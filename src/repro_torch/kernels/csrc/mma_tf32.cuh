@@ -2,14 +2,15 @@
 //
 // A TF32 operand keeps 10 of f32's 23 mantissa bits, so one pass of
 // mma.sync on f32 data loses about three decimal digits.  3xTF32 keeps f32
-// accuracy: each f32 value x is split into big = rna_tf32(x) and
-// small = rna_tf32(x − big) (x − big is exact in f32), and a product a·b is
-// taken as big_a·small_b + small_a·big_b + big_a·big_b with f32
-// accumulators.  The neglected small_a·small_b and the rounding of the
-// small parts are about 2^-22 of |a·b|, below f32's own rounding of a sum
-// over K terms.  The small terms are issued first, so the large term is
-// added last.  A bf16 value is exact in TF32 (its small part is zero), so
-// an operand stored in bf16 skips its small pass: 2 passes instead of 3.
+// accuracy: each f32 value x is split into big = x rounded to nearest
+// (ties away) to TF32 and small = x − big (exact in f32, passed whole: the
+// tensor cores read its top 19 bits, cutting the rest), and a product a·b
+// is taken as big_a·small_b + small_a·big_b + big_a·big_b with f32
+// accumulators.  The neglected small_a·small_b and the cut of the small
+// parts are about 2^-21 of |a·b|, below f32's own rounding of a sum over K
+// terms.  The small terms are issued first, so the large term is added
+// last.  A bf16 value is exact in TF32 (its small part is zero), so an
+// operand stored in bf16 skips its small pass: 2 passes instead of 3.
 //
 // The tensor cores add a product into its accumulator without rounding to
 // nearest: the low bits of the smaller addends are cut, a bias of the same
@@ -27,18 +28,21 @@
 #include <cstdint>
 
 // Round to nearest (ties away) to TF32: an f32 bit pattern whose low 13
-// bits are zero.
+// bits are zero, as cvt.rna.tf32.f32 rounds a finite x, in two integer
+// operations at full rate (the conversion runs at a fraction of it): half
+// a TF32 ulp added to the bits carries into the exponent where it must.
+// Inf stays inf; a NaN may not stay a NaN, but its small part below does.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = big + small to about 2^-22 of |x|.
+// x = big + small exactly: big in TF32, small the f32 rest, which the
+// tensor cores cut to TF32 (about 2^-21 of |x| lost).  A NaN x gives a
+// NaN small part, so every 3xTF32 or 2-pass product carries it.
 __device__ __forceinline__ void tf32_split(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // d += a·b, one m16n8k8 TF32 product with f32 accumulators, g = lane / 4,
@@ -108,31 +112,21 @@ __device__ __forceinline__ void widen8(const uint4& u, float (&f)[8]) {
 }
 
 // n rows of w bf16 values (w a multiple of 8; rows back to back, 16-byte
-// aligned) widened to f32 and split as split_smem splits: big parts to
-// big, small parts to small, row r at r * ld floats in both.  A bf16 value
-// is exact in TF32, so big is the widened value and small is 0: the split
-// an f32 tile of the widened values gets.  The caller synchronises.
-__device__ __forceinline__ void widen_split_rows(const __nv_bfloat16* src,
-                                                 int n, int w, float* big,
-                                                 float* small, int ld) {
+// aligned) widened to f32, row r at r * ld floats of dst.  A bf16 value is
+// exact in TF32: the widened value is its own big part and its small part
+// is 0, so a bf16 tile needs no small parts and no split.  The caller
+// synchronises.
+__device__ __forceinline__ void widen_rows(const __nv_bfloat16* src, int n,
+                                           int w, float* dst, int ld) {
   const int ch = w / 8;
   for (int i = threadIdx.x; i < n * ch; i += blockDim.x) {
     const int r = i / ch, c = (i % ch) * 8;
     float f[8];
     widen8(*reinterpret_cast<const uint4*>(src + r * w + c), f);
-    uint32_t b[8], s[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) tf32_split(f[e], b[e], s[e]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int o = r * ld + c + 4 * h;
-      *reinterpret_cast<float4*>(big + o) = make_float4(
-          __uint_as_float(b[4 * h]), __uint_as_float(b[4 * h + 1]),
-          __uint_as_float(b[4 * h + 2]), __uint_as_float(b[4 * h + 3]));
-      *reinterpret_cast<float4*>(small + o) = make_float4(
-          __uint_as_float(s[4 * h]), __uint_as_float(s[4 * h + 1]),
-          __uint_as_float(s[4 * h + 2]), __uint_as_float(s[4 * h + 3]));
-    }
+    *reinterpret_cast<float4*>(dst + r * ld + c) =
+        make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(dst + r * ld + c + 4) =
+        make_float4(f[4], f[5], f[6], f[7]);
   }
 }
 
@@ -213,6 +207,19 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc));
 }
 
+// d (64 x 32 per warpgroup) (+)= a · B, as wgmma_m64n128k8 with B 8 x 32:
+// d[j] is the m16n8 accumulator of the warp's 16 rows and columns 8j..8j+7.
+__device__ __forceinline__ void wgmma_m64n32k8(float (&d)[4][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %21, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -234,6 +241,11 @@ template <int N>
 __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void pin(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) pin(r[i]);
 }
 
 // Descriptor of a K-major operand without swizzle: core matrices of 8 rows

@@ -2,9 +2,10 @@
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_fwd`` (a
 Pallas TPU kernel).  The kernel is ``csrc/flash_attention.cu``: the online
-softmax over 64-key tiles with an f32 accumulator, causal or not, keys at or
-past ``kv_len`` masked, scale 1/sqrt(D); its source note gives its bound on
-the card.  It takes the Pallas layout (BH, S, D) and the model's layout
+softmax over 32-key tiles with an f32 accumulator, causal or not, keys at or
+past ``kv_len`` masked, scale 1/sqrt(D), both products in 3xTF32 on the
+tensor cores (``wgmma`` at D = 128 and (192, 128), ``mma.sync`` below);
+its source note gives its design and its bound on the card.  It takes the Pallas layout (BH, S, D) and the model's layout
 (B, S, H, D), with grouped key/value heads read in place (query head h
 reads head h // G) and a ``q_offset`` for prefill into a cache.  Any
 strides with D contiguous are read as they are: a KV cache slice is not

@@ -41,6 +41,10 @@ ROWS = 128            # keys of a dK/dV block, queries of a dQ block
 RING_ROWS = {w: 16 if w == (192, 128) else 32 for w in WIDTHS}
 PASSES = 3            # 3xTF32: tensor-core passes per f32 product
 PRODUCTS = ("S", "dP", "dV", "dK", "dQ")
+# bf16 inputs: a bf16 value is exact in TF32 (its small part is 0), so
+# S = q·kᵀ and dP = dO·vᵀ (bf16 × bf16) take one pass, and dV, dK, dQ (the
+# f32 P or dS times bf16 dO, q or k) two
+BF16_PASSES = (1, 1, 2, 2, 2)
 DOT_THREADS = 256     # the Di kernel: one warp a row
 
 
@@ -59,7 +63,7 @@ class Plan:
     batch x // Hk % B) and the dQ block (the last query tile first) is
     likewise over (query tile, head, batch), so the blocks with the most
     causal work are issued first.  ``passes``: tensor-core passes of each
-    of ``PRODUCTS``.
+    of ``PRODUCTS`` (3 on f32 inputs, ``BF16_PASSES`` on bf16).
     ``workspace``: scratch bytes, Di only (dQ is a second pass, no
     partials).
     """
@@ -95,9 +99,9 @@ def _smem_bytes(D: int, Dv: int, rows: int, tile: int) -> int:
 
 
 def plan(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int,
-         Dv: int | None = None) -> Plan:
+         Dv: int | None = None, dtype: torch.dtype = torch.float32) -> Plan:
     """The launch plan of ``flash_attention_bwd`` for these sizes (Dv:
-    v's width, default D)."""
+    v's width, default D) and inputs of ``dtype``."""
     Dv = D if Dv is None else Dv
     if (D, Dv) not in WIDTHS:
         raise ValueError(_widths_message(D, Dv))
@@ -109,7 +113,9 @@ def plan(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int,
         grids=((_cdiv(B * H * Sq * 32, DOT_THREADS), 1, 1),
                (_cdiv(Sk, ROWS) * Hk * B, 1, 1),
                (_cdiv(Sq, ROWS) * H * B, 1, 1)),
-        passes=(PASSES,) * len(PRODUCTS), workspace=4 * B * H * Sq)
+        passes=(BF16_PASSES if dtype == torch.bfloat16
+                else (PASSES,) * len(PRODUCTS)),
+        workspace=4 * B * H * Sq)
 
 
 def _check(q, k, v, o, lse, dout, kv_len, q_offset) -> None:
@@ -194,7 +200,7 @@ def flash_attention_bwd(
     dq = torch.empty(q4.shape, dtype=torch.float32, device=dev)
     dk = torch.empty(k4.shape, dtype=torch.float32, device=dev)
     dv = torch.empty(v4.shape, dtype=torch.float32, device=dev)
-    p = plan(B, Sq, Sk, H, Hk, D, Dv)
+    p = plan(B, Sq, Sk, H, Hk, D, Dv, q.dtype)
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(*(
         s for t in (q4, k4, v4, o4, d4) for s in t.stride()[:3]))

@@ -699,6 +699,65 @@ def test_flash_attention_bwd_mla_widths_match_plain_on_card(dev, causal):
     assert launch_counts()["flash_attention"] == 3
 
 
+WG_EDGES = [  # (Sq, Sk, causal, kv_len, q_offset)
+    (64, 64, True, 64, 0),       # one warpgroup's rows, the other's none
+    (65, 96, True, 65, 0),       # the second warpgroup holds one row
+    (1, 33, True, 33, 32),       # one query, its last key past a 32-key tile
+    (129, 161, True, 160, 31),   # tile edges of queries, keys and q_offset
+    (63, 32, False, 1, 0),       # a single visible key
+]
+
+
+@pytest.mark.parametrize("D,Dv", [(128, 128), (192, 128)])
+@pytest.mark.parametrize("Sq,Sk,causal,kv_len,q_offset", WG_EDGES)
+def test_flash_attention_wgmma_route_edges_on_card(dev, D, Dv, Sq, Sk,
+                                                   causal, kv_len, q_offset):
+    """The wgmma route (D = 128 and (192, 128)): 128-query blocks of two
+    64-row warpgroups over 32-key tiles, at their edges — a warpgroup with
+    no rows or one, a causal warpgroup that skips a tile, kv_len and
+    q_offset inside a tile.  Within 2e-5 of the plain version with the lse,
+    o's bits the same without it, bf16 the f32 bits on the widened
+    inputs."""
+    rng = np.random.default_rng(Sq * 1000 + Sk + D)
+    B, H, Hk = 2, 4, 2
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=dev)
+               for s in ((B, Sq, H, D), (B, Sk, Hk, D), (B, Sk, Hk, Dv)))
+    kw = dict(causal=causal, kv_len=kv_len, q_offset=q_offset)
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    plain = flash_attention.flash_attention(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal,
+                                             return_lse=True, kv_len=kv_len,
+                                             q_offset=q_offset)
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    ob, lb = flash_attention.flash_attention(qb, kb, vb, return_lse=True,
+                                             **kw)
+    o32, l32 = flash_attention.flash_attention(
+        qb.float(), kb.float(), vb.float(), return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert _rel(o, want) <= 2e-5 and _rel(lse, want_lse) <= 2e-5
+    assert torch.equal(o, plain)
+    assert torch.equal(ob, o32.bfloat16()) and torch.equal(lb, l32)
+
+
+@pytest.mark.parametrize("D,Dv", [(64, 64), (192, 128)])
+def test_flash_attention_nan_in_q_stays_nan_on_card(dev, D, Dv):
+    """A NaN in one query row gives that row a NaN output and leaves the
+    others finite, on the tile route and the wgmma route: the 3xTF32
+    split carries a NaN in the small part, as the plain version does."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=dev)
+               for s in ((1, 70, 2, D), (1, 70, 2, D), (1, 70, 2, Dv)))
+    q[0, 5, 1, 3] = float("nan")
+    o = flash_attention.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.isnan(o[0, 5, 1]).all() and torch.isnan(want[0, 5, 1]).all()
+    o[0, 5, 1] = want[0, 5, 1] = 0.0
+    assert torch.isfinite(o).all() and _rel(o, want) <= 2e-5
+
+
 def _bf16_inputs(dev, B, Sq, Sk, H, Hk, D, Dv, seed):
     """q, k, v and dO drawn in f32 and rounded to bf16."""
     rng = np.random.default_rng(seed)

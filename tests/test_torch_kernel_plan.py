@@ -10,11 +10,13 @@ refuses unless they are the build's.  ``mode_product_rows.plan`` picks the
 serving tables' route (narrow or wide) and tiles the build and the row
 patch, whose block count fixes the colsum's order.
 """
+import dataclasses
 import inspect
 import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import (flash_attention_bwd, kruskal_grad,
                                  mode_product_rows, scatter_accum,
@@ -198,6 +200,18 @@ def test_flash_bwd_plan_runs_every_product_in_3xtf32():
     c = list(p.to_c())
     assert len(c) == 11 and c[5] == 3 * (1 + 4 + 16 + 64 + 256)
     assert c[:5] == [8, 128, 32, 128, 32] and c[6:8] == list(p.smem)
+
+
+@pytest.mark.parametrize("D,Dv", [(64, 64), (192, 128)])
+def test_flash_bwd_plan_drops_the_passes_of_bf16_sides(D, Dv):
+    """bf16 inputs: S and dP (bf16 × bf16) in one pass, dV, dK and dQ
+    (f32 P or dS × bf16) in two; tiles, shared bytes and grids as f32's."""
+    p = flash_attention_bwd.plan(2, 2048, 2048, 16, 16, D, Dv,
+                                 torch.bfloat16)
+    f32 = flash_attention_bwd.plan(2, 2048, 2048, 16, 16, D, Dv)
+    assert p.passes == (1, 1, 2, 2, 2)
+    assert list(p.to_c())[5] == 1 + 1 * 4 + 2 * 16 + 2 * 64 + 2 * 256
+    assert dataclasses.replace(p, passes=f32.passes) == f32
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hk", BWD_SHAPES)

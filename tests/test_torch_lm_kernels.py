@@ -317,6 +317,35 @@ def test_tf32_emulation_separates_three_passes_from_one():
     assert rel(_tf32(x) @ b_s + _tf32(x) @ bb) <= tol / 10
 
 
+@pytest.mark.parametrize("K", [32, 128, 192])
+def test_tf32_emulation_bf16_passes_drop_exactly(K):
+    """The flash kernels' bf16 instances skip the passes of exact sides:
+    a bf16 value's TF32 small part is exactly 0, so one pass of two bf16
+    operands, and two passes (the f32 side's small part by the bf16 big
+    part, then big by big) of an f32 and a bf16 operand, give the three-
+    pass sum's bits, the zero passes summed first as the kernels order
+    them.  K: a key tile (P·V), D = 128 and MLA's q·k width."""
+    rng = np.random.default_rng(K)
+    a = torch.tensor(rng.normal(size=(16, K)), dtype=F32)
+    b = torch.tensor(rng.normal(size=(K, 8)), dtype=F32)
+    ah, bh = a.bfloat16().float(), b.bfloat16().float()
+
+    def parts(x):
+        big = _tf32(x)
+        return big, _tf32(x - big)
+
+    def three(x, y):
+        (xb, xs), (yb, ys) = parts(x), parts(y)
+        return (xb @ ys + xs @ yb) + xb @ yb
+
+    for x in (ah, bh):
+        big, small = parts(x)
+        assert torch.equal(big, x) and not small.any()
+    assert torch.equal(_tf32(ah) @ _tf32(bh), three(ah, bh))
+    ab, a_s = parts(a)
+    assert torch.equal(a_s @ bh + ab @ bh, three(a, bh))
+
+
 def test_tf32_emulation_sets_the_flash_backward_tolerance():
     """The flash backward's five products (S = q kᵀ, dP = dO vᵀ, dV = Pᵀ dO,
     dK = dSᵀ q, dQ = dS k) emulated as 3xTF32 and as one TF32 pass, at one
