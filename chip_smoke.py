@@ -707,6 +707,54 @@ SHARDED_LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 # phase 13 takes, for the tensor-parallel route (vocab-parallel head, H/mp
 # heads, d_ff/mp rows) and the gathered one (every weight all-gathered)
 SHARDED_LM_BACKEND_PAIRS = [((1, 4), "tp"), ((4, 1), "zero3")]
+# phase 26: sharded MoE/MLA training on 4 workers sharing the card, full
+# width.  (b) parity at 2 layers with the residual stream in f32, phase
+# 23's global batch 4 (every policy splits it) and 3 fed steps, against
+# the unsharded "cuda" step; (c) 10 steps a run through launch/train.run
+# at MOE_TRAIN's batch (or the least multiple of it that the policy's
+# batch shards divide: zero3_dp's 4), at 4 layers where the reckoned peak
+# stays under MOE_PEAK, else fewer.  The reckoning: the bytes held by
+# earlier phases, the state (parameters, gradients, AdamW m and v, 16
+# bytes a held element, every worker's parts), the activations of a layer
+# and a batch row of 2048 tokens (below) times the layers and every
+# worker's rows (a batch slice counts once a worker that holds it), and
+# the gathered copies and their gradients of the largest layer and of the
+# head, every worker's (the zero3 policies gather whole leaves).  The
+# activations are fitted to this phase's own peaks, the largest of each
+# arch's runs: (peak − held − state − copies) / (layers × rows), at
+# DeepSeek-V2-Lite zero3_dp, batch 4, 4 layers, 4 rows: (79,181,748,224 −
+# 67,108,864 − 39,141,900,288 − 25,358,909,440) / 16; at Qwen3-MoE tp,
+# 3 layers, 8 rows: (50,816,028,672 − 1,690,034,176 − 39,905,574,912) / 24
+# (NVIDIA H100 80GB HBM3, 700 W; the other runs' fits 0.16e9–0.32e9: a
+# worker holds a slice of the heads and experts, and a replicated batch
+# row that never reaches the loss keeps no graph)
+SHARDED_MOE = dict(parity_layers=2, parity_batch=4, parity_steps=3,
+                   steps=10)
+SHARDED_MOE_PARITY = [("deepseek_v2_lite_16b", (2, 2), "fsdp_tp"),
+                      ("deepseek_v2_lite_16b", (1, 4), "tp"),
+                      ("deepseek_v2_lite_16b", (2, 2), "fsdp_tp_v2"),
+                      ("deepseek_v2_lite_16b", (2, 2), "zero3_dp"),
+                      ("qwen3_moe_30b_a3b", (1, 4), "tp")]
+SHARDED_MOE_RUNS = [("deepseek_v2_lite_16b", (2, 2), "fsdp_tp", {}),
+                    ("deepseek_v2_lite_16b", (1, 4), "tp", {}),
+                    ("deepseek_v2_lite_16b", (2, 2), "fsdp_tp_v2", {}),
+                    ("deepseek_v2_lite_16b", (2, 2), "zero3_dp", {}),
+                    ("qwen3_moe_30b_a3b", (1, 4), "tp", {}),
+                    ("deepseek_v2_lite_16b", (2, 2), "fsdp_tp",
+                     {"moe_sharded": True}),
+                    ("deepseek_v2_lite_16b", (2, 2), "fsdp_tp",
+                     {"mixed_precision": True, "dtype": "bfloat16"})]
+ACT_BYTES = {"deepseek_v2_lite_16b": 913_364_352,
+             "qwen3_moe_30b_a3b": 384_184_150}
+# (b)'s flips: phase 25's rule, a fed pick's own pick may differ only where
+# the fed run's closest two of the K + 1 best router logits lie within
+# this.  ROUTE_MARGIN (1e-5) is set for two runs of one shape; a sharded
+# run splits the batch and the heads, so its f32 sums run in other orders
+# than the unsharded step's, and its router logits differ by more: up to
+# 8.05e-5 (DeepSeek-V2-Lite) and 3.35e-4 (Qwen3-MoE), flips at margins to
+# 1.22e-5 and 5.48e-5 (NVIDIA H100 80GB HBM3, 700 W); each run logs its
+# max |Δ|
+SHARDED_ROUTE_MARGIN = 5e-4
 # the GPU machine stops a call past this many bytes written to its disk
 SHARD_WORKERS = 4            # phase 21's serving workers, sharing the card
 SHARD_QUERIES = 65_536       # predict tuples checked a layout
@@ -6748,23 +6796,26 @@ def _train_moe(torch, K, train, cfg, name: str, steps: int,
 
 
 @contextlib.contextmanager
-def _route_tap(record: list | None = None, feed: list | None = None):
-    """Every ``models.moe.route`` call appends its router logits and picks
-    to ``record``; with ``feed`` (one entry of such a record a call, in
-    order) the call takes the fed experts instead, its gates from its own
-    logits at them (``moe.gates``, as ``route`` forms them)."""
+def _route_tap(record: list | None = None, feed=None):
+    """Every ``models.moe.route`` call appends its router logits and its
+    own picks to ``record``; with ``feed`` (one entry of such a record a
+    call, in order, or a function of the call's index giving one) the call
+    takes the fed experts instead, its gates from its own logits at them
+    (``moe.gates``, as ``route`` forms them)."""
     from repro_torch.models import moe
 
     real = moe.route
-    calls = iter(feed) if feed is not None else None
+    calls = [0]
 
     def tap(params, cfg, xt):
         logits, gates, ids = real(params, cfg, xt)
-        if calls is not None:
-            ids = next(calls)["ids"]
-            gates = moe.gates(cfg, logits, ids)
         if record is not None:
             record.append({"logits": logits.detach(), "ids": ids})
+        if feed is not None:
+            c = calls[0]
+            ids = (feed(c) if callable(feed) else feed[c])["ids"]
+            gates = moe.gates(cfg, logits, ids)
+        calls[0] += 1
         return logits, gates, ids
 
     moe.route = tap
@@ -6934,6 +6985,449 @@ def phase_moe_train(torch, K, train, ds_cfg, qm_cfg
     return rec, rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26
+# ---------------------------------------------------------------------------
+
+def _moe_worker_shapes(torch, train, cfg, mesh, policy: str, B: int, T: int
+                       ) -> tuple:
+    """Worker 0's flash shape in a sharded step of ``cfg`` (global batch
+    B × T) on ``mesh`` under ``policy``, from the step's own layouts and
+    head selection: (batch rows, query heads, KV heads, D, Dv); MLA's k
+    is expanded over the worker's heads."""
+    import types
+
+    from repro_torch.distributed.sharded_lm import ShardedLM
+    from repro_torch.distributed.sharding import Layout, batch_spec
+
+    lm = ShardedLM(cfg, mesh, train.layouts_for(cfg, mesh, policy), policy)
+    names = ("wq", "w_uk", "w_uv", "wo") if cfg.use_mla else ("wq", "wk",
+                                                              "wv")
+    mixer = types.SimpleNamespace(**{w: torch.empty(tuple(
+        r.stop - r.start for r in lm.plans[f"layers.0.mixer.{w}"].region[0]),
+        device="meta") for w in names})
+    mixer = lm._local_attention(mixer, 0, 0)
+    rows = Layout((B, T), batch_spec(mesh, B, 1, policy), mesh).index(0)[0]
+    H = mixer.wq.shape[1]
+    if cfg.use_mla:
+        return (len(range(B)[rows]), H, H,
+                cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return (len(range(B)[rows]), H, mixer.wk.shape[1], cfg.head_dim,
+            cfg.head_dim)
+
+
+def _sharded_moe_kernels(torch, K, shapes: dict, T: int) -> dict:
+    """The flash forward (with and without the lse) and backward against
+    their plain versions at each per-worker shape within phase 11's 2e-5;
+    at a bf16 run's shapes, the bf16 kernels bitwise the f32 kernels on the
+    widened inputs (o rounded to bf16 where it is)."""
+    ref = K.ref
+    fa = K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(2626)
+    worsts: dict = {}       # by route: "" (D = 128), "_mla", "_bf16"
+    for (bw, h, kv, d, dv, dt), tags in sorted(shapes.items()):
+        what = f"B={bw} S={T} H={h} Kv={kv} (D, Dv) = ({d}, {dv}) causal"
+        log(f"sharded MoE kernels: {what} {dt} for {', '.join(tags)}")
+        worst = worsts.setdefault("_bf16" if dt == "bfloat16" else
+                                  "_mla" if (d, dv) == (192, 128) else "", {})
+        q = torch.randn((bw, T, h, d), generator=gen, device="cuda")
+        k = torch.randn((bw, T, kv, d), generator=gen, device="cuda")
+        v = torch.randn((bw, T, kv, dv), generator=gen, device="cuda")
+        dout = torch.randn((bw, T, h, dv), generator=gen, device="cuda")
+        if dt == "bfloat16":    # the values bf16 holds, widened to f32
+            q, k, v, dout = (t.bfloat16().float() for t in (q, k, v, dout))
+        o_plain = fa(q, k, v, causal=True)
+        o, lse = fa(q, k, v, causal=True, return_lse=True)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, True,
+                                                 return_lse=True)
+        _held(worst, "flash_attention", o_plain, o_ref, what)
+        _held(worst, "flash_attention", o, o_ref, what + " with the lse")
+        _held(worst, "flash_attention", lse, lse_ref, what + " lse")
+        got = fb(q, k, v, o, lse, dout, causal=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, True)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            _held(worst, "flash_attention_bwd", a, b, f"{what} {nm}")
+        if dt == "bfloat16":
+            qb, kb, vb, db = (t.bfloat16() for t in (q, k, v, dout))
+            ob_plain = fa(qb, kb, vb, causal=True)
+            ob, lseb = fa(qb, kb, vb, causal=True, return_lse=True)
+            gotb = fb(qb, kb, vb, ob, lseb, db, causal=True)
+            wantb = fb(q, k, v, ob.float(), lseb, dout, causal=True)
+            pairs = [("o", ob_plain, o_plain.bfloat16()),
+                     ("o with lse", ob, o.bfloat16()), ("lse", lseb, lse),
+                     *zip(("dq", "dk", "dv"), gotb, wantb)]
+            same = {n: bool(torch.equal(g, w.to(g.dtype)))
+                    for n, g, w in pairs}
+            log(f"  bf16 {what}: the f32 kernels' bits on the widened "
+                f"inputs: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"sharded MoE kernels: bf16 {what} is "
+                                     f"not the f32 kernels' bits: {same}")
+            del qb, kb, vb, db, ob_plain, ob, lseb, gotb, wantb
+        del q, k, v, dout, o_plain, o, lse, o_ref, lse_ref, got, want
+        torch.cuda.empty_cache()
+    return {f"{k}{route}": {"max_abs_err": e, "max_rel_err": r,
+                            "tol": TOL[k]}
+            for route, worst in worsts.items() for k, (e, r) in worst.items()}
+
+
+def _sharded_moe_parity(torch, train, cfg, runs: list, B: int, T: int
+                        ) -> dict:
+    """(b): 3 fed steps of ``cfg`` at 2 layers, f32 stream, on each
+    (mesh, policy) of ``runs`` against the unsharded ``"cuda"`` step from
+    one state, phase 23's comparison; each sharded worker fed the
+    unsharded run's picks at its rows, each flip within
+    ``SHARDED_ROUTE_MARGIN`` of the next-best router logit."""
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed.sharding import Layout, batch_spec
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+
+    C = SHARDED_MOE
+    gen = lambda: torch.Generator(device="cuda").manual_seed(26)  # noqa
+    cfg2 = dataclasses.replace(cfg, num_layers=C["parity_layers"],
+                               dtype="float32")
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg2.vocab_size, seq_len=T, global_batch=B))
+    batches = [train.device_batch(pipe.global_batch(i), "cuda")
+               for i in range(C["parity_steps"])]
+    opt_cfg = adamw.AdamWConfig(**SHARDED_LM_OPT)
+    state = S.init_train_state(cfg2, gen(), "cuda")
+    step = S.make_train_step(cfg2, opt_cfg, "cuda")
+    ref_loss, lrs, masks, prev, picks = [], [], {}, None, []
+    for b in batches:
+        rec: list = []
+        with _route_tap(rec):
+            state, m = step(state, b)
+        picks.append(rec)
+        ref_loss.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        prev = _step_settled(torch, state.opt, prev, masks, opt_cfg.b1)
+    want = _host_leaves(torch, state)
+    settled = {n: t.cpu() for n, t in masks.items()}
+    del state, step, prev, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sharded MoE parity reference ({cfg.arch_id}): the unsharded "
+        f"'cuda' step, {cfg2.num_layers} layers, batch {B} x seq {T}, f32, "
+        f"losses {[f'{x:.6f}' for x in ref_loss]}")
+    out = {}
+    for shape, policy in runs:
+        mesh = _sharded_mesh(shape)
+        M = mesh.size
+        rows = [Layout((B, T), batch_spec(mesh, B, 1, policy), mesh
+                       ).index(m)[0] for m in range(M)]
+        st, layouts = train.build_state(gen(), cfg2, mesh, policy)
+        sstep = S.make_sharded_train_step(cfg2, opt_cfg, mesh, layouts,
+                                          "cuda", policy=policy)
+        tag = f"{cfg.arch_id} {shape} {policy}"
+        losses, flips, noise = [], [], []
+        for i, b in enumerate(batches):
+            def feed(c, rec=picks[i]):   # call c: layer c // M, worker c % M
+                r, e = rows[c % M], rec[c // M]
+                return {k: e[k][r.start * T:r.stop * T]
+                        for k in ("ids", "logits")}
+
+            own: list = []
+            with _route_tap(own, feed):
+                st, m = sstep(st, b)
+            losses.append(float(m["loss"]))
+            fed = [feed(c) for c in range(len(own))]
+            flips += _route_flips(torch, own, fed, SHARDED_ROUTE_MARGIN,
+                                  f"{tag} step {i}")
+            noise += [float((g["logits"] - w["logits"]).abs().max())
+                      for g, w in zip(own, fed)]
+        torch.cuda.synchronize()
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(losses, ref_loss))
+        errs = _leaf_errs(torch, st, want)
+        mv = max(((n, e) for n, e in errs.items() if n.startswith("opt.")),
+                 key=lambda kv: kv[1])
+        pw, pleaf, held = _settled_param_err(torch, st, want, settled,
+                                             sum(lrs))
+        log(f"sharded MoE (b) {tag}: losses {losses}, max relative diff "
+            f"{loss_err:.3g} (tolerance {TOL['lm.loss']:.4g}); worst moment "
+            f"{mv[0]} {mv[1]:.3g} of its largest (tolerance "
+            f"{TOL['lm.grads']:.4g}); parameters where the reference's |g| > "
+            f"{LM_SETTLED:g} of its leaf's largest at every step ({held:,}): "
+            f"worst {pleaf} {pw:.3g} of the summed lr; {len(flips)} picks "
+            f"fed against the worker's own, the router logits at most "
+            f"{max(noise):.3g} from the unsharded run's; traffic a step "
+            f"{_per_step(sstep.traffic, len(batches))}")
+        if not (loss_err <= TOL["lm.loss"] and mv[1] <= TOL["lm.grads"]
+                and pw <= TOL["lm.grads"]):
+            raise AssertionError(f"sharded MoE (b) {tag}: loss "
+                                 f"{loss_err:.3g}, moment {mv}, parameters "
+                                 f"{pw:.3g} ({pleaf})")
+        out[tag] = {"loss_rel_diff": loss_err, "worst_moment": mv,
+                    "worst_settled_param": [pleaf, pw],
+                    "settled_entries": held, "route_flips": flips,
+                    "router_logits_max_diff": max(noise)}
+        del st, sstep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del want, settled, picks
+    return out
+
+
+def _run_batch(mesh, policy: str) -> int:
+    """(c)'s global batch: ``MOE_TRAIN``'s, or the least multiple of it
+    that the policy's batch shards divide, so that no batch is
+    replicated."""
+    from repro_torch.distributed.sharding import BATCH_AXES_BY_POLICY
+
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    shards = math.prod(sizes.get(a, 1) for a in BATCH_AXES_BY_POLICY.get(
+        policy, ("pod", "data")))
+    return math.lcm(MOE_TRAIN["batch"], shards)
+
+
+def _reckoned_peak(train, cfg, mesh, policy: str, B: int, T: int,
+                   held: int) -> float:
+    """``held`` bytes, the state every worker holds (16 bytes a parameter
+    element: the parameter, its gradient, m and v), ``ACT_BYTES`` for each
+    layer and each worker's batch row of ``T`` tokens, and twice (the
+    copies and their gradients) the f32 bytes the workers gather for the
+    largest layer and for the head."""
+    from repro_torch.distributed.sharded_lm import ShardedLM
+    from repro_torch.distributed.sharding import Layout, batch_spec
+
+    layouts = train.layouts_for(cfg, mesh, policy)
+    state = mesh.size * 4 * sum(lay.part_bytes(4) for lay in layouts.values())
+    blay = Layout((B, T), batch_spec(mesh, B, 1, policy), mesh)
+    rows = sum(len(range(B)[blay.index(m)[0]]) for m in range(mesh.size))
+    plans = ShardedLM(cfg, mesh, layouts, policy).plans
+
+    def gathered(prefix: str) -> int:
+        return sum(4 * math.prod(r.stop - r.start for r in p.region[m])
+                   for n, p in plans.items() if n.startswith(prefix)
+                   for m in range(mesh.size) if not p.own[m])
+
+    copies = max(gathered(f"layers.{i}.") for i in range(cfg.num_layers))
+    head = gathered("lm_head" if "lm_head" in layouts else "embed.")
+    return (held + state
+            + ACT_BYTES[cfg.arch_id] * cfg.num_layers * rows * T / 2048
+            + 2 * (copies + head))
+
+
+def _sharded_moe_run(torch, K, train, cfg, shape, policy: str, B: int,
+                     N: int, reckoned: float) -> dict:
+    """(c): N steps of ``cfg`` through ``launch/train.run(mesh=, policy=)``
+    at global batch B (no checkpoint is written): steps/s, tokens/s,
+    peak (beside the ``reckoned`` one), state bytes a worker against the
+    layouts', the collectives' bytes a step and worker; loss finite and
+    falling, exactly L·W ``flash_attention`` launches a step and, of
+    ``flash_attention_bwd``, L for each worker that reaches the loss: the
+    workers whose rows it counts (``Layout.owners``) and, where the batch
+    is shared over ``model``, their model groups, whose psums carry the
+    gradient — all W unless the batch does not divide the batch axes;
+    none of ``tucker_matmul``; the (dtype, D, Dv) the flash kernels took;
+    the first step's drop share and the first MoE layer's routed
+    output."""
+    from repro_torch.distributed.sharded_lm import model_groups
+    from repro_torch.distributed.sharding import (BATCH_AXES_BY_POLICY,
+                                                  Layout, batch_spec)
+    from repro_torch.models import moe
+
+    T = MOE_TRAIN["seq"]
+    mesh = _sharded_mesh(shape)
+    L, W = cfg.num_layers, mesh.size
+    tag = (f"{cfg.arch_id} {shape} {policy}"
+           + (" moe_sharded" if cfg.moe_sharded else "")
+           + (" mixed_precision" if cfg.mixed_precision else ""))
+    calls = (L - cfg.first_k_dense) * W      # route calls of one step
+    rec: list = []
+    real = moe._routed
+
+    def spy(params, c, xt, gate_vals, index_mat, keep):
+        y = real(params, c, xt, gate_vals, index_mat, keep)
+        if len(rec) < calls:
+            rec.append(((~keep).sum(), keep.numel(), y.detach().abs().max()))
+        return y
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    seen: set = set()
+    K.reset_launch_counts()
+    moe._routed = spy
+    try:
+        with _flash_calls(K, seen):
+            res = train.run(cfg, steps=N, batch=B, seq=T,
+                            ckpt_dir=str(ROOT / "build" / "sharded_moe_ckpt"),
+                            ckpt_every=N + 1, log_every=5, device="cuda",
+                            backend="cuda", mesh=mesh, policy=policy)
+        torch.cuda.synchronize()
+    finally:
+        moe._routed = real
+    counts = K.launch_counts()
+    hist = res["history"]
+    losses = [hist[i]["loss"] for i in range(1, N + 1)]
+    med = statistics.median(hist[i]["seconds"] for i in range(2, N + 1))
+    peak = res["peak_device_bytes"]
+    dropped = sum(int(d) for d, _, _ in rec)
+    picks = sum(n for _, n, _ in rec)
+    routed_max = max(float(r) for _, _, r in rec[:W])
+    own = set(Layout((B, T), batch_spec(mesh, B, 1, policy), mesh).owners())
+    tp = "model" not in BATCH_AXES_BY_POLICY.get(policy, ())
+    owners = sum(len(g) if tp else len(own & set(g))
+                 for g in model_groups(mesh) if own & set(g))
+    want = dict({k: 0 for k in counts}, flash_attention=L * W * N,
+                flash_attention_bwd=L * owners * N)
+    log(f"sharded MoE (c) {tag}: {L} layers, batch {B} x seq {T}, {N} "
+        f"steps: {res['steps_per_s']:.4f} steps/s, {res['tokens_per_s']:.1f} "
+        f"tokens/s (median step {med:.4f}s = {B * T / med:.1f} tokens/s); "
+        f"peak device bytes {peak:,} (reckoned {reckoned:,.0f}); state "
+        f"bytes a worker "
+        f"{res['state_bytes_per_worker']:,} (from the layouts "
+        f"{res['layout_state_bytes']:,}); collective bytes a step and "
+        f"worker {res['traffic_per_step']}; the first step dropped "
+        f"{dropped:,} of {picks:,} picks ({dropped / max(picks, 1):.2%}); "
+        f"the first MoE layer's routed output max |y| {routed_max:.4g}; "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; "
+        f"{held:,} device bytes held at its start; "
+        f"{time.perf_counter() - t0:.1f}s with the set-up; "
+        + nvidia_smi_line())
+    log(f"sharded MoE (c) {tag}: launch counts {counts} (want {want}: "
+        f"L·W forward, L·{owners} backward a step: {owners} of {W} workers "
+        f"reach the loss); flash calls at (name, dtype, D, Dv) "
+        f"{sorted(seen)}")
+    if res["state_bytes_per_worker"] != res["layout_state_bytes"]:
+        raise AssertionError(f"sharded MoE (c) {tag}: a worker holds "
+                             f"{res['state_bytes_per_worker']:,} bytes, the "
+                             f"layouts say {res['layout_state_bytes']:,}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"sharded MoE (c) {tag}: losses {losses}")
+    if counts != want:
+        raise AssertionError(f"sharded MoE (c) {tag}: launch counts "
+                             f"{counts}, want {want}")
+    if not peak < 80e9:
+        raise AssertionError(f"sharded MoE (c) {tag}: peak {peak:,} bytes")
+    if not routed_max > 0:
+        raise AssertionError(f"sharded MoE (c) {tag}: the routed output is "
+                             "all zero")
+    dt = "torch.bfloat16" if cfg.mixed_precision else "torch.float32"
+    d = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim) \
+        if cfg.use_mla else (cfg.head_dim, cfg.head_dim)
+    if seen != {(n, dt, *d) for n in ("flash_attention",
+                                      "flash_attention_bwd")}:
+        raise AssertionError(f"sharded MoE (c) {tag}: flash calls {seen}")
+    out = {"layers": L, "steps": N, "losses": losses,
+           "steps_per_s": res["steps_per_s"],
+           "tokens_per_s": res["tokens_per_s"], "median_step_s": med,
+           "peak_device_bytes": peak, "reckoned_peak": reckoned,
+           "batch": B, "state_bytes_per_worker": res["state_bytes_per_worker"],
+           "traffic_per_step": res["traffic_per_step"],
+           "drop_share": dropped / max(picks, 1), "routed_max": routed_max,
+           "held_at_start": held,
+           "launch_counts": counts, "flash_calls": sorted(seen)}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_moe(torch, K, train, cfgs: dict
+                      ) -> tuple[dict, dict, dict]:
+    """Phase 26: sharded training of MLA, MoE and ``mixed_precision`` on
+    M = 4 workers sharing the card, full width ((a) the flash kernels at
+    every run's per-worker shapes, (b) parity, (c) the training runs, the
+    phase's main path).  ``cfgs``: the two configs by arch.  Returns
+    (record, the kernels line's added errors by row, its added launches
+    by row)."""
+    rec: dict = {"card": nvidia_smi_line()}
+    seconds: dict = {}
+    C = SHARDED_MOE
+    T = MOE_TRAIN["seq"]
+    Bp = C["parity_batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"sharded MoE: {held:,} device bytes held by earlier phases at the "
+        "start")
+
+    # the runs' batches and depths: 4 layers where the reckoned peak fits,
+    # else fewer
+    runs = []
+    for arch, shape, policy, change in SHARDED_MOE_RUNS:
+        cfg = dataclasses.replace(cfgs[arch], **change)
+        mesh = _sharded_mesh(shape)
+        B = _run_batch(mesh, policy)
+        L = MOE_TRAIN["layers"]
+        while L > 1 and _reckoned_peak(train, dataclasses.replace(
+                cfg, num_layers=L), mesh, policy, B, T, held) >= MOE_PEAK:
+            L -= 1
+        peak = _reckoned_peak(train, dataclasses.replace(cfg, num_layers=L),
+                              mesh, policy, B, T, held)
+        if L < MOE_TRAIN["layers"]:
+            log(f"CUT: sharded MoE (c) {arch} {shape} {policy} trains at {L} "
+                f"of MOE_TRAIN's {MOE_TRAIN['layers']} layers (reckoned "
+                f"peak {peak:,.0f} bytes; {MOE_TRAIN['layers']} layers "
+                f"would pass MOE_PEAK {MOE_PEAK:,.0f})")
+        log(f"sharded MoE (c) {arch} {shape} {policy} {change or ''}: "
+            f"batch {B}, {L} layers, reckoned peak {peak:,.0f} bytes")
+        runs.append((dataclasses.replace(cfg, num_layers=L), shape, policy,
+                     B, peak))
+
+    # (a): the flash kernels at every run's per-worker shapes
+    t0 = time.perf_counter()
+    shapes: dict = {}
+    for cfg, shape, policy, B, _ in runs:
+        w = _moe_worker_shapes(torch, train, cfg, _sharded_mesh(shape),
+                               policy, B, T)
+        dt = "bfloat16" if cfg.mixed_precision else "float32"
+        shapes.setdefault((*w, dt), []).append(f"(c) {shape} {policy}")
+    for arch, shape, policy in SHARDED_MOE_PARITY:
+        w = _moe_worker_shapes(torch, train, cfgs[arch], _sharded_mesh(shape),
+                               policy, Bp, T)
+        shapes.setdefault((*w, "float32"), []).append(
+            f"(b) {arch} {shape} {policy}")
+    rec["kernels"] = _sharded_moe_kernels(torch, K, shapes, T)
+    rec["worker_shapes"] = {str(k): v for k, v in shapes.items()}
+    seconds["kernels"] = time.perf_counter() - t0
+
+    # (b): parity at 2 layers, f32 stream
+    t0 = time.perf_counter()
+    parity = {}
+    for arch in cfgs:
+        pairs = [(s, p) for a, s, p in SHARDED_MOE_PARITY if a == arch]
+        parity.update(_sharded_moe_parity(torch, train, cfgs[arch], pairs,
+                                          Bp, T))
+    rec["parity"] = parity
+    seconds["parity"] = time.perf_counter() - t0
+
+    # (c): the training runs, the phase's main path
+    t0 = time.perf_counter()
+    out_runs, launches = {}, {}
+    for cfg, shape, policy, B, peak in runs:
+        r = _sharded_moe_run(torch, K, train, cfg, shape, policy, B,
+                             C["steps"], peak)
+        tag = (f"{cfg.arch_id} {shape} {policy}"
+               + (" moe_sharded" if cfg.moe_sharded else "")
+               + (" mixed_precision" if cfg.mixed_precision else ""))
+        out_runs[tag] = r
+        if cfg.mixed_precision:
+            rows = ("flash_attention_bf16", "flash_attention_bwd_bf16")
+        elif cfg.use_mla:
+            rows = ("flash_attention_mla_lse", "flash_attention_bwd_mla")
+        else:
+            rows = ("flash_attention", "flash_attention_bwd")
+        for row, k in zip(rows, ("flash_attention", "flash_attention_bwd")):
+            launches[row] = launches.get(row, 0) + r["launch_counts"][k]
+    rec["runs"] = out_runs
+    seconds["runs"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    log("phase 26 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    errs = {k: v["max_abs_err"] for k, v in rec["kernels"].items()}
+    if "flash_attention_mla" in errs:   # the forward without the lse too
+        errs["flash_attention_mla_lse"] = errs["flash_attention_mla"]
+    launches["flash_attention_mla"] = launches.get(
+        "flash_attention_mla_lse", 0)
+    return rec, errs, launches
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--steps", type=int, default=600)
@@ -7099,6 +7593,13 @@ def main(argv: list[str] | None = None) -> int:
     report["moe_train_seconds"] = time.perf_counter() - t_mt
     log(f"phase 25 (MoE and MLA training): "
         f"{report['moe_train_seconds']:.1f}s")
+    t_sm = time.perf_counter()
+    report["sharded_moe"], sm_errs, sm_launches = phase_sharded_moe(
+        torch, K, train, {a: get_config(a) for a in (
+            "deepseek_v2_lite_16b", "qwen3_moe_30b_a3b")})
+    report["sharded_moe_seconds"] = time.perf_counter() - t_sm
+    log(f"phase 26 (sharded MoE and MLA training, 4 workers): "
+        f"{report['sharded_moe_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -7114,6 +7615,13 @@ def main(argv: list[str] | None = None) -> int:
     for k in ("flash_attention", "flash_attention_bwd"):
         counts[k] += train_launches[k]   # Qwen3-MoE's training, D = 128
     moe_counts["flash_attention_mla"] += train_launches["flash_attention_mla"]
+    # phase 26's four-worker runs: D = 128 (Qwen3-MoE), MLA and bf16 routes
+    for k in ("flash_attention", "flash_attention_bwd"):
+        counts[k] += sm_launches.get(k, 0)
+    moe_counts["flash_attention_mla"] += sm_launches["flash_attention_mla"]
+    for k in ("flash_attention_mla_lse", "flash_attention_bwd_mla",
+              "flash_attention_bf16", "flash_attention_bwd_bf16"):
+        train_launches[k] += sm_launches.get(k, 0)
     report["seconds"] = time.perf_counter() - t_start
     total_written = sum(WRITTEN.values())
     report["disk_writes"] = {"reckoned_by_phase": dict(WRITTEN),
@@ -7138,11 +7646,12 @@ def main(argv: list[str] | None = None) -> int:
         "tucker_matmul": lm_errs["tucker_matmul"]["max_abs_err"],
         "flash_attention": max(
             lm_errs["flash_attention"]["max_abs_err"],
-            report["moe_serving"]["kernel"]["gqa"]["max_abs_err"]),
+            report["moe_serving"]["kernel"]["gqa"]["max_abs_err"],
+            sm_errs.get("flash_attention", 0.0)),
         "flash_attention_bwd": max(
             report["flash_bwd"]["max_abs_err"],
             report["sharded_lm"]["kernels"]["flash_attention_bwd"][
-                "max_abs_err"]),
+                "max_abs_err"], sm_errs.get("flash_attention_bwd", 0.0)),
         **table_errs,
     }
     kernels = []
@@ -7157,16 +7666,19 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "floor_ms": t["floor_ms"], "device_ms": t.get("device_ms")})
-    kernels.append(_mla_kernel_row(report, mla_row, moe_counts))
+    mla = _mla_kernel_row(report, mla_row, moe_counts)
+    mla["max_abs_err"] = max(mla["max_abs_err"],
+                             sm_errs.get("flash_attention_mla", 0.0))
+    kernels.append(mla)
     for r in train_rows:   # phase 25's routes of the two flash kernels
         base = r["name"].split("_mla")[0].split("_bf16")[0]
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{base}.cu",
             "replaces": REPLACES[base], "launches": train_launches[r["name"]],
-            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms", "floor_ms",
-                                 "device_ms")}})
+            "max_abs_err": max(r["max_abs_err"], sm_errs.get(r["name"], 0.0)),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "floor_ms", "device_ms")}})
     report["kernels"] = kernels
     if args.report:
         path = Path(args.report)
@@ -7184,9 +7696,11 @@ def main(argv: list[str] | None = None) -> int:
         f"serve request, the LM training run and phase 23's four sharded "
         f"training runs for {', '.join(LM_KERNELS)}; phase 24's Qwen3-MoE "
         f"serve request for flash_attention; phase 25's Qwen3-MoE training "
-        f"for both flash kernels): {counts}; the MLA route "
-        f"(DeepSeek-V2-Lite's serve request and training): "
-        f"{moe_counts['flash_attention_mla']}; phase 25's new routes: "
+        f"and phase 26's sharded Qwen3-MoE run for both flash kernels): "
+        f"{counts}; the MLA route (DeepSeek-V2-Lite's serve request, "
+        f"training and phase 26's sharded f32 runs): "
+        f"{moe_counts['flash_attention_mla']}; phase 25's new routes (with "
+        f"phase 26's sharded runs): "
         + ", ".join(f"{k} {train_launches[k]}" for k in (
             "flash_attention_mla_lse", "flash_attention_bwd_mla",
             "flash_attention_bf16", "flash_attention_bwd_bf16")))

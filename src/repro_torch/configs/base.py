@@ -7,9 +7,9 @@ MLA attention models with dense, Tucker-compressed or MoE FFNs:
 ``get_config`` of an architecture that is not ported yet, and
 ``require_ported`` of a config that asks for a part that is not ported,
 raise ``NotImplementedError`` (see ROADMAP.md).  Every ported config
-trains on one device; ``distributed.sharded_lm.ShardedLM`` refuses the
-parts that do not train sharded over a mesh yet (MLA, MoE and
-``mixed_precision``).
+trains on one device and sharded over a mesh
+(``distributed.sharded_lm.ShardedLM``); ``moe_sharded`` takes the
+expert-parallel MoE island there, and is ``moe_ffn`` on one device.
 """
 from __future__ import annotations
 
@@ -123,7 +123,6 @@ def require_ported(cfg: ModelConfig) -> ModelConfig:
     """``cfg`` if the port runs every part it asks for, else raise."""
     parts = {
         f"the {cfg.mixer} mixer": cfg.mixer not in ("gqa", "mla"),
-        "the expert-parallel MoE island (moe_sharded)": cfg.moe_sharded,
         "the zamba2 shared block (shared_attn_every)":
             cfg.shared_attn_every > 0,
         f"the {cfg.frontend} frontend": cfg.frontend is not None,

@@ -38,10 +38,15 @@ before the copy has read it.  On the CPU the copies are synchronous.
 
 Sharded LM training (``distributed.sharded_lm``) differentiates through
 its collectives: ``GatherLeaf`` all-gathers a parameter's parts over the
-mesh axes it is gathered on (backward: the reduce-scatter, and the sum
-over the workers holding the same part) and ``Psum`` sums each group's
-parts (backward: the sum of the group's cotangents, to every member).
-Every backward adds in worker order, 0 … k − 1, with no float atomics.
+mesh axes it is gathered on, cast first where it is asked to move another
+dtype (backward: the reduce-scatter, and the sum over the workers holding
+the same part, in the parts' dtype), ``Psum`` sums each group's parts
+(backward: the sum of the group's cotangents, to every member) and
+``GatherRows`` concatenates each group's rows (backward: the sum of the
+members' cotangents, each member its own rows).  Every backward adds in
+worker order, 0 … k − 1, with no float atomics.  ``prefix_counts`` hands
+each worker the sum of the integer counts of the batch slices before its
+own (the MoE dispatch over the global batch; no gradient).
 
 ``Traffic`` is a step function's account of its collectives (``rotate``,
 ``psum`` and ``SideStreams.rotate`` add to the one they are given), by the
@@ -80,11 +85,13 @@ class Traffic:
                        ``Pending.wait`` (the caller adds them)
     ``all_gather_bytes``, ``reduce_scatter_bytes``, ``all_reduce_bytes``
                        per worker, the sharded LM step's collectives
+    ``count_bytes``    per worker, the all-gathers of the MoE dispatch's
+                       per-expert counts (``prefix_counts``)
     """
 
     FIELDS = ("psum_bytes", "permute_bytes", "rotated_bytes", "permutes",
               "async_starts", "hidden_flops", "all_gather_bytes",
-              "reduce_scatter_bytes", "all_reduce_bytes")
+              "reduce_scatter_bytes", "all_reduce_bytes", "count_bytes")
     __slots__ = FIELDS
 
     def __init__(self):
@@ -311,7 +318,9 @@ class GatherPlan:
     """Where each worker's gathered region of a leaf comes from.
 
     ``layout`` is the leaf's ``sharding.Layout``; ``keep`` the dimensions
-    left as the worker's own slice (tensor parallelism).  Every other
+    left as the worker's own slice (tensor parallelism).  ``gather`` and
+    ``gather_one`` take a ``dtype`` to cast the parts to as they are
+    copied.  Every other
     dimension a mesh axis binds is gathered whole.  ``region[m]`` is worker
     m's region of the full leaf; ``sources[m]`` the distinct blocks it is
     assembled from, ``(w, slices in the region)``, each taken from worker m
@@ -361,29 +370,34 @@ class GatherPlan:
                                if inside(w, m)])
         self.own = [self.region[m] == idx[m] for m in range(M)]
 
-    def gather(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        return [parts[m] if self.own[m] else self.gather_one(parts, m)
+    def gather(self, parts: Sequence[torch.Tensor], dtype=None
+               ) -> list[torch.Tensor]:
+        return [(parts[m] if dtype is None else parts[m].to(dtype))
+                if self.own[m] else self.gather_one(parts, m, dtype)
                 for m in range(len(parts))]
 
-    def gather_one(self, parts: Sequence[torch.Tensor], m: int
+    def gather_one(self, parts: Sequence[torch.Tensor], m: int, dtype=None
                    ) -> torch.Tensor:
         """Worker m's region, a new buffer on its device."""
         part = parts[m]
         shape = tuple(s.stop - s.start for s in self.region[m])
-        buf = torch.empty(shape, dtype=part.dtype, device=part.device)
+        buf = torch.empty(shape, dtype=dtype or part.dtype,
+                          device=part.device)
         for w, rel in self.sources[m]:
             buf[rel] = parts[w]
         return buf
 
     def reduce(self, grads: Sequence[torch.Tensor],
-               devices: Sequence[torch.device]) -> list[torch.Tensor]:
+               devices: Sequence[torch.device], dtype=None
+               ) -> list[torch.Tensor]:
         """The adjoint: worker w's part receives the sum over every worker
-        whose region holds its block, in worker order."""
+        whose region holds its block, in worker order, added in ``dtype``
+        (default: the gradients')."""
         out = []
         for w, dev in enumerate(devices):
             acc = None
             for m, rel in self.sinks[w]:
-                g = grads[m][rel].to(dev)
+                g = grads[m][rel].to(dev, dtype)
                 acc = g if acc is None else acc + g
             out.append(acc)
         return out
@@ -391,13 +405,15 @@ class GatherPlan:
 
 class GatherLeaf(torch.autograd.Function):
     """parts (one a worker) → each worker's gathered region
-    (``GatherPlan``); backward: ``GatherPlan.reduce``."""
+    (``GatherPlan``), cast to ``dtype`` before it moves (None: as it is);
+    backward: ``GatherPlan.reduce``, summed in the parts' dtype."""
 
     @staticmethod
-    def forward(ctx, plan: GatherPlan, traffic, *parts):
+    def forward(ctx, plan: GatherPlan, traffic, dtype, *parts):
         ctx.plan, ctx.traffic = plan, traffic
         ctx.devices = [p.device for p in parts]
-        out = plan.gather(parts)
+        ctx.dtype = parts[0].dtype
+        out = plan.gather(parts, dtype)
         if traffic is not None and plan.group > 1:
             traffic.add_all_gather(nbytes(out[0]), plan.group)
         return tuple(out)
@@ -405,23 +421,24 @@ class GatherLeaf(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         plan, traffic = ctx.plan, ctx.traffic
-        out = plan.reduce(grads, ctx.devices)
+        out = plan.reduce(grads, ctx.devices, ctx.dtype)
         if traffic is not None:
             part = nbytes(out[0])
             if plan.group > 1:
                 traffic.add_reduce_scatter(part, plan.group)
             if plan.replicas > 1:
                 traffic.add_all_reduce(part, plan.replicas)
-        return (None, None, *out)
+        return (None, None, None, *out)
 
 
 def gather_leaf(plan: GatherPlan, parts: Sequence[torch.Tensor],
-                traffic: Traffic | None = None) -> list[torch.Tensor]:
+                traffic: Traffic | None = None, dtype=None
+                ) -> list[torch.Tensor]:
     """``GatherLeaf`` on a mesh of more than one worker; one worker's part
-    as it is."""
+    as it is (cast to ``dtype``)."""
     if len(parts) == 1:
-        return list(parts)
-    return list(GatherLeaf.apply(plan, traffic, *parts))
+        return [parts[0] if dtype is None else parts[0].to(dtype)]
+    return list(GatherLeaf.apply(plan, traffic, dtype, *parts))
 
 
 def _group_sum(ts: Sequence[torch.Tensor], group: Sequence[int],
@@ -481,6 +498,75 @@ def pmax_groups(parts: Sequence[torch.Tensor], groups,
                     for i, m in enumerate(g)})
     _count_all_reduce(traffic, parts, groups)
     return [out[m] for m in range(len(parts))]
+
+
+class GatherRows(torch.autograd.Function):
+    """Each group's parts concatenated along dimension 0 in worker order,
+    the result to every member; backward: the sum of the members'
+    cotangents in worker order, each member its own rows."""
+
+    @staticmethod
+    def forward(ctx, groups, traffic, *parts):
+        ctx.groups, ctx.traffic = groups, traffic
+        ctx.devices = [p.device for p in parts]
+        ctx.rows = [p.shape[0] for p in parts]
+        out: dict[int, torch.Tensor] = {}
+        for g in groups:
+            dev0 = ctx.devices[g[0]]
+            full = torch.cat([parts[m].to(dev0) for m in g])
+            out.update({m: full if i == 0 else copy_to(full, ctx.devices[m])
+                        for i, m in enumerate(g)})
+        g0 = next(g for g in groups if 0 in g)
+        if traffic is not None:
+            traffic.add_all_gather(nbytes(out[0]), len(g0))
+        return tuple(out[m] for m in range(len(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out: dict[int, torch.Tensor] = {}
+        for g in ctx.groups:
+            summed = _group_sum(grads, g, ctx.devices)
+            start = 0
+            for m in g:
+                out[m] = summed[m][start:start + ctx.rows[m]]
+                start += ctx.rows[m]
+        g0 = next(g for g in ctx.groups if 0 in g)
+        if ctx.traffic is not None:
+            ctx.traffic.add_reduce_scatter(nbytes(out[0]), len(g0))
+        return (None, None, *(out[m] for m in range(len(grads))))
+
+
+def gather_rows_groups(parts: Sequence[torch.Tensor], groups,
+                       traffic: Traffic | None = None) -> list[torch.Tensor]:
+    """``GatherRows`` where a group has more than one worker; the parts as
+    they are otherwise."""
+    if all(len(g) == 1 for g in groups):
+        return list(parts)
+    return list(GatherRows.apply(groups, traffic, *parts))
+
+
+@torch.no_grad()
+def prefix_counts(counts: Sequence[torch.Tensor], slices: Sequence[int],
+                  traffic: Traffic | None = None) -> list[torch.Tensor]:
+    """``counts[m]`` (integer counts on worker m's device) of batch slice
+    ``slices[m]`` (the workers holding one slice hold equal counts) → each
+    worker's sum of the counts of the slices before its own, in slice
+    order: an all-gather of the slices' counts, then an exclusive prefix.
+    ``Traffic.count_bytes`` takes the all-gather, a worker receiving the
+    other slices' counts."""
+    first: dict[int, int] = {}
+    for m, s in enumerate(slices):
+        first.setdefault(s, m)
+    dev0 = counts[0].device
+    run = torch.zeros_like(counts[0])
+    before = {}
+    for s in sorted(first):
+        before[s] = run
+        run = run + counts[first[s]].to(dev0)
+    if traffic is not None:
+        traffic.count_bytes += nbytes(counts[0]) * (len(first) - 1)
+    return [copy_to(before[s], counts[m].device)
+            for m, s in enumerate(slices)]
 
 
 def _count_all_reduce(traffic: Traffic | None, parts, groups) -> None:

@@ -4,8 +4,10 @@
 Model code is mesh-agnostic; a launcher may install a function applied to
 the residual stream at every layer boundary (``constrain``) and one
 applied to the logits (``constrain_logits``), and the active mesh
-(``set_mesh``/``current_mesh``, read by the reference's MoE, which is not
-ported yet).  By default all three are no-ops.  The reference's
+(``set_mesh``/``current_mesh``; the reference's MoE reads it to take its
+expert-parallel island, the port's sharded step hands its layers the
+mesh's split explicitly, ``distributed.sharded_lm``).  By default all
+three are no-ops.  The reference's
 ``make_seq_constraint``/``make_logits_constraint`` build XLA sharding
 constraints for its dry run, which is not ported (ROADMAP.md).
 """

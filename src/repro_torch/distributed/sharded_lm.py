@@ -7,16 +7,33 @@ one autograd graph, each worker's tensors on its own device, and the
 collectives are explicit (``collectives.GatherLeaf``, ``Psum``):
 
 * Before a layer runs, every leaf of that layer is all-gathered over the
-  mesh axes its spec binds — except a dimension on ``model`` while the
-  batch is shared over ``model`` (the policies put only the tensor-parallel
-  logical axes there: ``heads``, ``kv_heads``, ``mlp``, ``vocab``).  That
-  dimension stays the worker's own slice.
+  mesh axes its spec binds — except a dimension on ``model`` whose logical
+  axis is a tensor-parallel one (``TP_AXES``: ``heads``, ``kv_heads``,
+  ``mlp``, ``vocab``, ``experts``) while the batch is shared over
+  ``model``.  That dimension stays the worker's own slice.  Any other axis
+  on ``model`` (``fsdp_tp_v2``'s ``kv_lora``) is gathered.
 * A worker then runs the port's attention on its H/mp query heads (and the
-  KV heads their groups read) and its Tucker FFN on its d_ff/mp rows of
-  ``up``/``gate``'s U2 and ``down``'s U1, through the unsharded model's
-  layer body (``blocks.apply_layer_workers``) and its kernels; the outputs
-  after ``wo`` and after ``down`` are partial sums, ``Psum``'d over
-  ``model`` by the body's reduce hook.
+  KV heads their groups read; MLA: its heads of ``wq``, ``w_uk``, ``w_uv``
+  and ``wo``, with the latent ``w_dkv``, ``kv_norm`` and ``w_kpe``
+  replicated), its Tucker or dense FFN on its d_ff/mp rows, and its E/mp
+  experts, through the unsharded model's layer body
+  (``blocks.apply_layer_workers``) and its kernels; the outputs after
+  ``wo`` and after the FFN are partial sums, ``Psum``'d over ``model`` by
+  the body's reduce hook.  An MoE FFN's output is one uniform partial sum:
+  where its experts are split and its shared MLP is not (zero3), the
+  shared MLP's output is added by the first worker of each ``model``
+  group alone.
+* The MoE routes over the global batch as the reference's GSPMD step
+  does (``moe.moe_ffn_workers``): the capacity from the global token
+  count, and each worker's slots offset by the per-expert counts of the
+  batch slices before its own (``collectives.prefix_counts``), so
+  ``keep`` and ``slot`` are the unsharded ones.  With ``cfg.moe_sharded``
+  it is the reference's expert-parallel island instead: experts and the
+  shared MLP's hidden dimension over ``model`` whatever the policy (a
+  worker narrows a leaf the layout did not slice), the capacity and slots
+  of each data shard, the rows of a data shard gathered over ``model``
+  first where the batch is split over it (zero3_dp), and one ``Psum`` over
+  ``model``.
 * The embedding and the head are vocab-parallel: a worker looks up the
   tokens in its vocab rows (``Psum`` over ``model``) and computes logits
   (B_w, S, V/mp); the cross-entropy takes the max, the sum of exponentials
@@ -29,15 +46,21 @@ collectives are explicit (``collectives.GatherLeaf``, ``Psum``):
 
 Every shard feeds exactly one op, its ``GatherLeaf``, whose backward sums
 the workers' gradients in worker order; a leaf replicated over an axis is
-one parameter, and each of its copies receives the same sum.  On a mesh of
-one worker no collective runs and the ops are the unsharded model's, in
-its order, so the step is ``make_train_step``'s bit for bit.
+one parameter, and each of its copies receives the same sum.  Under
+``mixed_precision`` (bf16) a worker's f32 part is cast to bf16 before its
+``GatherLeaf``, as the reference's ``_cast_params`` sits on the sharded
+leaf: the all-gathers move bf16, and the sums over workers of the
+gradients are added in f32, the parts' dtype.  On a mesh of one worker no
+collective runs and the ops are the unsharded model's, in its order, so
+the step is ``make_train_step``'s bit for bit (the island aside, which is
+``moe_ffn`` within rounding there).
 
-The gathered copies of the matrices, and the head's copy cast to the
-activation dtype, are not kept for the backward: the ops that save them
-save a handle instead (``saved_tensors_hooks``), and the backward gathers
-the copy again — one more all-gather of it a step, as FSDP does — so the
-peak holds the shards and about one layer's gathered copies a worker.
+The gathered copies of the matrices (and their bf16 casts), and the
+head's copy cast to the activation dtype, are not kept for the backward:
+the ops that save them save a handle instead (``saved_tensors_hooks``),
+and the backward gathers the copy again — one more all-gather of it a
+step, as FSDP does — so the peak holds the shards and about one layer's
+gathered copies a worker.
 """
 from __future__ import annotations
 
@@ -54,7 +77,12 @@ from repro_torch.distributed.sharding import (BATCH_AXES_BY_POLICY, Layout,
                                               entry_axes)
 from repro_torch.models.blocks import apply_layer_workers, layer_specs
 from repro_torch.models.layers import embed, make_norm
-from repro_torch.models.model import activation_dtype, nll_terms
+from repro_torch.models.model import (activation_dtype, init_model,
+                                      nll_terms, param_axes)
+from repro_torch.models.moe import MoESplit
+
+# the logical axes whose dimension on ``model`` a worker keeps as its slice
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts")
 
 
 def _nest(flat: Mapping[str, torch.Tensor]) -> types.SimpleNamespace:
@@ -103,7 +131,12 @@ class _Rebuilt:
     def pack(self, t: torch.Tensor):
         make = self._live.get(t.untyped_storage().data_ptr())
         if make is None:
-            return t
+            # not ``t`` itself: an op that saves its own output would hold
+            # it, and so its own node, in a cycle the garbage collector
+            # cannot see, which leaks the whole graph above an op the
+            # backward never runs (the softmax that only ranks the router's
+            # picks)
+            return t.detach()
         return make, t.size(), t.stride(), t.storage_offset()
 
     @staticmethod
@@ -114,23 +147,6 @@ class _Rebuilt:
         return make().as_strided(size, stride, offset)
 
 
-def refuse_sharded(cfg) -> None:
-    """Raise for the parts of ``cfg`` that train on one device but not
-    sharded yet: MLA (its head split), MoE (the experts on ``model`` and
-    the expert-parallel ``moe_ffn_sharded``) and ``mixed_precision`` (the
-    bf16 cast of the gathered leaves)."""
-    parts = {"MLA (use_mla)": cfg.use_mla or cfg.mixer == "mla",
-             "MoE (num_experts)": cfg.num_experts > 0,
-             "mixed_precision": cfg.mixed_precision}
-    require_ported(cfg)
-    missing = [name for name, asked in parts.items() if asked]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: sharded training of {', '.join(missing)} is "
-            "not ported to repro_torch yet; it trains on one device (see "
-            "ROADMAP.md, Queue 1)")
-
-
 class ShardedLM:
     """The loss of ``cfg``'s model over ``mesh``, its parameters on
     ``layouts`` ({name: Layout}) under ``policy``."""
@@ -138,26 +154,36 @@ class ShardedLM:
     def __init__(self, cfg, mesh, layouts: Mapping[str, Layout],
                  policy: str, backend: str | None = None,
                  traffic: collectives.Traffic | None = None):
-        refuse_sharded(cfg)
+        require_ported(cfg)
         self.cfg, self.mesh, self.policy = cfg, mesh, policy
         self.layouts = dict(layouts)
         self.backend = backend
         self.traffic = traffic
         self.specs = layer_specs(cfg)
+        self.axes = param_axes(init_model(cfg, device="meta"))
+        self.cast = (torch.bfloat16 if cfg.mixed_precision
+                     and cfg.dtype == "bfloat16" else None)
         batch_axes = BATCH_AXES_BY_POLICY.get(policy, ("pod", "data"))
         self.tensor_parallel = "model" not in batch_axes
         self.groups = model_groups(mesh)
+        probe = Layout((1,), (), mesh)
+        self.model_coord = [probe.coords(m).get("model", 0)
+                            for m in range(mesh.size)]
         self.plans = {n: collectives.GatherPlan(lay, self.kept(n))
                       for n, lay in self.layouts.items()}
+        self.moe = {i: self._moe_plan(i) for i, spec in enumerate(self.specs)
+                    if spec.endswith("+moe")}
         self._rebuilt = _Rebuilt()
 
     def kept(self, name: str) -> tuple[int, ...]:
         """The dimensions of leaf ``name`` a worker keeps as its own
-        ``model`` slice."""
+        ``model`` slice: those on ``model`` whose logical axis is in
+        ``TP_AXES``, while the batch is shared over ``model``."""
         if not self.tensor_parallel:
             return ()
-        return tuple(d for d, e in enumerate(self.layouts[name].spec)
-                     if "model" in entry_axes(e))
+        return tuple(d for d, (e, ax) in enumerate(zip(
+            self.layouts[name].spec, self.axes[name]))
+            if "model" in entry_axes(e) and ax in TP_AXES)
 
     def _slice(self, name: str, dim: int, m: int) -> slice | None:
         """Worker m's slice of ``dim`` of leaf ``name`` where it is kept,
@@ -172,22 +198,25 @@ class ShardedLM:
         """``GatherLeaf`` of one leaf; a matrix's gathered copies are made
         again in the backward rather than kept."""
         parts = params[name].parts
-        out = collectives.gather_leaf(self.plans[name], parts, self.traffic)
+        out = collectives.gather_leaf(self.plans[name], parts, self.traffic,
+                                      self.cast)
         if parts[0].dim() >= 2 and name != "embed.embedding":
             for m, t in enumerate(out):
-                if not self.plans[name].own[m] and len(out) > 1:
+                if len(out) > 1 and (self.cast is not None
+                                     or not self.plans[name].own[m]):
                     self._rebuilt.register(
                         t, lambda m=m: self._region(name, m, parts))
         return out
 
     def _region(self, name: str, m: int, parts) -> torch.Tensor:
-        """Worker m's region of leaf ``name`` again, without autograd (its
-        own part where it is that)."""
+        """Worker m's region of leaf ``name`` again (in the gathered
+        dtype), without autograd (its own part where it is that)."""
         plan = self.plans[name]
         if plan.own[m] or len(parts) == 1:
-            return parts[m].detach()
+            own = parts[m].detach()
+            return own if self.cast is None else own.to(self.cast)
         with torch.no_grad():
-            buf = plan.gather_one(parts, m)
+            buf = plan.gather_one(parts, m, self.cast)
         if self.traffic is not None and m == 0:     # a figure a worker
             self.traffic.add_all_gather(collectives.nbytes(buf), plan.group)
         return buf
@@ -212,8 +241,16 @@ class ShardedLM:
         hs = self._slice(f"layers.{i}.mixer.wq", 1, m)
         if hs is None:
             return mixer
-        G = cfg.num_heads // cfg.num_kv_heads
         lo, n = hs.start, hs.stop - hs.start
+        if hasattr(mixer, "w_uk"):
+            # MLA: every head has its own up-projections; the latent's
+            # leaves are gathered whole and replicated
+            mixer = types.SimpleNamespace(**vars(mixer))
+            for w, dim in (("w_uk", 1), ("w_uv", 1), ("wo", 0)):
+                if self._slice(f"layers.{i}.mixer.{w}", dim, m) is None:
+                    setattr(mixer, w, getattr(mixer, w).narrow(dim, lo, n))
+            return mixer
+        G = cfg.num_heads // cfg.num_kv_heads
         if self._slice(f"layers.{i}.mixer.wk", 1, m) is None:
             # the KV heads replicated (they do not divide the axis)
             if n % G == 0 and lo % G == 0:
@@ -234,7 +271,7 @@ class ShardedLM:
     def _embed(self, params, tokens: list[torch.Tensor]):
         name = "embed.embedding"
         E = collectives.gather_leaf(self.plans[name], params[name].parts,
-                                    self.traffic)
+                                    self.traffic, self.cast)
         dt = activation_dtype(self.cfg)
         rows = []
         vocab_parallel = False
@@ -261,7 +298,7 @@ class ShardedLM:
         name = "embed.embedding" if tied else "lm_head"
         vdim = 0 if tied else 1
         H = (collectives.gather_leaf(self.plans[name], params[name].parts,
-                                     self.traffic) if tied
+                                     self.traffic, self.cast) if tied
              else self._gather_leaf(params, name))
         lnf = self.gather(params, "ln_f.")
         logits, spans = [], []
@@ -327,9 +364,10 @@ class ShardedLM:
         for i, spec in enumerate(self.specs):
             w = self.gather(params, f"layers.{i}.")
             local = [self._local_layer(w[m], i, m) for m in range(mesh.size)]
-            xs, _ = apply_layer_workers(local, cfg, spec, xs, positions=pos,
-                                        backend=self.backend,
-                                        reduce=self._reducer(i))
+            xs, _ = apply_layer_workers(
+                local, cfg, spec, xs, positions=pos, backend=self.backend,
+                reduce=self._reducer(i),
+                moe=self._moe_split(i, blay, xs[0].shape[1]))
             xs = [dist_ctx.constrain(x) for x in xs]
         terms = self._nll(params, xs, labels)
         dev0 = mesh.devices[0]
@@ -342,16 +380,120 @@ class ShardedLM:
 
     def _local_layer(self, w, i: int, m: int) -> types.SimpleNamespace:
         """Layer i's gathered weights on worker m, its attention cut to the
-        worker's heads."""
+        worker's heads and an MoE FFN to its experts and shared slice."""
         mixer = self._local_attention(w.mixer, i, m)
-        return w if mixer is w.mixer else types.SimpleNamespace(
-            **{**vars(w), "mixer": mixer})
+        ffn = self._local_moe(w.ffn, i, m) if i in self.moe else w.ffn
+        if mixer is w.mixer and ffn is w.ffn:
+            return w
+        return types.SimpleNamespace(**{**vars(w), "mixer": mixer,
+                                        "ffn": ffn})
 
     def _reducer(self, i: int):
         """``apply_layer_workers``' reduce for layer i: the ``Psum`` over
-        ``model`` of each sublayer whose weights are the worker's slice."""
-        ffn = next(n for n in (f"layers.{i}.ffn.up.u2", f"layers.{i}.ffn.wi")
-                   if n in self.layouts)
+        ``model`` of each sublayer whose output is a partial sum (the
+        island sums its own)."""
+        if i in self.moe:
+            ffn_partial = self.moe[i].partial
+        else:
+            ffn = next(n for n in (f"layers.{i}.ffn.up.u2",
+                                   f"layers.{i}.ffn.wi") if n in self.layouts)
+            ffn_partial = bool(self.kept(ffn))
         parallel = {"attn": self._slice(f"layers.{i}.mixer.wq", 1, 0)
-                    is not None, "ffn": bool(self.kept(ffn))}
+                    is not None, "ffn": ffn_partial}
         return lambda sub, ys: self.psum(ys) if parallel[sub] else ys
+
+    # -- the MoE over the workers ---------------------------------------------
+
+    def _moe_plan(self, i: int) -> types.SimpleNamespace:
+        """Layer i's MoE split by worker: ``experts[m]`` (lo, n) and
+        ``shared[m]`` (lo, n) of the shared MLP's hidden dimension, or
+        None where worker m adds no shared output; ``partial``: whether the
+        layer's outputs are a partial sum over ``model`` for the reduce
+        hook (the island sums its own)."""
+        cfg, M = self.cfg, self.mesh.size
+        E = cfg.num_experts
+        pre = f"layers.{i}.ffn."
+        f = (self.layouts[pre + "shared.wi"].shape[1]
+             if pre + "shared.wi" in self.layouts else 0)
+        mp = len(self.groups[0])
+        if cfg.moe_sharded:
+            if E % mp or f % mp:
+                raise ValueError(f"{cfg.arch_id}: the expert-parallel island "
+                                 f"splits {E} experts and a shared hidden "
+                                 f"of {f} over model = {mp}")
+            co = self.model_coord
+            return types.SimpleNamespace(
+                experts=[(c * E // mp, E // mp) for c in co],
+                shared=[(c * f // mp, f // mp) for c in co], partial=False)
+        span = lambda s, n: (0, n) if s is None else (  # noqa: E731
+            s.start, s.stop - s.start)
+        es = [self._slice(pre + "wi", 0, m) for m in range(M)]
+        ss = [self._slice(pre + "shared.wi", 1, m) if f else None
+              for m in range(M)]
+        partial = any(s is not None for s in es + ss)
+        # where the layer's output is a partial sum, a part a worker holds
+        # whole is added by the first worker of its model group alone
+        alone = [partial and self.model_coord[m] > 0 for m in range(M)]
+        return types.SimpleNamespace(
+            experts=[(0, 0) if es[m] is None and alone[m] else
+                     span(es[m], E) for m in range(M)],
+            shared=[None if ss[m] is None and alone[m] else span(ss[m], f)
+                    for m in range(M)],
+            partial=partial)
+
+    def _local_moe(self, ffn, i: int, m: int):
+        """Worker m's MoE weights: its experts of ``wi``/``wg``/``wo`` and
+        its slice of the shared MLP, narrowed from the gathered copies
+        where the layout did not slice them; no ``shared`` where another
+        worker adds the shared output."""
+        plan = self.moe[i]
+        (lo, n), sh = plan.experts[m], plan.shared[m]
+        out = types.SimpleNamespace(**vars(ffn))
+        for w in ("wi", "wg", "wo"):
+            t = getattr(ffn, w)
+            if t.shape[0] != n:
+                setattr(out, w, t.narrow(0, lo, n))
+        if hasattr(ffn, "shared"):
+            if sh is None:
+                del out.shared
+            elif ffn.shared.wi.shape[1] != sh[1]:
+                s = ffn.shared
+                out.shared = types.SimpleNamespace(
+                    wi=s.wi.narrow(1, *sh), wg=s.wg.narrow(1, *sh),
+                    wo=s.wo.narrow(0, *sh))
+        return out
+
+    def _moe_split(self, i: int, blay: Layout, seq: int) -> MoESplit | None:
+        """Layer i's ``MoESplit`` for a step on the batch laid out by
+        ``blay`` (None: not an MoE layer, or one worker)."""
+        if i not in self.moe or self.mesh.size == 1 and not \
+                self.cfg.moe_sharded:
+            return None
+        M = self.mesh.size
+        experts = self.moe[i].experts
+        rows = [blay.index(m)[0] for m in range(M)]
+        if self.cfg.moe_sharded:
+            if "model" not in blay.axes():
+                return MoESplit(experts, reduce=self.psum)
+            # zero3_dp: a data shard's rows gathered over model, and each
+            # worker's own rows back after the psum
+            start = {m: rows[m].start - rows[g[0]].start
+                     for g in self.groups for m in g}
+
+            def reduce(ys):
+                return [y[start[m]:start[m] + rows[m].stop - rows[m].start]
+                        for m, y in enumerate(self.psum(ys))]
+
+            return MoESplit(
+                experts, reduce=reduce,
+                gather=lambda xs: collectives.gather_rows_groups(
+                    xs, self.groups, self.traffic))
+        starts = sorted({r.start for r in rows})
+        slices = [starts.index(r.start) for r in rows]
+        exchange = None
+        if len(starts) > 1:
+            def exchange(counts):
+                return collectives.prefix_counts(counts, slices,
+                                                 self.traffic)
+        return MoESplit(experts, tokens=blay.shape[0] * seq,
+                        exchange=exchange)

@@ -67,8 +67,10 @@ def make_sharded_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, layouts,
     ``launch.train.build_state`` makes them) and the batch the global one
     (split by ``sharding.batch_spec`` under ``policy``).  ``step.traffic``
     accumulates the collectives' bytes a worker (``collectives.Traffic``)
-    over the steps run.  MLA, MoE and ``mixed_precision`` configs raise
-    (``ShardedLM``)."""
+    over the steps run.  Every ported config trains: MLA (its heads split
+    over ``model``), MoE (the dispatch over the global batch, or the
+    expert-parallel island under ``moe_sharded``) and ``mixed_precision``
+    (bf16 all-gathers) included (``ShardedLM``)."""
     traffic = Traffic()
     lm = ShardedLM(cfg, mesh, layouts, policy, backend, traffic)
 

@@ -38,9 +38,10 @@ driver for a config built in code.  At full width the f32 AdamW state of
 Qwen3-14B's 40 layers (88 GB) does not fit one 80 GB card, so one card
 trains ``num_layers`` cut (8 fit); sharded by ``fsdp_tp`` or ``zero3``
 over four cards, a worker holds a quarter of it (22 GB).  The MoE models
-(``deepseek_v2_lite_16b`` with MLA, ``qwen3_moe_30b_a3b``) and
-``mixed_precision`` configs train on one device; sharded, they are
-refused (``distributed.sharded_lm.ShardedLM``).
+(``deepseek_v2_lite_16b`` with MLA, ``qwen3_moe_30b_a3b``) and their
+``mixed_precision`` forms train on one device and under every policy
+(``distributed.sharded_lm.ShardedLM``; ``moe_sharded``, set in code as in
+the reference, takes the expert-parallel MoE island).
 """
 from __future__ import annotations
 
@@ -277,7 +278,7 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
         t = train_step.traffic
         traffic = {k: getattr(t, k) / max(executed[0], 1)
                    for k in ("all_gather_bytes", "reduce_scatter_bytes",
-                             "all_reduce_bytes")}
+                             "all_reduce_bytes", "count_bytes")}
         out.update(layouts=layouts, mesh_shape=mesh.shape, policy=policy,
                    state_bytes_per_worker=held_bytes(state, 0),
                    layout_state_bytes=state_bytes_per_worker(layouts),

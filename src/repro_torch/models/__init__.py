@@ -1,8 +1,8 @@
 """The LM stack: GQA and MLA attention with dense, Tucker-compressed or
 MoE FFNs.
 
-Counterpart of ``repro.models`` (the SSM/xLSTM mixers, the frontends and
-the expert-parallel MoE island are not ported yet; see ROADMAP.md).
+Counterpart of ``repro.models`` (the SSM/xLSTM mixers and the frontends
+are not ported yet; see ROADMAP.md).
 """
 from .model import (
     Model,

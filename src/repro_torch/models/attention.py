@@ -246,7 +246,7 @@ def mla_attention(
     region's backward is ``flash_attention_bwd`` at (dn + dr, dv).
     """
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = params.wq.shape[1]       # a sharded worker's heads, as in _out_project
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
 
     q = _project(x, params.wq)                               # (B,S,H,dn+dr)

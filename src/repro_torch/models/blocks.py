@@ -125,12 +125,14 @@ def apply_layer_workers(
     cache_index: int | None = None,
     backend: str | None = None,
     reduce: Callable[[str, list], list] | None = None,
+    moe: moe_mod.MoESplit | None = None,
 ) -> tuple[list[torch.Tensor], list[dict | None]]:
     """The layer body, over the workers of a mesh (one entry of ``params``,
     ``xs`` and ``positions`` a worker; one worker is ``apply_layer``).
     Each sublayer runs on every worker, then ``reduce(sublayer, outputs)``
     (``"attn"``, ``"ffn"``; e.g. the sum of tensor-parallel partial
-    outputs) before its residual add."""
+    outputs) before its residual add.  ``moe``: how an MoE FFN splits over
+    the workers (``ffn_workers``)."""
     _, norm = make_norm(cfg.norm_type)
     causal = not cfg.encoder_only
     caches = caches if caches is not None else [None] * len(xs)
@@ -149,11 +151,27 @@ def apply_layer_workers(
         ys = reduce("attn", ys)
     xs = [x + y.to(x.dtype) for x, y in zip(xs, ys)]
 
-    ys = [ffn_out(p.ffn, cfg, spec, norm(p.ln2, x, cfg.norm_eps), backend)
-          for p, x in zip(params, xs)]
+    ys = ffn_workers([p.ffn for p in params], cfg, spec,
+                     [norm(p.ln2, x, cfg.norm_eps) for p, x in
+                      zip(params, xs)], backend, moe)
     if reduce is not None:
         ys = reduce("ffn", ys)
     return [x + y.to(x.dtype) for x, y in zip(xs, ys)], new_caches
+
+
+def ffn_workers(ffns: list, cfg, spec: str, hs: list,
+                backend: str | None = None,
+                moe: moe_mod.MoESplit | None = None) -> list:
+    """The FFN sublayer's output on every worker.  An MoE on a mesh
+    (``moe`` given) routes the workers' tokens together
+    (``moe.moe_ffn_workers``): the expert-parallel island where
+    ``cfg.moe_sharded`` asks for it, as the reference's ``apply_layer``
+    takes ``moe_ffn_sharded`` when a mesh is current, else GSPMD's form of
+    ``moe_ffn`` over the global batch.  Otherwise each worker runs
+    ``ffn_out``."""
+    if moe is not None and spec.endswith("+moe"):
+        return moe_mod.moe_ffn_workers(ffns, cfg, hs, moe)
+    return [ffn_out(f, cfg, spec, h, backend) for f, h in zip(ffns, hs)]
 
 
 def ffn_out(ffn, cfg, spec: str, h: torch.Tensor,

@@ -1822,3 +1822,75 @@ def test_sharded_tp_step_launches_sliced_kernels_on_card(dev):
         settled = mom > 0.25 * mom.max()
         d = (c[name] - t[name])[settled]
         assert d.abs().max().item() <= 2.0 ** -5 * lr, name
+
+
+def test_sharded_moe_step_launches_sliced_kernels_on_card(dev):
+    """The (1, 2) ``tp`` step of reduced DeepSeek-V2-Lite at MLA's
+    published head widths (q·k 128 + 64, v 128; seq 1088: the flash
+    region) on two workers sharing the card: every worker launches both
+    flash kernels at (192, 128) on its H/2 heads, once a layer; the picks
+    are the ``"torch"`` backend's, and the loss, m and v after one step
+    within phase 13's bounds of its, the parameters under its sign rule."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b",
+                                         reduced=True),
+                              qk_nope_head_dim=128, qk_rope_head_dim=64,
+                              v_head_dim=128)
+    mesh = make_host_mesh(2, num_workers=2, device=dev)
+    assert mesh.shape == (1, 2)
+    batch = train.device_batch(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=1088, global_batch=2)
+    ).global_batch(0), dev)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    be = dispatch.get_backend("cuda")
+    out = {}
+    for bk in ("cuda", "torch"):
+        state, layouts = train.build_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, mesh, "tp")
+        step = steps.make_sharded_train_step(cfg, opt, mesh, layouts, bk,
+                                             policy="tp")
+        seen, picks = [], []
+        real_route, fwd = moe.route, be.flash_attention
+        be.flash_attention = lambda q, k, v, **kw: (
+            seen.append((q.shape[2], q.shape[-1], v.shape[-1]))
+            or fwd(q, k, v, **kw))
+        moe.route = lambda p, c, xt: (lambda r: picks.append(r[2]) or r)(
+            real_route(p, c, xt))
+        reset_launch_counts()
+        try:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            moe.route = real_route
+            del be.flash_attention
+        counts = launch_counts()
+        L, W = cfg.num_layers, mesh.size
+        want = (L * W, L * W) if bk == "cuda" else (0, 0)
+        assert (counts["flash_attention"],
+                counts["flash_attention_bwd"]) == want
+        assert counts["tucker_matmul"] == 0
+        if bk == "cuda":
+            assert seen == [(cfg.num_heads // W, 192, 128)] * (L * W)
+        out[bk] = (float(m["loss"]), float(m["lr"]), picks,
+                   {k: (v.full() if hasattr(v, "full") else v).detach()
+                    for k, v in flatten(state).items()})
+    (lc, lr, pc, c), (lt, _, pt, t) = out["cuda"], out["torch"]
+    assert all(torch.equal(a, b) for a, b in zip(pc, pt))
+    assert abs(lc - lt) <= 2.0 ** -7 * abs(lt)
+    for name in t:
+        if name.startswith("opt."):
+            _close(c[name].float(), t[name].float(), 2.0 ** -5)
+    for name in (n for n in t if n.startswith("params.")):
+        mom = t["opt.m." + name[len("params."):]].abs()
+        settled = mom > 0.25 * mom.max()
+        d = (c[name] - t[name])[settled]
+        assert d.abs().max().item() <= 2.0 ** -5 * lr, name

@@ -233,7 +233,7 @@ def test_moe_architectures_load_and_serve(arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"moe_sharded": True}, {"shared_attn_every": 2}, {"mixer": "mamba2"},
+    {"dtype": "float16"}, {"shared_attn_every": 2}, {"mixer": "mamba2"},
     {"mixer": "xlstm"}, {"frontend": "vision"}, {"encoder_only": True}])
 def test_unported_parts_of_a_config_raise(change):
     cfg = dataclasses.replace(REDUCED, **change)
@@ -241,6 +241,27 @@ def test_unported_parts_of_a_config_raise(change):
         require_ported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         init_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b"])
+def test_moe_sharded_config_runs_on_a_one_worker_mesh(arch):
+    """Lifted from the refusals above: ``moe_sharded`` (the expert-parallel
+    island) inits, and one sharded step on a (1, 1) mesh runs it with a
+    finite loss."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import adamw
+
+    cfg = require_ported(dataclasses.replace(get_config(arch, reduced=True),
+                                             moe_sharded=True))
+    mesh = Mesh((torch.device("cpu"),), (1, 1))
+    state, layouts = train.build_state(torch.Generator().manual_seed(0), cfg,
+                                       mesh, "fsdp_tp")
+    toks = torch.randint(0, cfg.vocab_size, (2, 17))
+    _, m = steps.make_sharded_train_step(cfg, adamw.AdamWConfig(), mesh,
+                                         layouts)(
+        state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(m["loss"]))
 
 
 def test_mixed_precision_config_runs():
@@ -299,19 +320,29 @@ def test_mla_and_moe_train_on_one_device(arch, entry, tmp_path):
 @pytest.mark.parametrize("entry", ["make_sharded_train_step", "ShardedLM"])
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "qwen3_moe_30b_a3b"])
 def test_mla_and_moe_training_raise_naming_the_roadmap(arch, entry):
-    """Sharded training of MLA and MoE is not ported yet: refused by
-    name."""
+    """Lifted from the refusals: sharded training of MLA and MoE builds
+    and takes one step on a (1, 2) CPU mesh (the heads, experts and
+    vocab split over ``model``), with a finite loss."""
     from repro_torch.distributed.sharded_lm import ShardedLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.optim import adamw
 
     cfg = get_config(arch, reduced=True)
-    opt = adamw.AdamWConfig()
-    call = {
-        "make_sharded_train_step": lambda: steps.make_sharded_train_step(
-            cfg, opt, None, {}),
-        "ShardedLM": lambda: ShardedLM(cfg, None, {}, "fsdp_tp"),
-    }[entry]
-    with pytest.raises(NotImplementedError,
-                       match=r"sharded training of .*ROADMAP\.md"):
-        call()
+    mesh = Mesh((torch.device("cpu"),) * 2, (1, 2))
+    state, layouts = train.build_state(torch.Generator().manual_seed(0), cfg,
+                                       mesh, "tp")
+    toks = torch.randint(0, cfg.vocab_size, (2, 17))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if entry == "make_sharded_train_step":
+        step = steps.make_sharded_train_step(cfg, adamw.AdamWConfig(), mesh,
+                                             layouts, policy="tp")
+        _, m = step(state, batch)
+        loss = m["loss"]
+    else:
+        loss = ShardedLM(cfg, mesh, layouts, "tp").loss(state.params, batch)
+        loss.backward()
+        assert all(p.grad is not None for t in state.params.values()
+                   for p in t.parts)
+    assert np.isfinite(loss.item())
 
