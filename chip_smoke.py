@@ -291,7 +291,8 @@ Phases (each failure ends the run with a non-zero exit code):
 20. The multi-device strategies over phase 3's tensor on
    ``STRAT_WORKERS`` = 4 workers sharing the card
    (``make_host_mesh``, ``$REPRO_FORCE_HOST_DEVICES`` = 4), each run
-   ``std_train.run`` for ``--steps`` steps at batch 4096 a worker, an
+   ``std_train.run`` for ``STRAT_STEPS`` steps (``--steps`` where fewer)
+   at batch 4096 a worker, an
    evaluation every third of the run: ``--strategy sync``, ``strata``
    (checkpointed), ``strata_overlap``, ``strata --sorted-batches``,
    ``strata --out-of-core --spill-dir build/... --prefetch-depth 2``,
@@ -311,7 +312,7 @@ Phases (each failure ends the run with a non-zero exit code):
    wall time a step, the device's busy share, device operations a step,
    and the side-stream copies' time beside a compute-stream kernel
    (reported, not asserted);
-   and ``online_train --strategy strata`` at M = 4 (``--steps`` warm-up
+   and ``online_train --strategy strata`` at M = 4 (``STRAT_STEPS`` warm-up
    steps, 2 rounds of 65,536 arrivals, the store in memory, ``--verify``:
    the tables bitwise a fresh server's, each round's launches as phase
    19's).
@@ -372,14 +373,14 @@ Phases (each failure ends the run with a non-zero exit code):
    within 2⁻⁵ of the summed lr: each step moves a parameter by about
    lr·sign, so one flipped sign costs 2 lr), and in the config's bf16
    one step of tp (1, 4) and of zero3 (4, 1) with the ``"cuda"`` backend
-   against ``"torch"`` on the same mesh, as phase 13 holds them; (c) each pair 10 steps at 4
-   layers in bf16 through ``launch/train.run --mesh``: steps/s, tokens/s, peak device bytes,
-   state bytes a worker (equal to the layouts' count) and the collective
-   bytes a step; loss finite and falling; (d) exactly 6·L·W
-   ``tucker_matmul``, L·W of each flash kernel a step (W = 4); (e) a
-   failure at step 7 of 8 replayed from the step-5 checkpoint within 1e-5
-   of the uninterrupted (2, 2) fsdp_tp run, and that checkpoint restored
-   into (4, 1) zero3 and into one device, every leaf bitwise (2 layers,
+   against ``"torch"`` on the same mesh, as phase 13 holds them; (c) each
+   pair 6 steps at 4 layers in bf16 through ``launch/train.run --mesh``:
+   steps/s, tokens/s, peak device bytes, state bytes a worker (equal to the
+   layouts' count) and the collective bytes a step; loss finite and falling;
+   (d) exactly 6·L·W ``tucker_matmul``, L·W of each flash kernel a step
+   (W = 4); (e) a failure at step 7 of 8 replayed from the step-5
+   checkpoint within 1e-5 of the uninterrupted (2, 2) fsdp_tp run, and
+   that checkpoint restored into (4, 1) zero3 and into one device, every leaf bitwise (2 layers,
    vocab cut to 32,768: phase 12's checkpoint leaves no room under the
    machine's 45 GiB of writes for a full-vocab one).
 24. MoE and MLA serving at full width.  (a) The flash kernel at MLA's
@@ -431,7 +432,9 @@ Phases (each failure ends the run with a non-zero exit code):
    backward give the f32 kernels' bits on the inputs widened to f32 (the
    forward's output rounded to bf16), or within 2e-5 where not (logged);
    their times at MLA's shape beside bf16 SDPA, in turns, and the bf16
-   forward's time against the f32 one's.  (b) DeepSeek-V2-Lite and
+   forward's time against the f32 one's; their bound prices each product
+   at the 989 TFLOP/s bf16 peak, one pass for bf16 × bf16 and three where
+   a side is f32 (``bf16_bound``).  (b) DeepSeek-V2-Lite and
    (c) Qwen3-MoE at full width and 4 layers (``MOE_TRAIN``; the cut is
    logged) through ``launch/train.run``: batch 2 × 2,048, 20 steps, no
    checkpoint; steps/s, tokens/s, peak (under 80 GB), finite and falling
@@ -445,6 +448,39 @@ Phases (each failure ends the run with a non-zero exit code):
    ``mixed_precision``: DeepSeek-V2-Lite at 4 layers for 10 steps, every
    flash call bf16 at (192, 128), loss finite and falling, and (d) again
    in mixed precision within 2⁻⁵ (picks within ``MIXED_ROUTE_MARGIN``).
+26. Sharded MoE and MLA training on four workers sharing the card
+   (``phase_sharded_moe``).
+27. The last five attention-only configs at full width
+   (``phase_attention_archs``).  (a) Both flash kernels at HuBERT-XLarge's
+   head width (``HUBERT``: D = Dv = 80, B = 4, H = Kv = 16, non-causal) at
+   S = 1,500 and at S = 1,499 with kv_len 1,421 against their plain
+   versions within 2e-5, the forward's output the same bits with and
+   without the lse, two backward calls bitwise, bf16 bitwise the f32
+   kernels on the widened inputs; five routes' times beside bounds, plain
+   versions and ``scaled_dot_product_attention(is_causal=False)`` in
+   turns.  Both f32 kernels at D = 128, causal, at the head groupings the
+   dense and vision main paths bring (StarCoder2-15B 48/4, DeepSeek-67B
+   64/8, InternVL2-2B 16/8) within 2e-5 of their plain versions: the
+   forward at the serving batch, the forward with the lse and the
+   backward at the training batch.  (b) Serving: Qwen2.5-14B (48 layers) and StarCoder2-15B (40)
+   through ``launch/serve.run`` as phase 8 (no warm-up request: the
+   kernels are warm), DeepSeek-67B likewise at the depth whose f32
+   weights fit under 76 GB (``P27_SERVE``, a ``CUT:`` line), InternVL2-2B
+   (24) through ``make_prefill_step`` on an ``input_specs`` batch of 256
+   patches and 1,792 tokens then text decode from index 2,048, HuBERT
+   (48) through ``make_encoder_step`` over 4 × 1,500 frames: finite
+   logits, exactly L ``flash_attention`` launches a prefill or encoder
+   step and none in decode, peak under 80 GB.  (c) Training, 8 steps
+   each (``P27_TRAIN``): Qwen2.5 and StarCoder2 at 4 layers,
+   DeepSeek-67B at 2 (a ``CUT:`` line), InternVL2 (24, text alone)
+   through ``train.run``, HuBERT (48) through ``make_train_step`` on
+   ``concretize``d ``input_specs`` batches in f32 and in
+   ``mixed_precision``: loss finite and falling, exactly L forward and L
+   backward flash launches a step, peak under 80 GB.  (d) ``"cuda"``
+   against ``"torch"`` at 2 layers of HuBERT and Qwen2.5 under
+   ``mixed_precision`` (every cuda flash call bf16) under phase 13's
+   bounds.  Each run's flash calls are checked to take one route
+   (``_flash_calls``), under which its launch counts are summed.
 
 It prints a ``{"kernels": [...]}`` line (with ``floor_ms``, the launch
 floor, and ``device_ms``, the profiler's device duration where phase 5
@@ -453,7 +489,9 @@ kernel's (192, 128) route, its launches DeepSeek-V2-Lite's serve
 request's and training run's; ``flash_attention_bwd_mla`` the backward's
 (192, 128) route, its launches that training run's;
 ``flash_attention_bf16`` and ``flash_attention_bwd_bf16`` the bf16
-routes, their launches the mixed-precision run's), the ``nvidia-smi``
+routes, their launches the mixed-precision run's; the ``_d80`` rows the
+two kernels' D = 80 routes, their launches phase 27's HuBERT runs'), the
+``nvidia-smi``
 line, and last
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes the full
 record there as JSON.  ``--refresh-host`` runs only the patch's host
@@ -465,6 +503,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -487,6 +526,11 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 # half the FMA rate
 F32_NO_FMA_PER_S = F32_FLOPS_PER_S / 2
 TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
+# bf16 passes of a product with one f32 side: its 24 significand bits in
+# three bf16 pieces of 8, each product exact and summed in f32 (3 passes
+# at 989 TFLOP/s take less time than the 2 TF32 passes at 495)
+F32_SIDE_BF16_PASSES = 3
 COLD_SETS = 5               # factor sets rotated at decode (5 x 47 MB > L2)
 L2_BYTES = 50 * 2**20       # H100 SXM's L2
 NETFLIX_DIMS = (480_189, 17_770, 2_182)
@@ -597,6 +641,18 @@ REPLACES = {
 }
 # the CUDA source of each wrapper where it is not <name>.cu
 SOURCE = {"patch_table_rows": "mode_product_rows"}
+# phase 27: HuBERT-XLarge's attention (30 s of audio at 50 frames/s, 16
+# heads of 1280 / 16 = 80) and a kv_len inside the last 32-key tile
+HUBERT = dict(batch=4, frames=1500, kv_len=1421, heads=16, head_dim=80)
+# DeepSeek-67B serves at the depth whose f32 weights fit under `aim` with
+# `reserve` kept for the cache, the prompt's logits and the activations
+P27_SERVE = dict(aim=76e9, reserve=10e9)
+# training: 8 steps at batch 2 x 2,048 (HuBERT: HUBERT's batch of frames),
+# the dense configs cut to `layers` (16 bytes a parameter with the
+# gradients and AdamW moments), the parity at 2 layers
+P27_TRAIN = dict(steps=8, batch=2, seq=2048, audio_warmup=1,
+                 layers={"qwen2_5_14b": 4, "starcoder2_15b": 4,
+                         "deepseek_67b": 2}, parity_layers=2)
 LM_KERNELS = ("tucker_matmul", "flash_attention", "flash_attention_bwd")
 # phase 16: the reference's FULL closed-loop traffic
 # (benchmarks/bench_serve.py:44-47)
@@ -668,6 +724,10 @@ STORE_ENTRY_BYTES = 17       # 12 of indices, 4 of value, 1 of mask
 # phase 3's tensor; the parity steps; online training with strata, 2 rounds
 # of 65,536 arrivals (0.00147 of the 89,164,901 training nonzeros)
 STRAT_WORKERS = 4
+# the strategy runs' steps: 200 of --steps' 600 (a depth cut, logged;
+# with phase 27 the script took 1,100.7 s, and the out-of-core run alone,
+# 13.33 steps/s, spent 45 s on 600 steps; NVIDIA H100 80GB HBM3, 700 W)
+STRAT_STEPS = 200
 STRAT_PARITY_STEPS = 20
 STRAT_ONLINE = dict(rounds=2, stream_fraction=0.00147)
 # phase 22: sync's per-step psum at bench_multidev's shapes, b = the dense
@@ -693,12 +753,13 @@ REF_FIG7BC = {
 # 8,192), flip bf16 roundings, and the worst moment read 0.030 of its
 # largest against phase 13's 2⁻⁵ (NVIDIA H100 80GB HBM3, 700.00 W) — a
 # margin too thin to tell the sharding's faults from them.  The training
-# runs (c) at 4 layers in bf16, 10 steps; (e)'s runs and checkpoint at 2
-# layers with the vocab cut to 32,768: a full-vocab state is at least
-# 19.8 GB, and phase 12's 28.1 GB checkpoint leaves no room for another
-# under the machine's 45 GiB of disk writes
+# runs (c) at 4 layers in bf16, 6 steps (10 before phase 27 was added; cut,
+# logged, for the script's time, with the loss falling from step 2); (e)'s
+# runs and checkpoint at 2 layers with the vocab cut to 32,768: a full-vocab
+# state is at least 19.8 GB, and phase 12's 28.1 GB checkpoint leaves no
+# room for another under the machine's 45 GiB of disk writes
 SHARDED_LM = dict(batch=4, seq=2048, parity_layers=2, parity_steps=3,
-                  layers=4, steps=10, lr=1e-3, elastic_vocab=32_768,
+                  layers=4, steps=6, lr=1e-3, elastic_vocab=32_768,
                   elastic=dict(steps=8, ckpt_at=5, fail_at=7))
 SHARDED_LM_PAIRS = [((2, 2), "fsdp_tp"), ((4, 1), "zero3"), ((1, 4), "tp"),
                     ((2, 2), "zero3_dp")]
@@ -710,7 +771,8 @@ SHARDED_LM_BACKEND_PAIRS = [((1, 4), "tp"), ((4, 1), "zero3")]
 # phase 26: sharded MoE/MLA training on 4 workers sharing the card, full
 # width.  (b) parity at 2 layers with the residual stream in f32, phase
 # 23's global batch 4 (every policy splits it) and 3 fed steps, against
-# the unsharded "cuda" step; (c) 10 steps a run through launch/train.run
+# the unsharded "cuda" step; (c) 6 steps a run (10 before phase 27 was
+# added; cut, logged, for the script's time) through launch/train.run
 # at MOE_TRAIN's batch (or the least multiple of it that the policy's
 # batch shards divide: zero3_dp's 4), at 4 layers where the reckoned peak
 # stays under MOE_PEAK, else fewer.  The reckoning: the bytes held by
@@ -729,7 +791,7 @@ SHARDED_LM_BACKEND_PAIRS = [((1, 4), "tp"), ((4, 1), "zero3")]
 # worker holds a slice of the heads and experts, and a replicated batch
 # row that never reaches the loss keeps no graph)
 SHARDED_MOE = dict(parity_layers=2, parity_batch=4, parity_steps=3,
-                   steps=10)
+                   steps=6)
 SHARDED_MOE_PARITY = [("deepseek_v2_lite_16b", (2, 2), "fsdp_tp"),
                       ("deepseek_v2_lite_16b", (1, 4), "tp"),
                       ("deepseek_v2_lite_16b", (2, 2), "fsdp_tp_v2"),
@@ -1425,6 +1487,17 @@ def tc_bound(bytes_moved: float,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = sum(n * f / TF32_FLOPS_PER_S if n else f / F32_FLOPS_PER_S
                 for n, f in products) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_bound(bytes_moved: float,
+               products: list[tuple[int, float]]) -> tuple[float, str]:
+    """The bound of f32-accurate work on bf16 operands: each product's
+    (bf16 passes, operations) at the 989 TFLOP/s bf16 peak — 1 pass for
+    bf16 × bf16 (exact, summed in f32), ``F32_SIDE_BF16_PASSES`` where one
+    side is f32."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n * f for n, f in products) / BF16_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -5642,7 +5715,7 @@ def phase_sharded_lm(torch, K, train, cfg) -> tuple[dict, dict]:
     their plain versions at every run's per-worker shapes; (a) a (1, 1)
     mesh against ``make_train_step``; (b) four policy/mesh pairs against
     the unsharded ``"cuda"`` step in f32, and two "cuda" against "torch"
-    in the config's bf16; (c) 10 steps of each through
+    in the config's bf16; (c) ``SHARDED_LM["steps"]`` of each through
     ``launch/train.run`` — the phase's main path — with (d) its launch
     counts; (e) the elastic restore of a (2, 2) fsdp_tp checkpoint into
     (4, 1) zero3 and one device, and a failure's replay."""
@@ -6456,14 +6529,14 @@ def _mla_bwd_checks(torch, K, cfg) -> tuple[dict, list[dict]]:
              "tol": TOL["flash_attention_bwd"]}, [row, fwd_row])
 
 
-def _sdpa_bwd_call(torch, F, q, k, v, dout):
-    """One backward of ``scaled_dot_product_attention`` (causal, the
-    layouts transposed to (B, H, S, D)) as a call, or None where it does
-    not take these inputs."""
+def _sdpa_bwd_call(torch, F, q, k, v, dout, causal: bool = True):
+    """One backward of ``scaled_dot_product_attention`` (causal unless
+    asked, the layouts transposed to (B, H, S, D)) as a call, or None
+    where it does not take these inputs."""
     try:
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         gt = dout.transpose(1, 2)
 
         def call():
@@ -6477,12 +6550,13 @@ def _sdpa_bwd_call(torch, F, q, k, v, dout):
         return None
 
 
-def _sdpa_fwd_call(torch, F, q, k, v):
-    """``scaled_dot_product_attention`` (causal) as a call, or None."""
+def _sdpa_fwd_call(torch, F, q, k, v, causal: bool = True):
+    """``scaled_dot_product_attention`` (causal unless asked) as a call, or
+    None."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def call():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     try:
         call()
         return call
@@ -6492,16 +6566,16 @@ def _sdpa_fwd_call(torch, F, q, k, v):
         return None
 
 
-def _efficient_lse_call(torch, q, k, v):
+def _efficient_lse_call(torch, q, k, v, causal: bool = True):
     """``_scaled_dot_product_efficient_attention`` with
-    ``compute_log_sumexp`` (causal): the one PyTorch call that returns the
-    output and the lse, as a call, or None, with the reason logged, where
-    it refuses these inputs."""
+    ``compute_log_sumexp`` (causal unless asked): the one PyTorch call that
+    returns the output and the lse, as a call, or None, with the reason
+    logged, where it refuses these inputs."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def call():
         return torch.ops.aten._scaled_dot_product_efficient_attention(
-            qt, kt, vt, None, compute_log_sumexp=True, is_causal=True)
+            qt, kt, vt, None, compute_log_sumexp=True, is_causal=causal)
     try:
         call()
         return call
@@ -6618,11 +6692,11 @@ def _bf16_checks(torch, K) -> tuple[dict, list[dict]]:
     f_plain = device_ms(torch, lambda: ref.flash_attention_ref(
         q, k, v, True, return_lse=True), iters=5)
     f_bytes = 2 * B * S * h * (2 * d + 2 * dv) + 4 * B * h * S
-    # tensor-core passes per product by its operands: a bf16 value is
-    # exact in TF32, so bf16 × bf16 needs one pass and f32 × bf16 two, the
-    # passes the kernels' bf16 instances run
-    f_tb, f_by = tc_bound(f_bytes, [(1, 2 * pairs_n * B * h * d),    # S
-                                    (2, 2 * pairs_n * B * h * dv)])  # P·V
+    # bf16 passes per product by its operands (``bf16_bound``): S and dP
+    # are bf16 × bf16, P·V, dV, dK and dQ have an f32 side (P or dS)
+    x3 = F32_SIDE_BF16_PASSES
+    f_tb, f_by = bf16_bound(f_bytes, [(1, 2 * pairs_n * B * h * d),    # S
+                                      (x3, 2 * pairs_n * B * h * dv)])  # P·V
     t = alternate_ms(torch, {
         "kernel": lambda: fb(q, k, v, o, lse, dout),
         "library": _sdpa_bwd_call(torch, F, q, k, v, dout)})
@@ -6632,9 +6706,9 @@ def _bf16_checks(torch, K) -> tuple[dict, list[dict]]:
     b_bytes = (2 * B * S * h * (2 * d + 3 * dv) + 4 * B * h * S
                + 4 * B * S * h * (2 * d + dv))
     unit = 2 * pairs_n * B * h
-    b_tb, b_by = tc_bound(b_bytes, [(1, unit * d), (1, unit * dv),  # S, dP
-                                    (2, unit * dv), (2, unit * d),  # dV, dK
-                                    (2, unit * d)])                 # dQ
+    b_tb, b_by = bf16_bound(b_bytes, [(1, unit * d), (1, unit * dv),  # S, dP
+                                      (x3, unit * dv), (x3, unit * d),  # dV, dK
+                                      (x3, unit * d)])                  # dQ
     variant = f"B={B} H=Kv={h} S={S} (D, Dv) = ({d}, {dv}) causal, bf16"
     rows = [
         {"name": "flash_attention_bf16", "variant": "training forward with "
@@ -6650,8 +6724,8 @@ def _bf16_checks(torch, K) -> tuple[dict, list[dict]]:
             f"{r['plain_ms']:.4f} ms"
             + (f", scaled_dot_product_attention {r['library_ms']:.4f} ms "
                "in bf16" if r["library_ms"] is not None else "")
-            + f"), bound {r['bound_ms']:.4f} ms by {r['bound_by']} (TF32 "
-            "at 495 TFLOP/s, 1 pass for bf16 × bf16, 2 for f32 × bf16; bf16 "
+            + f"), bound {r['bound_ms']:.4f} ms by {r['bound_by']} (bf16 "
+            "at 989 TFLOP/s, 1 pass for bf16 × bf16, 3 for f32 × bf16; bf16 "
             f"bytes; {r['bound_ms'] / r['ms']:.1%} of it)")
     del q, k, v, dout, o, lse
     torch.cuda.empty_cache()
@@ -7428,6 +7502,761 @@ def phase_sharded_moe(torch, K, train, cfgs: dict
     return rec, errs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 27
+# ---------------------------------------------------------------------------
+
+def _d128_checks(torch, K, cfgs: dict) -> dict:
+    """(a): both f32 flash kernels at the head groupings that phase 27's
+    D = 128 main paths bring and no earlier phase holds — StarCoder2-15B's
+    48 heads over 4 KV heads (G = 12), DeepSeek-67B's 64 over 8 and
+    InternVL2-2B's 16 over 8 (G = 2) — causal, within ``TOL`` of their
+    plain versions: the forward at ``LM_SERVE``'s batch and prompt, the
+    forward with the lse and the backward at ``P27_TRAIN``'s batch and
+    sequence.  Returns each output's largest distance by kernel."""
+    fa = K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    ref = K.ref
+    gen = torch.Generator(device="cuda").manual_seed(2728)
+    worst = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    rec: dict = {}
+
+    def held(kernel, got, want, what):
+        e, r = rel_err(got, want)
+        worst[kernel] = max(worst[kernel], e)
+        if not r <= TOL[kernel]:
+            raise AssertionError(f"flash D = 128 [{what}]: {r:.3g} of its "
+                                 f"largest > {TOL[kernel]}")
+        return r
+
+    for arch in ("starcoder2_15b", "deepseek_67b", "internvl2_2b"):
+        cfg = cfgs[arch]
+        H, Kv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rel = {}
+        for B, S, train in ((LM_SERVE["batch"], LM_SERVE["prompt_len"],
+                             False),
+                            (P27_TRAIN["batch"], P27_TRAIN["seq"], True)):
+            q = torch.randn((B, S, H, D), generator=gen, device="cuda")
+            k, v = (torch.randn((B, S, Kv, D), generator=gen, device="cuda")
+                    for _ in range(2))
+            tag = f"{arch} B={B} S={S} H={H} Kv={Kv}"
+            if not train:
+                rel["serve o"] = held("flash_attention", fa(q, k, v),
+                                      ref.flash_attention_ref(q, k, v, True),
+                                      f"{tag} o")
+                del q, k, v
+                continue
+            dout = torch.randn((B, S, H, D), generator=gen, device="cuda")
+            o, lse = fa(q, k, v, return_lse=True)
+            p_o, p_lse = ref.flash_attention_ref(q, k, v, True,
+                                                 return_lse=True)
+            rel["train o"] = held("flash_attention", o, p_o, f"{tag} o")
+            rel["train lse"] = held("flash_attention", lse, p_lse,
+                                    f"{tag} lse")
+            del p_o, p_lse
+            for name, g, w in zip(("dq", "dk", "dv"),
+                                  fb(q, k, v, o, lse, dout),
+                                  ref.flash_attention_bwd_ref(
+                                      q, k, v, o, lse, dout, True)):
+                rel[f"train {name}"] = held("flash_attention_bwd", g, w,
+                                            f"{tag} {name}")
+            del q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
+        rec[arch] = rel
+        log(f"  flash D = 128 [{arch}: H={H} Kv={Kv} (G = {H // Kv}) causal; "
+            f"serving B={LM_SERVE['batch']} S={LM_SERVE['prompt_len']}, "
+            f"training B={P27_TRAIN['batch']} S={P27_TRAIN['seq']}]: of "
+            "each output's largest from the plain version "
+            + ", ".join(f"{n} {x:.3g}" for n, x in rel.items()))
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def _d80_checks(torch, K) -> tuple[dict, list[dict]]:
+    """(a): both flash kernels at HuBERT-XLarge's width (D = Dv = 80,
+    H = Kv = 16, ``HUBERT``'s batch and frames), non-causal, at S = 1,500
+    (46 key tiles of 32 and 28 keys) and at S = 1,499 with kv_len < Sk: the
+    forward without and with the lse and the backward within 2e-5 of their
+    plain versions (each output's largest), the forward's output the same
+    bits with and without the lse, two backward calls bitwise; bf16 q, k,
+    v (o, dO) give the f32 kernels' bits on the inputs widened to f32 and
+    are within 2e-5 of the plain versions (o past its bf16 rounding).
+    Then the five routes' times at S = 1,500 beside their bounds, their
+    plain versions and ``scaled_dot_product_attention(is_causal=False)``
+    (f32 and bf16; with the lse ``_scaled_dot_product_efficient_attention``),
+    in turns."""
+    import torch.nn.functional as F
+
+    fa = K.flash_attention.flash_attention
+    fb = K.flash_attention_bwd.flash_attention_bwd
+    ref = K.ref
+    gen = torch.Generator(device="cuda").manual_seed(2727)
+    B, H, D = HUBERT["batch"], HUBERT["heads"], HUBERT["head_dim"]
+    rec: dict = {"cases": [], "max_abs_err": {}}
+    worst = collections.defaultdict(float)   # row → max abs err
+
+    def inputs(S):
+        return [torch.randn((B, S, H, D), generator=gen, device="cuda")
+                for _ in range(4)]
+
+    def held(name, row, got, want, tol, what):
+        e, r = rel_err(got, want)
+        worst[row] = max(worst[row], e)
+        if not r <= tol:
+            raise AssertionError(f"flash D = 80 [{what}] {name}: {r:.3g} "
+                                 f"of its largest > {tol}")
+        return r
+
+    for tag, S, kv_len in (("S = 1500", HUBERT["frames"], HUBERT["frames"]),
+                           ("S = 1499, kv_len < Sk", HUBERT["frames"] - 1,
+                            HUBERT["kv_len"])):
+        q, k, v, dout = inputs(S)
+        kw = dict(causal=False, kv_len=kv_len)
+        case = {"case": tag, "S": S, "kv_len": kv_len, "rel": {}}
+        o = fa(q, k, v, **kw)
+        o2, lse = fa(q, k, v, return_lse=True, **kw)
+        p_o, p_lse = ref.flash_attention_ref(q, k, v, False, kv_len=kv_len,
+                                             return_lse=True)
+        got = fb(q, k, v, o2, lse, dout, **kw)
+        again = fb(q, k, v, o2, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o2, lse, dout, False,
+                                           kv_len=kv_len)
+        torch.cuda.synchronize()
+        case["rel"]["o"] = held("o", "flash_attention_d80", o, p_o,
+                                TOL["flash_attention"], tag)
+        case["rel"]["o with lse"] = held("o with lse",
+                                         "flash_attention_d80_lse", o2, p_o,
+                                         TOL["flash_attention"], tag)
+        case["rel"]["lse"] = held("lse", "flash_attention_d80_lse", lse,
+                                  p_lse, TOL["flash_attention"], tag)
+        if not torch.equal(o, o2):
+            raise AssertionError(f"flash D = 80 [{tag}]: o differs with and "
+                                 "without the lse")
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            case["rel"][name] = held(name, "flash_attention_bwd_d80", g, w,
+                                     TOL["flash_attention_bwd"], tag)
+            if not torch.equal(g, a):
+                raise AssertionError(f"flash D = 80 [{tag}]: two backward "
+                                     f"calls gave different {name} bits")
+        del o, o2, lse, p_o, p_lse, got, again, want
+        # bf16: the f32 kernels' bits on the widened inputs
+        qb, kb, vb, db = (t.bfloat16() for t in (q, k, v, dout))
+        del q, k, v, dout
+        wide = [t.float() for t in (qb, kb, vb, db)]
+        ob = fa(qb, kb, vb, **kw)
+        ob2, lseb = fa(qb, kb, vb, return_lse=True, **kw)
+        o32, lse32 = fa(*wide[:3], return_lse=True, **kw)
+        gb = fb(qb, kb, vb, ob2, lseb, db, **kw)
+        g32 = fb(*wide[:3], ob2.float(), lseb, wide[3], **kw)
+        torch.cuda.synchronize()
+        bits = {"o": torch.equal(ob, o32.bfloat16()),
+                "o with lse": torch.equal(ob2, ob),
+                "lse": torch.equal(lseb, lse32),
+                **{n: torch.equal(g, w)
+                   for n, g, w in zip(("dq", "dk", "dv"), gb, g32)}}
+        case["bf16_bitwise"] = bits
+        if not all(bits.values()):
+            raise AssertionError(f"flash D = 80 bf16 [{tag}]: not the f32 "
+                                 f"kernels' bits on the widened inputs: "
+                                 f"{bits}")
+        p_o, p_lse = ref.flash_attention_ref(*wide[:3], False, kv_len=kv_len,
+                                             return_lse=True)
+        half_ulp = torch.ldexp(torch.ones_like(p_o),
+                               torch.frexp(p_o)[1] - 9)
+        over = ((ob2.float() - p_o).abs() - half_ulp).clamp_min(0)
+        e = over.max().item()
+        r = e / p_o.abs().max().item()
+        worst["flash_attention_d80_bf16"] = max(
+            worst["flash_attention_d80_bf16"], e)
+        case["rel"]["bf16 o past its rounding"] = r
+        if not r <= TOL["flash_attention"]:
+            raise AssertionError(f"flash D = 80 bf16 [{tag}]: o {r:.3g} of "
+                                 "its largest past its bf16 rounding")
+        case["rel"]["bf16 lse"] = held("bf16 lse", "flash_attention_d80_bf16",
+                                       lseb, p_lse, TOL["flash_attention"],
+                                       tag)
+        for name, g, w in zip(("dq", "dk", "dv"), gb,
+                              ref.flash_attention_bwd_ref(
+                                  qb, kb, vb, ob2, lseb, db, False,
+                                  kv_len=kv_len)):
+            case["rel"][f"bf16 {name}"] = held(
+                f"bf16 {name}", "flash_attention_bwd_d80_bf16", g, w,
+                TOL["flash_attention_bwd"], tag)
+        log(f"  flash D = 80 [{tag}: B={B} Sq=Sk={S} H=Kv={H} non-causal "
+            f"kv_len={kv_len}]: of each output's largest "
+            + ", ".join(f"{n} {x:.3g}" for n, x in case["rel"].items())
+            + "; o the same bits with and without the lse; two backward "
+            "calls bitwise; bf16 the f32 kernels' bits on the widened inputs")
+        rec["cases"].append(case)
+        del qb, kb, vb, db, wide, ob, ob2, lseb, o32, lse32, gb, g32
+        del p_o, p_lse, half_ulp, over
+        torch.cuda.empty_cache()
+
+    # times at S = 1500, every key visible
+    S = HUBERT["frames"]
+    q, k, v, dout = inputs(S)
+    o, lse = fa(q, k, v, causal=False, return_lse=True)
+    floor = floor_ms(torch, K.build)
+    pairs = B * H * S * S
+    f32 = 4
+    fwd_bytes = f32 * B * S * H * 4 * D
+    bwd_bytes = f32 * (B * S * H * 8 * D + B * H * S)   # 5 in, 3 out, lse
+    fwd_flops = [(3, 2 * pairs * D), (3, 2 * pairs * D)]   # S, P·V
+    bwd_flops = [(3, 2 * pairs * D)] * 5                   # S, dP, dV, dK, dQ
+    calls = {
+        "flash_attention_d80": (
+            lambda: fa(q, k, v, causal=False),
+            _sdpa_fwd_call(torch, F, q, k, v, causal=False),
+            lambda: ref.flash_attention_ref(q, k, v, False),
+            tc_bound(fwd_bytes, fwd_flops), "serving forward, f32"),
+        "flash_attention_d80_lse": (
+            lambda: fa(q, k, v, causal=False, return_lse=True),
+            _efficient_lse_call(torch, q, k, v, causal=False),
+            lambda: ref.flash_attention_ref(q, k, v, False, return_lse=True),
+            tc_bound(fwd_bytes + f32 * B * H * S, fwd_flops),
+            "training forward with the lse, f32"),
+        "flash_attention_bwd_d80": (
+            lambda: fb(q, k, v, o, lse, dout, causal=False),
+            _sdpa_bwd_call(torch, F, q, k, v, dout, causal=False),
+            lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, False),
+            tc_bound(bwd_bytes, bwd_flops), "training backward, f32"),
+    }
+    rows = _d80_rows(torch, calls, floor, B, H, S)
+    del calls
+    qb, kb, vb, db = (t.bfloat16() for t in (q, k, v, dout))
+    del q, k, v, dout, o, lse
+    ob, lseb = fa(qb, kb, vb, causal=False, return_lse=True)
+    bf = 2
+    unit = 2 * pairs * D
+    x3 = F32_SIDE_BF16_PASSES
+    calls = {
+        "flash_attention_d80_bf16": (
+            lambda: fa(qb, kb, vb, causal=False, return_lse=True),
+            _sdpa_fwd_call(torch, F, qb, kb, vb, causal=False),
+            lambda: ref.flash_attention_ref(qb, kb, vb, False,
+                                            return_lse=True),
+            bf16_bound(bf * B * S * H * 4 * D + f32 * B * H * S,
+                       [(1, unit), (x3, unit)]),
+            "training forward with the lse, bf16 (SDPA: bf16, no lse)"),
+        "flash_attention_bwd_d80_bf16": (
+            lambda: fb(qb, kb, vb, ob, lseb, db, causal=False),
+            _sdpa_bwd_call(torch, F, qb, kb, vb, db, causal=False),
+            lambda: ref.flash_attention_bwd_ref(qb, kb, vb, ob, lseb, db,
+                                                False),
+            bf16_bound(bf * B * S * H * 5 * D + f32 * B * H * S
+                       + f32 * B * S * H * 3 * D,
+                       [(1, unit), (1, unit), (x3, unit), (x3, unit),
+                        (x3, unit)]),
+            "training backward, bf16 (SDPA: bf16)"),
+    }
+    rows += _d80_rows(torch, calls, floor, B, H, S)
+    del calls, qb, kb, vb, db, ob, lseb
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["max_abs_err"] = worst[r["name"]]
+    rec["max_abs_err"] = dict(worst)
+    return rec, rows
+
+
+def _d80_rows(torch, calls: dict, floor: float, B: int, H: int,
+              S: int) -> list[dict]:
+    """Each route's kernel and yardstick in turns, its plain version, its
+    bound (f32: ``tc_bound``, 3 TF32 passes a product; bf16:
+    ``bf16_bound``)."""
+    rows = []
+    for name, (kernel, library, plain, (b_ms, b_by), what) in calls.items():
+        t = alternate_ms(torch, {"kernel": kernel, "library": library})
+        p_ms = device_ms(torch, plain, iters=5)
+        row = {"name": name, "variant": f"{what}: B={B} H=Kv={H} S={S} "
+               "D = Dv = 80 non-causal", "ms": t["kernel"], "plain_ms": p_ms,
+               "library_ms": t["library"], "bound_ms": b_ms,
+               "bound_by": b_by, "floor_ms": floor, "device_ms": None}
+        log(f"{name} [{row['variant']}]: {row['ms']:.4f} ms/call (plain "
+            f"{p_ms:.4f} ms"
+            + (f", its yardstick {t['library']:.4f} ms: the kernel "
+               f"{t['kernel'] / t['library']:.3f}x of it, in turns"
+               if t["library"] else "")
+            + f"), bound {b_ms:.4f} ms by {b_by} ({b_ms / row['ms']:.1%} of "
+            f"it); launch floor {floor:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def _check_launches(what: str, counts: dict, want: dict) -> None:
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launch counts {counts}, want {full}")
+
+
+def _check_routes(what: str, seen: set, cfg, names: tuple) -> list:
+    """The flash routes a run reached (``_flash_calls``) are ``names`` at
+    ``cfg``'s head width, bf16 under ``mixed_precision`` and else f32:
+    the route its launches are counted under."""
+    dt = "torch.bfloat16" if cfg.mixed_precision else "torch.float32"
+    want = {(n, dt, cfg.head_dim, cfg.head_dim) for n in names}
+    if seen != want:
+        raise AssertionError(f"{what}: flash calls {sorted(seen)}, want "
+                             f"{sorted(want)}")
+    return sorted(seen)
+
+
+def _serve_text(torch, K, serve, cfg, name: str) -> dict:
+    """(b): ``launch/serve.run`` of ``cfg`` with random weights drawn on the
+    card, one request of ``LM_SERVE``'s shape (the kernels are warm from
+    the phases before): exactly L ``flash_attention`` launches a prefill,
+    none in decode and no other kernel; finite logits; the peak."""
+    B, P, G = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen: set = set()
+    K.reset_launch_counts()
+    with _flash_calls(K, seen):
+        res = serve.run(cfg, batch=B, prompt_len=P, gen=G, seed=0,
+                        device="cuda", backend="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = res["peak_device_bytes"]
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    log(f"{name} serve: {L} layers, {n_params:,} f32 parameters drawn on "
+        f"the card in {res['init_seconds']:.2f}s; batch {B}, prompt {P}, "
+        f"{G} tokens: prefill {res['prefill_seconds']:.4f}s, decode "
+        f"{res['decode_tokens_per_s']:.2f} tokens/s "
+        f"({res['decode_seconds']:.4f}s for {G - 1} steps), peak device "
+        f"bytes {peak:,}, logits finite {res['finite']}; launch counts "
+        f"{counts}")
+    if not res["finite"]:
+        raise AssertionError(f"{name} serve: non-finite prefill logits")
+    if res["generated"].shape != (B, G):
+        raise AssertionError(f"{name} serve: generated "
+                             f"{tuple(res['generated'].shape)}")
+    _check_launches(f"{name} serve", counts, {"flash_attention": L})
+    routes = _check_routes(f"{name} serve", seen, cfg, ("flash_attention",))
+    if not peak < 80e9:
+        raise AssertionError(f"{name} serve: peak {peak:,} bytes")
+    out = {k: res[k] for k in ("init_seconds", "prefill_seconds",
+                               "decode_seconds", "decode_tokens_per_s",
+                               "peak_device_bytes", "finite")}
+    out.update(layers=L, params=n_params, launch_counts=counts,
+               flash_calls=routes, generated=res["generated"][0].tolist())
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_vision(torch, K, cfg) -> dict:
+    """(b): InternVL2-2B's prefill of ``num_patches`` patches and the rest
+    of the 2,048 positions in text tokens through ``make_prefill_step`` on
+    an ``input_specs`` batch, then ``LM_SERVE``'s greedy text decode from
+    cache index 2,048 through ``make_decode_step``."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_cache, init_model
+
+    B, P, G = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = S.concretize(S.input_specs(cfg, ShapeCell(
+        "phase 27 vision prefill", P, B, "prefill")), gen, "cuda")
+    caches = init_cache(cfg, B, P + G, dtype=torch.float32, device="cuda")
+    prefill = S.make_prefill_step(cfg, "cuda")
+    decode = S.make_decode_step(cfg, "cuda")
+    seen: set = set()
+    K.reset_launch_counts()
+    with _flash_calls(K, seen):
+        t0 = time.perf_counter()
+        last, caches = prefill(params, batch, caches)
+        tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(last).all())
+        at_prefill = K.launch_counts()
+        out_toks, index = [tok], P
+        t0 = time.perf_counter()
+        for _ in range(G - 1):
+            tok, caches, index = decode(params, caches, index,
+                                        {"tokens": tok})
+            out_toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    tok_s = B * (G - 1) / decode_s
+    log(f"internvl2_2b serve: {L} layers, {n_params:,} f32 parameters; "
+        f"prefill of {cfg.num_patches} patches + {P - cfg.num_patches} "
+        f"tokens x batch {B} {prefill_s:.4f}s, decode {tok_s:.2f} tokens/s "
+        f"({decode_s:.4f}s for {G - 1} steps from index {P}), peak device "
+        f"bytes {peak:,}, logits finite {finite}; launch counts at prefill "
+        f"{at_prefill}, after decode {counts}")
+    if not finite:
+        raise AssertionError("internvl2_2b serve: non-finite prefill logits")
+    if index != P + G - 1:
+        raise AssertionError(f"internvl2_2b serve: decode ended at {index}")
+    _check_launches("internvl2_2b prefill", at_prefill,
+                    {"flash_attention": L})
+    _check_launches("internvl2_2b serve", counts, {"flash_attention": L})
+    routes = _check_routes("internvl2_2b serve", seen, cfg,
+                           ("flash_attention",))
+    if not peak < 80e9:
+        raise AssertionError(f"internvl2_2b serve: peak {peak:,} bytes")
+    out = {"init_seconds": init_s, "prefill_seconds": prefill_s,
+           "decode_seconds": decode_s, "decode_tokens_per_s": tok_s,
+           "peak_device_bytes": peak, "finite": finite, "layers": L,
+           "params": n_params, "launch_counts": counts, "flash_calls": routes,
+           "generated": torch.cat(out_toks, 1)[0].tolist()}
+    del params, caches, batch, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _encode_audio(torch, K, cfg) -> dict:
+    """(b): HuBERT-XLarge's encoder step (``make_encoder_step``, the
+    reference's encoder-only "prefill") over ``HUBERT``'s batch of frames:
+    exactly L ``flash_attention`` launches (non-causal, D = 80) and no
+    other kernel; finite logits of (B, S, vocab); the peak.  No decode:
+    the config is encoder-only."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_model
+
+    B, T, L = HUBERT["batch"], HUBERT["frames"], cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = S.concretize(S.input_specs(cfg, ShapeCell(
+        "phase 27 audio encoder", T, B, "prefill")), gen, "cuda")
+    encode = S.make_encoder_step(cfg, "cuda")
+    seen: set = set()
+    K.reset_launch_counts()
+    with _flash_calls(K, seen):
+        t0 = time.perf_counter()
+        logits = encode(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"hubert_xlarge encode: {L} layers, {n_params:,} f32 parameters "
+        f"drawn in {init_s:.2f}s; {B} x {T} frames in {secs:.4f}s "
+        f"({B * T / secs:.1f} frames/s), logits {tuple(logits.shape)} "
+        f"finite {finite}, peak device bytes {peak:,}; launch counts "
+        f"{counts}")
+    if not finite or tuple(logits.shape) != (B, T, cfg.vocab_size):
+        raise AssertionError(f"hubert_xlarge encode: logits "
+                             f"{tuple(logits.shape)}, finite {finite}")
+    _check_launches("hubert_xlarge encode", counts, {"flash_attention": L})
+    routes = _check_routes("hubert_xlarge encode", seen, cfg,
+                           ("flash_attention",))
+    if not peak < 80e9:
+        raise AssertionError(f"hubert_xlarge encode: peak {peak:,} bytes")
+    out = {"init_seconds": init_s, "seconds": secs,
+           "frames_per_s": B * T / secs, "peak_device_bytes": peak,
+           "finite": finite, "layers": L, "params": n_params,
+           "launch_counts": counts, "flash_calls": routes}
+    del params, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _trained(name: str, L: int, steps: int, losses: list, secs: list,
+             peak: int, counts: dict, n_params: int, tokens: int) -> dict:
+    """The checks and the record of one (c) run: finite and falling loss,
+    exactly L ``flash_attention`` and L ``flash_attention_bwd`` launches a
+    step and no other kernel, the peak under 80 GB."""
+    med = statistics.median(secs[1:])
+    log(f"{name} train: {L} layers, {n_params:,} f32 parameters, {tokens} "
+        f"positions a step, {steps} steps: median step {med:.4f}s = "
+        f"{tokens / med:.1f} positions/s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; peak device bytes {peak:,}; launch counts {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name} train: a non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} train: loss did not fall "
+                             f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    _check_launches(f"{name} train", counts,
+                    {"flash_attention": L * steps,
+                     "flash_attention_bwd": L * steps})
+    if not peak < 80e9:
+        raise AssertionError(f"{name} train: peak {peak:,} bytes")
+    return {"layers": L, "params": n_params, "steps": steps,
+            "positions_per_step": tokens, "losses": losses,
+            "step_seconds": secs, "median_step_s": med,
+            "positions_per_s": tokens / med, "peak_device_bytes": peak,
+            "launch_counts": counts}
+
+
+def _train_text(torch, K, train, cfg, name: str) -> dict:
+    """(c): ``launch/train.run`` of ``cfg`` on the card (InternVL2-2B on
+    text alone, as the reference's ``launch/train.py`` trains it) at
+    ``P27_TRAIN``'s batch and steps, ``train.run``'s lr and warmup, no
+    checkpoint written."""
+    P = P27_TRAIN
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen: set = set()
+    K.reset_launch_counts()
+    with _flash_calls(K, seen):
+        res = train.run(cfg, steps=P["steps"], batch=P["batch"],
+                        seq=P["seq"],
+                        ckpt_dir=str(ROOT / "build" / "phase27_ckpt"),
+                        ckpt_every=P["steps"] + 1, log_every=P["steps"],
+                        device="cuda", backend="cuda")
+    torch.cuda.synchronize()
+    hist = res["history"]
+    routes = _check_routes(f"{name} train", seen, cfg,
+                           ("flash_attention", "flash_attention_bwd"))
+    out = _trained(
+        name, cfg.num_layers, P["steps"],
+        [hist[i]["loss"] for i in range(1, P["steps"] + 1)],
+        [hist[i]["seconds"] for i in range(1, P["steps"] + 1)],
+        res["peak_device_bytes"], K.launch_counts(),
+        sum(p.numel() for p in res["state"].params.parameters()),
+        P["batch"] * P["seq"])
+    out["flash_calls"] = routes
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_audio(torch, K, cfg, name: str) -> dict:
+    """(c): HuBERT-XLarge through ``make_train_step`` (the reference's own
+    way: its ``launch/train.py`` feeds tokens only) on a fresh
+    ``concretize``d ``input_specs`` batch of ``HUBERT``'s frames each step,
+    ``train.run``'s lr
+    with a one-step warmup (its default 100 would hold 8 steps at lr
+    ≤ 2.4e-5, and the labels are uniform draws: the loss would move by
+    about its batch-to-batch spread)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+
+    P = P27_TRAIN
+    B, T = HUBERT["batch"], HUBERT["frames"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = S.init_train_state(cfg, gen, "cuda")
+    step = S.make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=P["audio_warmup"], total_steps=P["steps"]), "cuda")
+    specs = S.input_specs(cfg, ShapeCell("phase 27 audio train", T, B,
+                                         "train"))
+    losses, secs = [], []
+    seen: set = set()
+    K.reset_launch_counts()
+    with _flash_calls(K, seen):
+        for _ in range(P["steps"]):
+            batch = S.concretize(specs, gen, "cuda")
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))    # synchronizes
+            secs.append(time.perf_counter() - t0)
+    routes = _check_routes(f"{name} train", seen, cfg,
+                           ("flash_attention", "flash_attention_bwd"))
+    out = _trained(name, cfg.num_layers, P["steps"], losses, secs,
+                   torch.cuda.max_memory_allocated(), K.launch_counts(),
+                   sum(p.numel() for p in state.params.parameters()),
+                   B * T)
+    out["flash_calls"] = routes
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parity_27(torch, K, cfg, name: str, batch_of) -> dict:
+    """(d): ``"cuda"`` against ``"torch"`` at ``P27_TRAIN``'s parity depth
+    under ``mixed_precision`` (so that the ``"cuda"`` run reaches the bf16
+    flash kernels, which it records), phase 13's comparison and bounds."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import adamw
+
+    cfg2 = dataclasses.replace(cfg, num_layers=P27_TRAIN["parity_layers"],
+                               mixed_precision=True, dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = S.init_train_state(
+        cfg2, torch.Generator(device="cuda").manual_seed(11), "cuda")
+    params = adamw.named(state.params)
+    batch = batch_of(cfg2)
+    loss, grads = {}, {}
+    seen: set = set()
+    for bk in ("cuda", "torch"):
+        with _flash_calls(K, seen):
+            lo = loss_fn(state.params, cfg2, batch, backend=bk)
+            grads[bk] = dict(zip(params, torch.autograd.grad(
+                lo, list(params.values()))))
+        loss[bk] = float(lo.detach())
+        del lo
+    rec = _backend_parity(torch, state, params, loss, grads,
+                          f"{name} parity ({cfg2.num_layers} layers, "
+                          "mixed_precision)")
+    D = cfg.head_dim
+    want = {("flash_attention", "torch.bfloat16", D, D),
+            ("flash_attention_bwd", "torch.bfloat16", D, D)}
+    log(f"{name} parity: the cuda run's flash calls at (name, dtype, D, "
+        f"Dv) {sorted(seen)}")
+    if seen != want:
+        raise AssertionError(f"{name} parity: flash calls "
+                             f"{sorted(seen)}, want "
+                             f"{sorted(want)}")
+    del state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg2.num_layers,
+            "flash_calls": sorted(seen), **rec}
+
+
+def phase_attention_archs(torch, K, serve, train, get_config
+                          ) -> tuple[dict, list[dict], dict]:
+    """Phase 27: Qwen2.5-14B, DeepSeek-67B, StarCoder2-15B, InternVL2-2B
+    and HuBERT-XLarge at full width — (a) both flash kernels at D = 80
+    non-causal and at the D = 128 main paths' new head groupings, (b)
+    serving, (c) training, (d) parity.  Returns (record, the D = 80
+    routes' kernel rows with their main-path launches, the D = 128 f32
+    kernels' main-path launches and largest distance from the plain
+    versions)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_model
+
+    rec: dict = {"card": nvidia_smi_line()}
+    seconds: dict = {}
+    cfgs = {a: get_config(a) for a in ("qwen2_5_14b", "starcoder2_15b",
+                                       "deepseek_67b", "internvl2_2b",
+                                       "hubert_xlarge")}
+    t0 = time.perf_counter()
+    rec["kernels"], rows = _d80_checks(torch, K)
+    rec["kernels_d128"] = _d128_checks(torch, K, cfgs)
+    seconds["kernels"] = time.perf_counter() - t0
+
+    # (b) serving; DeepSeek-67B's depth from its f32 bytes a layer
+    meta = init_model(dataclasses.replace(cfgs["deepseek_67b"],
+                                          num_layers=1), device="meta")
+    layer_b = 4 * sum(p.numel() for n, p in meta.named_parameters()
+                      if n.startswith("layers."))
+    rest_b = 4 * sum(p.numel() for n, p in meta.named_parameters()
+                     if not n.startswith("layers."))
+    ds_layers = int((P27_SERVE["aim"] - P27_SERVE["reserve"] - rest_b)
+                    // layer_b)
+    log(f"CUT: deepseek_67b serves at {ds_layers} of its 95 layers: "
+        f"{layer_b / 1e9:.3f} GB of f32 parameters a layer, "
+        f"{rest_b / 1e9:.3f} GB for the embedding, head and final norm, "
+        f"{P27_SERVE['reserve'] / 1e9:.0f} GB kept for the KV cache, the "
+        "prompt's logits and activations and the head's bf16 copy, under "
+        f"{P27_SERVE['aim'] / 1e9:.0f} GB")
+    t0 = time.perf_counter()
+    rec["serve"] = {}
+    for arch in ("qwen2_5_14b", "starcoder2_15b", "deepseek_67b"):
+        cfg = cfgs[arch]
+        if arch == "deepseek_67b":
+            cfg = dataclasses.replace(cfg, num_layers=ds_layers)
+        rec["serve"][arch] = _serve_text(torch, K, serve, cfg, arch)
+    rec["serve"]["internvl2_2b"] = _serve_vision(
+        torch, K, cfgs["internvl2_2b"])
+    rec["serve"]["hubert_xlarge"] = _encode_audio(
+        torch, K, cfgs["hubert_xlarge"])
+    seconds["serve"] = time.perf_counter() - t0
+
+    # (c) training
+    P = P27_TRAIN
+    log(f"CUT: training depths {P['layers']} of the published 48 "
+        "(qwen2_5_14b), 40 (starcoder2_15b) and 95 (deepseek_67b) layers: "
+        "the f32 parameters, gradients and AdamW m and v take 16 bytes a "
+        f"parameter — {16 * layer_b / 1e9:.1f} GB a DeepSeek-67B layer and "
+        f"{16 * rest_b / 1e9:.1f} GB for its embedding and head — beside "
+        "the step's activations; InternVL2-2B (24) and HuBERT-XLarge (48) "
+        "train at full depth")
+    t0 = time.perf_counter()
+    rec["train"] = {}
+    for arch in ("qwen2_5_14b", "starcoder2_15b", "deepseek_67b",
+                 "internvl2_2b"):
+        cfg = dataclasses.replace(cfgs[arch], num_layers=P["layers"].get(
+            arch, cfgs[arch].num_layers))
+        rec["train"][arch] = _train_text(torch, K, train, cfg, arch)
+    rec["train"]["hubert_xlarge"] = _train_audio(
+        torch, K, cfgs["hubert_xlarge"], "hubert_xlarge")
+    rec["train"]["hubert_xlarge mixed_precision"] = _train_audio(
+        torch, K, dataclasses.replace(cfgs["hubert_xlarge"],
+                                      mixed_precision=True),
+        "hubert_xlarge mixed_precision")
+    seconds["train"] = time.perf_counter() - t0
+
+    # (d) parity under mixed_precision
+    t0 = time.perf_counter()
+
+    def frames(cfg):
+        return S.concretize(S.input_specs(cfg, ShapeCell(
+            "phase 27 parity", HUBERT["frames"], 1, "train")),
+            torch.Generator(device="cuda").manual_seed(12), "cuda")
+
+    def tokens(cfg):
+        return train.device_batch(TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_PARITY["seq"],
+            global_batch=LM_TRAIN_PARITY["batch"])).global_batch(0), "cuda")
+
+    rec["parity"] = {
+        "hubert_xlarge": _parity_27(torch, K, cfgs["hubert_xlarge"],
+                                    "hubert_xlarge", frames),
+        "qwen2_5_14b": _parity_27(torch, K, cfgs["qwen2_5_14b"],
+                                  "qwen2_5_14b", tokens)}
+    seconds["parity"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    # each run's launch counts, by the route its flash calls were checked
+    # to take: the D = 128 runs f32, HuBERT's f32 encoder step (no lse)
+    # and training (with it), and its mixed-precision training bf16
+    sv, tr = rec["serve"], rec["train"]
+    dense = ("qwen2_5_14b", "starcoder2_15b", "deepseek_67b", "internvl2_2b")
+    audio = tr["hubert_xlarge"]["launch_counts"]
+    mixed = tr["hubert_xlarge mixed_precision"]["launch_counts"]
+    launches = {
+        "flash_attention": sum(sv[a]["launch_counts"]["flash_attention"]
+                               + tr[a]["launch_counts"]["flash_attention"]
+                               for a in dense),
+        "flash_attention_bwd": sum(tr[a]["launch_counts"][
+            "flash_attention_bwd"] for a in dense),
+        "flash_attention_d80": sv["hubert_xlarge"]["launch_counts"][
+            "flash_attention"],
+        "flash_attention_d80_lse": audio["flash_attention"],
+        "flash_attention_bwd_d80": audio["flash_attention_bwd"],
+        "flash_attention_d80_bf16": mixed["flash_attention"],
+        "flash_attention_bwd_d80_bf16": mixed["flash_attention_bwd"]}
+    rec["launches"] = launches
+    log("phase 27 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; flash launches on the main paths by route: {launches}")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        if not r["launches"]:
+            raise AssertionError(f"phase 27: {r['name']} was not launched "
+                                 "on a main path")
+    return rec, rows, {
+        "launches": {k: launches[k] for k in ("flash_attention",
+                                              "flash_attention_bwd")},
+        "max_abs_err": rec["kernels_d128"]["max_abs_err"]}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--steps", type=int, default=600)
@@ -7543,8 +8372,14 @@ def main(argv: list[str] | None = None) -> int:
     log(f"phase 19 (online training, the data layer): "
         f"{report['online_seconds']:.1f}s")
     t_strat = time.perf_counter()
+    strat_steps = min(args.steps, STRAT_STEPS)
+    if strat_steps < args.steps:
+        log(f"CUT: phase 20's strategy runs and online warm-up take "
+            f"{strat_steps} of the {args.steps} steps (STRAT_STEPS: the "
+            "script's time; the out-of-core run is host-bound at ~13 "
+            "steps/s)")
     report["strategies"], strat_counts = phase_strategies(
-        torch, K, ft, std_train, online_train, base, args.steps)
+        torch, K, ft, std_train, online_train, base, strat_steps)
     report["strategies_seconds"] = time.perf_counter() - t_strat
     report["strategies"]["seconds"] = report["strategies_seconds"]
     report["strategies"]["disk_bytes"] = sum(
@@ -7570,6 +8405,9 @@ def main(argv: list[str] | None = None) -> int:
     del paths, base, wide_params
     gc.collect()
     t_lm = time.perf_counter()
+    log(f"CUT: phases 23 and 26 train {SHARDED_LM['steps']} and "
+        f"{SHARDED_MOE['steps']} steps a run (10 before phase 27: the "
+        "script's time; every run's loss falls from step 2)")
     report["sharded_lm"], sharded_counts = phase_sharded_lm(
         torch, K, train, lm_cfg)
     report["sharded_lm_seconds"] = time.perf_counter() - t_lm
@@ -7600,6 +8438,12 @@ def main(argv: list[str] | None = None) -> int:
     report["sharded_moe_seconds"] = time.perf_counter() - t_sm
     log(f"phase 26 (sharded MoE and MLA training, 4 workers): "
         f"{report['sharded_moe_seconds']:.1f}s")
+    t_27 = time.perf_counter()
+    report["attention_archs"], d80_rows, d128 = phase_attention_archs(
+        torch, K, serve, train, get_config)
+    report["attention_archs_seconds"] = time.perf_counter() - t_27
+    log(f"phase 27 (Qwen2.5-14B, DeepSeek-67B, StarCoder2-15B, InternVL2-2B, "
+        f"HuBERT-XLarge): {report['attention_archs_seconds']:.1f}s")
     for run in report["driver"]["runs"].values():
         for k, v in run["launch_counts"].items():
             counts[k] += v
@@ -7622,6 +8466,10 @@ def main(argv: list[str] | None = None) -> int:
     for k in ("flash_attention_mla_lse", "flash_attention_bwd_mla",
               "flash_attention_bf16", "flash_attention_bwd_bf16"):
         train_launches[k] += sm_launches.get(k, 0)
+    # phase 27's main paths at D = 128 in f32: the dense and vision serve
+    # requests and training runs
+    for k, n in d128["launches"].items():
+        counts[k] += n
     report["seconds"] = time.perf_counter() - t_start
     total_written = sum(WRITTEN.values())
     report["disk_writes"] = {"reckoned_by_phase": dict(WRITTEN),
@@ -7647,11 +8495,13 @@ def main(argv: list[str] | None = None) -> int:
         "flash_attention": max(
             lm_errs["flash_attention"]["max_abs_err"],
             report["moe_serving"]["kernel"]["gqa"]["max_abs_err"],
-            sm_errs.get("flash_attention", 0.0)),
+            sm_errs.get("flash_attention", 0.0),
+            d128["max_abs_err"]["flash_attention"]),
         "flash_attention_bwd": max(
             report["flash_bwd"]["max_abs_err"],
             report["sharded_lm"]["kernels"]["flash_attention_bwd"][
-                "max_abs_err"], sm_errs.get("flash_attention_bwd", 0.0)),
+                "max_abs_err"], sm_errs.get("flash_attention_bwd", 0.0),
+            d128["max_abs_err"]["flash_attention_bwd"]),
         **table_errs,
     }
     kernels = []
@@ -7679,6 +8529,15 @@ def main(argv: list[str] | None = None) -> int:
             "max_abs_err": max(r["max_abs_err"], sm_errs.get(r["name"], 0.0)),
             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "floor_ms", "device_ms")}})
+    for r in d80_rows:   # phase 27's D = 80 routes
+        base = r["name"].split("_d80")[0]
+        kernels.append({
+            "name": r["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{base}.cu",
+            "replaces": REPLACES[base], "launches": r["launches"],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "floor_ms",
+                                 "device_ms")}})
     report["kernels"] = kernels
     if args.report:
         path = Path(args.report)
@@ -7696,14 +8555,18 @@ def main(argv: list[str] | None = None) -> int:
         f"serve request, the LM training run and phase 23's four sharded "
         f"training runs for {', '.join(LM_KERNELS)}; phase 24's Qwen3-MoE "
         f"serve request for flash_attention; phase 25's Qwen3-MoE training "
-        f"and phase 26's sharded Qwen3-MoE run for both flash kernels): "
+        f"and phase 26's sharded Qwen3-MoE run for both flash kernels; "
+        f"phase 27's D = 128 serve requests and training runs): "
         f"{counts}; the MLA route (DeepSeek-V2-Lite's serve request, "
         f"training and phase 26's sharded f32 runs): "
         f"{moe_counts['flash_attention_mla']}; phase 25's new routes (with "
         f"phase 26's sharded runs): "
         + ", ".join(f"{k} {train_launches[k]}" for k in (
             "flash_attention_mla_lse", "flash_attention_bwd_mla",
-            "flash_attention_bf16", "flash_attention_bwd_bf16")))
+            "flash_attention_bf16", "flash_attention_bwd_bf16"))
+        + "; phase 27's D = 80 routes (HuBERT-XLarge's encoder step and "
+        "training runs): " + ", ".join(f"{r['name']} {r['launches']}"
+                                       for r in d80_rows))
     log(f"total {report['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -10,11 +10,12 @@ of mode 0's dirty rows) must beat the full rebuild
     {dirty_fraction, dirty_rows, patch_ms, rebuild_ms, speedup}
 
 with ``speedup`` = rebuild_ms / patch_ms, each the median of ``iters``
-calls closed by a ``torch.cuda.synchronize()``.  The new factor rows are
-already on the device, as the reference's are; the ids are a sorted numpy
-array.  ``--supervised`` adds the optional ``supervised`` section: round
-latency through ``serve.supervisor.RefreshSupervisor`` (the ``local``
-strategy) and the cost of riding out an injected refresh fault.
+calls closed by a ``torch.cuda.synchronize()``, the two taken in turns.
+The new factor rows are already on the device, as the reference's are;
+the ids are a sorted numpy array.  ``--supervised`` adds the optional
+``supervised`` section: round latency through
+``serve.supervisor.RefreshSupervisor`` (the ``local`` strategy) and the
+cost of riding out an injected refresh fault.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_refresh \\
         [--smoke] [--supervised] [--out BENCH_torch_refresh.json] \\
@@ -89,15 +90,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _median_ms(fn, iters: int, device: torch.device) -> float:
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2] * 1e3
+def _timed_s(fn, device: torch.device) -> float:
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def _median_ms(times: list[float]) -> float:
+    return sorted(times)[len(times) // 2] * 1e3
 
 
 def _platform(device: torch.device) -> str:
@@ -150,8 +152,17 @@ def measure(smoke: bool, table_dtype: str | None = None,
         new_rows = torch.tensor(rng.standard_normal((f, J)),
                                 dtype=torch.float32, device=device)
         patch(ids, new_rows)      # this size once off the clock
-        patch_ms = _median_ms(lambda: patch(ids, new_rows), iters, device)
-        rebuild_ms = _median_ms(rebuild, iters, device)
+        # the patch and the rebuild in turns, so both see the same host (a
+        # host stall over one stretch of calls reaches both alike); the
+        # factors' copy that the first read of params after a patch makes
+        # is taken off the clock, so each rebuild is timed as a rebuild
+        # after a rebuild
+        patch_s, rebuild_s = [], []
+        for _ in range(iters):
+            patch_s.append(_timed_s(lambda: patch(ids, new_rows), device))
+            _ = srv.params
+            rebuild_s.append(_timed_s(rebuild, device))
+        patch_ms, rebuild_ms = _median_ms(patch_s), _median_ms(rebuild_s)
         r = {
             "dirty_fraction": float(frac),
             "dirty_rows": int(f),

@@ -3,13 +3,17 @@
 ``ModelConfig`` has the fields of ``src/repro/configs/base.py`` so that a
 reference config and its port differ in nothing but the package, and
 ``dataclasses.replace`` takes the same names.  The port runs the GQA and
-MLA attention models with dense, Tucker-compressed or MoE FFNs:
-``get_config`` of an architecture that is not ported yet, and
+MLA attention models with dense, Tucker-compressed or MoE FFNs, the
+vision and audio frontends (stubs in the reference too: a projection of
+precomputed patch or frame embeddings) and ``encoder_only`` (non-causal,
+no decode): ``get_config`` of an architecture that is not ported yet, and
 ``require_ported`` of a config that asks for a part that is not ported,
 raise ``NotImplementedError`` (see ROADMAP.md).  Every ported config
-trains on one device and sharded over a mesh
-(``distributed.sharded_lm.ShardedLM``); ``moe_sharded`` takes the
-expert-parallel MoE island there, and is ``moe_ffn`` on one device.
+trains on one device; the configs without a frontend also sharded over a
+mesh (``distributed.sharded_lm.ShardedLM``), where ``moe_sharded`` takes
+the expert-parallel MoE island, and is ``moe_ffn`` on one device.
+``ShapeCell`` and ``SHAPES`` are the reference's shape cells, which
+``launch.steps.input_specs`` turns into a batch's shapes.
 """
 from __future__ import annotations
 
@@ -104,6 +108,21 @@ class ModelConfig:
         return not self.encoder_only
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "deepseek_v2_lite_16b",
     "qwen3_moe_30b_a3b",
@@ -116,7 +135,9 @@ ARCH_IDS = [
     "qwen2_5_14b",
     "starcoder2_15b",
 ]
-PORTED_ARCHS = ("qwen3_14b", "deepseek_v2_lite_16b", "qwen3_moe_30b_a3b")
+PORTED_ARCHS = ("qwen3_14b", "deepseek_v2_lite_16b", "qwen3_moe_30b_a3b",
+                "qwen2_5_14b", "deepseek_67b", "starcoder2_15b",
+                "internvl2_2b", "hubert_xlarge")
 
 
 def require_ported(cfg: ModelConfig) -> ModelConfig:
@@ -125,8 +146,6 @@ def require_ported(cfg: ModelConfig) -> ModelConfig:
         f"the {cfg.mixer} mixer": cfg.mixer not in ("gqa", "mla"),
         "the zamba2 shared block (shared_attn_every)":
             cfg.shared_attn_every > 0,
-        f"the {cfg.frontend} frontend": cfg.frontend is not None,
-        "encoder_only": cfg.encoder_only,
         f"dtype={cfg.dtype!r}": cfg.dtype not in ("float32", "bfloat16"),
     }
     missing = [name for name, asked in parts.items() if asked]

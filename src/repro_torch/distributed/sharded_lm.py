@@ -147,14 +147,28 @@ class _Rebuilt:
         return make().as_strided(size, stride, offset)
 
 
+def require_tokens(cfg) -> None:
+    """Raise for a config with a frontend: the sharded loss embeds tokens
+    (``ShardedLM._embed``); sharding the frames' or patches' projection
+    is not ported yet (ROADMAP.md, Queue 1)."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: sharded training of a config with the "
+            f"{cfg.frontend} frontend is not ported to repro_torch yet; it "
+            "trains on one device (make_train_step; see ROADMAP.md, "
+            "Queue 1)")
+
+
 class ShardedLM:
     """The loss of ``cfg``'s model over ``mesh``, its parameters on
-    ``layouts`` ({name: Layout}) under ``policy``."""
+    ``layouts`` ({name: Layout}) under ``policy``.  Configs with a
+    frontend are refused (``require_tokens``)."""
 
     def __init__(self, cfg, mesh, layouts: Mapping[str, Layout],
                  policy: str, backend: str | None = None,
                  traffic: collectives.Traffic | None = None):
         require_ported(cfg)
+        require_tokens(cfg)
         self.cfg, self.mesh, self.policy = cfg, mesh, policy
         self.layouts = dict(layouts)
         self.backend = backend

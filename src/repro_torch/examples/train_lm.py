@@ -10,8 +10,10 @@ asserts that both variants learn (the last logged loss below the first
 step's).  The default is the reduced ``qwen3_14b`` (the reference's
 docstring speaks of a CPU-sized xLSTM, but its ``--arch`` default is
 ``qwen3_14b``, reduced unless ``--full``); ``--arch`` takes any
-architecture of ``configs.PORTED_ARCHS``.  Runs on the CUDA card with the
-``"cuda"`` kernels unless ``--device cpu``:
+architecture of ``configs.PORTED_ARCHS`` but the audio one (HuBERT-XLarge
+takes frames, which the token pipeline does not feed: it is refused).
+Runs on the CUDA card with the ``"cuda"`` kernels unless ``--device
+cpu``:
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm --steps 200 \\
         [--device cpu] [--backend torch]
@@ -75,6 +77,9 @@ def main(argv: list[str] | None = None) -> dict:
     device = resolve_device(args.device)
 
     base = get_config(args.arch, reduced=not args.full)
+    if base.frontend == "audio":
+        raise SystemExit(f"{args.arch} takes frames; the token pipeline "
+                         "feeds tokens only")
     dense_cfg = dataclasses.replace(base, dtype="float32")
     tucker_cfg = dataclasses.replace(base, tucker_rank=args.tucker_rank,
                                      dtype="float32")

@@ -14,16 +14,17 @@
 //   * v narrower than q and k: (D, Dv) = (192, 128) is MLA's prefill
 //     (DeepSeek-V2: q·k over 128 + 64 rope dims, v at 128), the scale
 //     1/sqrt(D) of the q·k width.  The kernel is templated on both widths;
-//     the other instances take D = Dv in {16, 32, 64, 128}.
+//     the other instances take D = Dv in {16, 32, 64, 80, 128} (80 is
+//     HuBERT-XLarge's 1280 / 16, non-causal).
 // Every tensor is addressed through its (batch, sequence, head) strides
 // with D contiguous, so a KV cache (B, S_max, Kv, D) is read in place and
 // the (BH, S, D) layout of the Pallas kernel is the case B = 1, H = BH.
 //
 // Two routes by width (entry() below): the wgmma route for D = Dv = 128
 // and MLA's (192, 128) (flash_fwd_wg_kernel), the tile route for D = Dv in
-// {16, 32, 64} (flash_fwd_kernel, mma.sync).  Both run one block of 8 warps
-// per (128-query tile, head, batch), each warp 16 query rows, over 32-key
-// tiles of K and V, and both products on the tensor cores in 3xTF32
+// {16, 32, 64, 80} (flash_fwd_kernel, mma.sync).  Both run one block of 8
+// warps per (128-query tile, head, batch), each warp 16 query rows, over
+// 32-key tiles of K and V, and both products on the tensor cores in 3xTF32
 // (mma_tf32.cuh: f32 accuracy), each tile's P·V chained in fresh
 // accumulators and added to the running (16, Dv) sums in f32.  The row max
 // and row sum are taken in registers from the S accumulator (a row lives
@@ -71,7 +72,13 @@
 // reads it).  S = Q·Kᵀ runs each pass in its own accumulator, with the Q
 // tile loaded once into shared memory and its fragments split per use.
 // Shared rows are padded so every fragment load is free of bank conflicts
-// (Q and K rows D + 8, read in 64-bit pairs; V rows D + 4).
+// (Q and K rows D + 8, read in 64-bit pairs; V rows D + 4).  At D = 80,
+// which is not a multiple of 32, the same paddings hold: a half-warp's
+// 64-bit Q and K loads (rows g < 4 of a quad group) start at banks
+// 24g mod 32 = {0, 24, 16, 8}, 8 words apart, and the V column loads at
+// 2t·84 + g = 8t + g mod 32; every row is a whole number of 16-byte
+// copies (352 and 336 bytes), so the cp.async rows stay aligned.  Shared
+// memory at D = 80: 111,104 bytes.
 //
 // bf16 q, k and v (mixed-precision training) are read in place, and the
 // output o is written in their dtype (rounded to nearest even), the lse in
@@ -93,6 +100,9 @@
 // causal): B·H·S²·(D + Dv) = 85.9 GFLOP, 0.52 ms as 3xTF32 at 495 TFLOP/s,
 // 1.28 ms at the f32 SIMT peak; its training shape (B = 2) half that.  In
 // bf16 (S one pass, P·V two) MLA's training forward is 0.12 ms.
+// HuBERT-XLarge's attention (B = 4, H = Kv = 16, S = 1500, D = 80,
+// non-causal): B·H·S²·(D + Dv) = 46.1 GFLOP, 0.279 ms as 3xTF32 at 495
+// TFLOP/s; 0.140 ms in bf16.
 #include "common.cuh"
 
 namespace {
@@ -724,8 +734,8 @@ int entry(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / Hk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // D = Dv < 128: the tile route (mma.sync); 128 and MLA's (192, 128):
-  // the wgmma route
+  // D = Dv < 128: the tile route (mma.sync; the wgmma route's P·V is one
+  // m64n128 product); 128 and MLA's (192, 128): the wgmma route
 #define REPRO_FLASH_CASE(DQK, DVV, ROUTE)                                 \
   if (D == DQK && Dv == DVV)                                              \
     return ROUTE<DQK, DVV, T>(q, k, v, o, B, Sq, Sk, H, G, strides,       \
@@ -733,6 +743,7 @@ int entry(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
   REPRO_FLASH_CASE(16, 16, launch_tile)
   REPRO_FLASH_CASE(32, 32, launch_tile)
   REPRO_FLASH_CASE(64, 64, launch_tile)
+  REPRO_FLASH_CASE(80, 80, launch_tile)
   REPRO_FLASH_CASE(128, 128, launch_wg)
   REPRO_FLASH_CASE(192, 128, launch_wg)
 #undef REPRO_FLASH_CASE

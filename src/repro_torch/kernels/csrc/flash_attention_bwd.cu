@@ -15,8 +15,9 @@
 // strides with the last dimension contiguous (every base on a 16-byte
 // boundary with strides in 16-byte units: the wrapper checks); query head
 // h reads key/value head h / G in place.  The widths (D, Dv) are D = Dv in
-// {16, 32, 64, 128}, or (192, 128): MLA's (DeepSeek-V2: q·k over 128 + 64
-// rope dims, v at 128), the scale 1/sqrt(D) of the q·k width.  lse is
+// {16, 32, 64, 80, 128} (80: HuBERT-XLarge's 1280 / 16), or (192, 128):
+// MLA's (DeepSeek-V2: q·k over 128 + 64 rope dims, v at 128), the scale
+// 1/sqrt(D) of the q·k width.  lse is
 // (B, H, Sq) f32, contiguous, in natural-log units of the scaled logits
 // (the forward writes it).  dq, dk, dv are written f32, contiguous in q's,
 // k's and v's shapes.  q, k, v, o and dO are all f32 or all bf16; bf16 is
@@ -63,18 +64,23 @@
 // (NT/8 k-steps) into fresh zero accumulators and add them to the running
 // f32 sums, dV's chain before dK's.  Shared rows: the resident tiles, read
 // only as rows, are their width in floats with the 16-byte chunks of each
-// 128-byte segment permuted by the row's low three bits (rows of 20 floats
-// at width 16); the ring tiles, read both as rows and along columns, are
-// their width + 4 floats.  Every fragment load is then free of bank
-// conflicts.  Tiles that lie wholly past kv_len or wholly above the causal
-// diagonal are not loaded (per block) or not multiplied (per warp).  IEEE
-// exp2f; one pass of TF32 is never used on f32 data: f32 means f32.
+// 128-byte segment permuted by the row's low three bits where the width is
+// a multiple of 32 floats; at 16 and 80, where the last segment is not
+// whole and a permuted chunk would land in the next row, rows of width + 4
+// floats (an ldmatrix phase's eight rows then start at banks 20r mod 32,
+// eight distinct 4-bank groups); the ring tiles, read both as rows and
+// along columns, are their width + 4 floats.  Every fragment load is then
+// free of bank conflicts.  Tiles that lie wholly past kv_len or wholly
+// above the causal diagonal are not loaded (per block) or not multiplied
+// (per warp).  IEEE exp2f; one pass of TF32 is never used on f32 data: f32
+// means f32.
 //
 // The ring tiles' height NT.  At D = Dv (NT = 32) the two resident 128-row
 // tiles and three ring stages take 232,448 bytes at D = 128, all an SM
-// gives a block.  At (192, 128) the resident tiles are 128 × 192 and
-// 128 × 128 floats (K and V; Q and dO) and a stage 32 × 196 + 32 × 132:
-// 289,792 bytes at NT = 32, which does not fit.  Two ways out: ring tiles
+// gives a block; at D = 80 (rows of 84 floats) 150,528.  At (192, 128)
+// the resident tiles are 128 × 192 and 128 × 128 floats (K and V; Q and
+// dO) and a stage 32 × 196 + 32 × 132: 289,792 bytes at NT = 32, which
+// does not fit.  Two ways out: ring tiles
 // of 16 rows (226,816 bytes) or resident tiles of 64 rows (207,872).  This
 // kernel takes NT = 16: each warp then holds a 16 × 16 Sᵀ and dPᵀ and two
 // A fragments instead of 16 × 32 and four, which pays for dK's 192
@@ -117,7 +123,9 @@
 // S = 2048, (192, 128), causal): B·H·S²·(192 + 128 + 128 + 192 + 192)
 // = 111.7 GFLOP of causal work, 0.677 ms as 3xTF32 (1.667 ms at the f32
 // SIMT peak); with the dQ pass's recompute 154.6 GFLOP, 0.937 ms.  In
-// bf16 (S and dP one pass, the rest two) 0.365 ms.
+// bf16 (S and dP one pass, the rest two) 0.365 ms.  HuBERT-XLarge's
+// (B = 4, H = Kv = 16, S = 1500, D = Dv = 80, non-causal): 5 · 2·B·H·S²·D
+// = 115.2 GFLOP, 0.698 ms as 3xTF32, 0.372 ms in bf16.
 #include "common.cuh"
 
 namespace {
@@ -140,12 +148,14 @@ struct Strides {   // (batch, sequence, head) strides, in elements
 // Shared layouts of a (rows, W) f32 tile, element (r, c).
 template <int W>
 struct Lay {
-  // resident tiles, read as rows: chunks permuted (W + 4 padding at 16)
-  static constexpr int RES = W == 16 ? W + 4 : W;
+  // resident tiles, read as rows: chunks permuted in whole 128-byte
+  // segments, else rows padded to W + 4 (16 and 80)
+  static constexpr bool PERMUTED = W % 32 == 0;
+  static constexpr int RES = PERMUTED ? W : W + 4;
   // ring tiles, read as rows and along columns
   static constexpr int RING = W + 4;
   static __device__ __forceinline__ int res(int r, int c) {
-    if constexpr (W == 16) return r * RES + c;
+    if constexpr (!PERMUTED) return r * RES + c;
     else return r * W + (c ^ ((r & 7) << 2));
   }
   static __device__ __forceinline__ int ring(int r, int c) {
@@ -354,16 +364,19 @@ __device__ __forceinline__ void tile_scores(const float* A, const float* big,
 
 // acc += A·B over the NT/8 k-steps of one NT-row ring tile of width W: A
 // the split accumulator fragments a[kk] (rows of this warp, k = the tile's
-// rows), B the tile's columns; each group of up to 4 n8 tiles chains into
-// fresh zero accumulators that are then added to acc in f32; B_EXACT (a
-// bf16 tile): two passes.
+// rows), B the tile's columns; each group of up to 4 n8 tiles (5 at
+// width 80, whose 10 do not split into fours) chains into fresh zero
+// accumulators that are then added to acc in f32 (the group only bounds
+// the live accumulators: each element's chain is the same whatever its
+// group); B_EXACT (a bf16 tile): two passes.
 template <int W, int NT, bool B_EXACT>
 __device__ __forceinline__ void tile_product(const Frag<4> (&a)[NT / 8],
                                              const float* big,
                                              const float* small,
                                              float (&acc)[W / 8][4]) {
   constexpr int DK = W / 8;
-  constexpr int DG = DK < 4 ? DK : 4;
+  constexpr int DG = DK < 4 ? DK : DK % 4 == 0 ? 4 : 5;
+  static_assert(DK % DG == 0, "the groups cover the n8 tiles");
 #pragma unroll
   for (int d0 = 0; d0 < DK; d0 += DG) {
     float f[DG][4];
@@ -753,6 +766,7 @@ int entry(const T* q, const T* k, const T* v, const T* o, const T* dout,
   REPRO_BWD_CASE(16, 16, 32)
   REPRO_BWD_CASE(32, 32, 32)
   REPRO_BWD_CASE(64, 64, 32)
+  REPRO_BWD_CASE(80, 80, 32)
   REPRO_BWD_CASE(128, 128, 32)
   REPRO_BWD_CASE(192, 128, 16)
 #undef REPRO_BWD_CASE

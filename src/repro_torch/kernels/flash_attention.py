@@ -19,8 +19,9 @@ raises — it never falls back.  q, k and v are all f32 or all bf16 (the
 comes in their dtype, the arithmetic is f32 (a bf16 call gives the f32
 kernel's bits on the inputs widened to f32, the output then rounded to
 bf16).  The widths (D of q and k, Dv of v and the output) are one of
-``WIDTHS``: D = Dv in {16, 32, 64, 128}, or (192, 128), MLA's (DeepSeek-V2:
-q·k over 128 + 64 rope dims, v at 128; the scale is 1/sqrt(D)).
+``WIDTHS``: D = Dv in {16, 32, 64, 80, 128} (80: HuBERT-XLarge's 1280 / 16),
+or (192, 128), MLA's (DeepSeek-V2: q·k over 128 + 64 rope dims, v at 128;
+the scale is 1/sqrt(D)).
 ``return_lse`` adds each row's log-sum-exp (f32), which the backward
 (``flash_attention_bwd``) recomputes the probabilities from.
 """
@@ -34,7 +35,7 @@ import torch
 from . import build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # D = Dv
+HEAD_DIMS = (16, 32, 64, 80, 128)   # D = Dv
 WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)   # (D, Dv)
 ALIGN = 16    # bytes: the kernel's cp.async copies (4 f32 or 8 bf16 values)
 STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}  # C entry suffixes

@@ -9,16 +9,16 @@ written once by one block (no atomics), so two calls give the same bits.
 Same layouts, masks, head grouping and widths as the forward
 (``flash_attention``): q (B, Sq, H, D) or (BH, Sq, D), k with H/G heads,
 v, o and dO at v's width Dv, lse (B, H, Sq) or (BH, Sq); (D, Dv) one of
-``WIDTHS`` (D = Dv, or MLA's (192, 128), whose ring tiles are 16 rows
-high: ``plan()``).  Any strides with the last dimension contiguous are
-read as they are; dq, dk and dv are new f32 tensors, contiguous in the
-(B, S, H, width) layout.  q, k, v, o and dO are all f32 or all bf16 (the
-``mixed_precision`` step's), read in place; lse is f32.  A bf16 call gives
-the f32 kernel's bits on the inputs widened to f32.  The kernel's 16-byte
-``cp.async`` copies need q, k, v, o and dO on 16-byte boundaries with
-(batch, sequence, head) strides in 16-byte units; ``plan()`` lays out its
-three launches, and the C entry refuses a plan it was not built for.  On
-CPU tensors the wrapper computes the plain version
+``WIDTHS`` (D = Dv, 80 included, or MLA's (192, 128), whose ring tiles
+are 16 rows high: ``plan()``).  Any strides with the last dimension
+contiguous are read as they are; dq, dk and dv are new f32 tensors,
+contiguous in the (B, S, H, width) layout.  q, k, v, o and dO are all f32 or
+all bf16 (the ``mixed_precision`` step's), read in place; lse is f32.  A
+bf16 call gives the f32 kernel's bits on the inputs widened to f32.  The
+kernel's 16-byte ``cp.async`` copies need q, k, v, o and dO on 16-byte
+boundaries with (batch, sequence, head) strides in 16-byte units;
+``plan()`` lays out its three launches, and the C entry refuses a plan it
+was not built for.  On CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_bwd_ref``); on CUDA tensors it launches the kernel
 or raises — it never falls back.
 """
@@ -93,7 +93,9 @@ def _widths_message(D: int, Dv: int) -> str:
 
 
 def _smem_bytes(D: int, Dv: int, rows: int, tile: int) -> int:
-    res = sum(w + 4 if w == 16 else w for w in (D, Dv))  # resident rows
+    # resident rows: permuted in place where the width is a multiple of
+    # 32 floats, else padded by 4 (16 and 80)
+    res = sum(w + 4 if w % 32 else w for w in (D, Dv))
     ring = D + 4 + Dv + 4            # ring rows, read along both axes
     return 4 * (rows * res + 3 * tile * ring)
 

@@ -1,10 +1,17 @@
 """LM serving driver: prefill a batch of prompts, then greedy decode.
 
 Counterpart of ``repro.launch.serve`` (language-model configs only: the
-dense Qwen3-14B and the MoE models DeepSeek-V2-Lite-16B, with MLA, and
-Qwen3-MoE-30B-A3B; it does not serve Tucker decompositions).  It keeps the reference's flags and adds
-``--tucker-rank`` (Tucker-compress every FFN at that rank, as
-``examples/train_lm.py`` does), ``--device`` and ``--backend``:
+dense Qwen3-14B, Qwen2.5-14B, DeepSeek-67B and StarCoder2-15B, the MoE
+models DeepSeek-V2-Lite-16B, with MLA, and Qwen3-MoE-30B-A3B, and
+InternVL2-2B on text prompts, as the reference's ``launch/serve.py``
+serves it; it does not serve Tucker decompositions).  An encoder-only
+config (HuBERT-XLarge) has no decode path and is refused, in the
+reference's words; its forward is ``launch.steps.make_encoder_step``, and
+a vision prefill with patches is ``make_prefill_step`` on an
+``input_specs`` batch.  It keeps the
+reference's flags and adds ``--tucker-rank`` (Tucker-compress every FFN
+at that rank, as ``examples/train_lm.py`` does), ``--device`` and
+``--backend``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 --tucker-rank 8 \\

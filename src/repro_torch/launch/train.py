@@ -41,7 +41,15 @@ over four cards, a worker holds a quarter of it (22 GB).  The MoE models
 (``deepseek_v2_lite_16b`` with MLA, ``qwen3_moe_30b_a3b``) and their
 ``mixed_precision`` forms train on one device and under every policy
 (``distributed.sharded_lm.ShardedLM``; ``moe_sharded``, set in code as in
-the reference, takes the expert-parallel MoE island).
+the reference, takes the expert-parallel MoE island).  The dense
+Qwen2.5-14B, DeepSeek-67B and StarCoder2-15B train here too, and
+InternVL2-2B on its text alone (the pipeline has no patches), as the
+reference's ``launch/train.py`` trains it; a frontend's config is refused on
+a mesh (``sharded_lm.require_tokens``).  HuBERT-XLarge (the audio frontend)
+has no tokens for the pipeline to feed, so ``run`` refuses it: it trains
+through ``launch.steps.make_train_step`` on ``input_specs`` batches, the
+reference's own way (its ``launch/train.py`` has only the token pipeline
+too).
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, require_ported
 from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharded_lm import require_tokens
 from repro_torch.distributed.sharding import (POLICIES, ShardedTensor,
                                               shardings_for_tree)
 from repro_torch.kernels import dispatch
@@ -207,6 +216,14 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     bytes a worker, ``collectives.Traffic``, over the steps run).
     """
     require_ported(cfg)
+    if cfg.frontend == "audio":
+        raise ValueError(
+            f"{cfg.arch_id}: the audio frontend takes frames, and this "
+            "launcher's TokenPipeline feeds tokens only (as the reference's "
+            "does); train it through launch.steps.make_train_step on "
+            "concretize(input_specs(cfg, cell)) batches")
+    if mesh is not None:
+        require_tokens(cfg)
     device = mesh.devices[0] if mesh is not None else resolve_device(device)
     backend = dispatch.resolve_backend_name(backend)
     dispatch.get_backend(backend)  # unknown names raise here

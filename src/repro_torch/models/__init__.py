@@ -1,8 +1,8 @@
 """The LM stack: GQA and MLA attention with dense, Tucker-compressed or
-MoE FFNs.
+MoE FFNs, and the vision and audio stub frontends.
 
-Counterpart of ``repro.models`` (the SSM/xLSTM mixers and the frontends
-are not ported yet; see ROADMAP.md).
+Counterpart of ``repro.models`` (the SSM/xLSTM mixers are not ported yet;
+see ROADMAP.md).
 """
 from .model import (
     Model,

@@ -6,11 +6,13 @@
     {"embed": {"embedding"}, "groups": [group, ...], "ln_f": {"scale"},
      "lm_head"}
 
-where ``groups[g]`` holds one run of identical layer specs and, when the
-run has more than one layer, every leaf is stacked along a leading axis
-(``repro.models.blocks.stack_boxed``).  The port keeps one module per
-layer, so the groups are unstacked into ``layers.<i>``.  Every other name
-is the same on both sides (``layers.<i>.mixer.wq`` ↔ ``mixer/wq``).
+(with a frontend also ``"frontend": {"proj"}``; the audio frontend's
+tree has no ``"embed"``), where ``groups[g]`` holds one run of identical
+layer specs and, when the run has more than one layer, every leaf is
+stacked along a leading axis (``repro.models.blocks.stack_boxed``).  The
+port keeps one module per layer, so the groups are unstacked into
+``layers.<i>``.  Every other name is the same on both sides
+(``layers.<i>.mixer.wq`` ↔ ``mixer/wq``).
 ``params_to_numpy`` is the inverse.  ``train_state_from_numpy`` and
 ``train_state_to_numpy`` carry a training state — the parameters and the
 AdamW ``step``, ``m`` and ``v``, whose trees are the parameters' — across

@@ -1,7 +1,13 @@
-"""Top-level model: embeddings → layers → head.
+"""Top-level model: embeddings/frontends → layers → head.
 
 Counterpart of ``repro.models.model`` for the GQA and MLA models (dense,
-Tucker-compressed or MoE FFNs).
+Tucker-compressed or MoE FFNs), with the reference's stub frontends: the
+audio frontend (HuBERT) projects precomputed frame embeddings
+(``frontend.proj``, (frontend_dim, d_model)) and has no token embedding;
+the vision frontend (InternVL2) projects precomputed patch embeddings,
+placed before the text's token embeddings, and its loss reads the text
+positions only.  A decode after a vision prefill of P patches and T
+tokens continues from cache index P + T.
 ``init_model`` builds an ``nn.Module`` (a ``ModuleList`` of layers) on the
 device, from a ``torch.Generator`` on that device, so a full-size model's
 weights are drawn where they live; ``forward``/``decode_step`` take it as
@@ -33,11 +39,21 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dist_ctx
 
 from .blocks import apply_layer, init_layer, init_layer_cache, layer_specs
-from .layers import Embedding, dense_param, embed, make_norm
+from .layers import Embedding, dense_param, embed, make_norm, matmul
 
 
 def activation_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Frontend(nn.Module):
+    """A stub frontend: the projection of precomputed frame or patch
+    embeddings into the model's width."""
+
+    def __init__(self, cfg, generator: torch.Generator, device=None):
+        super().__init__()
+        self.proj = dense_param((cfg.frontend_dim, cfg.d_model), generator,
+                                device, (None, "embed"))
 
 
 class Model(nn.Module):
@@ -46,7 +62,11 @@ class Model(nn.Module):
         require_ported(cfg)
         norm_cls, _ = make_norm(cfg.norm_type)
         self.specs = layer_specs(cfg)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, generator, device)
+        if cfg.frontend != "audio":
+            self.embed = Embedding(cfg.vocab_size, cfg.d_model, generator,
+                                   device)
+        if cfg.frontend in ("audio", "vision"):
+            self.frontend = Frontend(cfg, generator, device)
         self.layers = nn.ModuleList(
             init_layer(cfg, spec, generator, device) for spec in self.specs)
         self.ln_f = norm_cls(cfg.d_model, device)
@@ -98,9 +118,21 @@ def cast_params(params: Model, cfg) -> Model:
 
 
 def embed_inputs(params: Model, cfg, batch: dict) -> torch.Tensor:
-    """batch["tokens"] (B, S) → (B, S, d) activations in the config's
-    dtype."""
-    return embed(params.embed, batch["tokens"]).to(activation_dtype(cfg))
+    """batch → (B, S, d) activations in the config's dtype, with the
+    reference's casts in its order: audio, ``frames`` (B, S, frontend_dim)
+    @ proj; vision with ``patches`` (B, P, frontend_dim), their projection
+    cast to the embedding's dtype and placed before ``tokens``' (B, T)
+    embeddings; otherwise (a vision decode too: the patches are already
+    in the cache) the tokens' embeddings."""
+    if cfg.frontend == "audio":
+        x = matmul(batch["frames"], params.frontend.proj)
+    elif cfg.frontend == "vision" and "patches" in batch:
+        patches = matmul(batch["patches"], params.frontend.proj)
+        toks = embed(params.embed, batch["tokens"])
+        x = torch.cat([patches.to(toks.dtype), toks], dim=1)
+    else:
+        x = embed(params.embed, batch["tokens"])
+    return x.to(activation_dtype(cfg))
 
 
 def _run_layers(params: Model, cfg, x, positions, *, caches=None,
@@ -145,7 +177,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 def decode_step(params: Model, cfg, batch: dict, caches: list,
                 cache_index: int, *, backend: str | None = None):
     """One step from ``cache_index``: batch["tokens"] (B, S) → (logits
-    (B, S, V), caches).  S = 1 decodes; S > 1 from index 0 is prefill.
+    (B, S, V), caches).  S = 1 decodes; S > 1 from index 0 is prefill (a
+    vision prefill's batch also holds ``patches``, the P positions before
+    the tokens).
     The caches are updated in place and returned."""
     params = cast_params(params, cfg)
     x = embed_inputs(params, cfg, batch)
@@ -177,4 +211,7 @@ def nll_terms(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Model, cfg, batch: dict, *,
             backend: str | None = None) -> torch.Tensor:
     logits = forward(params, cfg, batch, backend=backend)
-    return cross_entropy_loss(logits, batch["labels"])
+    labels = batch["labels"]
+    if cfg.frontend == "vision":   # the labels cover the text positions
+        logits = logits[:, -labels.shape[1]:]
+    return cross_entropy_loss(logits, labels)

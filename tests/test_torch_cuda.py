@@ -534,7 +534,7 @@ def test_tucker_matmul_unaligned_x_takes_narrow_loads(dev, M):
     _check_tucker(xo, u1, g, u2)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_plain_on_card(dev, D, causal):
     """GQA (G = 3) read in place, ragged lengths, q_offset and kv_len."""
@@ -564,7 +564,7 @@ def test_flash_attention_matches_plain_on_card(dev, D, causal):
     assert launch_counts()["flash_attention"] == 4
 
 
-@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("D", [16, 80, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_ragged_tiles_bitwise_on_card(dev, D, causal):
     """Sq and Sk not multiples of the 128-query or 32-key tiles, with
@@ -774,6 +774,7 @@ BF16_SHAPES = [  # (B, Sq, Sk, H, Hk, D, Dv, causal, kv_len, q_offset)
     (1, 256, 256, 16, 2, 128, 128, True, None, 0),    # G = 8
     (2, 197, 230, 4, 4, 192, 128, True, 150, 17),     # MLA
     (1, 160, 160, 2, 2, 192, 128, False, None, 0),
+    (2, 197, 230, 4, 4, 80, 80, False, 150, 0),      # HuBERT's width
 ]
 
 
@@ -900,6 +901,8 @@ def _flash_bwd_inputs(dev, B, Sq, Sk, H, Hk, D, seed):
     (1, 70, 70, 2, 1, 128, False, None, 0),
     (1, 301, 333, 10, 2, 128, True, None, 0),    # off the 128/32 tiles, G 5
     (2, 200, 290, 4, 2, 64, True, 280, 77),      # causal, q_offset > 0
+    (2, 197, 230, 4, 4, 80, False, 200, 0),      # HuBERT's width, non-causal
+    (1, 301, 333, 4, 2, 80, True, None, 0),      # D = 80 causal, G = 2
 ])
 def test_flash_attention_bwd_matches_plain_on_card(dev, B, Sq, Sk, H, Hk, D,
                                                    causal, kv_len, q_offset):

@@ -106,6 +106,7 @@ def test_token_pipeline_is_the_reference_bitwise(num_shards):
     (2, 256, 2, 3, 16, True, 64),     # GQA, four chunks
     (1, 192, 1, 1, 32, True, 64),     # G = 1, three chunks
     (2, 128, 2, 2, 16, False, 64),    # non-causal at a chunk multiple
+    (1, 128, 2, 1, 80, False, 64),    # HuBERT's head width, non-causal
 ])
 def test_flash_attention_vjp_matches_reference(backend, B, S, Kv, G, D,
                                                causal, chunk):
